@@ -1,0 +1,121 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+one shared library with a plain C interface, which ``ctypes`` loads. The
+library lands in ``build/kernels/`` at the repository root (listed in
+``.gitignore``), named by a hash of the sources and flags, so a changed source
+rebuilds and an unchanged one loads at once. Nothing is built at import time:
+the first kernel launch builds.
+
+There is no fallback: a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+# C entry points: name -> argtypes. Each returns its cudaError_t as an int.
+SIGNATURES = {
+    # store, n_rows, row_len, idx, off, out, B, frag, rms, eps, whiten, stream
+    "vm_gather_whiten": (_P, _L, _L, _P, _P, _P, _I, _I, _F, _F, _I, _P),
+    # x, w, aff, out, B, T, C, K, pool, round_x_bf16, out_bf16, stream
+    "vm_conv_block0": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc not found on PATH or under CUDA_HOME: the CUDA kernels of "
+        "voicemap_tpu_torch need the CUDA toolkit to build"
+    )
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the kernels if no library for these sources exists yet.
+
+    Returns ``(library path, build seconds, ptxas report)``; the seconds are
+    0 and the report empty when the library was already built.
+    """
+    target = BUILD_DIR / f"libvoicemap_kernels_{_digest()}.so"
+    if target.exists():
+        return target, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    # Compile to a private name, then rename: concurrent builders never load
+    # a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return target, time.perf_counter() - t0, proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use, with typed entry points."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.vm_error_string.argtypes = [ctypes.c_int]
+    lib.vm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().vm_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: cudaError {err} ({msg})")

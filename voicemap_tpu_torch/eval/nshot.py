@@ -1,0 +1,103 @@
+"""Batched n-shot k-way speaker-identification evaluation (classifier mode).
+
+Port of ``voicemap_tpu/eval/nshot.py`` (``embed_all``, ``classifier_nshot_accuracy``,
+``evaluate``, ``score_table``):
+
+1. embed the whole evaluation store once, from deterministic offset-0
+   fragments, in chunks → an ``(N, D)`` table;
+2. sample every task's indices on the device (true class at index 0);
+3. score all tasks at once: euclidean distance in matmul form, averaged per
+   class for n > 1, argmin over classes.
+
+``fast=True`` embeds through ``models/fast_infer.fast_embed`` (the B2 kernel
+for block 0); either way fragments come through the B1 kernel. Siamese
+scoring, int8 tables and streaming come with their own slices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..config import ExperimentConfig
+from ..models.classifier import SpeakerClassifier
+from ..models.fast_infer import fast_embed
+from ..ops import sampling
+from ..train.steps import DeviceStore, fetch_batch
+
+
+def embed_all(model: SpeakerClassifier, store: DeviceStore, cfg: ExperimentConfig,
+              batch_size: int = 256, fast: bool = False) -> torch.Tensor:
+    """Embed every utterance of the store → ``(N, D)`` float32 table."""
+    N = store.labels.shape[0]
+    dev = store.audio.device
+    chunks = []
+    with torch.inference_mode():
+        for start in range(0, N, batch_size):
+            idx = torch.arange(start, min(start + batch_size, N), device=dev,
+                               dtype=torch.int32)
+            x = fetch_batch(store, idx, cfg, stochastic=False)
+            chunks.append(fast_embed(model.encoder, x) if fast else model.embed(x))
+    return torch.cat(chunks, dim=0)
+
+
+def classifier_nshot_predictions(table: torch.Tensor, query_idx: torch.Tensor,
+                                 support_idx: torch.Tensor) -> torch.Tensor:
+    """Predicted class ``(tasks,)`` of each task: nearest class by the mean
+    euclidean distance of the query to the class's supports."""
+    q = table[query_idx.long()]  # (tasks, D)
+    s = table[support_idx.long()]  # (tasks, k, n, D)
+    qn = (q * q).sum(-1)[:, None, None]
+    sn = (s * s).sum(-1)
+    cross = torch.einsum("td,tknd->tkn", q, s)
+    sq = (qn + sn - 2.0 * cross).clamp(min=0.0)
+    # Mean of euclidean (not squared) distances: the two orders differ for n > 1.
+    return torch.sqrt(sq + 1e-12).mean(-1).argmin(-1)
+
+
+def classifier_nshot_accuracy(table: torch.Tensor, speaker_utts: torch.Tensor,
+                              speaker_counts: torch.Tensor,
+                              generator: Optional[torch.Generator],
+                              num_tasks: int, n: int, k: int) -> torch.Tensor:
+    """Nearest-embedding n-shot accuracy (a 0-d tensor) over fresh tasks."""
+    tasks = sampling.sample_nshot_tasks(generator, speaker_utts, speaker_counts,
+                                        num_tasks, n, k)
+    pred = classifier_nshot_predictions(table, tasks.query_idx, tasks.support_idx)
+    return (pred == 0).float().mean()
+
+
+def score_table(table: torch.Tensor, store: DeviceStore, cfg: ExperimentConfig,
+                generator: Optional[torch.Generator], num_tasks: int, n: int,
+                k: int) -> float:
+    """Score one (n, k) setting against a precomputed embedding table."""
+    if cfg.mode != "classifier":
+        raise NotImplementedError(
+            f"score_table: only classifier mode is ported, not {cfg.mode!r}")
+    return float(classifier_nshot_accuracy(table, store.speaker_utts,
+                                           store.speaker_counts, generator,
+                                           num_tasks, n, k))
+
+
+def evaluate(model: SpeakerClassifier, store: DeviceStore, cfg: ExperimentConfig,
+             generator: Optional[torch.Generator], num_tasks: Optional[int] = None,
+             n: Optional[int] = None, k: Optional[int] = None,
+             embed_batch: int = 256, fast: bool = False,
+             table: Optional[torch.Tensor] = None) -> float:
+    """Full n-shot evaluation: embed the table once (unless given), score all tasks."""
+    t = cfg.train
+    num_tasks = num_tasks or t.num_eval_tasks
+    n = n or t.n_shot
+    k = k or t.k_way
+    counts = store.speaker_counts
+    if k > counts.shape[0]:
+        raise ValueError(
+            f"k_way={k} exceeds the {counts.shape[0]} speakers in the eval store")
+    min_count = int(counts.min())
+    if min_count < n + 1:
+        raise ValueError(
+            f"n_shot={n} needs ≥{n + 1} utterances per speaker; "
+            f"minimum in the eval store is {min_count}")
+    if table is None:
+        table = embed_all(model, store, cfg, batch_size=embed_batch, fast=fast)
+    return score_table(table, store, cfg, generator, num_tasks, n, k)

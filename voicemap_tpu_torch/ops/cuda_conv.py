@@ -1,0 +1,136 @@
+"""B2: the encoder's block 0 fused in one kernel.
+
+Port of ``voicemap_tpu/ops/pallas_conv.py :: pallas_conv_block0``: SAME conv
+(Cin=1, k=32) + bias → relu → BatchNorm inference affine → max-pool 4, with
+only the pool-rate ``(B, T//4, C)`` output written. The kernel is
+``csrc/conv_block0.cu``; ``conv_block0_reference`` is its plain PyTorch
+version.
+
+Semantics shared by both, each pinned by a test:
+
+- x and w are rounded to ``gemm_dtype``; products and sums are f32; the
+  epilogue is f32 and the output is rounded once, to ``out_dtype``;
+- the epilogue is ``relu(y + bias) * mul + add`` and the max over the pool
+  phases comes after it (``mul`` can be negative);
+- SAME padding of the even k=32 puts 15 zeros left and 16 right;
+- ``T % pool`` tail samples are dropped from the pooled output (floor).
+
+Dispatch is by the input's device: a CPU tensor takes the plain version, a
+CUDA tensor launches the kernel (k=32, pool=4), and a failed build or launch
+raises. The int8 requantizing epilogue of the Pallas kernel comes with the
+int8 serving path.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+KERNEL_TAPS = 32
+KERNEL_POOL = 4
+_SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps):
+    """``(bias, mul, add)`` in f32: ``relu(y + bias) * mul + add`` is the
+    conv bias, relu and BatchNorm inference of the block."""
+    mul = torch.rsqrt(bn_var.float() + bn_eps) * bn_scale.float()
+    add = bn_bias.float() - bn_mean.float() * mul
+    return b.float(), mul, add
+
+
+def conv_block0_reference(
+    x: torch.Tensor,  # (B, T, 1) or (B, T) float32
+    w: torch.Tensor,  # (k, 1, C) flax layout
+    b: torch.Tensor,
+    bn_scale: torch.Tensor,
+    bn_bias: torch.Tensor,
+    bn_mean: torch.Tensor,
+    bn_var: torch.Tensor,
+    bn_eps: float = 1e-3,
+    pool: int = 4,
+    out_dtype: torch.dtype = torch.bfloat16,
+    gemm_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Plain PyTorch version of the B2 kernel → ``(B, T // pool, C)``.
+
+    The conv sums its taps in order, k = 0 … K−1, in f32, as the kernel
+    does. A product of two bf16 values is exact in f32, so with bf16
+    operands the two agree bit for bit; where the BatchNorm affine cancels
+    to near zero, any other summation order would differ there by many bf16
+    ulps.
+    """
+    if x.dim() == 3:
+        x = x[..., 0]
+    B, T = x.shape
+    k, _, c = w.shape
+    xp = F.pad(x.to(gemm_dtype).float(), ((k - 1) // 2, k // 2))  # (B, T + k - 1)
+    wq = w[:, 0, :].to(gemm_dtype).float()  # (k, C)
+    y = torch.zeros((B, c, T), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        y += xp[:, None, j:j + T] * wq[j][:, None]
+    bias, mul, add = bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps)
+    y = torch.relu(y + bias[:, None]) * mul[:, None] + add[:, None]
+    y = F.max_pool1d(y, pool, pool)  # floor: drops the T % pool tail
+    return y.transpose(1, 2).to(out_dtype)
+
+
+def conv_block0(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    bn_scale: torch.Tensor,
+    bn_bias: torch.Tensor,
+    bn_mean: torch.Tensor,
+    bn_var: torch.Tensor,
+    bn_eps: float = 1e-3,
+    pool: int = 4,
+    out_dtype: torch.dtype = torch.bfloat16,
+    gemm_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Fused conv(SAME)+relu+BN(inference)+maxpool → ``(B, T // pool, C)``."""
+    if x.device.type == "cpu":
+        return conv_block0_reference(x, w, b, bn_scale, bn_bias, bn_mean, bn_var,
+                                     bn_eps, pool, out_dtype, gemm_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_block0: no kernel for device {x.device}")
+    if x.dim() == 3:
+        if x.shape[-1] != 1:
+            raise ValueError("conv_block0: the kernel is Cin=1 only")
+        x = x[..., 0]
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("conv_block0: x must be a contiguous (B, T[, 1]) float32 tensor")
+    k, cin, c = w.shape
+    if (k, cin, pool) != (KERNEL_TAPS, 1, KERNEL_POOL):
+        raise ValueError(
+            f"conv_block0: the kernel takes k={KERNEL_TAPS}, Cin=1, pool={KERNEL_POOL}; "
+            f"got k={k}, Cin={cin}, pool={pool}")
+    if out_dtype not in _SUPPORTED_DTYPES or gemm_dtype not in _SUPPORTED_DTYPES:
+        raise ValueError("conv_block0: out_dtype and gemm_dtype must be float32 or bfloat16")
+    B, T = x.shape
+    if B > 65535:
+        raise ValueError("conv_block0: at most 65535 rows a launch")
+    params = (w, b, bn_scale, bn_bias, bn_mean, bn_var)
+    if any(p.device != x.device for p in params):
+        raise ValueError(f"conv_block0: every parameter must lie on {x.device}")
+    if any(p.shape != (c,) for p in params[1:]):
+        raise ValueError(f"conv_block0: bias and BatchNorm tensors must be ({c},)")
+    wk = w[:, 0, :].to(gemm_dtype).float().contiguous()  # (k, C), GEMM-rounded
+    aff = torch.stack(bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps)).contiguous()
+    out = torch.empty((B, T // pool, c), dtype=out_dtype, device=x.device)
+    from .._build import check, library
+
+    lib = library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.vm_conv_block0(
+            x.data_ptr(), wk.data_ptr(), aff.data_ptr(), out.data_ptr(),
+            B, T, c, k, pool, int(gemm_dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), stream,
+        )
+    check(err, "conv_block0")
+    conv_block0.launches += 1
+    return out
+
+
+conv_block0.launches = 0  # kernel launches; the CPU path does not count
