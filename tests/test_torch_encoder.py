@@ -16,6 +16,7 @@ import torch
 from voicemap_tpu.models.classifier import SpeakerClassifier as JaxClassifier
 from voicemap_tpu.models.encoder import ConvEncoder as JaxEncoder
 from voicemap_tpu.models.fast_infer import fast_embed as jax_fast_embed
+from test_torch_config import jax_config
 from voicemap_tpu_torch.config import EncoderConfig, classifier_baseline
 from voicemap_tpu_torch.models.classifier import SpeakerClassifier
 from voicemap_tpu_torch.models.convert import from_flax
@@ -75,16 +76,16 @@ def assert_rows_agree(got, want, dtype):
 def test_encoder_and_fast_embed_match_jax(dtype):
     cfg = cfg_for(dtype)
     x = inputs(0)
-    jmodel = JaxEncoder(cfg)
+    jmodel = JaxEncoder(jax_config(cfg))
     variables = randomize_bn(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x)), 1)
-    model = ConvEncoder(cfg)
+    model = ConvEncoder(cfg, device="cpu")
     model.load_state_dict(from_flax(variables, cfg))
     xt = torch.from_numpy(x)
     with torch.inference_mode():
         got = model(xt).numpy()
         got_fast = fast_embed(model, xt).numpy()
     want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False))
-    want_fast = np.asarray(jax_fast_embed(variables, cfg, jnp.asarray(x)))
+    want_fast = np.asarray(jax_fast_embed(variables, jax_config(cfg), jnp.asarray(x)))
     assert_rows_agree(got, want, dtype)
     assert_rows_agree(got_fast, want_fast, dtype)
 
@@ -95,9 +96,9 @@ def test_classifier_tree_converts(dtype):
     embed() match the flax classifier."""
     cfg = cfg_for(dtype)
     x = inputs(2)
-    jmodel = JaxClassifier(cfg, num_classes=7)
+    jmodel = JaxClassifier(jax_config(cfg), num_classes=7)
     variables = randomize_bn(jmodel.init(jax.random.PRNGKey(3), jnp.asarray(x)), 4)
-    model = SpeakerClassifier(cfg, num_classes=7)
+    model = SpeakerClassifier(cfg, num_classes=7, device="cpu")
     model.load_state_dict(from_flax(variables, cfg))  # strict: every key mapped
     xt = torch.from_numpy(x)
     with torch.inference_mode():
@@ -109,7 +110,8 @@ def test_classifier_tree_converts(dtype):
 
 def test_convert_layouts():
     cfg = cfg_for("float32")
-    variables = randomize_bn(JaxEncoder(cfg).init(jax.random.PRNGKey(5), jnp.zeros((1, 64, 1))), 6)
+    jmodel = JaxEncoder(jax_config(cfg))
+    variables = randomize_bn(jmodel.init(jax.random.PRNGKey(5), jnp.zeros((1, 64, 1))), 6)
     sd = from_flax(variables, cfg)
     p, s = variables["params"], variables["batch_stats"]
     np.testing.assert_array_equal(sd["blocks.1.conv.weight"].numpy(),
@@ -117,13 +119,13 @@ def test_convert_layouts():
     np.testing.assert_array_equal(sd["embed.weight"].numpy(), p["embed"]["kernel"].T)
     np.testing.assert_array_equal(sd["blocks.2.bn.running_var"].numpy(),
                                   s["block_2"]["bn"]["var"])
-    model = ConvEncoder(cfg)
+    model = ConvEncoder(cfg, device="cpu")
     model.load_state_dict(sd)
     assert model.blocks[0].bn.eps == cfg.bn_epsilon == 1e-3  # not torch's 1e-5
 
 
 def test_train_mode_refuses_to_run():
-    model = ConvEncoder(cfg_for("float32")).train()
+    model = ConvEncoder(cfg_for("float32"), device="cpu").train()
     with pytest.raises(NotImplementedError):
         model(torch.zeros(1, 64, 1))
 
@@ -134,12 +136,13 @@ def test_smoke_tree_has_flax_shapes():
     import chip_smoke
 
     cfg = classifier_baseline().encoder
-    want = jax.eval_shape(JaxClassifier(cfg, num_classes=40).init, jax.random.PRNGKey(0),
+    jmodel = JaxClassifier(jax_config(cfg), num_classes=40)
+    want = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
                           jnp.zeros((1, 12000, 1)))
     got = chip_smoke.random_flax_variables(cfg, 40, seed=0)
     shapes = lambda t: jax.tree_util.tree_map(lambda a: tuple(a.shape), t)  # noqa: E731
     assert shapes(to_numpy(got)) == shapes(dict(want))
-    model = SpeakerClassifier(cfg, num_classes=40)
+    model = SpeakerClassifier(cfg, num_classes=40, device="cpu")
     model.load_state_dict(from_flax(got, cfg))
 
 
@@ -160,7 +163,7 @@ def test_conv_block_matches_jax_at_f32(k, pool, dilation):
     p, s = v["params"]["block_0"], v["batch_stats"]["block_0"]["bn"]
     want = np.asarray(jblock.apply({"params": p, "batch_stats": {"bn": s}}, jnp.asarray(x),
                                    train=False))
-    block = ConvBlock(4, 6, k, pool, dilation, torch.float32)
+    block = ConvBlock(4, 6, k, pool, dilation, torch.float32, device="cpu")
     block.load_state_dict({
         "conv.weight": torch.tensor(p["conv"]["kernel"].transpose(2, 1, 0)),
         "conv.bias": torch.tensor(p["conv"]["bias"]),

@@ -1,5 +1,5 @@
-"""The port stands without JAX, flax and pandas, and chip_smoke.py refuses to
-run where there is no GPU."""
+"""The port stands without JAX, flax, pandas and the JAX package
+(``voicemap_tpu``), and chip_smoke.py refuses to run where there is no GPU."""
 
 import os
 import re
@@ -27,7 +27,7 @@ def test_every_module_imports_with_jax_flax_pandas_blocked():
     modules = list(_modules()) + ["chip_smoke"]
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'pandas'):\n"
+        "for name in ('jax', 'flax', 'pandas', 'voicemap_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {modules!r}:\n"
@@ -41,7 +41,7 @@ def test_every_module_imports_with_jax_flax_pandas_blocked():
 
 
 def test_no_jax_flax_pandas_import_in_the_port():
-    banned = re.compile(r"^\s*(import|from)\s+(jax|flax|pandas)\b", re.M)
+    banned = re.compile(r"^\s*(import|from)\s+(jax|flax|pandas|voicemap_tpu)\b", re.M)
     offenders = [str(p.relative_to(REPO)) for p in SOURCES if banned.search(p.read_text())]
     assert len(SOURCES) > 20 and not offenders
 

@@ -25,6 +25,7 @@ from voicemap_tpu_torch.models.convert import from_flax
 from voicemap_tpu_torch.ops import distance as tdist
 from voicemap_tpu_torch.ops.sampling import sample_nshot_tasks
 from voicemap_tpu_torch.train.steps import device_store_for
+from test_torch_config import jax_config
 
 DIST_TOL = 1e-5  # f32, other reduction order
 
@@ -124,7 +125,8 @@ def test_sampler_invariants(n, k):
 
 @pytest.fixture(scope="module")
 def small_eval():
-    """A 4-speaker store, a converted f32 classifier and both packages' state."""
+    """A 4-speaker store, a converted f32 classifier, both packages' state and
+    the JAX package's config with the port config's values."""
     from voicemap_tpu.data.dataset import AudioStore as JaxAudioStore
     from voicemap_tpu.models.classifier import SpeakerClassifier as JaxClassifier
     from voicemap_tpu.train import steps as jsteps
@@ -135,20 +137,21 @@ def small_eval():
         encoder=EncoderConfig(filters=8, embedding_dim=16, compute_dtype="float32"))
     host = synthetic_store(8, n_speakers=4, utterances_per_speaker=3,
                            min_seconds=0.3, max_seconds=0.5)
-    jmodel = JaxClassifier(cfg.encoder, num_classes=4)
+    jcfg = jax_config(cfg)
+    jmodel = JaxClassifier(jcfg.encoder, num_classes=4)
     variables = jmodel.init(jax.random.PRNGKey(1), jnp.zeros((1, cfg.data.model_length, 1)))
     jstate = init_state(variables["params"], variables["batch_stats"], make_optimizer(), 1e-3)
-    jstore = jsteps.device_store_for(cfg, JaxAudioStore(**dataclasses.asdict(host)))
-    model = SpeakerClassifier(cfg.encoder, num_classes=4)
+    jstore = jsteps.device_store_for(jcfg, JaxAudioStore(**dataclasses.asdict(host)))
+    model = SpeakerClassifier(cfg.encoder, num_classes=4, device="cpu")
     model.load_state_dict(from_flax(variables, cfg.encoder))
-    return cfg, host, model, jmodel, jstate, jstore
+    return cfg, host, model, jmodel, jstate, jstore, jcfg
 
 
 def test_embed_all_matches_jax_fast(small_eval):
     """Chunked offset-0 tables of both packages agree at f32 (1e-4), for the
     fast and the module path, over a last chunk shorter than the rest."""
-    cfg, host, model, jmodel, jstate, jstore = small_eval
-    want = np.asarray(jnshot.embed_all(jmodel, jstate, jstore, cfg, batch_size=5, fast=True))
+    cfg, host, model, jmodel, jstate, jstore, jcfg = small_eval
+    want = np.asarray(jnshot.embed_all(jmodel, jstate, jstore, jcfg, batch_size=5, fast=True))
     store = device_store_for(cfg, host, "cpu")
     for fast in (True, False):
         got = nshot.embed_all(model, store, cfg, batch_size=5, fast=fast).numpy()

@@ -24,6 +24,7 @@ from voicemap_tpu_torch.ops.cuda_preprocess import (
     decimate_store, gather_whiten, gather_whiten_reference,
 )
 from voicemap_tpu_torch.train.steps import device_store_for, fetch_batch
+from test_torch_config import jax_config
 
 # Same f32 arithmetic, other reduction order.
 RTOL, ATOL = 1e-5, 1e-6
@@ -133,7 +134,8 @@ def test_fetch_batch_matches_jax_raw_store_at_offset_zero():
     jstore = jsteps.DeviceStore.from_host(_jax_store(host), pallas_downsampling=0,
                                           min_length=cfg.data.fragment_length)
     want = np.asarray(jsteps.fetch_batch(jstore, jnp.asarray(idx),
-                                         jax.random.PRNGKey(0), cfg, stochastic=False))
+                                         jax.random.PRNGKey(0), jax_config(cfg),
+                                         stochastic=False))
     store = device_store_for(cfg, host, "cpu")
     got = fetch_batch(store, torch.from_numpy(idx), cfg, stochastic=False).numpy()
     assert got.shape == (5, cfg.data.model_length, 1)

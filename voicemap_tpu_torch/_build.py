@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, which ``ctypes`` loads. The
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one shared library
+with a plain C interface, which ``ctypes`` loads. The
 library lands in ``build/kernels/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the sources and flags, so a changed source
 rebuilds and an unchanged one loads at once. Nothing is built at import time:
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -37,8 +38,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     # store, n_rows, row_len, idx, off, out, B, frag, rms, eps, whiten, stream
     "vm_gather_whiten": (_P, _L, _L, _P, _P, _P, _I, _I, _F, _F, _I, _P),
-    # x, w, aff, out, B, T, C, K, pool, round_x_bf16, out_bf16, stream
-    "vm_conv_block0": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, aff, inv_s0 (NULL unless int8 out), out, B, T, C, K, pool,
+    # round_x_bf16, out_bf16, stream
+    "vm_conv_block0": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, aff, out, B, T, Cin, Cout, out_kind, stream
+    "vm_quant_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -78,26 +82,35 @@ def build() -> tuple[Path, float, str]:
     if target.exists():
         return target, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    # Compile to a private name, then rename: concurrent builders never load
-    # a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    # Build in a private directory, then rename: concurrent builders never
+    # load a half-written library.
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, target)
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = work / f"{src.stem}.o"
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        reports, failed = [], []
+        for src, _, proc in jobs:  # wait for every compiler before raising
+            out, err = proc.communicate()
+            reports.append(err)
+            if proc.returncode != 0:
+                failed.append(f"{src.name} (exit {proc.returncode}):\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = work / target.name
+        link = subprocess.run([nvcc, "-shared", "-o", str(lib), *(str(o) for _, o, _ in jobs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n{link.stderr}")
+        os.replace(lib, target)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return target, time.perf_counter() - t0, proc.stderr
+        shutil.rmtree(work, ignore_errors=True)
+    return target, time.perf_counter() - t0, "".join(reports)
 
 
 @functools.lru_cache(maxsize=None)

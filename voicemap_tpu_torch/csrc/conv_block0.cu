@@ -9,13 +9,18 @@
 // wrapper in f32. The affine is applied before the max: mul can be negative.
 // x and w arrive rounded to the GEMM dtype (bf16 on the main path); products
 // are summed in f32 in tap order k = 0..31, the epilogue is f32 op by op, and
-// the output is rounded once, at the store. A tail of
+// the output is rounded once, at the store: to f32, to bf16, or, on the int8
+// serving path, requantized from the f32 pooled value as
+//   q = clamp(round_half_even(out * inv_s0[c]), -127, 127)
+// (pallas_conv.py's requant epilogue; inv_s0 = 1 / s0 from the wrapper, a
+// multiply by the reciprocal as there, not a division). A tail of
 // T % 4 samples is dropped (floor pooling); the conv still sees it as input.
 //
 // What bounds it on the H100: FLOPs. At B=2048, T=12000, C=128 the conv is
 // about 201 GFLOP against a 1.57 GB bf16 output, and these FMAs run on the
-// CUDA cores. Design: one CTA per (row, tile of kTile pooled outputs), one
-// thread per channel. The tile's input window (4 * kTile + 31 samples) sits
+// CUDA cores (int8 output: 201 GFLOP against 0.79 GB). Design: one CTA per
+// (row, tile of kTile pooled outputs), one thread per channel. The tile's
+// input window (4 * kTile + 31 samples) sits
 // in shared memory and every thread of a warp reads the same sample, a
 // broadcast without bank conflicts; each thread keeps its channel's 32 taps
 // in registers and its 4 phases' sums in registers, so the full-rate
@@ -26,14 +31,19 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kTile = 128;  // pooled outputs per CTA
 
-template <int K, int POOL, bool OUT_BF16>
+enum OutKind { kF32 = 0, kBF16 = 1, kInt8 = 2 };
+
+template <int K, int POOL, int OUT>
 __global__ void conv_block0_kernel(const float* __restrict__ x,
                                    const float* __restrict__ w,
                                    const float* __restrict__ aff,
+                                   const float* __restrict__ inv_s0,
                                    void* __restrict__ out, int T, int C,
                                    int round_x) {
   constexpr int kPadL = (K - 1) / 2;
@@ -59,6 +69,7 @@ __global__ void conv_block0_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int k = 0; k < K; ++k) wr[k] = w[k * C + c];
     const float bias = aff[c], mul = aff[C + c], add = aff[2 * C + c];
+    const float inv = OUT == kInt8 ? inv_s0[c] : 0.f;
     const long long obase = ((long long)b * t_out + p0) * C + c;
     for (int p = 0; p < n_p; ++p) {
       float xr[POOL + K - 1];
@@ -76,30 +87,45 @@ __global__ void conv_block0_kernel(const float* __restrict__ x,
         best = fmaxf(best, __fadd_rn(h, add));
       }
       const long long o = obase + (long long)p * C;
-      if (OUT_BF16)
+      if (OUT == kInt8) {
+        // Half to even, as jnp.round; roundf would round halves away.
+        const int q = __float2int_rn(__fmul_rn(best, inv));
+        static_cast<int8_t*>(out)[o] = (int8_t)min(max(q, -127), 127);
+      } else if (OUT == kBF16) {
         static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16(best);
-      else
+      } else {
         static_cast<float*>(out)[o] = best;
+      }
     }
   }
 }
 
 }  // namespace
 
+// inv_s0: NULL, or the (C,) f32 reciprocal requant scales, which make the
+// output int8 (out_bf16 is then not read).
 extern "C" int vm_conv_block0(const void* x, const void* w, const void* aff,
-                              void* out, int B, int T, int C, int K, int pool,
-                              int round_x, int out_bf16, void* stream) {
+                              const void* inv_s0, void* out, int B, int T,
+                              int C, int K, int pool, int round_x,
+                              int out_bf16, void* stream) {
   if (K != 32 || pool != 4) return (int)cudaErrorInvalidValue;
   const int t_out = T / pool;
   if (B == 0 || t_out == 0) return 0;
   const dim3 grid((t_out + kTile - 1) / kTile, B);
   const int threads = C < 128 ? ((C + 31) / 32) * 32 : 128;
   cudaStream_t s = (cudaStream_t)stream;
-  if (out_bf16)
-    conv_block0_kernel<32, 4, true><<<grid, threads, 0, s>>>(
-        (const float*)x, (const float*)w, (const float*)aff, out, T, C, round_x);
+  const float* xf = (const float*)x;
+  const float* wf = (const float*)w;
+  const float* af = (const float*)aff;
+  const float* inv = (const float*)inv_s0;
+  if (inv)
+    conv_block0_kernel<32, 4, kInt8><<<grid, threads, 0, s>>>(xf, wf, af, inv, out, T, C,
+                                                              round_x);
+  else if (out_bf16)
+    conv_block0_kernel<32, 4, kBF16><<<grid, threads, 0, s>>>(xf, wf, af, inv, out, T, C,
+                                                              round_x);
   else
-    conv_block0_kernel<32, 4, false><<<grid, threads, 0, s>>>(
-        (const float*)x, (const float*)w, (const float*)aff, out, T, C, round_x);
+    conv_block0_kernel<32, 4, kF32><<<grid, threads, 0, s>>>(xf, wf, af, inv, out, T, C,
+                                                             round_x);
   return (int)cudaGetLastError();
 }

@@ -10,8 +10,10 @@ Port of ``voicemap_tpu/eval/nshot.py`` (``embed_all``, ``classifier_nshot_accura
    class for n > 1, argmin over classes.
 
 ``fast=True`` embeds through ``models/fast_infer.fast_embed`` (the B2 kernel
-for block 0); either way fragments come through the B1 kernel. Siamese
-scoring, int8 tables and streaming come with their own slices.
+for block 0); ``qvars=`` (from ``models/quant_infer``) embeds through the
+int8 serving path, ``quant_embed`` (B2 with its requantizing epilogue, then
+the B3 kernel for blocks 1+). Either way fragments come through the B1
+kernel. Siamese scoring and streaming come with their own slices.
 """
 
 from __future__ import annotations
@@ -23,13 +25,17 @@ import torch
 from ..config import ExperimentConfig
 from ..models.classifier import SpeakerClassifier
 from ..models.fast_infer import fast_embed
+from ..models.quant_infer import check_qvars_mode, quant_embed
 from ..ops import sampling
 from ..train.steps import DeviceStore, fetch_batch
 
 
 def embed_all(model: SpeakerClassifier, store: DeviceStore, cfg: ExperimentConfig,
-              batch_size: int = 256, fast: bool = False) -> torch.Tensor:
-    """Embed every utterance of the store → ``(N, D)`` float32 table."""
+              batch_size: int = 256, fast: bool = False, qvars=None) -> torch.Tensor:
+    """Embed every utterance of the store → ``(N, D)`` float32 table; with
+    ``qvars``, through the int8 serving path."""
+    if qvars is not None:
+        check_qvars_mode(cfg, qvars)
     N = store.labels.shape[0]
     dev = store.audio.device
     chunks = []
@@ -38,7 +44,10 @@ def embed_all(model: SpeakerClassifier, store: DeviceStore, cfg: ExperimentConfi
             idx = torch.arange(start, min(start + batch_size, N), device=dev,
                                dtype=torch.int32)
             x = fetch_batch(store, idx, cfg, stochastic=False)
-            chunks.append(fast_embed(model.encoder, x) if fast else model.embed(x))
+            if qvars is not None:
+                chunks.append(quant_embed(model.encoder, qvars, x))
+            else:
+                chunks.append(fast_embed(model.encoder, x) if fast else model.embed(x))
     return torch.cat(chunks, dim=0)
 
 
@@ -82,9 +91,11 @@ def score_table(table: torch.Tensor, store: DeviceStore, cfg: ExperimentConfig,
 def evaluate(model: SpeakerClassifier, store: DeviceStore, cfg: ExperimentConfig,
              generator: Optional[torch.Generator], num_tasks: Optional[int] = None,
              n: Optional[int] = None, k: Optional[int] = None,
-             embed_batch: int = 256, fast: bool = False,
+             embed_batch: int = 256, fast: bool = False, qvars=None,
              table: Optional[torch.Tensor] = None) -> float:
-    """Full n-shot evaluation: embed the table once (unless given), score all tasks."""
+    """Full n-shot evaluation: embed the table once (unless given), score all
+    tasks. ``qvars`` embeds through the int8 serving path; ``table`` is a
+    precomputed ``embed_all`` table for this store, cfg, fast and qvars."""
     t = cfg.train
     num_tasks = num_tasks or t.num_eval_tasks
     n = n or t.n_shot
@@ -99,5 +110,6 @@ def evaluate(model: SpeakerClassifier, store: DeviceStore, cfg: ExperimentConfig
             f"n_shot={n} needs ≥{n + 1} utterances per speaker; "
             f"minimum in the eval store is {min_count}")
     if table is None:
-        table = embed_all(model, store, cfg, batch_size=embed_batch, fast=fast)
+        table = embed_all(model, store, cfg, batch_size=embed_batch, fast=fast,
+                          qvars=qvars)
     return score_table(table, store, cfg, generator, num_tasks, n, k)

@@ -1,1 +1,1 @@
-"""Conv encoder, speaker classifier, fast inference and the flax converter."""
+"""Conv encoder, speaker classifier, fast and int8 inference, the converters."""

@@ -2,7 +2,8 @@
 
 Port of ``voicemap_tpu/models/classifier.py``: encoder + Dense(num_classes)
 emitting logits, and ``embed()``, the penultimate-layer embedding that
-classifier-mode n-shot evaluation reads.
+classifier-mode n-shot evaluation reads. Built on the card unless ``device``
+says otherwise.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from .encoder import DTYPES, ConvEncoder
 
 
 class SpeakerClassifier(nn.Module):
-    def __init__(self, cfg: EncoderConfig, num_classes: int, device=None):
+    def __init__(self, cfg: EncoderConfig, num_classes: int, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.encoder = ConvEncoder(cfg, device=device)

@@ -1,4 +1,4 @@
-"""Flax variable tree → the port's ``state_dict``.
+"""Flax variable tree → the port's ``state_dict``; JAX qvars → the port's.
 
 Maps the JAX package's parameters onto :class:`ConvEncoder` and
 :class:`SpeakerClassifier` so that both packages run the same weights:
@@ -9,8 +9,11 @@ Maps the JAX package's parameters onto :class:`ConvEncoder` and
   (its epsilon, 1e-3, is set by the module from the config).
 
 Takes either the classifier's tree (``params/encoder/block_i/...``,
-``params/encoder/embed``, ``params/head``) or the bare encoder's. Leaves may
-be numpy arrays or anything ``np.asarray`` reads; nothing here imports JAX.
+``params/encoder/embed``, ``params/head``) or the bare encoder's.
+``qvars_from_numpy`` maps an int8 serving artifact of the JAX package
+(``models/quant_infer.quantize_encoder``) onto the port's tensors; the layout
+is the same in both packages. Leaves may be numpy arrays or anything
+``np.asarray`` reads; nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -59,3 +62,18 @@ def from_flax(variables: dict, cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
         sd["head.weight"] = _t(params["head"]["kernel"], (1, 0))
         sd["head.bias"] = _t(params["head"]["bias"])
     return sd
+
+
+def qvars_from_numpy(qvars: dict, device="cuda") -> dict:
+    """The JAX package's qvars dict → the port's, with tensors on ``device``:
+    ``s0`` and the epilogue vectors f32, ``w_q (3, Cin, Cout)`` int8."""
+    def put(a, dtype):
+        return torch.tensor(np.asarray(a, dtype), device=device)
+
+    out = {"s0": put(qvars["s0"], np.float32),
+           "blocks": [{"w_q": put(b["w_q"], np.int8),
+                       **{k: put(b[k], np.float32) for k in ("alpha", "beta", "gamma")}}
+                      for b in qvars["blocks"]]}
+    if "kind" in qvars:
+        out["kind"] = str(qvars["kind"])
+    return out

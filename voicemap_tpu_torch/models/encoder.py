@@ -11,6 +11,9 @@ BatchNorm in f32. Input ``(B, T, 1)`` float32, output ``(B, D)`` float32.
 Inside, activations run channel-first ``(B, C, T)``, as ``F.conv1d`` takes
 them.
 
+Modules are built on the card (``device="cuda"``) unless the caller asks for
+another device, as the CPU tests do.
+
 This slice is inference only: BatchNorm uses its running statistics, dropout
 is the identity, and a module in train mode refuses to run. The train-mode
 semantics (BatchNorm momentum and biased variance as flax has them, channel
@@ -42,7 +45,7 @@ class ConvBlock(nn.Module):
                  pool_size: int, dilation: int = 1,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32,
-                 bn_epsilon: float = 1e-3, device=None):
+                 bn_epsilon: float = 1e-3, device="cuda"):
         super().__init__()
         self.conv = nn.Conv1d(in_channels, features, kernel_size, dilation=dilation,
                               device=device, dtype=param_dtype)
@@ -75,7 +78,7 @@ class ConvBlock(nn.Module):
 class ConvEncoder(nn.Module):
     """Waveform → embedding. Input ``(B, T, 1)`` float32; output ``(B, D)`` float32."""
 
-    def __init__(self, cfg: EncoderConfig, device=None):
+    def __init__(self, cfg: EncoderConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         cdt = DTYPES[cfg.compute_dtype]

@@ -12,13 +12,15 @@ Semantics shared by both, each pinned by a test:
   epilogue is f32 and the output is rounded once, to ``out_dtype``;
 - the epilogue is ``relu(y + bias) * mul + add`` and the max over the pool
   phases comes after it (``mul`` can be negative);
+- with ``requant_scale`` ``s0`` (the int8 serving path) the output is int8,
+  ``clamp(round_half_even(pooled * (1 / s0)), ±127)`` from the f32 pooled
+  value, with ``1 / s0`` computed in f32 first, as the Pallas wrapper does;
 - SAME padding of the even k=32 puts 15 zeros left and 16 right;
 - ``T % pool`` tail samples are dropped from the pooled output (floor).
 
 Dispatch is by the input's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (k=32, pool=4), and a failed build or launch
-raises. The int8 requantizing epilogue of the Pallas kernel comes with the
-int8 serving path.
+raises.
 """
 
 from __future__ import annotations
@@ -51,8 +53,10 @@ def conv_block0_reference(
     pool: int = 4,
     out_dtype: torch.dtype = torch.bfloat16,
     gemm_dtype: torch.dtype = torch.bfloat16,
+    requant_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the B2 kernel → ``(B, T // pool, C)``.
+    """Plain PyTorch version of the B2 kernel → ``(B, T // pool, C)``,
+    int8 when ``requant_scale`` is given (``out_dtype`` is then not read).
 
     The conv sums its taps in order, k = 0 … K−1, in f32, as the kernel
     does. A product of two bf16 values is exact in f32, so with bf16
@@ -71,8 +75,15 @@ def conv_block0_reference(
         y += xp[:, None, j:j + T] * wq[j][:, None]
     bias, mul, add = bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps)
     y = torch.relu(y + bias[:, None]) * mul[:, None] + add[:, None]
-    y = F.max_pool1d(y, pool, pool)  # floor: drops the T % pool tail
-    return y.transpose(1, 2).to(out_dtype)
+    y = F.max_pool1d(y, pool, pool).transpose(1, 2)  # floor: drops the T % pool tail
+    if requant_scale is not None:
+        return requantize(y, 1.0 / requant_scale.float())
+    return y.to(out_dtype)
+
+
+def requantize(y: torch.Tensor, inv_scale: torch.Tensor) -> torch.Tensor:
+    """``clamp(round_half_even(y * inv_scale), ±127)`` as int8; ``y`` f32."""
+    return torch.round(y * inv_scale).clamp(-127, 127).to(torch.int8)
 
 
 def conv_block0(
@@ -87,11 +98,14 @@ def conv_block0(
     pool: int = 4,
     out_dtype: torch.dtype = torch.bfloat16,
     gemm_dtype: torch.dtype = torch.bfloat16,
+    requant_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Fused conv(SAME)+relu+BN(inference)+maxpool → ``(B, T // pool, C)``."""
+    """Fused conv(SAME)+relu+BN(inference)+maxpool → ``(B, T // pool, C)``;
+    with ``requant_scale`` ``(C,)`` the requantized int8 output of the int8
+    serving path."""
     if x.device.type == "cpu":
         return conv_block0_reference(x, w, b, bn_scale, bn_bias, bn_mean, bn_var,
-                                     bn_eps, pool, out_dtype, gemm_dtype)
+                                     bn_eps, pool, out_dtype, gemm_dtype, requant_scale)
     if x.device.type != "cuda":
         raise ValueError(f"conv_block0: no kernel for device {x.device}")
     if x.dim() == 3:
@@ -111,12 +125,16 @@ def conv_block0(
     if B > 65535:
         raise ValueError("conv_block0: at most 65535 rows a launch")
     params = (w, b, bn_scale, bn_bias, bn_mean, bn_var)
+    if requant_scale is not None:
+        params += (requant_scale,)
+        out_dtype = torch.int8
     if any(p.device != x.device for p in params):
         raise ValueError(f"conv_block0: every parameter must lie on {x.device}")
     if any(p.shape != (c,) for p in params[1:]):
         raise ValueError(f"conv_block0: bias and BatchNorm tensors must be ({c},)")
     wk = w[:, 0, :].to(gemm_dtype).float().contiguous()  # (k, C), GEMM-rounded
     aff = torch.stack(bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps)).contiguous()
+    inv_s0 = None if requant_scale is None else (1.0 / requant_scale.float()).contiguous()
     out = torch.empty((B, T // pool, c), dtype=out_dtype, device=x.device)
     from .._build import check, library
 
@@ -124,7 +142,8 @@ def conv_block0(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vm_conv_block0(
-            x.data_ptr(), wk.data_ptr(), aff.data_ptr(), out.data_ptr(),
+            x.data_ptr(), wk.data_ptr(), aff.data_ptr(),
+            None if inv_s0 is None else inv_s0.data_ptr(), out.data_ptr(),
             B, T, c, k, pool, int(gemm_dtype == torch.bfloat16),
             int(out_dtype == torch.bfloat16), stream,
         )
@@ -133,4 +152,4 @@ def conv_block0(
     return out
 
 
-conv_block0.launches = 0  # kernel launches; the CPU path does not count
+conv_block0.launches = 0  # kernel launches, bf16, f32 and int8; the CPU path does not count
