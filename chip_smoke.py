@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -12,6 +12,9 @@ Each phase prints one JSON line; nothing here imports JAX.
    at the main paths' shapes and at edge shapes, with the tolerance stated:
    B1, B2 (bf16, f32 and its int8 requantizing epilogue) and B3 at the three
    config #1 block shapes;
+   train kernels — B4 and B5 at the train step's (32, 12000, 128) and at edge
+   shapes, B7's pool and routing passes at the three config #1 block shapes
+   of the train step and at an odd C, each against its plain version;
 4. slice — config #1 at full width (filters 128, embedding 64, 3 s at 16 kHz,
    downsampling 4) built from a flax-layout tree through ``from_flax``,
    serving 500 1-shot 5-way n-shot tasks over a seeded synthetic store in
@@ -24,9 +27,20 @@ Each phase prints one JSON line; nothing here imports JAX.
 6. int8 fidelity gate — as ``bench.py`` does it: calibrate on bench-store rows
    [0, 256), embed rows [256, 512) at fresh offsets in int8 and in bf16, and
    require a min cosine ≥ 0.999;
-7. timing — CUDA-event times of each kernel beside its plain version, its
+7. train slice — ``fit`` at full config #1 width, batch 32, for 40 steps on
+   the seeded 40-speaker store with an n-shot evaluation at the end, the
+   launch counters read around it and the evaluation's own launches counted
+   apart: per step B1 1, B4 1, B5 1, B7 3 + 3; every loss finite and the
+   last five below the first five; then one step from fixed weights and a
+   fixed batch through the kernels and through their plain versions,
+   held together (loss, gradient cosine per parameter);
+8. timing — CUDA-event times of each kernel beside its plain version, its
    bound and (B3) a library GEMM; embed throughput at B=2048 in bf16 and
-   int8; batch-1 latency; int8 against bf16 embed time over batch sizes.
+   int8; batch-1 latency; int8 against bf16 embed time over batch sizes;
+9. train timing — B4, B5 and B7 beside their bounds, plain versions and
+   (B5) a library weight-gradient conv at the train step's shapes; the train
+   step's ms and utt/s at B=32 and B=2048 under both blocks-1+ policies, in
+   turns (jnp, fused, fused, jnp), and peak memory.
 
 It ends with the per-kernel summary line, then
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the exit code
@@ -36,6 +50,8 @@ is non-zero and that last line is never printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -54,12 +70,22 @@ from voicemap_tpu_torch.models.fast_infer import fast_embed
 from voicemap_tpu_torch.models.quant_infer import (
     quant_embed, quantize_encoder, quantize_from_store,
 )
-from voicemap_tpu_torch.ops import sampling
+from voicemap_tpu_torch.ops import cuda_conv_train, cuda_routing, sampling
 from voicemap_tpu_torch.ops.cuda_conv import conv_block0, conv_block0_reference
+from voicemap_tpu_torch.ops.cuda_conv_train import (
+    conv_block0_train, conv_block0_train_bwd, conv_block0_train_bwd_reference,
+    conv_block0_train_reference,
+)
 from voicemap_tpu_torch.ops.cuda_preprocess import (
     decimate_store, gather_whiten, gather_whiten_reference,
 )
 from voicemap_tpu_torch.ops.cuda_quant_block import quant_block, quant_block_reference
+from voicemap_tpu_torch.ops.cuda_routing import (
+    pool_fwd, pool_fwd_reference, route_bwd, route_bwd_reference,
+)
+from voicemap_tpu_torch.train import steps
+from voicemap_tpu_torch.train.loop import fit, init_model
+from voicemap_tpu_torch.train.state import init_state
 from voicemap_tpu_torch.train.steps import DeviceStore, device_store_for, fetch_batch
 from voicemap_tpu_torch.utils.profiling import throughput, time_fn
 
@@ -74,11 +100,21 @@ CHECK_ROWS = 256  # rows of the on-card checks and of each plain-version chunk
 # Config #1's int8 blocks 1-3: (T in, Cin, Cout, last).
 QBLOCKS = ((3000, 128, 256, False), (1500, 256, 384, False), (750, 384, 512, True))
 SWEEP = (1, 8, 64, 256, 2048)
+# The train step of config #1: batch 32 of 12000 samples; block 0's width;
+# blocks 1-3's full-rate conv outputs (C, T), pool 2; train steps of the slice.
+TRAIN_BATCH = 32
+TRAIN_C0 = 128
+TRAIN_BLOCKS = ((256, 3000), (384, 1500), (512, 750))
+TRAIN_STEPS = 40
+TRAIN_TIMING_BATCHES = (32, 2048)
 
 B1_RTOL, B1_ATOL = 1e-5, 1e-6
 B2_F32_RTOL, B2_F32_ATOL = 1e-5, 1e-5
 B2_BF16_ULPS = 1
 TABLE_MIN_COSINE = 0.999
+TRAIN_REL_TOL = 1e-4  # stats, dW, db: of max |value|, for the other sum order
+STEP_LOSS_RTOL = 1e-3
+STEP_MIN_COSINE = 0.999
 INT8_FIDELITY_GATE = 0.999  # bench.py's gate
 
 # Published H100 SXM peaks (NVIDIA's data sheet): device memory, dense bf16
@@ -95,7 +131,22 @@ KERNELS = {
                     "voicemap_tpu/ops/pallas_conv.py:97"),
     "quant_block": (quant_block, "voicemap_tpu_torch/csrc/quant_block.cu",
                     "voicemap_tpu/ops/pallas_quant_block.py:99"),
+    "conv_block0_train": (conv_block0_train, "voicemap_tpu_torch/csrc/conv_block0_train.cu",
+                          "voicemap_tpu/ops/pallas_conv_train.py:58"),
+    "conv_block0_train_bwd": (conv_block0_train_bwd,
+                              "voicemap_tpu_torch/csrc/conv_block0_train.cu",
+                              "voicemap_tpu/ops/pallas_conv_train.py:125"),
+    "pool_fwd": (pool_fwd, "voicemap_tpu_torch/csrc/routing.cu",
+                 "voicemap_tpu/ops/pallas_routing.py:69"),
+    "route_bwd": (route_bwd, "voicemap_tpu_torch/csrc/routing.cu",
+                  "voicemap_tpu/ops/pallas_routing.py:133"),
 }
+# The train kernels' plain versions, by the module attribute each wrapper
+# is reached through on the train path.
+PLAIN = ((cuda_conv_train, "conv_block0_train", conv_block0_train_reference),
+         (cuda_conv_train, "conv_block0_train_bwd", conv_block0_train_bwd_reference),
+         (cuda_routing, "pool_fwd", pool_fwd_reference),
+         (cuda_routing, "route_bwd", route_bwd_reference))
 
 
 def emit(record: dict) -> None:
@@ -375,7 +426,7 @@ def run_slice(seed: int) -> dict:
           "min_cosine_vs_plain": min_cos, "cosine_tolerance": TABLE_MIN_COSINE,
           "seconds": seconds})
     return {"launches": launches, "model": model, "cfg": cfg, "store": store,
-            "table": table, "accuracy": acc}
+            "table": table, "accuracy": acc, "host": host}
 
 
 def plain_fragments(store: DeviceStore, cfg, n_utts: int):
@@ -613,6 +664,323 @@ def run_timing(store, idx, offsets, params, s0, model, cfg, qvars, seed, card) -
     return {"ms": ms, "plain_ms": plain_ms, "bounds": bounds, "library_ms": library_ms}
 
 
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest difference over the largest magnitude of ``want``."""
+    scale = float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) / (scale if scale > 0 else 1.0)
+
+
+def check_rel(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)}, want {tuple(want.shape)}")
+    err = rel_err(got, want)
+    if not err <= tol:
+        raise AssertionError(f"{name} {tuple(want.shape)}: {err} of max |value| > {tol}")
+    return {"kernel": name, "shape": list(want.shape),
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "rel_err": err, "tolerance": f"<= {tol} of max |value|"}
+
+
+def block0_train_inputs(seed: int, B: int, T: int, c: int) -> tuple:
+    """B4/B5's parameters beside ``x``: w, b, sgn (γ of both signs), a pooled
+    cotangent and the three dz constants."""
+    w, b, scale = block0_params(seed, c)[:3]
+    sgn = torch.where(scale >= 0, 1.0, -1.0)
+    g = torch.Generator().manual_seed(seed)
+    cot = torch.randn(B, T // 4, c, generator=g).to(DEVICE)
+    c0, c1, c2 = (torch.randn(c, generator=g).mul(s).to(DEVICE) for s in (1.0, 0.1, 0.05))
+    return w, b, sgn, cot, c0, c1, c2
+
+
+def routing_inputs(seed: int, B: int, c: int, T: int, pool: int, dtype) -> tuple:
+    """A relu activation (B, C, T) in ``dtype`` (half of it zero, ties among
+    the rest), sgn of both signs, a pooled f32 cotangent and dz constants."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.relu(torch.randn(B, c, T, generator=g)).to(dtype).to(DEVICE)
+    sgn = torch.where(torch.arange(c) % 3 == 1, -1.0, 1.0).to(DEVICE)
+    cot = torch.randn(B, c, T // pool, generator=g).to(DEVICE)
+    c0, c1, c2 = (torch.randn(c, generator=g).mul(s).to(DEVICE) for s in (1.0, 0.1, 0.05))
+    return a, sgn, cot, c0, c1, c2
+
+
+def check_block0_train(x: torch.Tensor, seed: int, c: int, dt) -> tuple[list, dict]:
+    """B4 and B5 on ``x`` against their plain versions: a_sel 0 ulps (bf16)
+    or equal (f32), the count equal, stats, dW and db to TRAIN_REL_TOL."""
+    B, T = x.shape[0], x.shape[1]
+    w, b, sgn, cot, c0, c1, c2 = block0_train_inputs(seed, B, T, c)
+    got = conv_block0_train(x, w, b, sgn, 4, dt, dt)
+    want = conv_block0_train_reference(x, w, b, sgn, 4, dt, dt)
+    checks = [check_exact("conv_block0_train", got[0], want[0], (B, T // 4, c))]
+    checks += [check_rel("conv_block0_train", g_, w_, TRAIN_REL_TOL)
+               for g_, w_ in zip(got[1:3], want[1:3])]
+    if not torch.equal(got[3], want[3]):
+        raise AssertionError("conv_block0_train: #(a > 0) differs from the plain version")
+    dw, db = conv_block0_train_bwd(x, w, b, sgn, cot, c0, c1, c2, 4, dt)
+    want_dw, want_db = conv_block0_train_bwd_reference(x, w, b, sgn, cot, c0, c1, c2, 4, dt)
+    checks += [check_rel("conv_block0_train_bwd", dw, want_dw, TRAIN_REL_TOL),
+               check_rel("conv_block0_train_bwd", db, want_db, TRAIN_REL_TOL)]
+    errors = {"conv_block0_train": max(checks[0]["max_abs_err"], checks[1]["max_abs_err"],
+                                       checks[2]["max_abs_err"]),
+              "conv_block0_train_bwd": max(checks[3]["max_abs_err"], checks[4]["max_abs_err"])}
+    return checks, errors
+
+
+def check_routing(seed: int, B: int, c: int, T: int, pool: int, dt) -> tuple[list, dict]:
+    """B7 forward and backward against their plain versions: a_sel and dz
+    0 ulps (bf16) or equal (f32), stats and db to TRAIN_REL_TOL."""
+    a, sgn, cot, c0, c1, c2 = routing_inputs(seed, B, c, T, pool, dt)
+    sel, s1, s2 = pool_fwd(a, sgn, pool, dt)
+    want = pool_fwd_reference(a, sgn, pool, dt)
+    checks = [check_exact("pool_fwd", sel, want[0], (B, c, T // pool)),
+              check_rel("pool_fwd", s1, want[1], TRAIN_REL_TOL),
+              check_rel("pool_fwd", s2, want[2], TRAIN_REL_TOL)]
+    dz, db = route_bwd(a, sel, cot, c0, c1, c2, pool, dt)
+    want_dz, want_db = route_bwd_reference(a, sel, cot, c0, c1, c2, pool, dt)
+    checks += [check_exact("route_bwd", dz, want_dz, (B, c, T)),
+               check_rel("route_bwd", db, want_db, TRAIN_REL_TOL)]
+    errors = {"pool_fwd": max(ch["max_abs_err"] for ch in checks[:3]),
+              "route_bwd": max(ch["max_abs_err"] for ch in checks[3:])}
+    return checks, errors
+
+
+def check_train_kernels(store, idx, offsets) -> dict:
+    """B4/B5 at the train step's shape and at edges (B=3 with T/4 = 250, not
+    a multiple of the 128-output tile; f32 at C=72); B7 at the three block
+    shapes of the train step and at an odd C, bf16 and f32."""
+    x = gather_whiten(store, idx[:TRAIN_BATCH], offsets[:TRAIN_BATCH], FRAG)[..., None]
+    checks, errors = check_block0_train(x, 10, TRAIN_C0, torch.bfloat16)
+    del x
+    g = torch.Generator().manual_seed(11)
+    for B, T, c, dt in ((3, 1000, TRAIN_C0, torch.bfloat16), (2, 4100, 72, torch.float32)):
+        xe = (torch.randn(B, T, 1, generator=g) * 0.05).to(DEVICE)
+        checks += check_block0_train(xe, B + T, c, dt)[0]
+    for i, (c, T) in enumerate(TRAIN_BLOCKS):
+        ch, err = check_routing(20 + i, TRAIN_BATCH, c, T, 2, torch.bfloat16)
+        checks += ch
+        for k, v in err.items():
+            errors[k] = max(errors.get(k, 0.0), v)
+    for B, c, T, pool, dt in ((5, 67, 250, 2, torch.bfloat16), (3, 67, 1000, 4, torch.float32)):
+        checks += check_routing(B + c, B, c, T, pool, dt)[0]
+    emit({"phase": "train_kernels", "checks": checks})
+    return {"errors": errors}
+
+
+@contextlib.contextmanager
+def evaluation_launches():
+    """Count the kernel launches made inside ``nshot.evaluate`` apart."""
+    counts = {name: 0 for name in KERNELS}
+    real = nshot.evaluate
+
+    def counted(*args, **kw):
+        before = read_counts()
+        out = real(*args, **kw)
+        after = read_counts()
+        for name in counts:
+            counts[name] += after[name] - before[name]
+        return out
+
+    nshot.evaluate = counted
+    try:
+        yield counts
+    finally:
+        nshot.evaluate = real
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The train path with every train kernel replaced by its plain version."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in PLAIN]
+    for mod, name, plain in PLAIN:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def compare_plain_step(cfg, host, store, seed: int) -> dict:
+    """One train step from fixed weights and a fixed batch, through the
+    kernels and through their plain versions: the loss to STEP_LOSS_RTOL,
+    every parameter's gradient to a cosine of STEP_MIN_COSINE."""
+    n = len(host.label_names)
+    model = SpeakerClassifier(cfg.encoder, n, device=DEVICE)
+    model.load_state_dict(from_flax(random_flax_variables(cfg.encoder, n, seed), cfg.encoder))
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    idx = sampling.sample_classifier_batch(gen, store.labels.shape[0], TRAIN_BATCH, DEVICE)
+    x, y = fetch_batch(store, idx, cfg, gen), store.labels[idx]
+    runs = []
+    for plain in (False, True):
+        model.load_state_dict(snapshot)
+        state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
+        loss_fn = steps.classifier_loss_fn(model, cfg)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            _, m = steps.train_on_batch(state, x, y, torch.Generator(device=DEVICE)
+                                        .manual_seed(seed + 1), loss_fn)
+            loss = float(m["loss"])
+        runs.append((loss, {k: p.grad.detach().double().flatten().clone()
+                            for k, p in model.named_parameters()}))
+    (loss_k, grads_k), (loss_p, grads_p) = runs
+    cos = {k: float(torch.nn.functional.cosine_similarity(grads_k[k], grads_p[k], dim=0))
+           for k in grads_k}
+    worst = min(cos, key=cos.get)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    if not (rel <= STEP_LOSS_RTOL and cos[worst] >= STEP_MIN_COSINE):
+        raise AssertionError(f"kernel step against plain step: loss {loss_k} vs {loss_p}, "
+                             f"min cosine {cos[worst]} at {worst}")
+    return {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_rel_diff": rel,
+            "loss_rtol": STEP_LOSS_RTOL, "min_grad_cosine": cos[worst], "min_at": worst,
+            "cosine_tolerance": STEP_MIN_COSINE}
+
+
+def run_train_slice(sliced: dict, seed: int) -> dict:
+    """``fit`` at full config #1 width, TRAIN_STEPS steps at batch 32, then
+    one n-shot evaluation; the train launches are the counts read around
+    ``fit`` less the evaluation's own."""
+    host = sliced["host"]
+    base = classifier_baseline()
+    cfg = base.replace(train=dataclasses.replace(
+        base.train, batch_size=TRAIN_BATCH, num_steps=TRAIN_STEPS, evaluate_every=TRAIN_STEPS,
+        num_eval_tasks=500, seed=seed))
+    losses, accs = [], []
+
+    def on_step(i, m):
+        losses.append(m["loss"])
+        accs.append(m["accuracy"])
+
+    reset_counts()
+    with evaluation_launches() as eval_counts:
+        t0 = time.perf_counter()
+        state, history = fit(cfg, host, device=DEVICE, verbose=False, on_step=on_step)
+        total = read_counts()
+        seconds = time.perf_counter() - t0
+    train = {k: total[k] - eval_counts[k] for k in total}
+    S = TRAIN_STEPS
+    want = {name: 0 for name in KERNELS}
+    want.update(gather_whiten=S, conv_block0_train=S, conv_block0_train_bwd=S,
+                pool_fwd=3 * S, route_bwd=3 * S)
+    if train != want:
+        raise AssertionError(f"train launches {train}, want {want} (per step: B1 1, B4 1, "
+                             f"B5 1, B7 3 + 3)")
+    if eval_counts["gather_whiten"] == 0 or eval_counts["conv_block0"] == 0:
+        raise AssertionError(f"evaluation launches {eval_counts}: want B1 and B2")
+    loss = torch.stack(losses).float().cpu()
+    acc = torch.stack(accs).float().cpu()
+    if not bool(torch.isfinite(loss).all()):
+        raise AssertionError(f"non-finite train loss: {loss.tolist()}")
+    first, last = float(loss[:5].mean()), float(loss[-5:].mean())
+    if not last < first:
+        raise AssertionError(f"train loss did not fall: first 5 {first}, last 5 {last}")
+    val_acc = history[-1]["val_1-shot_acc"]
+    if not (bool(((acc >= 0) & (acc <= 1)).all()) and 0.0 <= val_acc <= 1.0):
+        raise AssertionError(f"accuracy outside [0, 1]: {acc.tolist()}, val {val_acc}")
+    store = device_store_for(cfg, host, DEVICE)
+    plain = compare_plain_step(cfg, host, store, seed)
+    emit({"phase": "train_slice", "config": "classifier_baseline", "dtype": "bfloat16",
+          "batch": TRAIN_BATCH, "steps": S, "speakers": len(host.label_names),
+          "launches": train, "eval_launches": eval_counts,
+          "loss_first5_mean": first, "loss_last5_mean": last, "losses": loss.tolist(),
+          "final_record": history[-1], "seconds": seconds, "plain_step": plain})
+    return {"launches": train, "cfg": cfg, "store": store, "host": host}
+
+
+def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -> dict:
+    """B4, B5 and B7 at the train step's shapes beside bounds, plain
+    versions and (B5) a library call; the train step at each batch of
+    TRAIN_TIMING_BATCHES under both blocks-1+ policies."""
+    B, T, c = TRAIN_BATCH, FRAG, TRAIN_C0
+    x = gather_whiten(store, idx[:B], offsets[:B], FRAG)[..., None]
+    w, b, sgn, cot, c0, c1, c2 = block0_train_inputs(30, B, T, c)
+    fwd, bwd = (x, w, b, sgn), (x, w, b, sgn, cot, c0, c1, c2)
+    ms = {"conv_block0_train": time_fn(conv_block0_train, *fwd, iters=50)["mean_s"] * 1e3,
+          "conv_block0_train_bwd": time_fn(conv_block0_train_bwd, *bwd,
+                                           iters=50)["mean_s"] * 1e3}
+    plain_ms = {
+        "conv_block0_train": time_fn(conv_block0_train_reference, *fwd, iters=3,
+                                     warmup=1)["mean_s"] * 1e3,
+        "conv_block0_train_bwd": time_fn(conv_block0_train_bwd_reference, *bwd, iters=3,
+                                         warmup=1)["mean_s"] * 1e3}
+    conv_ops = 2.0 * B * T * c * 32
+    pooled = B * (T // 4) * c
+    bounds = {"conv_block0_train": bound(B * T * 4 + 32 * c * 4 + pooled * 2 + 3 * c * 4,
+                                         conv_ops, BF16_OPS_PER_S),
+              "conv_block0_train_bwd": bound(B * T * 4 + 32 * c * 4 + pooled * 4 + 33 * c * 4,
+                                             2 * conv_ops, BF16_OPS_PER_S)}
+    # Library yardstick for B5: cuDNN's weight gradient of the same conv from a
+    # materialized full-rate dz, GEMM only (no recompute, routing or db).
+    dz = torch.randn(B, c, T, device=DEVICE).to(torch.bfloat16)
+    xp = torch.nn.functional.pad(x[..., 0].to(torch.bfloat16)[:, None, :], (15, 16))
+    library_ms = {"conv_block0_train": None, "pool_fwd": None, "route_bwd": None,
+                  "conv_block0_train_bwd": time_fn(torch.nn.grad.conv1d_weight, xp, (c, 1, 32),
+                                                   dz, iters=20)["mean_s"] * 1e3}
+    del dz, xp, x
+    blocks = []
+    for i, (cb, tb) in enumerate(TRAIN_BLOCKS):
+        a, sg, g, k0, k1, k2 = routing_inputs(40 + i, B, cb, tb, 2, torch.bfloat16)
+        sel = pool_fwd(a, sg, 2)[0]
+        full, half = B * cb * tb, B * cb * (tb // 2)
+        row = {"C": cb, "T": tb,
+               "pool_fwd_ms": time_fn(pool_fwd, a, sg, 2, iters=50)["mean_s"] * 1e3,
+               "route_bwd_ms": time_fn(route_bwd, a, sel, g, k0, k1, k2, 2,
+                                       iters=50)["mean_s"] * 1e3,
+               "pool_fwd_plain_ms": time_fn(pool_fwd_reference, a, sg, 2, iters=3,
+                                            warmup=1)["mean_s"] * 1e3,
+               "route_bwd_plain_ms": time_fn(route_bwd_reference, a, sel, g, k0, k1, k2, 2,
+                                             iters=3, warmup=1)["mean_s"] * 1e3,
+               "pool_fwd_bound": bound(full * 2 + half * 2 + 3 * cb * 4, 3.0 * full,
+                                       BF16_OPS_PER_S),
+               "route_bwd_bound": bound(full * 2 + half * 2 + half * 4 + full * 2 + 4 * cb * 4,
+                                        6.0 * full, BF16_OPS_PER_S)}
+        blocks.append(row)
+        del a, sel, g
+    for name in ("pool_fwd", "route_bwd"):
+        ms[name] = sum(r[f"{name}_ms"] for r in blocks)
+        plain_ms[name] = sum(r[f"{name}_plain_ms"] for r in blocks)
+        bounds[name] = {"bound_ms": sum(r[f"{name}_bound"]["bound_ms"] for r in blocks),
+                        "bound_by": "bytes"}
+
+    host, base = trained["host"], trained["cfg"]
+    dstore = trained["store"]
+    # Each batch size in turns, jnp, fused, fused, jnp: a drift of the card or
+    # the host over the run weighs on both policies alike.
+    step_rows = []
+    for bt in TRAIN_TIMING_BATCHES:
+        for blockn in ("jnp", "fused", "fused", "jnp"):
+            cfg = base.replace(train=dataclasses.replace(
+                base.train, batch_size=bt, use_fused_blockn=blockn == "fused"))
+            model = init_model(cfg, len(host.label_names), DEVICE, seed)
+            state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
+            step, loss_fn = steps.make_classifier_train_step(model, cfg)
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            r = time_fn(step, state, dstore, gen, iters=20 if bt <= 256 else 5, warmup=2)
+            step_rows.append({"batch": bt, "blockn": blockn, "fused_block0": loss_fn.fused_block0,
+                              "step_ms": r["mean_s"] * 1e3, "step_p50_ms": r["p50_s"] * 1e3,
+                              "utt_per_s": bt / r["mean_s"],
+                              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+            del model, state, step, loss_fn
+    torch.cuda.empty_cache()
+    summary = []
+    for bt in TRAIN_TIMING_BATCHES:
+        for blockn in ("jnp", "fused"):
+            turns = [r for r in step_rows if (r["batch"], r["blockn"]) == (bt, blockn)]
+            step_ms = sum(r["step_ms"] for r in turns) / len(turns)
+            summary.append({"batch": bt, "blockn": blockn, "step_ms": step_ms,
+                            "turns_ms": [r["step_ms"] for r in turns],
+                            "utt_per_s": bt / step_ms * 1e3,
+                            "peak_mem_gb": max(r["peak_mem_gb"] for r in turns)})
+    emit({"phase": "train_timing", "card": card, "kernel_ms": ms, "plain_ms": plain_ms,
+          "bound": bounds, "library_ms": library_ms,
+          "library": {"conv_block0_train_bwd": "torch.nn.grad.conv1d_weight on a "
+                      "materialized bf16 (B, C, T) dz, GEMM only"},
+          "routing_blocks": blocks, "train_step_turns": step_rows,
+          "train_step": summary})
+    return {"ms": ms, "plain_ms": plain_ms, "bounds": bounds, "library_ms": library_ms}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -640,19 +1008,31 @@ def main(argv=None) -> int:
     store, idx, offsets = bench_store(args.seed)
     params = block0_params(args.seed)
     checked = check_kernels(store, idx, offsets, params)
+    checked_train = check_train_kernels(store, idx, offsets)
     sliced = run_slice(args.seed)
     sliced_int8 = run_int8_slice(sliced, args.seed)
     gate = run_fidelity_gate(store, offsets, sliced["model"], args.seed)
+    trained = run_train_slice(sliced, args.seed)
     times = run_timing(store, idx, offsets, params, checked["s0"], sliced["model"],
                        sliced["cfg"], gate["qvars"], args.seed, card)
+    train_times = run_train_timing(store, idx, offsets, trained, args.seed, card)
+    for key in ("ms", "plain_ms", "bounds", "library_ms"):
+        times[key].update(train_times[key])
+    checked["errors"].update(checked_train["errors"])
 
-    # Each entry's launches: the counts of the path runs above (phases slice
-    # and int8_slice), set to 0 just before each run and read just after.
-    paths = {"bf16": sliced["launches"], "int8": sliced_int8["launches"]}
-    entries = (("gather_whiten", "gather_whiten", ("bf16", "int8")),
+    # Each entry's launches: the counts of the path runs above (phases slice,
+    # int8_slice and train_slice), set to 0 just before each run and read
+    # just after.
+    paths = {"bf16": sliced["launches"], "int8": sliced_int8["launches"],
+             "train": trained["launches"]}
+    entries = (("gather_whiten", "gather_whiten", ("bf16", "int8", "train")),
                ("conv_block0", "conv_block0", ("bf16",)),
                ("conv_block0_int8", "conv_block0", ("int8",)),
-               ("quant_block", "quant_block", ("int8",)))
+               ("quant_block", "quant_block", ("int8",)),
+               ("conv_block0_train", "conv_block0_train", ("train",)),
+               ("conv_block0_train_bwd", "conv_block0_train_bwd", ("train",)),
+               ("pool_fwd", "pool_fwd", ("train",)),
+               ("route_bwd", "route_bwd", ("train",)))
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[kernel][1],

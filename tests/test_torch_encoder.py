@@ -124,10 +124,25 @@ def test_convert_layouts():
     assert model.blocks[0].bn.eps == cfg.bn_epsilon == 1e-3  # not torch's 1e-5
 
 
-def test_train_mode_refuses_to_run():
-    model = ConvEncoder(cfg_for("float32"), device="cpu").train()
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 64, 1))
+def test_train_mode_runs_and_matches_flax():
+    """Train mode (batch statistics, flax's running-stats update) against
+    flax ``apply(train=True, mutable=["batch_stats"])`` at f32, dropout 0:
+    the output and the updated running statistics within 1e-4."""
+    cfg = EncoderConfig(filters=8, embedding_dim=16, compute_dtype="float32", dropout=0.0)
+    x = inputs(9)
+    jmodel = JaxEncoder(jax_config(cfg))
+    variables = randomize_bn(jmodel.init(jax.random.PRNGKey(10), jnp.asarray(x)), 11)
+    want, mut = jmodel.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    model = ConvEncoder(cfg, device="cpu")
+    model.load_state_dict(from_flax(variables, cfg))
+    model.train()
+    got = model(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
+    stats = mut["batch_stats"]
+    for i, blk in enumerate(model.blocks):
+        for buf, key in ((blk.bn.running_mean, "mean"), (blk.bn.running_var, "var")):
+            np.testing.assert_allclose(buf.numpy(), np.asarray(stats[f"block_{i}"]["bn"][key]),
+                                       rtol=F32_TOL, atol=F32_TOL, err_msg=f"block_{i} {key}")
 
 
 def test_smoke_tree_has_flax_shapes():

@@ -40,6 +40,15 @@ def test_every_module_imports_with_jax_flax_pandas_blocked():
     assert "imported" in proc.stdout
 
 
+def test_the_train_modules_are_covered():
+    """The import test above reaches every module of the training port."""
+    modules = set(_modules())
+    for name in ("train.losses", "train.state", "train.metrics", "train.checkpoints",
+                 "train.loop", "train.steps", "models.fused_train", "ops.conv_train",
+                 "ops.cuda_conv_train", "ops.cuda_routing"):
+        assert f"voicemap_tpu_torch.{name}" in modules, name
+
+
 def test_no_jax_flax_pandas_import_in_the_port():
     banned = re.compile(r"^\s*(import|from)\s+(jax|flax|pandas|voicemap_tpu)\b", re.M)
     offenders = [str(p.relative_to(REPO)) for p in SOURCES if banned.search(p.read_text())]
@@ -71,3 +80,12 @@ def test_timing_refuses_to_time_the_cpu():
         time_fn(lambda: None)
     with pytest.raises(RuntimeError):
         throughput(lambda: None, items_per_call=1)
+
+
+def test_profilers_refuse_to_run_without_a_gpu():
+    from voicemap_tpu_torch.utils import stage_profile, train_profile
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert train_profile.main([]) == 1
+    assert stage_profile.main([]) == 1

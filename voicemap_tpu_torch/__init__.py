@@ -7,14 +7,18 @@ where its counterpart does:
 - :mod:`voicemap_tpu_torch.config` — a copy of the JAX package's dataclass
   configs and presets
 - :mod:`voicemap_tpu_torch.data` — the pandas-free corpus container
-- :mod:`voicemap_tpu_torch.ops` — preprocess, sampling, distances and the
+- :mod:`voicemap_tpu_torch.ops` — preprocess, sampling, distances, the
   hand-written CUDA kernels (``cuda_preprocess``, ``cuda_conv``,
-  ``cuda_quant_block``)
-- :mod:`voicemap_tpu_torch.models` — conv encoder, classifier, fast inference,
-  int8 serving (``quant_infer``), flax-tree and qvars converters
-- :mod:`voicemap_tpu_torch.train` — the device store and batch fetch
+  ``cuda_quant_block``, ``cuda_conv_train``, ``cuda_routing``) and the fused
+  train blocks' autograd Functions (``conv_train``)
+- :mod:`voicemap_tpu_torch.models` — conv encoder (eval and train mode),
+  classifier, fast inference, the fused train forward, int8 serving
+  (``quant_infer``), flax-tree and qvars converters
+- :mod:`voicemap_tpu_torch.train` — the device store, batch fetch, the
+  classifier train step, losses, optimizer, metrics, checkpoints and ``fit``
 - :mod:`voicemap_tpu_torch.eval` — batched n-shot k-way evaluation
-- :mod:`voicemap_tpu_torch.utils` — CUDA-event timing
+- :mod:`voicemap_tpu_torch.utils` — CUDA-event timing and the serving and
+  train-step profilers
 
 Public functions keep the JAX layout: ``(B, T, C)`` activations, ``(B, T, 1)``
 model input, ``(B, D)`` float32 embeddings. Models are built on the card

@@ -43,6 +43,14 @@ SIGNATURES = {
     "vm_conv_block0": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, w, aff, out, B, T, Cin, Cout, out_kind, stream
     "vm_quant_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, bias, sgn, sel, part, stats, B, T, C, n_ctas, gemm_bf16, sel_bf16, stream
+    "vm_block0_train_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, bias, sgn, g, cc, part, out, B, T, C, n_ctas, gemm_bf16, stream
+    "vm_block0_train_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # a, sgn, sel, part, stats, B, C, T, pool, a_bf16, sel_bf16, stream
+    "vm_pool_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # a, a_sel, g, cc, dz, part, db, B, C, T, pool, a_bf16, out_bf16, stream
+    "vm_route_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

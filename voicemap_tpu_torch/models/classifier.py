@@ -1,9 +1,9 @@
-"""Softmax speaker classifier head over the conv encoder (inference).
+"""Softmax speaker classifier head over the conv encoder.
 
 Port of ``voicemap_tpu/models/classifier.py``: encoder + Dense(num_classes)
-emitting logits, and ``embed()``, the penultimate-layer embedding that
-classifier-mode n-shot evaluation reads. Built on the card unless ``device``
-says otherwise.
+emitting logits, in eval or train mode (the encoder's train semantics), and
+``embed()``, the penultimate-layer embedding that classifier-mode n-shot
+evaluation reads. Built on the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -25,10 +25,14 @@ class SpeakerClassifier(nn.Module):
                               dtype=DTYPES[cfg.param_dtype])
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, T, 1)`` → ``(B, num_classes)`` float32 logits."""
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """``(B, T, 1)`` → ``(B, num_classes)`` float32 logits; in train mode
+        ``generator`` draws the dropout masks."""
+        return self.logits(self.encoder(x, generator))
+
+    def logits(self, emb: torch.Tensor) -> torch.Tensor:
+        """The head on ``(B, D)`` f32 embeddings, in the compute dtype → f32."""
         cdt = self.encoder.compute_dtype
-        emb = self.encoder(x)
         return F.linear(emb.to(cdt), self.head.weight.to(cdt),
                         self.head.bias.to(cdt)).float()
 

@@ -10,6 +10,10 @@ Maps the JAX package's parameters onto :class:`ConvEncoder` and
 
 Takes either the classifier's tree (``params/encoder/block_i/...``,
 ``params/encoder/embed``, ``params/head``) or the bare encoder's.
+``to_flax`` is the inverse: a ``state_dict``, or a dict of gradients keyed by
+parameter name, back to the flax tree as numpy arrays, so the tests can hold
+the port's gradients, updated parameters and batch statistics against the
+JAX package's leaf by leaf.
 ``qvars_from_numpy`` maps an int8 serving artifact of the JAX package
 (``models/quant_infer.quantize_encoder``) onto the port's tensors; the layout
 is the same in both packages. Leaves may be numpy arrays or anything
@@ -76,4 +80,44 @@ def qvars_from_numpy(qvars: dict, device="cuda") -> dict:
                       for b in qvars["blocks"]]}
     if "kind" in qvars:
         out["kind"] = str(qvars["kind"])
+    return out
+
+
+def _n(t, transpose=None) -> np.ndarray:
+    a = t.detach().float().cpu().numpy()
+    return np.ascontiguousarray(a.transpose(transpose)) if transpose else a
+
+
+def _encoder_tree(sd: dict, cfg: EncoderConfig, prefix: str) -> tuple[dict, dict]:
+    params, stats = {}, {}
+    for i in range(len(cfg.filter_multipliers)):
+        pre = f"{prefix}blocks.{i}."
+        params[f"block_{i}"] = {
+            "conv": {"kernel": _n(sd[pre + "conv.weight"], (2, 1, 0)),
+                     "bias": _n(sd[pre + "conv.bias"])},
+            "bn": {"scale": _n(sd[pre + "bn.weight"]), "bias": _n(sd[pre + "bn.bias"])},
+        }
+        if pre + "bn.running_mean" in sd:
+            stats[f"block_{i}"] = {"bn": {"mean": _n(sd[pre + "bn.running_mean"]),
+                                          "var": _n(sd[pre + "bn.running_var"])}}
+    params["embed"] = {"kernel": _n(sd[prefix + "embed.weight"], (1, 0)),
+                       "bias": _n(sd[prefix + "embed.bias"])}
+    return params, stats
+
+
+def to_flax(sd: Dict[str, torch.Tensor], cfg: EncoderConfig) -> dict:
+    """A ``state_dict`` (or ``{name: grad}``) → ``{"params": ...}`` in flax's
+    layout, with ``"batch_stats"`` when the running statistics are there.
+    The inverse of :func:`from_flax`."""
+    if not any(k.startswith("encoder.") for k in sd):
+        params, stats = _encoder_tree(sd, cfg, "")
+    else:
+        enc, enc_stats = _encoder_tree(sd, cfg, "encoder.")
+        params, stats = {"encoder": enc}, {"encoder": enc_stats}
+        if "head.weight" in sd:
+            params["head"] = {"kernel": _n(sd["head.weight"], (1, 0)),
+                              "bias": _n(sd["head.bias"])}
+    out = {"params": params}
+    if any(k.endswith("running_mean") for k in sd):
+        out["batch_stats"] = stats
     return out

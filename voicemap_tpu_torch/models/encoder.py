@@ -1,4 +1,4 @@
-"""1D-convolutional waveform encoder (inference).
+"""1D-convolutional waveform encoder.
 
 Port of ``voicemap_tpu/models/encoder.py``:
 
@@ -11,13 +11,19 @@ BatchNorm in f32. Input ``(B, T, 1)`` float32, output ``(B, D)`` float32.
 Inside, activations run channel-first ``(B, C, T)``, as ``F.conv1d`` takes
 them.
 
+In eval mode BatchNorm uses its running statistics and dropout is the
+identity. In train mode each block follows flax's ``ConvBlock`` as the JAX
+package's fused train forward writes it (``models/fused_train.py ::
+_jnp_block_train``): BatchNorm statistics in f32 with the biased variance
+``max(E[a²] − E[a]², 0)``, the normalisation folded to a per-channel affine
+in the compute dtype, and the running statistics updated in place as
+``m·old + (1 − m)·new`` with flax's ``m = bn_momentum`` (0.99, the fraction
+kept; torch's BatchNorm update, with its momentum 0.1 and unbiased variance,
+is never used). SpatialDropout1D drops whole channels, one Bernoulli draw a
+(row, channel), from the ``generator`` the caller passes.
+
 Modules are built on the card (``device="cuda"``) unless the caller asks for
 another device, as the CPU tests do.
-
-This slice is inference only: BatchNorm uses its running statistics, dropout
-is the identity, and a module in train mode refuses to run. The train-mode
-semantics (BatchNorm momentum and biased variance as flax has them, channel
-dropout) come with the training port.
 """
 
 from __future__ import annotations
@@ -31,21 +37,30 @@ from ..config import EncoderConfig
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
-def _check_eval(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: only the inference forward is ported; "
-            "call .eval()")
+def spatial_dropout(y: torch.Tensor, rate: float, generator, channel_dim: int = 1
+                    ) -> torch.Tensor:
+    """SpatialDropout1D: keep each (row, channel) with probability 1 − rate,
+    over all of time, and scale what is kept by 1 / (1 − rate)."""
+    if rate <= 0.0:
+        return y
+    if generator is None:
+        raise ValueError("a torch.Generator is required when dropout > 0")
+    keep = 1.0 - rate
+    shape = [y.shape[0], 1, 1]
+    shape[channel_dim] = y.shape[channel_dim]
+    mask = torch.empty(shape, device=generator.device).bernoulli_(keep, generator=generator)
+    return torch.where(mask.to(y.device).bool(), y / keep, 0.0).to(y.dtype)
 
 
 class ConvBlock(nn.Module):
-    """Conv(SAME) → relu → BatchNorm(running stats) → max-pool."""
+    """Conv(SAME) → relu → BatchNorm → SpatialDropout → max-pool."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
                  pool_size: int, dilation: int = 1,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32,
-                 bn_epsilon: float = 1e-3, device="cuda"):
+                 bn_epsilon: float = 1e-3, device="cuda", dropout: float = 0.0,
+                 bn_momentum: float = 0.99):
         super().__init__()
         self.conv = nn.Conv1d(in_channels, features, kernel_size, dilation=dilation,
                               device=device, dtype=param_dtype)
@@ -54,25 +69,59 @@ class ConvBlock(nn.Module):
                                  dtype=torch.float32)
         self.pool_size = pool_size
         self.compute_dtype = compute_dtype
+        self.dropout = dropout
+        self.bn_momentum = bn_momentum
         self.eval()
 
-    def forward_nct(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, Cin, T)`` → ``(B, C, T // pool)`` in the compute dtype."""
-        _check_eval(self)
-        cdt = self.compute_dtype
+    def _pad(self, x: torch.Tensor) -> torch.Tensor:
         reach = self.conv.dilation[0] * (self.conv.kernel_size[0] - 1)
         # XLA's SAME: the odd one of an even reach goes on the right.
-        x = F.pad(x.to(cdt), (reach // 2, reach - reach // 2))
-        y = F.conv1d(x, self.conv.weight.to(cdt), self.conv.bias.to(cdt),
-                     dilation=self.conv.dilation[0])
-        y = self.bn(torch.relu(y).float()).to(cdt)
+        return F.pad(x, (reach // 2, reach - reach // 2))
+
+    def _pool(self, y: torch.Tensor) -> torch.Tensor:
         if self.pool_size > 1:
             y = F.max_pool1d(y, self.pool_size, self.pool_size)  # floor
         return y
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @torch.no_grad()
+    def update_running_stats(self, mu: torch.Tensor, var: torch.Tensor) -> None:
+        """flax's update, in place: ``m·old + (1 − m)·batch``."""
+        m = self.bn_momentum
+        for buf, new in ((self.bn.running_mean, mu), (self.bn.running_var, var)):
+            buf.copy_(m * buf + (1.0 - m) * new.detach())
+
+    def forward_nct(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """``(B, Cin, T)`` → ``(B, C, T // pool)`` in the compute dtype; in
+        train mode with batch statistics, dropout and the running-stats update."""
+        if self.training:
+            return self.forward_train_nct(x, generator)
+        cdt = self.compute_dtype
+        y = F.conv1d(self._pad(x.to(cdt)), self.conv.weight.to(cdt), self.conv.bias.to(cdt),
+                     dilation=self.conv.dilation[0])
+        y = self.bn(torch.relu(y).float()).to(cdt)
+        return self._pool(y)
+
+    def forward_train_nct(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """Train mode (``_jnp_block_train``): the conv and bias in the compute
+        dtype, BatchNorm's batch statistics in f32, its affine in the compute
+        dtype; updates the running statistics in place."""
+        cdt = self.compute_dtype
+        z = F.conv1d(self._pad(x.to(cdt)), self.conv.weight.to(cdt),
+                     dilation=self.conv.dilation[0]) + self.conv.bias.to(cdt)[:, None]
+        a = torch.relu(z)
+        af = a.float()
+        mu = af.mean((0, 2))
+        var = torch.clamp((af * af).mean((0, 2)) - mu * mu, min=0.0)
+        mul = self.bn.weight * torch.rsqrt(var + self.bn.eps)
+        add = self.bn.bias - mu * mul
+        y = a * mul.to(cdt)[:, None] + add.to(cdt)[:, None]
+        y = spatial_dropout(y, self.dropout, generator)
+        self.update_running_stats(mu, var)
+        return self._pool(y)
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         """``(B, T, Cin)`` → ``(B, T // pool, C)``."""
-        return self.forward_nct(x.transpose(1, 2)).transpose(1, 2)
+        return self.forward_nct(x.transpose(1, 2), generator).transpose(1, 2)
 
 
 class ConvEncoder(nn.Module):
@@ -88,7 +137,7 @@ class ConvEncoder(nn.Module):
         for mult, k, p, dil in zip(cfg.filter_multipliers, cfg.kernel_sizes,
                                    cfg.pool_sizes, cfg.dilations):
             blocks.append(ConvBlock(cin, cfg.filters * mult, k, p, dil, cdt, pdt,
-                                    cfg.bn_epsilon, device))
+                                    cfg.bn_epsilon, device, cfg.dropout, cfg.bn_momentum))
             cin = cfg.filters * mult
         self.blocks = nn.ModuleList(blocks)
         self.embed = nn.Linear(cin, cfg.embedding_dim, device=device, dtype=pdt)
@@ -97,14 +146,14 @@ class ConvEncoder(nn.Module):
 
     def pool_and_embed(self, h: torch.Tensor) -> torch.Tensor:
         """Global max over time of ``(B, C, T)``, then the Dense → ``(B, D)`` f32."""
-        _check_eval(self)
         cdt = self.compute_dtype
         h = h.amax(dim=2)
         return F.linear(h.to(cdt), self.embed.weight.to(cdt),
                         self.embed.bias.to(cdt)).float()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """In train mode ``generator`` draws the dropout masks, block by block."""
         h = x.to(self.compute_dtype).transpose(1, 2)
         for blk in self.blocks:
-            h = blk.forward_nct(h)
+            h = blk.forward_nct(h, generator)
         return self.pool_and_embed(h)

@@ -1,10 +1,11 @@
-"""n-shot task sampler.
+"""Batch and n-shot task samplers.
 
-Port of ``voicemap_tpu/ops/sampling.py :: sample_nshot_tasks`` on an explicit
-``torch.Generator``. It keeps the reference's invariants: k distinct speakers
-a task, n distinct support utterances each, one more distinct query utterance
-of class 0, the true class. A torch generator cannot replay the JAX package's
-threefry stream, so the same seed draws other tasks there.
+Port of ``voicemap_tpu/ops/sampling.py :: sample_classifier_batch`` and
+``sample_nshot_tasks`` on an explicit ``torch.Generator``. The task sampler
+keeps the reference's invariants: k distinct speakers a task, n distinct
+support utterances each, one more distinct query utterance of class 0, the
+true class. A torch generator cannot replay the JAX package's threefry
+stream, so the same seed draws other batches and tasks there.
 """
 
 from __future__ import annotations
@@ -12,6 +13,15 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+
+def sample_classifier_batch(generator: Optional[torch.Generator], num_utterances: int,
+                            batch_size: int, device=None) -> torch.Tensor:
+    """``batch_size`` uniform utterance ids in ``[0, num_utterances)``, int64,
+    drawn on the generator's device and moved to ``device``."""
+    gdev = generator.device if generator is not None else device
+    idx = torch.randint(0, num_utterances, (batch_size,), generator=generator, device=gdev)
+    return idx.to(device) if device is not None else idx
 
 
 class NShotTasks(NamedTuple):

@@ -127,7 +127,8 @@ def profile(stages, batches: int = 3) -> dict:
             by_kernel[e.key[:80]] = t / 1e3 / batches
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15])
     return {"window_ms_per_batch": window / 1e3 / batches,
-            "idle_share": 1.0 - busy / window, "device_ms_by_op_per_batch": top}
+            "idle_share": 1.0 - busy / window, "device_events_per_batch": len(spans) / batches,
+            "device_ms_by_op_per_batch": top}
 
 
 def main(argv=None) -> int:
