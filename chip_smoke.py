@@ -40,7 +40,25 @@ Each phase prints one JSON line; nothing here imports JAX.
 9. train timing — B4, B5 and B7 beside their bounds, plain versions and
    (B5) a library weight-gradient conv at the train step's shapes; the train
    step's ms and utt/s at B=32 and B=2048 under both blocks-1+ policies, in
-   turns (jnp, fused, fused, jnp), and peak memory.
+   turns (jnp, fused, fused, jnp), and peak memory;
+10. mel kernels — config #4's: B1 at downsampling 1, frag 48000, over the
+    bench store undecimated; B6 against its plain version on 256 whitened
+    48000-sample fragments at config #4's geometry and at edge shapes (the
+    librosa hop 160 / win 400, n_mels 32, B = 1 and 5, T = 47999, one frame);
+11. mel slice — config #4 (``melspec_2d``: log-mel + 2D CNN, filters 128,
+    embedding 64, 3 s at 16 kHz, downsampling 1) at full width from a
+    flax-layout tree, the same 500 tasks over the same store in bf16 (B1 →
+    B6 → cuDNN 2D convs), launch counters around the run, its table held
+    against the plain-version path;
+12. mel int8 slice — ``quantize_from_store``, the same 500 tasks with the
+    mel qvars (B1 → B6 → int8 patch-matrix convs), launch counters around
+    the run, the table held against the plain-version int8 path; the min row
+    cosine of int8 against bf16 on held-out bench rows, held ≥ 0.99;
+13. mel timing — B6 at B=2048 beside its bound (the function's bytes and
+    its rfft operations), the floors of its DFT-as-matmul algorithm at the
+    TF32 and f32 rates, its plain version and ``torch.stft`` (spectrum
+    only); config #4 embed utt/s
+    at B=2048, batch-1 latency and peak memory, in bf16 and in int8.
 
 It ends with the per-kernel summary line, then
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the exit code
@@ -61,17 +79,19 @@ import numpy as np
 import torch
 
 from voicemap_tpu_torch import _build
-from voicemap_tpu_torch.config import EncoderConfig, classifier_baseline
+from voicemap_tpu_torch.config import EncoderConfig, MelConfig, classifier_baseline, melspec_2d
 from voicemap_tpu_torch.data.store import synthetic_store
 from voicemap_tpu_torch.eval import nshot
 from voicemap_tpu_torch.models.classifier import SpeakerClassifier
 from voicemap_tpu_torch.models.convert import from_flax
 from voicemap_tpu_torch.models.fast_infer import fast_embed
 from voicemap_tpu_torch.models.quant_infer import (
-    quant_embed, quantize_encoder, quantize_from_store,
+    quant_embed, quant_embed_mel, quantize_encoder, quantize_from_store, quantize_mel_encoder,
 )
-from voicemap_tpu_torch.ops import cuda_conv_train, cuda_routing, sampling
+from voicemap_tpu_torch.models.spectrogram import MelSpecClassifier
+from voicemap_tpu_torch.ops import cuda_conv_train, cuda_melspec, cuda_routing, sampling
 from voicemap_tpu_torch.ops.cuda_conv import conv_block0, conv_block0_reference
+from voicemap_tpu_torch.ops.cuda_melspec import log_mel, log_mel_reference, log_mel_work
 from voicemap_tpu_torch.ops.cuda_conv_train import (
     conv_block0_train, conv_block0_train_bwd, conv_block0_train_bwd_reference,
     conv_block0_train_reference,
@@ -107,6 +127,12 @@ TRAIN_C0 = 128
 TRAIN_BLOCKS = ((256, 3000), (384, 1500), (512, 750))
 TRAIN_STEPS = 40
 TRAIN_TIMING_BATCHES = (32, 2048)
+# Config #4: 3 s at 16 kHz, downsampling 1, over the bench store undecimated.
+MEL_FRAG = 48000
+MEL_EDGES = ((1, 48000, dict(n_mels=32)), (5, 47999, {}),
+             (5, 48000, dict(hop_length=160, win_length=400)),
+             (3, 47999, dict(hop_length=160, win_length=400, n_mels=32)),
+             (2, 384, {}))
 
 B1_RTOL, B1_ATOL = 1e-5, 1e-6
 B2_F32_RTOL, B2_F32_ATOL = 1e-5, 1e-5
@@ -116,12 +142,16 @@ TRAIN_REL_TOL = 1e-4  # stats, dW, db: of max |value|, for the other sum order
 STEP_LOSS_RTOL = 1e-3
 STEP_MIN_COSINE = 0.999
 INT8_FIDELITY_GATE = 0.999  # bench.py's gate
+B6_ATOL = 1e-3  # log-mel, the JAX package's bound for its own kernel
+MEL_INT8_MIN_COSINE = 0.99  # int8 against bf16, tests/test_quant_infer.py's bound for config #4
 
 # Published H100 SXM peaks (NVIDIA's data sheet): device memory, dense bf16
 # and int8 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
+TF32_OPS_PER_S = 495e12
+F32_OPS_PER_S = 67e12  # CUDA cores, outside the tensor cores
 
 # name -> (wrapper, source, TPU kernel it replaces)
 KERNELS = {
@@ -140,6 +170,8 @@ KERNELS = {
                  "voicemap_tpu/ops/pallas_routing.py:69"),
     "route_bwd": (route_bwd, "voicemap_tpu_torch/csrc/routing.cu",
                   "voicemap_tpu/ops/pallas_routing.py:133"),
+    "log_mel": (log_mel, "voicemap_tpu_torch/csrc/log_mel.cu",
+                "voicemap_tpu/ops/pallas_melspec.py:52"),
 }
 # The train kernels' plain versions, by the module attribute each wrapper
 # is reached through on the train path.
@@ -179,8 +211,11 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def random_flax_variables(cfg: EncoderConfig, num_classes: int, seed: int) -> dict:
-    """A classifier's flax variable tree in ``ConvEncoder`` shapes, as numpy."""
+def random_flax_variables(cfg: EncoderConfig, num_classes: int, seed: int,
+                          mel: bool = False) -> dict:
+    """A classifier's flax variable tree in ``ConvEncoder`` shapes, or with
+    ``mel`` in ``MelSpecEncoder`` shapes (3×3 HWIO kernels, widths
+    ``max(filters // 4, 8)`` times the multipliers), as numpy."""
     rng = np.random.default_rng(seed)
 
     def normal(shape, std):
@@ -192,9 +227,10 @@ def random_flax_variables(cfg: EncoderConfig, num_classes: int, seed: int) -> di
     params, stats = {}, {}
     cin = 1
     for i, (mult, k) in enumerate(zip(cfg.filter_multipliers, cfg.kernel_sizes)):
-        c = cfg.filters * mult
+        c = max(cfg.filters // 4, 8) * mult if mel else cfg.filters * mult
+        shape = (3, 3, cin, c) if mel else (k, cin, c)
         params[f"block_{i}"] = {
-            "conv": {"kernel": normal((k, cin, c), (k * cin) ** -0.5),
+            "conv": {"kernel": normal(shape, (np.prod(shape[:-1])) ** -0.5),
                      "bias": normal((c,), 0.05)},
             "bn": {"scale": uniform(0.5, 1.5, c), "bias": normal((c,), 0.1)},
         }
@@ -981,6 +1017,226 @@ def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -
     return {"ms": ms, "plain_ms": plain_ms, "bounds": bounds, "library_ms": library_ms}
 
 
+def mel_bench_store(seed: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bench store undecimated (config #4 runs at downsampling 1), row
+    ids, and offsets with the edges: 0, the last valid start, and starts
+    that run past the row."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(-20000, 20000, size=(BATCH, STORE_T), dtype=np.int16)
+    last = STORE_T - MEL_FRAG
+    offsets = rng.integers(0, last + 1, BATCH).astype(np.int32)
+    offsets[:4] = [0, last, last + 1, STORE_T - 100]
+    idx = rng.permutation(BATCH).astype(np.int32)
+    return (torch.from_numpy(raw).to(DEVICE), torch.from_numpy(idx).to(DEVICE),
+            torch.from_numpy(offsets).to(DEVICE))
+
+
+@contextlib.contextmanager
+def plain_log_mel():
+    """The mel paths with B6 replaced by its plain version."""
+    real = cuda_melspec.log_mel
+    cuda_melspec.log_mel = log_mel_reference
+    try:
+        yield
+    finally:
+        cuda_melspec.log_mel = real
+
+
+def check_log_mel(x: torch.Tensor, cfg: MelConfig, sr: int) -> dict:
+    out = log_mel(x, cfg, sr)
+    ref = log_mel_reference(x, cfg, sr)
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != torch.float32:
+        raise AssertionError(f"log_mel {tuple(x.shape)}: {tuple(out.shape)} {out.dtype}, "
+                             f"want {tuple(ref.shape)} float32")
+    err = float((out - ref).abs().max())
+    if not err <= B6_ATOL:
+        raise AssertionError(f"log_mel {tuple(x.shape)} {cfg}: max abs err {err} > {B6_ATOL}")
+    return {"kernel": "log_mel", "shape": list(x.shape), "out": list(out.shape),
+            "hop": cfg.hop_length, "win": cfg.win_length, "n_mels": cfg.n_mels,
+            "max_abs_err": err, "tolerance": f"max abs <= {B6_ATOL}"}
+
+
+def check_mel_kernels(raw, idx, offsets) -> dict:
+    """B1 at frag 48000 over the undecimated store; B6 on 256 of those
+    whitened fragments at config #4's geometry and at MEL_EDGES."""
+    t0 = time.perf_counter()
+    cfg = melspec_2d()
+    got = gather_whiten(raw, idx, offsets, MEL_FRAG)
+    want = gather_whiten_reference(raw, idx, offsets, MEL_FRAG)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=B1_RTOL, atol=B1_ATOL)
+    errors = {"gather_whiten_48k": float((got - want).abs().max())}
+    checks = [{"kernel": "gather_whiten", "shape": list(got.shape),
+               "max_abs_err": errors["gather_whiten_48k"],
+               "tolerance": f"rtol {B1_RTOL}, atol {B1_ATOL}"}]
+    del want
+    x = got[:CHECK_ROWS].contiguous()
+    del got
+    checks.append(check_log_mel(x, cfg.mel, cfg.data.sample_rate))
+    errors["log_mel"] = checks[-1]["max_abs_err"]
+    for B, T, kw in MEL_EDGES:
+        mcfg = dataclasses.replace(cfg.mel, **kw)
+        checks.append(check_log_mel(x[:B, :T], mcfg, cfg.data.sample_rate))
+    emit({"phase": "mel_kernels", "checks": checks, "seconds": time.perf_counter() - t0})
+    return {"errors": errors}
+
+
+def mel_model(cfg, n_speakers: int, seed: int) -> MelSpecClassifier:
+    model = MelSpecClassifier(cfg.encoder, cfg.mel, n_speakers, cfg.data.sample_rate,
+                              device=DEVICE)
+    model.load_state_dict(from_flax(random_flax_variables(cfg.encoder, n_speakers, seed,
+                                                          mel=True), cfg.encoder))
+    return model
+
+
+def check_table(name: str, table: torch.Tensor, n_utts: int, d: int, acc: float) -> None:
+    if table.shape != (n_utts, d) or table.dtype != torch.float32:
+        raise AssertionError(f"{name} table {tuple(table.shape)} {table.dtype}")
+    if not bool(torch.isfinite(table).all()):
+        raise AssertionError(f"{name} table is not finite")
+    if not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"{name} accuracy {acc} outside [0, 1]")
+
+
+def run_mel_slices(host, seed: int) -> dict:
+    """Config #4 at full width serving the same 500 tasks in bf16 and then in
+    int8, each with the launch counters read around its run: B1 and B6 once
+    for every embed chunk, nothing else."""
+    cfg = melspec_2d()
+    n_speakers = host.speaker_counts.shape[0]
+    model = mel_model(cfg, n_speakers, seed)
+    store = device_store_for(cfg, host, DEVICE)
+    n_utts = host.audio.shape[0]
+    chunks = -(-n_utts // 256)  # embed_all's batch_size
+    want = {name: 0 for name in KERNELS}
+    want.update(gather_whiten=chunks, log_mel=chunks)
+    d = cfg.encoder.embedding_dim
+    out = {"model": model, "cfg": cfg}
+    for path in ("mel_bf16", "mel_int8"):
+        t0 = time.perf_counter()
+        qvars = None
+        if path == "mel_int8":
+            qvars = quantize_from_store(model, cfg, store, n_cal=256)
+            torch.cuda.synchronize()
+        calib_seconds = time.perf_counter() - t0
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        reset_counts()
+        t0 = time.perf_counter()
+        table = nshot.embed_all(model, store, cfg, qvars=qvars)
+        acc = nshot.evaluate(model, store, cfg, gen, num_tasks=500, n=1, k=5, qvars=qvars,
+                             table=table)
+        launches = read_counts()
+        seconds = time.perf_counter() - t0
+        check_table(path, table, n_utts, d, acc)
+        if launches != want:
+            raise AssertionError(f"{path} launches {launches}, want {want}")
+        # The plain-version path: B1's and B6's plain versions, the same model.
+        with torch.inference_mode(), plain_log_mel():
+            plain = torch.cat([model.embed(x) if qvars is None
+                               else quant_embed_mel(model.encoder, qvars, x)
+                               for x in plain_fragments(store, cfg, n_utts)])
+        cos_plain = min_cosine(table, plain)
+        if cos_plain < TABLE_MIN_COSINE:
+            raise AssertionError(f"{path} table vs plain path: min cosine {cos_plain}")
+        record = {"phase": path + "_slice", "config": "melspec_2d",
+                  "utterances": n_utts, "speakers": n_speakers, "tasks": 500, "n_shot": 1,
+                  "k_way": 5, "accuracy": acc, "table_shape": list(table.shape),
+                  "launches": launches, "min_cosine_vs_plain": cos_plain,
+                  "cosine_tolerance": TABLE_MIN_COSINE, "seconds": seconds}
+        if qvars is not None:
+            record.update(calibration_rows=min(256, n_utts), calibration_seconds=calib_seconds,
+                          min_cosine_int8_vs_bf16_table=min_cosine(table, out["table_bf16"]))
+        emit(record)
+        out[path] = launches
+        out[f"table_{path[4:]}"] = table
+    return out
+
+
+def run_mel_fidelity(raw, offsets, model, seed: int) -> dict:
+    """int8 against bf16 on held-out rows: calibrate on bench rows [0, 256),
+    embed rows [256, 512) at fresh offsets both ways, min row cosine ≥
+    MEL_INT8_MIN_COSINE."""
+    t0 = time.perf_counter()
+    n_cal = 256
+    rng = np.random.default_rng(seed + 2)
+    rows = torch.arange(n_cal, dtype=torch.int32, device=DEVICE)
+    x_cal = gather_whiten(raw[:n_cal], rows, offsets[:n_cal], MEL_FRAG)[..., None]
+    qvars = quantize_mel_encoder(model.encoder, x_cal)
+    off = torch.from_numpy(rng.integers(0, STORE_T - MEL_FRAG, n_cal).astype(np.int32)).to(DEVICE)
+    x = gather_whiten(raw[n_cal:2 * n_cal], rows, off, MEL_FRAG)[..., None]
+    with torch.inference_mode():
+        ref = model.embed(x)
+        out = quant_embed_mel(model.encoder, qvars, x)
+    cos = min_cosine(out, ref)
+    emit({"phase": "mel_int8_fidelity", "calibration_rows": [0, n_cal],
+          "fidelity_rows": [n_cal, 2 * n_cal], "min_cosine": cos,
+          "bound": MEL_INT8_MIN_COSINE, "pass": cos >= MEL_INT8_MIN_COSINE,
+          "seconds": time.perf_counter() - t0})
+    if not cos >= MEL_INT8_MIN_COSINE:
+        raise AssertionError(f"mel int8 vs bf16: min cosine {cos} < {MEL_INT8_MIN_COSINE}")
+    return {"qvars": qvars}
+
+
+def run_mel_timing(raw, idx, offsets, model, qvars, seed: int, card: str) -> dict:
+    """B6 at B=2048 beside its bounds, plain version and ``torch.stft``;
+    config #4's embed throughput in bf16 and int8, batch-1 latency, peak
+    memory of each path."""
+    t0 = time.perf_counter()
+    cfg = melspec_2d()
+    mel, sr = cfg.mel, cfg.data.sample_rate
+    x = gather_whiten(raw, idx, offsets, MEL_FRAG)
+    work = log_mel_work(BATCH, MEL_FRAG, mel, sr)
+    # The bound is the function's (an rfft's operations, f32); the DFT-matmul
+    # floors are those of the kernel's own algorithm, kept apart.
+    row = {"shape": list(x.shape), **bound(work["bytes"], work["ops"], F32_OPS_PER_S),
+           "bytes": work["bytes"], "ops": work["ops"], "dft_ops": work["dft_ops"],
+           "dft_tf32_ms": work["dft_ops"] / TF32_OPS_PER_S * 1e3,
+           "dft_f32_ms": work["dft_ops"] / F32_OPS_PER_S * 1e3,
+           "ms": time_fn(log_mel, x, mel, sr, iters=10, warmup=2)["mean_s"] * 1e3,
+           "plain_ms": time_fn(in_chunks(log_mel_reference, x, mel, sr), iters=2,
+                               warmup=1)["mean_s"] * 1e3}
+    window = torch.hann_window(mel.win_length, periodic=True, device=x.device)
+    row["library_ms"] = time_fn(torch.stft, x, n_fft=mel.n_fft, hop_length=mel.hop_length,
+                                win_length=mel.win_length, window=window, center=False,
+                                return_complex=True, iters=10, warmup=2)["mean_s"] * 1e3
+    row["library"] = "torch.stft (cuFFT), spectrum only: no power, mel or log"
+    del x
+
+    rows = torch.arange(BATCH, dtype=torch.int32, device=DEVICE)
+    bench = DeviceStore(audio=raw, lengths=torch.full((BATCH,), STORE_T, dtype=torch.int32,
+                                                      device=DEVICE),
+                        labels=rows, speaker_utts=rows[:, None],
+                        speaker_counts=torch.ones_like(rows), downsampling=1)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def serve(indices):
+        with torch.inference_mode():
+            return model.embed(fetch_batch(bench, indices, cfg, gen))
+
+    def serve_int8(indices):
+        with torch.inference_mode():
+            return quant_embed_mel(model.encoder, qvars, fetch_batch(bench, indices, cfg, gen))
+
+    paths = {}
+    for name, fn in (("bf16", serve), ("int8", serve_int8)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tput = throughput(fn, rows, items_per_call=BATCH, iters=5, warmup=1)
+        paths[name] = {"utt_per_s_b2048": tput["items_per_sec"],
+                       "ms_b2048": tput["sec_per_call"] * 1e3,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    for name, fn in (("bf16", serve), ("int8", serve_int8)):
+        lat = time_fn(fn, rows[:1], iters=30, warmup=3)
+        paths[name].update(batch1_p50_ms_events=lat["p50_s"] * 1e3,
+                           batch1_p95_ms_events=lat["p95_s"] * 1e3)
+    emit({"phase": "mel_timing", "card": card, "config": "melspec_2d", "log_mel": row,
+          "paths": paths, "seconds": time.perf_counter() - t0})
+    return {"ms": {"log_mel": row["ms"]}, "plain_ms": {"log_mel": row["plain_ms"]},
+            "bounds": {"log_mel": {k: row[k] for k in ("bound_ms", "bound_by")}},
+            "library_ms": {"log_mel": row["library_ms"]}}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1016,23 +1272,36 @@ def main(argv=None) -> int:
     times = run_timing(store, idx, offsets, params, checked["s0"], sliced["model"],
                        sliced["cfg"], gate["qvars"], args.seed, card)
     train_times = run_train_timing(store, idx, offsets, trained, args.seed, card)
+    del store
+    torch.cuda.empty_cache()
+    raw, mel_idx, mel_offsets = mel_bench_store(args.seed)
+    checked_mel = check_mel_kernels(raw, mel_idx, mel_offsets)
+    mel = run_mel_slices(sliced["host"], args.seed)
+    mel_gate = run_mel_fidelity(raw, mel_offsets, mel["model"], args.seed)
+    mel_times = run_mel_timing(raw, mel_idx, mel_offsets, mel["model"], mel_gate["qvars"],
+                               args.seed, card)
     for key in ("ms", "plain_ms", "bounds", "library_ms"):
         times[key].update(train_times[key])
+        times[key].update(mel_times[key])
     checked["errors"].update(checked_train["errors"])
+    checked["errors"].update(checked_mel["errors"])
 
     # Each entry's launches: the counts of the path runs above (phases slice,
-    # int8_slice and train_slice), set to 0 just before each run and read
-    # just after.
+    # int8_slice, train_slice, mel_bf16_slice and mel_int8_slice), set to 0
+    # just before each run and read just after.
     paths = {"bf16": sliced["launches"], "int8": sliced_int8["launches"],
-             "train": trained["launches"]}
-    entries = (("gather_whiten", "gather_whiten", ("bf16", "int8", "train")),
+             "train": trained["launches"], "mel_bf16": mel["mel_bf16"],
+             "mel_int8": mel["mel_int8"]}
+    entries = (("gather_whiten", "gather_whiten",
+                ("bf16", "int8", "train", "mel_bf16", "mel_int8")),
                ("conv_block0", "conv_block0", ("bf16",)),
                ("conv_block0_int8", "conv_block0", ("int8",)),
                ("quant_block", "quant_block", ("int8",)),
                ("conv_block0_train", "conv_block0_train", ("train",)),
                ("conv_block0_train_bwd", "conv_block0_train_bwd", ("train",)),
                ("pool_fwd", "pool_fwd", ("train",)),
-               ("route_bwd", "route_bwd", ("train",)))
+               ("route_bwd", "route_bwd", ("train",)),
+               ("log_mel", "log_mel", ("mel_bf16", "mel_int8")))
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[kernel][1],

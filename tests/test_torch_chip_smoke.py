@@ -3,9 +3,10 @@
 The script routes every tensor through ``chip_smoke.DEVICE``; here that is the
 CPU, the kernels' plain versions stand in for the kernels (and count as their
 launches), the build and the CUDA-event timers are stubbed, and the sizes
-and the config are cut down (filters 32, 0.128 s fragments, train batches of
-8, 12 train steps); the train policies resolve as they do on the card (B4/B5
-and the fused blocks-1+ op). What this shows
+and the configs are cut down (filters 32, 0.128 s fragments, train batches
+of 8, 12 train steps; config #4 at 0.15 s, 16 frames, 32 mels); the train
+policies resolve as they do on the card (B4/B5 and the fused blocks-1+ op).
+What this shows
 is the control flow, the shapes and the records of every phase, the
 ``kernels`` line's keys and the last line; what the kernels compute on the
 card only the script itself, run there, shows.
@@ -18,9 +19,11 @@ import pytest
 import torch
 
 import chip_smoke as cs
-from voicemap_tpu_torch.config import DataConfig, EncoderConfig, ExperimentConfig
+from voicemap_tpu_torch.config import (
+    DataConfig, EncoderConfig, ExperimentConfig, MelConfig,
+)
 from voicemap_tpu_torch.ops import (
-    cuda_conv, cuda_conv_train, cuda_preprocess, cuda_quant_block, cuda_routing,
+    cuda_conv, cuda_conv_train, cuda_melspec, cuda_preprocess, cuda_quant_block, cuda_routing,
 )
 from voicemap_tpu_torch.train import steps
 
@@ -32,11 +35,19 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
 def on_the_cpu(monkeypatch):
     small = ExperimentConfig(data=DataConfig(seconds=0.128, downsampling=4),
                              encoder=EncoderConfig(filters=32, embedding_dim=16))
-    for name, value in (("DEVICE", "cpu"), ("BATCH", 512), ("STORE_T", 1800), ("FRAG", 400),
+    small_mel = ExperimentConfig(name="melspec_2d", mode="melspec2d",
+                                 data=DataConfig(seconds=0.15, downsampling=1),
+                                 encoder=EncoderConfig(filters=32, embedding_dim=16),
+                                 mel=MelConfig(hop_length=128, win_length=384, n_mels=32))
+    for name, value in (("DEVICE", "cpu"), ("BATCH", 512), ("STORE_T", 2600), ("FRAG", 400),
                         ("CHECK_ROWS", 64), ("SWEEP", (1, 8, 512)),
                         ("QBLOCKS", ((100, 32, 64, False), (50, 64, 96, False),
                                      (25, 96, 128, True))),
                         ("classifier_baseline", lambda: small),
+                        ("melspec_2d", lambda: small_mel), ("MEL_FRAG", 2400),
+                        ("MEL_EDGES", ((1, 2400, dict(n_mels=16)), (5, 2399, {}),
+                                       (5, 2400, dict(hop_length=160, win_length=400)),
+                                       (2, 384, {}))),
                         ("TRAIN_BATCH", 8), ("TRAIN_C0", 16), ("TRAIN_STEPS", 12),
                         ("TRAIN_BLOCKS", ((64, 100), (96, 50), (128, 24))),
                         ("TRAIN_TIMING_BATCHES", (4, 8)),
@@ -58,7 +69,8 @@ def on_the_cpu(monkeypatch):
                               (cuda_conv_train, "conv_block0_train_bwd_reference",
                                cuda_conv_train.conv_block0_train_bwd),
                               (cuda_routing, "pool_fwd_reference", cuda_routing.pool_fwd),
-                              (cuda_routing, "route_bwd_reference", cuda_routing.route_bwd)):
+                              (cuda_routing, "route_bwd_reference", cuda_routing.route_bwd),
+                              (cuda_melspec, "log_mel_reference", cuda_melspec.log_mel)):
         def counted(*a, _ref=getattr(mod, ref), _w=wrapper, **k):
             _w.launches += 1
             return _ref(*a, **k)
@@ -99,7 +111,9 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     records = [json.loads(line) for line in lines if line.startswith("{")]
     phases = [r["phase"] for r in records if "phase" in r]
     assert phases == ["device", "build", "kernels", "train_kernels", "slice", "int8_slice",
-                      "int8_fidelity_gate", "train_slice", "timing", "train_timing"]
+                      "int8_fidelity_gate", "train_slice", "timing", "train_timing",
+                      "mel_kernels", "mel_bf16_slice", "mel_int8_slice", "mel_int8_fidelity",
+                      "mel_timing"]
     by_phase = {r["phase"]: r for r in records if "phase" in r}
     nothing = {name: 0 for name in cs.KERNELS}
     assert by_phase["int8_slice"]["launches"] == {**nothing, "gather_whiten": 2,
@@ -119,12 +133,30 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert [(r["batch"], r["blockn"], len(r["turns_ms"])) for r in timing["train_step"]] == [
         (4, "jnp", 2), (4, "fused", 2), (8, "jnp", 2), (8, "fused", 2)]
     assert by_phase["int8_fidelity_gate"]["pass"]
+    # config #4: B1 and B6 once for each of the two embed chunks, in each path
+    for path in ("mel_bf16", "mel_int8"):
+        assert by_phase[f"{path}_slice"]["launches"] == {**nothing, "gather_whiten": 2,
+                                                         "log_mel": 2}
+        assert by_phase[f"{path}_slice"]["min_cosine_vs_plain"] >= cs.TABLE_MIN_COSINE
+    assert by_phase["mel_int8_fidelity"]["pass"]
+    mel_checks = by_phase["mel_kernels"]["checks"]
+    assert [c["shape"] for c in mel_checks] == [[512, 2400], [64, 2400], [1, 2400], [5, 2399],
+                                                [5, 2400], [2, 384]]
+    assert all(c["max_abs_err"] <= cs.B6_ATOL for c in mel_checks[1:])
+    mel_timing = by_phase["mel_timing"]
+    # an rfft's operations at the f32 rate take less than moving the bytes
+    assert mel_timing["log_mel"]["bound_by"] == "bytes"
+    assert mel_timing["log_mel"]["dft_f32_ms"] > mel_timing["log_mel"]["dft_tf32_ms"] > 0
+    assert set(mel_timing["paths"]) == {"bf16", "int8"}
+    for path in ("bf16", "int8"):
+        assert {"utt_per_s_b2048", "batch1_p50_ms_events", "peak_mem_gb"} <= set(
+            mel_timing["paths"][path])
     assert [r["batch"] for r in by_phase["timing"]["int8_vs_bf16_sweep"]] == [1, 8, 512]
     kernels = records[-2]["kernels"]
     assert [k["name"] for k in kernels] == ["gather_whiten", "conv_block0",
                                             "conv_block0_int8", "quant_block",
                                             "conv_block0_train", "conv_block0_train_bwd",
-                                            "pool_fwd", "route_bwd"]
+                                            "pool_fwd", "route_bwd", "log_mel"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k) and k["launches"] > 0 and k["bound_by"] in (
             "bytes", "operations")
@@ -132,4 +164,7 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert by_name["pool_fwd"]["launches_by_path"] == {"train": 3 * steps_run}
     assert by_name["gather_whiten"]["launches_by_path"]["train"] == steps_run
     assert by_name["conv_block0_train_bwd"]["library_ms"] is not None
+    assert by_name["log_mel"]["launches_by_path"] == {"mel_bf16": 2, "mel_int8": 2}
+    assert by_name["log_mel"]["library_ms"] is not None
+    assert by_name["gather_whiten"]["launches_by_path"]["mel_int8"] == 2
     assert records[-1] == {"ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 1}}

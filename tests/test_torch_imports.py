@@ -49,6 +49,18 @@ def test_the_train_modules_are_covered():
         assert f"voicemap_tpu_torch.{name}" in modules, name
 
 
+def test_the_mel_modules_are_covered():
+    """The import tests reach every module of config #4's port and its
+    kernel source is among the ones the build compiles."""
+    from voicemap_tpu_torch import _build
+
+    modules = set(_modules())
+    for name in ("ops.melspec", "ops.cuda_melspec", "models.spectrogram"):
+        assert f"voicemap_tpu_torch.{name}" in modules, name
+    assert "log_mel.cu" in {p.name for p in _build.sources()}
+    assert "vm_log_mel" in _build.SIGNATURES
+
+
 def test_no_jax_flax_pandas_import_in_the_port():
     banned = re.compile(r"^\s*(import|from)\s+(jax|flax|pandas|voicemap_tpu)\b", re.M)
     offenders = [str(p.relative_to(REPO)) for p in SOURCES if banned.search(p.read_text())]

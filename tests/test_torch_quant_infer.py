@@ -128,6 +128,8 @@ def test_npz_artifacts_load_across_packages(tmp_path):
 def test_policy_and_mode_checks_match_jax():
     for b in (1, 7, 8, 2048):
         assert tq.int8_worthwhile(b) == (b >= tq.INT8_MIN_BATCH)
+        # config #4's int8 path wins at no measured batch on the H100
+        assert not tq.int8_worthwhile(b, "melspec2d")
     from voicemap_tpu_torch.config import classifier_baseline, melspec_2d
 
     for cfg in (classifier_baseline(), melspec_2d(), classifier_baseline(mode="bogus")):
@@ -145,7 +147,8 @@ def test_policy_and_mode_checks_match_jax():
 def test_quant_embed_refuses_what_it_does_not_port():
     cfg, _, _, model, x = build("float32", seed=8)
     qvars = tq.quantize_encoder(model, torch.from_numpy(x))
-    with pytest.raises(NotImplementedError):
+    # a mel artifact serves the mel encoder only (tests/test_torch_quant_mel.py)
+    with pytest.raises(ValueError, match="MelSpecEncoder"):
         tq.quant_embed(model, dict(qvars, kind="mel"), torch.from_numpy(x))
     dil = EncoderConfig(filters=8, embedding_dim=16, compute_dtype="float32",
                         filter_multipliers=(1, 2, 2, 3), pool_sizes=(4, 1, 2, 1),

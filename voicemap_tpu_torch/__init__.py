@@ -8,12 +8,14 @@ where its counterpart does:
   configs and presets
 - :mod:`voicemap_tpu_torch.data` — the pandas-free corpus container
 - :mod:`voicemap_tpu_torch.ops` — preprocess, sampling, distances, the
-  hand-written CUDA kernels (``cuda_preprocess``, ``cuda_conv``,
-  ``cuda_quant_block``, ``cuda_conv_train``, ``cuda_routing``) and the fused
+  log-mel reference (``melspec``), the hand-written CUDA kernels
+  (``cuda_preprocess``, ``cuda_conv``, ``cuda_quant_block``,
+  ``cuda_conv_train``, ``cuda_routing``, ``cuda_melspec``) and the fused
   train blocks' autograd Functions (``conv_train``)
 - :mod:`voicemap_tpu_torch.models` — conv encoder (eval and train mode),
-  classifier, fast inference, the fused train forward, int8 serving
-  (``quant_infer``), flax-tree and qvars converters
+  classifier, the log-mel 2D models of config #4 (``spectrogram``), fast
+  inference, the fused train forward, int8 serving (``quant_infer``),
+  flax-tree and qvars converters
 - :mod:`voicemap_tpu_torch.train` — the device store, batch fetch, the
   classifier train step, losses, optimizer, metrics, checkpoints and ``fit``
 - :mod:`voicemap_tpu_torch.eval` — batched n-shot k-way evaluation

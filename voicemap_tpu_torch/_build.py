@@ -51,6 +51,8 @@ SIGNATURES = {
     "vm_pool_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # a, a_sel, g, cc, dz, part, db, B, C, T, pool, a_bf16, out_bf16, stream
     "vm_route_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, cs, fbt, bands, out, B, T, n_frames, win, hop, M, K, log_eps, stream
+    "vm_log_mel": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

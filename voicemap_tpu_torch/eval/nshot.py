@@ -1,4 +1,4 @@
-"""Batched n-shot k-way speaker-identification evaluation (classifier mode).
+"""Batched n-shot k-way speaker-identification evaluation (classifier scoring).
 
 Port of ``voicemap_tpu/eval/nshot.py`` (``embed_all``, ``classifier_nshot_accuracy``,
 ``evaluate``, ``score_table``):
@@ -13,12 +13,16 @@ Port of ``voicemap_tpu/eval/nshot.py`` (``embed_all``, ``classifier_nshot_accura
 for block 0); ``qvars=`` (from ``models/quant_infer``) embeds through the
 int8 serving path, ``quant_embed`` (B2 with its requantizing epilogue, then
 the B3 kernel for blocks 1+). Either way fragments come through the B1
-kernel. Siamese scoring and streaming come with their own slices.
+kernel. ``melspec2d`` (config #4) embeds through the model's own forward
+(B1, then the B6 log-mel kernel and cuDNN's 2D convs) or, with mel
+``qvars``, through ``quant_embed`` → ``quant_embed_mel``; ``fast`` does not
+apply to it, as in the JAX package, and it is scored as the classifier is.
+Siamese scoring and streaming come with their own slices.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -26,11 +30,15 @@ from ..config import ExperimentConfig
 from ..models.classifier import SpeakerClassifier
 from ..models.fast_infer import fast_embed
 from ..models.quant_infer import check_qvars_mode, quant_embed
+from ..models.spectrogram import MelSpecClassifier
 from ..ops import sampling
 from ..train.steps import DeviceStore, fetch_batch
 
 
-def embed_all(model: SpeakerClassifier, store: DeviceStore, cfg: ExperimentConfig,
+Model = Union[SpeakerClassifier, MelSpecClassifier]
+
+
+def embed_all(model: Model, store: DeviceStore, cfg: ExperimentConfig,
               batch_size: int = 256, fast: bool = False, qvars=None) -> torch.Tensor:
     """Embed every utterance of the store → ``(N, D)`` float32 table; with
     ``qvars``, through the int8 serving path."""
@@ -47,7 +55,8 @@ def embed_all(model: SpeakerClassifier, store: DeviceStore, cfg: ExperimentConfi
             if qvars is not None:
                 chunks.append(quant_embed(model.encoder, qvars, x))
             else:
-                chunks.append(fast_embed(model.encoder, x) if fast else model.embed(x))
+                fast_path = fast and cfg.mode != "melspec2d"
+                chunks.append(fast_embed(model.encoder, x) if fast_path else model.embed(x))
     return torch.cat(chunks, dim=0)
 
 
@@ -79,16 +88,17 @@ def classifier_nshot_accuracy(table: torch.Tensor, speaker_utts: torch.Tensor,
 def score_table(table: torch.Tensor, store: DeviceStore, cfg: ExperimentConfig,
                 generator: Optional[torch.Generator], num_tasks: int, n: int,
                 k: int) -> float:
-    """Score one (n, k) setting against a precomputed embedding table."""
-    if cfg.mode != "classifier":
+    """Score one (n, k) setting against a precomputed embedding table:
+    nearest class by embedding distance (classifier and melspec2d modes)."""
+    if cfg.mode not in ("classifier", "melspec2d"):
         raise NotImplementedError(
-            f"score_table: only classifier mode is ported, not {cfg.mode!r}")
+            f"score_table: only classifier scoring is ported, not {cfg.mode!r}")
     return float(classifier_nshot_accuracy(table, store.speaker_utts,
                                            store.speaker_counts, generator,
                                            num_tasks, n, k))
 
 
-def evaluate(model: SpeakerClassifier, store: DeviceStore, cfg: ExperimentConfig,
+def evaluate(model: Model, store: DeviceStore, cfg: ExperimentConfig,
              generator: Optional[torch.Generator], num_tasks: Optional[int] = None,
              n: Optional[int] = None, k: Optional[int] = None,
              embed_batch: int = 256, fast: bool = False, qvars=None,

@@ -1,12 +1,15 @@
 """Flax variable tree → the port's ``state_dict``; JAX qvars → the port's.
 
-Maps the JAX package's parameters onto :class:`ConvEncoder` and
-:class:`SpeakerClassifier` so that both packages run the same weights:
+Maps the JAX package's parameters onto :class:`ConvEncoder`,
+:class:`SpeakerClassifier` and the log-mel 2D models
+(:class:`MelSpecEncoder`, :class:`MelSpecClassifier`; their frontend has no
+parameters) so that both packages run the same weights:
 
-- conv ``kernel (k, Cin, Cout)`` → ``Conv1d.weight (Cout, Cin, k)``;
+- 1D conv ``kernel (k, Cin, Cout)`` → ``Conv1d.weight (Cout, Cin, k)``;
+- 2D conv ``kernel (3, 3, Cin, Cout)`` (HWIO) → ``Conv2d.weight (Cout, Cin, 3, 3)``;
 - Dense ``kernel (in, out)`` → ``Linear.weight (out, in)``;
 - ``bn/scale, bias`` with ``batch_stats/.../bn/mean, var`` → ``BatchNorm1d``
-  (its epsilon, 1e-3, is set by the module from the config).
+  or ``BatchNorm2d`` (its epsilon, 1e-3, is set by the module from the config).
 
 Takes either the classifier's tree (``params/encoder/block_i/...``,
 ``params/encoder/embed``, ``params/head``) or the bare encoder's.
@@ -15,8 +18,9 @@ parameter name, back to the flax tree as numpy arrays, so the tests can hold
 the port's gradients, updated parameters and batch statistics against the
 JAX package's leaf by leaf.
 ``qvars_from_numpy`` maps an int8 serving artifact of the JAX package
-(``models/quant_infer.quantize_encoder``) onto the port's tensors; the layout
-is the same in both packages. Leaves may be numpy arrays or anything
+(``models/quant_infer.quantize_encoder``, or ``quantize_mel_encoder`` with its
+0-d ``s0`` and 4-D ``w_q``) onto the port's tensors; the layout is the same
+in both packages. Leaves may be numpy arrays or anything
 ``np.asarray`` reads; nothing here imports JAX.
 """
 
@@ -35,6 +39,11 @@ def _t(a, transpose=None) -> torch.Tensor:
     return torch.tensor(a.transpose(transpose) if transpose else a)  # a copy
 
 
+# conv kernel rank → the axes from flax's layout to torch's, and back.
+_TO_TORCH = {3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_TO_FLAX = {3: (2, 1, 0), 4: (2, 3, 1, 0)}
+
+
 def _encoder_state(params: dict, stats: dict, cfg: EncoderConfig,
                    prefix: str) -> Dict[str, torch.Tensor]:
     sd = {}
@@ -42,7 +51,8 @@ def _encoder_state(params: dict, stats: dict, cfg: EncoderConfig,
         p = params[f"block_{i}"]
         s = stats[f"block_{i}"]["bn"]
         pre = f"{prefix}blocks.{i}."
-        sd[pre + "conv.weight"] = _t(p["conv"]["kernel"], (2, 1, 0))
+        kernel = p["conv"]["kernel"]
+        sd[pre + "conv.weight"] = _t(kernel, _TO_TORCH[np.ndim(kernel)])
         sd[pre + "conv.bias"] = _t(p["conv"]["bias"])
         sd[pre + "bn.weight"] = _t(p["bn"]["scale"])
         sd[pre + "bn.bias"] = _t(p["bn"]["bias"])
@@ -70,7 +80,9 @@ def from_flax(variables: dict, cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
 
 def qvars_from_numpy(qvars: dict, device="cuda") -> dict:
     """The JAX package's qvars dict → the port's, with tensors on ``device``:
-    ``s0`` and the epilogue vectors f32, ``w_q (3, Cin, Cout)`` int8."""
+    ``s0`` and the epilogue vectors f32, ``w_q`` int8: ``(3, Cin, Cout)``
+    for a waveform artifact, ``(3, 3, Cin, Cout)`` beside a 0-d ``s0`` for a
+    mel one (``kind="mel"``)."""
     def put(a, dtype):
         return torch.tensor(np.asarray(a, dtype), device=device)
 
@@ -93,7 +105,8 @@ def _encoder_tree(sd: dict, cfg: EncoderConfig, prefix: str) -> tuple[dict, dict
     for i in range(len(cfg.filter_multipliers)):
         pre = f"{prefix}blocks.{i}."
         params[f"block_{i}"] = {
-            "conv": {"kernel": _n(sd[pre + "conv.weight"], (2, 1, 0)),
+            "conv": {"kernel": _n(sd[pre + "conv.weight"],
+                                  _TO_FLAX[sd[pre + "conv.weight"].dim()]),
                      "bias": _n(sd[pre + "conv.bias"])},
             "bn": {"scale": _n(sd[pre + "bn.weight"]), "bias": _n(sd[pre + "bn.bias"])},
         }

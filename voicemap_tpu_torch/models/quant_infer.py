@@ -1,8 +1,8 @@
-"""int8 post-training-quantized inference embedding (the 1D encoders).
+"""int8 post-training-quantized inference embedding (the 1D encoders and the
+log-mel 2D encoder of config #4).
 
-Port of the waveform half of ``voicemap_tpu/models/quant_infer.py``. The
-scheme is the JAX package's, symmetric per-channel PTQ folded for an int8
-GEMM:
+Port of ``voicemap_tpu/models/quant_infer.py``. The scheme is the JAX
+package's, symmetric per-channel PTQ folded for an int8 GEMM:
 
 - **Activations**: per-input-channel scales ``s_in[ci]`` from a calibration
   batch (max-abs / 127 of each block's bf16 output). Block 0's output is
@@ -21,13 +21,28 @@ GEMM:
 (``ops/cuda_quant_block``) for every block 1+. The JAX package's TPU routing
 (``routing``, ``PALLAS_QBLOCK_*``, ``keep_pad`` and the zero-tail contract)
 works around Mosaic's layout rules and is not ported; the kernels take any T.
-Not ported yet: dilated or pool-1 blocks 1+ (config #3) and the log-mel 2D
-stack (config #4); both raise ``NotImplementedError``.
+Not ported yet: dilated or pool-1 blocks 1+ (config #3), which raise
+``NotImplementedError``.
 
-A qvars dict holds ``s0 (C0,)`` f32 and ``blocks``, one dict per block 1+
-with ``w_q (3, Cin, Cout)`` int8 and ``alpha``, ``beta``, ``gamma`` ``(Cout,)``
-f32, the JAX package's layout; ``save_qvars``/``load_qvars`` keep its
-``.npz`` keys, so one artifact serves both packages.
+Config #4 (``quant_embed_mel``, ``kind="mel"``): the parameter-free frontend
+(B6, then standardization) stays f32; the standardized image is quantized
+once with a per-tensor ``s0``; all four conv2d blocks run s8×s8→s32 with the
+folded epilogue; the 2×2 pool commutes with the epilogue (it is monotone
+per channel), so the port pools the int32 accumulator before it, as B3
+does, where the JAX package pools the int8 output; the last block
+dequantizes to ``compute_dtype`` ahead of the global max and the Dense. The
+JAX package leaves this conv to XLA, so the port has no kernel of its own
+for it and no float conv either (cuDNN may pick inexact algorithms):
+``quant_conv2d`` takes the nine shifted slices of the padded image as an
+``(N, 9·Cin)`` patch matrix and multiplies it exactly, with
+``torch._int_mm`` on the card and in float64 on the CPU.
+
+A qvars dict holds ``s0`` f32 and ``blocks``, one dict per quantized block
+with ``w_q`` int8 and ``alpha``, ``beta``, ``gamma`` ``(Cout,)`` f32, the
+JAX package's layout: ``s0 (C0,)`` and ``w_q (3, Cin, Cout)`` for blocks 1+
+of a waveform encoder; ``kind="mel"``, a 0-d ``s0`` and ``w_q (3, 3, Cin,
+Cout)`` for every block of the mel encoder. ``save_qvars``/``load_qvars``
+keep its ``.npz`` keys, so one artifact serves both packages.
 """
 
 from __future__ import annotations
@@ -36,24 +51,29 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.cuda_conv import bn_affine, conv_block0
 from ..ops.cuda_quant_block import quant_block
 from .convert import qvars_from_numpy
 from .encoder import ConvBlock, ConvEncoder
+from .spectrogram import MelSpecEncoder, run_stages, standardize
 
-# Smallest batch at which int8 serving beats bf16 on the H100. chip_smoke.py's
-# timing phase (NVIDIA H100 80GB HBM3, 700 W) measured int8 faster at every
-# batch of 1, 8, 64, 256 and 2048, store → embedding: 0.80 against 1.34 ms at
-# B=1, where both are launch-bound and int8 launches fewer kernels (PERF.md §5).
-# The TPU's 8 came from the v5e and does not carry over.
+# Smallest batch at which int8 serving of the waveform encoders (config #1)
+# beats bf16 on the H100. chip_smoke.py's timing phase (NVIDIA H100 80GB HBM3,
+# 700 W) measured int8 faster at every batch of 1, 8, 64, 256 and 2048, store
+# → embedding: 0.80 against 1.34 ms at B=1, where both are launch-bound and
+# int8 launches fewer kernels (PERF.md §5). The TPU's 8 came from the v5e and
+# does not carry over. It does not carry to config #4 either: there int8 is
+# 1.32× slower than bf16 at B=2048 and no batch is known where it wins.
 INT8_MIN_BATCH = 1
 
 
-def int8_worthwhile(batch_size: int) -> bool:
+def int8_worthwhile(batch_size: int, mode: str = "classifier") -> bool:
     """Dtype-by-batch serving policy: True when int8 is expected to beat
-    bf16 at this batch size (see INT8_MIN_BATCH)."""
-    return batch_size >= INT8_MIN_BATCH
+    bf16 at this batch size (see INT8_MIN_BATCH); never for ``melspec2d``,
+    until a batch where its int8 path wins is measured."""
+    return mode != "melspec2d" and batch_size >= INT8_MIN_BATCH
 
 
 def check_qvars_mode(cfg, qvars) -> None:
@@ -138,16 +158,18 @@ def quantize_from_store(model, cfg, store, n_cal: int = 256) -> Dict:
     deterministic (offset-0) fragments are the calibration batch.
 
     ``model``: a classifier (its ``encoder`` is quantized) or an encoder;
-    ``cfg``: the full ExperimentConfig.
+    ``cfg``: the full ExperimentConfig. ``melspec2d`` quantizes the mel
+    encoder (``quantize_mel_encoder``), the other modes blocks 1+.
     """
     from ..train.steps import fetch_batch
 
-    if cfg.mode == "melspec2d":
-        raise NotImplementedError("int8 serving of the log-mel 2D encoder is not ported")
     n = min(n_cal, int(store.labels.shape[0]))
     idx = torch.arange(n, dtype=torch.int32, device=store.audio.device)
     x_cal = fetch_batch(store, idx, cfg, stochastic=False)
-    return quantize_encoder(getattr(model, "encoder", model), x_cal)
+    encoder = getattr(model, "encoder", model)
+    if cfg.mode == "melspec2d":
+        return quantize_mel_encoder(encoder, x_cal)
+    return quantize_encoder(encoder, x_cal)
 
 
 def save_qvars(path: str, qvars: Dict) -> None:
@@ -184,10 +206,14 @@ def quant_embed(encoder: ConvEncoder, qvars: Dict, x: torch.Tensor) -> torch.Ten
     output); blocks 1+ are the B3 kernel, int8 in and out, the last one
     dequantizing to ``compute_dtype``; then the global max over time and the
     Dense in ``compute_dtype``. On CPU tensors the kernels' plain versions run.
+    A mel artifact (``kind="mel"``) serves a :class:`MelSpecEncoder` through
+    :func:`quant_embed_mel`.
     """
-    cfg = encoder.cfg
     if qvars.get("kind") == "mel":
-        raise NotImplementedError("int8 serving of the log-mel 2D encoder is not ported")
+        return quant_embed_mel(encoder, qvars, x)
+    if not isinstance(encoder, ConvEncoder):
+        raise ValueError("quant_embed: a waveform artifact serves a ConvEncoder")
+    cfg = encoder.cfg
     n = len(encoder.blocks)
     if n < 2:
         raise ValueError("quantized path needs at least 2 conv blocks")
@@ -210,3 +236,160 @@ def quant_embed(encoder: ConvEncoder, qvars: Dict, x: torch.Tensor) -> torch.Ten
             h_q = quant_block(h_q, qblk["w_q"], qblk["alpha"], qblk["beta"], qblk["gamma"],
                               last=i == n - 1, out_dtype=cdt)
         return encoder.pool_and_embed(h_q.transpose(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# config #4 (log-mel frontend + 2D CNN, models/spectrogram.py) int8 serving
+# ---------------------------------------------------------------------------
+# The frontend is the encoder's own ``MelFrontend`` (the JAX package's
+# ``_mel_image`` replicates it functionally to avoid a flax apply). The int8
+# activations are NHWC ``(B, F, M, C)``, as in the JAX package; its
+# ``_pool2d`` becomes ``pool_windows`` and the pool in ``quant_block2d``.
+
+def pool_windows(y: torch.Tensor, pool: int) -> torch.Tensor:
+    """NHWC ``(B, H, W, C)`` → the ``(B, H // p, p, W // p, p, C)`` view of its
+    p×p windows, flax's VALID ``max_pool`` cut (floor); no copy."""
+    h2, w2 = y.shape[1] // pool, y.shape[2] // pool
+    return y[:, :h2 * pool].unflatten(1, (h2, pool))[:, :, :, :w2 * pool].unflatten(3, (w2, pool))
+
+
+def quant_conv2d(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """3×3 SAME conv, s8×s8→s32, exact: ``(B, H, W, Cin)`` int8 ×
+    ``(3, 3, Cin, Cout)`` int8 → ``(B, H, W, Cout)`` int32.
+
+    The patch matrix holds the nine shifted slices of the zero-padded image,
+    ``(B·H·W, 9·Cin)`` in ``w_q``'s (dy, dx, ci) order, with zero columns up
+    to what ``torch._int_mm`` takes (a multiple of 8, at least 16) and zero
+    rows up to its 17. On the card ``torch._int_mm`` multiplies it; on the
+    CPU float64 does, where every sum here is exact (|acc| ≤ 9·Cin·127² < 2⁵³).
+    """
+    B, H, W, cin = x_q.shape
+    cout = w_q.shape[-1]
+    k = 9 * cin
+    kp = max(16, -(-k // 8) * 8)
+    rows = B * H * W
+    xp = F.pad(x_q, (0, 0, 1, 1, 1, 1))
+    cols = [xp[:, dy:dy + H, dx:dx + W] for dy in range(3) for dx in range(3)]
+    if kp > k:
+        cols.append(x_q.new_zeros((B, H, W, kp - k)))
+    a = torch.cat(cols, dim=-1).reshape(rows, kp)
+    del xp, cols
+    if rows < 17:
+        a = F.pad(a, (0, 0, 0, 17 - rows))
+    w = F.pad(w_q.reshape(k, cout), (0, 0, 0, kp - k))
+    if a.device.type == "cuda":
+        acc = torch._int_mm(a, w.contiguous())
+    else:
+        acc = (a.double() @ w.double()).to(torch.int32)
+    return acc[:rows].reshape(B, H, W, cout)
+
+
+def quant_block2d(x_q: torch.Tensor, qblk: Dict, pool: int, *, last: bool,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """One int8 conv2d block: exact conv, the pool, then the epilogue in f32
+    op by op in the JAX order ``relu(acc + beta)·alpha + gamma`` (in place),
+    then int8 (round half to even, clamp ±127) or ``out_dtype`` for the last
+    block.
+
+    The JAX package pools after the epilogue. The epilogue is monotone in
+    ``acc`` (nondecreasing where ``alpha > 0``, nonincreasing elsewhere, and
+    every rounding on the way is monotone), so pooling the int32 accumulator
+    first, max where ``alpha > 0`` and min elsewhere, gives the same output
+    bit for bit with the epilogue at pool rate, as the B3 kernel does.
+    """
+    acc = quant_conv2d(x_q, qblk["w_q"])
+    if pool > 1:
+        win = pool_windows(acc, pool)
+        acc = torch.where(qblk["alpha"] > 0, win.amax(dim=(2, 4)), win.amin(dim=(2, 4)))
+        del win
+    z = acc.float()
+    del acc
+    z.add_(qblk["beta"]).relu_().mul_(qblk["alpha"]).add_(qblk["gamma"])
+    return z.to(out_dtype) if last else z.round_().clamp_(-127, 127).to(torch.int8)
+
+
+def _mel_block_infer(h: torch.Tensor, blk) -> torch.Tensor:
+    """Inference ``Conv2DBlock`` as the JAX calibration writes it, NCHW: conv
+    in the compute dtype, then its bias, relu, the BN affine in f32, cast
+    back, pool 2."""
+    cdt = blk.compute_dtype
+    z = F.conv2d(h.to(cdt), blk.conv.weight.to(cdt), padding=1) + \
+        blk.conv.bias.to(cdt)[:, None, None]
+    g, hh = _bn_affine(blk)
+    y = (torch.relu(z).float() * g[:, None, None] + hh[:, None, None]).to(cdt)
+    return F.max_pool2d(y, 2, 2)
+
+
+def calibrate_mel_scales(encoder: MelSpecEncoder, x_calib: torch.Tensor,
+                         headroom: float = 1.0) -> List[torch.Tensor]:
+    """``scales[0]``: the per-tensor scale of the standardized image (0-d);
+    ``scales[i]``, i ≥ 1: per-channel scales of block i's input, from block
+    i−1's pooled output; ``len == n_blocks``."""
+    with torch.no_grad():
+        img = encoder.frontend(x_calib)
+        out = [torch.clamp(img.abs().amax() * headroom, min=1e-8) / 127.0]
+        h = img.permute(0, 3, 1, 2)
+        for blk in encoder.blocks[:-1]:
+            h = _mel_block_infer(h, blk)
+            amax = h.float().abs().amax(dim=(0, 2, 3))
+            out.append(torch.clamp(amax * headroom, min=1e-8) / 127.0)
+    return out
+
+
+@torch.no_grad()
+def fold_mel_scales(encoder: MelSpecEncoder, scales: List[torch.Tensor]) -> Dict:
+    """Fold ``scales`` into every conv2d block → a ``kind="mel"`` qvars dict,
+    op for op as the JAX package's ``quantize_mel_encoder``."""
+    n = len(encoder.blocks)
+    blocks = []
+    for i, blk in enumerate(encoder.blocks):
+        w = blk.conv.weight.float().permute(2, 3, 1, 0)  # (3, 3, Cin, Cout)
+        b = blk.conv.bias.float()
+        s_in = torch.atleast_1d(scales[i].float().to(w.device))  # (Cin,) or (1,)
+        w_f = w * s_in[None, None, :, None]
+        s_w = torch.clamp(w_f.abs().amax(dim=(0, 1, 2)), min=1e-12) / 127.0
+        w_q = torch.round(w_f / s_w).clamp(-127, 127).to(torch.int8)
+        g, h = _bn_affine(blk)
+        beta = b / s_w
+        if i < n - 1:
+            s_out = scales[i + 1].float().to(w.device)
+            alpha = s_w * g / s_out
+            gamma = h / s_out
+        else:  # the last block dequantizes
+            alpha = s_w * g
+            gamma = h
+        blocks.append({"w_q": w_q.contiguous(), "alpha": alpha, "beta": beta,
+                       "gamma": gamma})
+    return {"kind": "mel", "s0": scales[0].float(), "blocks": blocks}
+
+
+def quantize_mel_encoder(encoder: MelSpecEncoder, x_calib: torch.Tensor) -> Dict:
+    """Calibrate on ``x_calib`` ``(B, T, 1)``, then fold and quantize every
+    conv2d block of the mel encoder for int8 serving."""
+    return fold_mel_scales(encoder, calibrate_mel_scales(encoder, x_calib))
+
+
+def mel_int8_stages(encoder: MelSpecEncoder, qvars: Dict) -> list:
+    """``quant_embed_mel`` as ``(name, fn)`` stages: B6 and standardization in
+    f32, the image quantized by ``s0``, four int8 blocks, the global max and
+    the Dense in ``compute_dtype``; ``utils/stage_profile`` times each."""
+    if qvars.get("kind") != "mel" or not isinstance(encoder, MelSpecEncoder):
+        raise ValueError("quant_embed_mel: a mel artifact (kind='mel') serves a "
+                         "MelSpecEncoder")
+    cdt = encoder.compute_dtype
+    n = len(qvars["blocks"])
+    s0 = qvars["s0"]
+    return ([("log_mel", encoder.frontend.log_mel),
+             ("standardize", lambda m: standardize(m)[..., None]),
+             ("quantize", lambda img: torch.round(img / s0).clamp_(-127, 127).to(torch.int8))]
+            + [(f"qblock_{i}", lambda h, q=q, last=i == n - 1: quant_block2d(
+                h, q, 2, last=last, out_dtype=cdt)) for i, q in enumerate(qvars["blocks"])]
+            + [("global_max_dense", lambda h: encoder.pool_and_embed(h.permute(0, 3, 1, 2)))])
+
+
+def quant_embed_mel(encoder: MelSpecEncoder, qvars: Dict, x: torch.Tensor) -> torch.Tensor:
+    """``(B, T, 1)`` float32 → ``(B, embedding_dim)`` float32 through the int8
+    conv2d stack (:func:`mel_int8_stages`)."""
+    stages = mel_int8_stages(encoder, qvars)
+    with torch.inference_mode():
+        return run_stages(stages, x)

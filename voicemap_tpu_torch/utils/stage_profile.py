@@ -2,18 +2,28 @@
 
     python3 -m voicemap_tpu_torch.utils.stage_profile [--batch 2048] [--seed 0]
 
-Config #1 at full width with seeded random weights, over the store shape that
-``chip_smoke.py`` and ``bench.py`` measure (rows of 3.5 s int16 at 16 kHz,
-decimated by 4, 12000-sample fragments at random offsets), through the bf16
-path (``fast_embed``) and the int8 path (``quant_embed``, calibrated on the
-first 256 rows):
+Each config at full width with seeded random weights, over the store shape
+that ``chip_smoke.py`` and ``bench.py`` measure (rows of 3.5 s int16 at
+16 kHz, fragments at random offsets), through its bf16 path and its int8
+path (calibrated on the first 256 rows):
+
+- config #1: 12000-sample fragments of the store decimated by 4; bf16 is
+  ``fast_embed`` (B1, B2, cuDNN blocks 1–3, head), int8 ``quant_embed``
+  (B1, B2 with requant, B3 × 3, head);
+- config #4: 48000-sample fragments at downsampling 1; bf16 is the
+  ``MelSpecEncoder`` forward (B1, B6, standardize, cuDNN 2D blocks 0–3,
+  head), int8 ``quant_embed_mel`` (B1, B6, standardize, quantize, int8
+  patch-matrix blocks 0–3, head).
+
+For each path:
 
 1. the CUDA-event time of each stage, median of 5 batches;
 2. ``torch.profiler`` over 3 batches: device time by kernel name (the
    ``aten::`` op rows, which repeat their kernels' time, are left out), and
    the device's idle share (1 − union of kernel intervals / the window).
 
-Prints the card line, then one JSON line per path. Needs a CUDA device.
+Prints the card line, then one JSON line per path, with its peak memory.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,14 +37,16 @@ import sys
 import numpy as np
 import torch
 
-from ..config import classifier_baseline
+from ..config import classifier_baseline, melspec_2d
 from ..models.classifier import SpeakerClassifier
-from ..models.quant_infer import quantize_encoder
+from ..models.quant_infer import mel_int8_stages, quantize_encoder, quantize_mel_encoder
+from ..models.spectrogram import MelSpecClassifier
 from ..ops.cuda_conv import conv_block0
 from ..ops.cuda_preprocess import decimate_store, gather_whiten
 from ..ops.cuda_quant_block import quant_block
 
 STORE_T, DS, FRAG = 56000, 4, 12000
+MEL_FRAG = 48000  # config #4: 3 s at downsampling 1
 
 
 def stages_bf16(encoder, x_fn):
@@ -68,6 +80,16 @@ def stages_int8(encoder, qvars, x_fn):
             h, q["w_q"], q["alpha"], q["beta"], q["gamma"], last=last, out_dtype=cdt)))
     out.append(("global_max_dense", lambda h: encoder.pool_and_embed(h.transpose(1, 2))))
     return out
+
+
+def stages_mel_bf16(encoder, x_fn):
+    """The MelSpecEncoder forward's own stages, after the gather."""
+    return [("gather_whiten", lambda _: x_fn())] + encoder.stages()
+
+
+def stages_mel_int8(encoder, qvars, x_fn):
+    """quant_embed_mel's own stages, after the gather."""
+    return [("gather_whiten", lambda _: x_fn())] + mel_int8_stages(encoder, qvars)
 
 
 def run(stages):
@@ -145,27 +167,42 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    torch.manual_seed(args.seed)
-    cfg = classifier_baseline()
-    model = SpeakerClassifier(cfg.encoder, 40)
-    rng = np.random.default_rng(args.seed)
-    raw = rng.integers(-20000, 20000, size=(args.batch, STORE_T), dtype=np.int16)
-    store = decimate_store(torch.from_numpy(raw).cuda(), DS)
-    idx = torch.arange(args.batch, dtype=torch.int32, device="cuda")
-    offsets = torch.from_numpy(
-        rng.integers(0, store.shape[1] - FRAG + 1, args.batch).astype(np.int32)).cuda()
+    for config in (1, 4):
+        torch.manual_seed(args.seed)
+        rng = np.random.default_rng(args.seed)
+        raw = torch.from_numpy(
+            rng.integers(-20000, 20000, size=(args.batch, STORE_T), dtype=np.int16)).cuda()
+        idx = torch.arange(args.batch, dtype=torch.int32, device="cuda")
+        store, frag = (decimate_store(raw, DS), FRAG) if config == 1 else (raw, MEL_FRAG)
+        offsets = torch.from_numpy(
+            rng.integers(0, store.shape[1] - frag + 1, args.batch).astype(np.int32)).cuda()
 
-    def x_fn():
-        return gather_whiten(store, idx, offsets, FRAG)[..., None]
+        def x_fn(store=store, offsets=offsets, frag=frag):
+            return gather_whiten(store, idx, offsets, frag)[..., None]
 
-    with torch.inference_mode():
-        qvars = quantize_encoder(model.encoder, x_fn()[:256])
-        for path, stages in (("bf16", stages_bf16(model.encoder, x_fn)),
-                             ("int8", stages_int8(model.encoder, qvars, x_fn))):
-            ms = stage_ms(stages)
-            print(json.dumps({"path": path, "batch": args.batch, "stage_ms": ms,
-                              "total_ms": sum(ms.values()), "profile": profile(stages)}),
-                  flush=True)
+        with torch.inference_mode():
+            if config == 1:
+                cfg = classifier_baseline()
+                enc = SpeakerClassifier(cfg.encoder, 40).encoder
+                qvars = quantize_encoder(enc, x_fn()[:256])
+                paths = (("bf16", stages_bf16(enc, x_fn)),
+                         ("int8", stages_int8(enc, qvars, x_fn)))
+            else:
+                cfg = melspec_2d()
+                enc = MelSpecClassifier(cfg.encoder, cfg.mel, 40, cfg.data.sample_rate).encoder
+                qvars = quantize_mel_encoder(enc, x_fn()[:256])
+                paths = (("bf16", stages_mel_bf16(enc, x_fn)),
+                         ("int8", stages_mel_int8(enc, qvars, x_fn)))
+            for path, stages in paths:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                ms = stage_ms(stages)
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                print(json.dumps({"config": cfg.name, "path": path, "batch": args.batch,
+                                  "stage_ms": ms, "total_ms": sum(ms.values()),
+                                  "peak_mem_gb": peak, "profile": profile(stages)}),
+                      flush=True)
+        del raw, store, enc, qvars, paths
     return 0
 
 
