@@ -58,7 +58,29 @@ Each phase prints one JSON line; nothing here imports JAX.
     its rfft operations), the floors of its DFT-as-matmul algorithm at the
     TF32 and f32 rates, its plain version and ``torch.stft`` (spectrum
     only); config #4 embed utt/s
-    at B=2048, batch-1 latency and peak memory, in bf16 and in int8.
+    at B=2048, batch-1 latency and peak memory, in bf16 and in int8;
+14. siamese kernels — B9 against its plain version, bit for bit, at
+    (T, nq, ns, D) = (1, 4096, 4096, 64), the n-shot form (500, 1, 5, 64) and
+    edges ((1, 33, 41, 64), (1, 1, 1, 64), (3, 7, 130, 17), D at its
+    maximum in both forms), w of both signs, b != 0;
+15. siamese slice — config #2 (``siamese_verification`` with
+    ``weighted_l1``: filters 128, embedding 64, dropout 0, 3 s at 16 kHz,
+    downsampling 4) at full width from a flax-layout tree, the same 500
+    tasks over the same store scored by the head in bf16 (B1 → B2 → cuDNN,
+    B9) and in int8 (B1 → B2 requant → B3 × 3, B9), 1,000 verification
+    pairs → EER and AUC (B9), and ``score_support`` of the table against
+    itself (B9), the launch counters read around each run, each table held
+    against its plain-version path and each set of B9 scores against the
+    plain version's;
+16. siamese train slice — ``fit`` on config #2 with ``weighted_l1`` (BCE),
+    batch 64 pairs, 40 steps, the evaluation's launches counted apart: per
+    step B1 2, B4 1, B5 1, B7 3 + 3; losses finite and falling; then one BCE
+    and one contrastive step through the kernels and through their plain
+    versions, held together;
+17. siamese timing — B9 at both shapes beside its bound, its plain version,
+    the broadcast form and ``torch.cdist`` (the library call for w >= 0);
+    the 500-task head scoring; the siamese train step at batch 64 pairs
+    under the auto policy, with peak memory.
 
 It ends with the per-kernel summary line, then
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the exit code
@@ -79,18 +101,28 @@ import numpy as np
 import torch
 
 from voicemap_tpu_torch import _build
-from voicemap_tpu_torch.config import EncoderConfig, MelConfig, classifier_baseline, melspec_2d
+from voicemap_tpu_torch.config import (
+    EncoderConfig, MelConfig, SiameseConfig, classifier_baseline, melspec_2d,
+    siamese_verification,
+)
 from voicemap_tpu_torch.data.store import synthetic_store
-from voicemap_tpu_torch.eval import nshot
+from voicemap_tpu_torch.eval import nshot, verification
 from voicemap_tpu_torch.models.classifier import SpeakerClassifier
 from voicemap_tpu_torch.models.convert import from_flax
 from voicemap_tpu_torch.models.fast_infer import fast_embed
 from voicemap_tpu_torch.models.quant_infer import (
     quant_embed, quant_embed_mel, quantize_encoder, quantize_from_store, quantize_mel_encoder,
 )
+from voicemap_tpu_torch.models.siamese import SiameseNet
 from voicemap_tpu_torch.models.spectrogram import MelSpecClassifier
-from voicemap_tpu_torch.ops import cuda_conv_train, cuda_melspec, cuda_routing, sampling
+from voicemap_tpu_torch.ops import (
+    cuda_conv_train, cuda_distance, cuda_melspec, cuda_routing, sampling,
+)
+from voicemap_tpu_torch.ops import distance as dist_ops
 from voicemap_tpu_torch.ops.cuda_conv import conv_block0, conv_block0_reference
+from voicemap_tpu_torch.ops.cuda_distance import (
+    MAX_D, weighted_l1, weighted_l1_reference, weighted_l1_work,
+)
 from voicemap_tpu_torch.ops.cuda_melspec import log_mel, log_mel_reference, log_mel_work
 from voicemap_tpu_torch.ops.cuda_conv_train import (
     conv_block0_train, conv_block0_train_bwd, conv_block0_train_bwd_reference,
@@ -133,6 +165,15 @@ MEL_EDGES = ((1, 48000, dict(n_mels=32)), (5, 47999, {}),
              (5, 48000, dict(hop_length=160, win_length=400)),
              (3, 47999, dict(hop_length=160, win_length=400, n_mels=32)),
              (2, 384, {}))
+# Config #2: B9's (T, nq, ns, D) at the timing shape, in the n-shot form of
+# 500 1-shot 5-way tasks, and at edges; the verification pairs; the train
+# step's batch of pairs (2x the rows through the encoder).
+B9_TIMING = (1, 4096, 4096, 64)
+B9_NSHOT = (500, 1, 5, 64)
+B9_EDGES = ((1, 33, 41, 64), (1, 1, 1, 64), (3, 7, 130, 17), (1, 5, 7, MAX_D),
+            (4, 1, 3, MAX_D))
+SIAMESE_PAIRS = 1000
+SIAMESE_BATCH = 64
 
 B1_RTOL, B1_ATOL = 1e-5, 1e-6
 B2_F32_RTOL, B2_F32_ATOL = 1e-5, 1e-5
@@ -141,9 +182,11 @@ TABLE_MIN_COSINE = 0.999
 TRAIN_REL_TOL = 1e-4  # stats, dW, db: of max |value|, for the other sum order
 STEP_LOSS_RTOL = 1e-3
 STEP_MIN_COSINE = 0.999
+STEP_ZERO_GRAD = 1e-6  # of the largest gradient's norm: zero but for rounding
 INT8_FIDELITY_GATE = 0.999  # bench.py's gate
 B6_ATOL = 1e-3  # log-mel, the JAX package's bound for its own kernel
 MEL_INT8_MIN_COSINE = 0.99  # int8 against bf16, tests/test_quant_infer.py's bound for config #4
+B9_MAX_ABS = 0.0  # B9 and its plain version sum in one pinned order: bit for bit
 
 # Published H100 SXM peaks (NVIDIA's data sheet): device memory, dense bf16
 # and int8 tensor-core rates.
@@ -152,6 +195,9 @@ BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
 TF32_OPS_PER_S = 495e12
 F32_OPS_PER_S = 67e12  # CUDA cores, outside the tensor cores
+# The f32 peak counts an FMA as 2 operations: the lanes issue half as many
+# instructions (132 SMs x 128 lanes at ~1.98 GHz).
+F32_INSTR_PER_S = F32_OPS_PER_S / 2
 
 # name -> (wrapper, source, TPU kernel it replaces)
 KERNELS = {
@@ -172,6 +218,8 @@ KERNELS = {
                   "voicemap_tpu/ops/pallas_routing.py:133"),
     "log_mel": (log_mel, "voicemap_tpu_torch/csrc/log_mel.cu",
                 "voicemap_tpu/ops/pallas_melspec.py:52"),
+    "weighted_l1": (weighted_l1, "voicemap_tpu_torch/csrc/weighted_l1.cu",
+                    "voicemap_tpu/ops/pallas_distance.py:33"),
 }
 # The train kernels' plain versions, by the module attribute each wrapper
 # is reached through on the train path.
@@ -836,39 +884,60 @@ def plain_kernels():
             setattr(mod, name, real)
 
 
-def compare_plain_step(cfg, host, store, seed: int) -> dict:
-    """One train step from fixed weights and a fixed batch, through the
-    kernels and through their plain versions: the loss to STEP_LOSS_RTOL,
-    every parameter's gradient to a cosine of STEP_MIN_COSINE."""
-    n = len(host.label_names)
-    model = SpeakerClassifier(cfg.encoder, n, device=DEVICE)
-    model.load_state_dict(from_flax(random_flax_variables(cfg.encoder, n, seed), cfg.encoder))
+def held_steps(model, cfg, run, hold: bool = True) -> dict:
+    """``run(state) → metrics`` once through the kernels and once through
+    their plain versions, from the same weights: the loss to STEP_LOSS_RTOL,
+    every parameter's gradient to a cosine of STEP_MIN_COSINE. A parameter
+    the loss does not reach has no gradient in either; one whose gradient is
+    zero but for rounding in both (STEP_ZERO_GRAD of the largest gradient's
+    norm) is listed apart: a siamese loss sees only e1 − e2, so the last
+    block's BatchNorm bias and the embedding bias cancel out of it. With
+    ``hold=False`` the numbers are reported and not held."""
     snapshot = {k: v.clone() for k, v in model.state_dict().items()}
-    gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    idx = sampling.sample_classifier_batch(gen, store.labels.shape[0], TRAIN_BATCH, DEVICE)
-    x, y = fetch_batch(store, idx, cfg, gen), store.labels[idx]
     runs = []
     for plain in (False, True):
         model.load_state_dict(snapshot)
         state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
-        loss_fn = steps.classifier_loss_fn(model, cfg)
         with plain_kernels() if plain else contextlib.nullcontext():
-            _, m = steps.train_on_batch(state, x, y, torch.Generator(device=DEVICE)
-                                        .manual_seed(seed + 1), loss_fn)
-            loss = float(m["loss"])
+            loss = float(run(state)["loss"])
         runs.append((loss, {k: p.grad.detach().double().flatten().clone()
-                            for k, p in model.named_parameters()}))
+                            for k, p in model.named_parameters() if p.grad is not None}))
     (loss_k, grads_k), (loss_p, grads_p) = runs
+    if set(grads_k) != set(grads_p):
+        raise AssertionError(f"kernel and plain steps reach other parameters: "
+                             f"{sorted(set(grads_k) ^ set(grads_p))}")
+    norms = {k: (float(grads_k[k].norm()), float(grads_p[k].norm())) for k in grads_k}
+    tiny = STEP_ZERO_GRAD * max(max(n) for n in norms.values())
+    zero = sorted(k for k, n in norms.items() if max(n) <= tiny)
     cos = {k: float(torch.nn.functional.cosine_similarity(grads_k[k], grads_p[k], dim=0))
-           for k in grads_k}
+           for k in grads_k if k not in zero}
     worst = min(cos, key=cos.get)
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    if not (rel <= STEP_LOSS_RTOL and cos[worst] >= STEP_MIN_COSINE):
+    if hold and not (rel <= STEP_LOSS_RTOL and cos[worst] >= STEP_MIN_COSINE):
         raise AssertionError(f"kernel step against plain step: loss {loss_k} vs {loss_p}, "
                              f"min cosine {cos[worst]} at {worst}")
-    return {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_rel_diff": rel,
+    return {"held": hold, "loss_kernels": loss_k, "loss_plain": loss_p, "loss_rel_diff": rel,
             "loss_rtol": STEP_LOSS_RTOL, "min_grad_cosine": cos[worst], "min_at": worst,
-            "cosine_tolerance": STEP_MIN_COSINE}
+            "cosine_tolerance": STEP_MIN_COSINE, "params_with_grad": len(grads_k),
+            "zero_grad": zero, "zero_grad_tolerance": STEP_ZERO_GRAD}
+
+
+def compare_plain_step(cfg, host, store, seed: int) -> dict:
+    """One classifier train step from fixed weights and a fixed batch,
+    through the kernels and through their plain versions (``held_steps``)."""
+    n = len(host.label_names)
+    model = SpeakerClassifier(cfg.encoder, n, device=DEVICE)
+    model.load_state_dict(from_flax(random_flax_variables(cfg.encoder, n, seed), cfg.encoder))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    idx = sampling.sample_classifier_batch(gen, store.labels.shape[0], TRAIN_BATCH, DEVICE)
+    x, y = fetch_batch(store, idx, cfg, gen), store.labels[idx]
+    loss_fn = steps.classifier_loss_fn(model, cfg)
+
+    def run(state):
+        drop = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+        return steps.train_on_batch(state, x, y, drop, loss_fn)[1]
+
+    return held_steps(model, cfg, run)
 
 
 def run_train_slice(sliced: dict, seed: int) -> dict:
@@ -1237,6 +1306,314 @@ def run_mel_timing(raw, idx, offsets, model, qvars, seed: int, card: str) -> dic
             "library_ms": {"log_mel": row["library_ms"]}}
 
 
+def b9_inputs(seed: int, T: int, nq: int, ns: int, D: int) -> tuple:
+    """q (T, nq, D), s (T, ns, D), w (D,) of both signs and b != 0, on the card."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = torch.randn(T, nq, D, generator=g, device=DEVICE)
+    s = torch.randn(T, ns, D, generator=g, device=DEVICE)
+    w = torch.randn(D, generator=g, device=DEVICE)
+    return q, s, w, torch.tensor(0.375, device=DEVICE)
+
+
+def check_siamese_kernels() -> dict:
+    """B9 against its plain version at the timing shape, the n-shot form
+    and B9_EDGES: equal, to the bit."""
+    t0 = time.perf_counter()
+    checks = []
+    for i, shape in enumerate((B9_TIMING, B9_NSHOT) + B9_EDGES):
+        q, s, w, b = b9_inputs(50 + i, *shape)
+        c = check_exact("weighted_l1", weighted_l1(q, s, w, b),
+                        weighted_l1_reference(q, s, w, b), shape[:3])
+        checks.append({**c, "D": shape[3], "form": "row" if shape[1] == 1 else "tile"})
+        del q, s
+    err = max(c["max_abs_err"] for c in checks)
+    if err > B9_MAX_ABS:
+        raise AssertionError(f"weighted_l1: max abs err {err} > {B9_MAX_ABS}")
+    emit({"phase": "siamese_kernels", "checks": checks, "max_d": MAX_D,
+          "seconds": time.perf_counter() - t0})
+    return {"errors": {"weighted_l1": err}}
+
+
+@contextlib.contextmanager
+def plain_weighted_l1():
+    """The scoring paths with B9 replaced by its plain version."""
+    real = cuda_distance.weighted_l1
+    cuda_distance.weighted_l1 = weighted_l1_reference
+    try:
+        yield
+    finally:
+        cuda_distance.weighted_l1 = real
+
+
+def b9_scores_held(name: str, fn) -> dict:
+    """``fn()`` through B9 and through its plain version: equal scores."""
+    with torch.inference_mode():
+        got = fn()
+        with plain_weighted_l1():
+            want = fn()
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        err = float((got - want).abs().max()) if got.shape == want.shape else float("inf")
+        raise AssertionError(f"{name}: B9 scores differ from the plain version's "
+                             f"(max abs {err})")
+    return {"scores": list(got.shape), "max_abs_err": 0.0, "tolerance": "equal"}
+
+
+def siamese_config():
+    return siamese_verification(siamese=SiameseConfig(distance_metric="weighted_l1"))
+
+
+def run_siamese_slices(host, seed: int) -> dict:
+    """Config #2 at full width: the 500 tasks scored by the head in bf16
+    and in int8, 1,000 verification pairs and ``score_support`` of the
+    table against itself, each with the launch counters read around it."""
+    cfg = siamese_config()
+    model = SiameseNet(cfg.encoder, cfg.siamese, device=DEVICE)
+    variables = random_flax_variables(cfg.encoder, 1, seed)
+    variables["params"]["head"]["bias"] = np.array([0.25], np.float32)
+    model.load_state_dict(from_flax(variables, cfg.encoder))
+    store = device_store_for(cfg, host, DEVICE)
+    n_utts = host.audio.shape[0]
+    chunks = -(-n_utts // 256)  # embed_all's batch_size
+    d = cfg.encoder.embedding_dim
+    w, b = nshot.head_params(model)
+    out = {"model": model, "cfg": cfg, "store": store}
+    for path in ("siamese_bf16", "siamese_int8"):
+        t0 = time.perf_counter()
+        qvars = None
+        if path == "siamese_int8":
+            qvars = quantize_from_store(model, cfg, store, n_cal=256)
+            torch.cuda.synchronize()
+        calib_seconds = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        table = nshot.embed_all(model, store, cfg, fast=qvars is None, qvars=qvars)
+        acc = nshot.evaluate(model, store, cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                             num_tasks=500, n=1, k=5, fast=qvars is None, qvars=qvars,
+                             table=table)
+        launches = read_counts()
+        seconds = time.perf_counter() - t0
+        check_table(path, table, n_utts, d, acc)
+        want = {name: 0 for name in KERNELS}
+        want.update(gather_whiten=chunks, conv_block0=chunks, weighted_l1=1)
+        if qvars is not None:
+            want["quant_block"] = len(qvars["blocks"]) * chunks
+        if launches != want:
+            raise AssertionError(f"{path} launches {launches}, want {want}")
+        with torch.inference_mode():
+            plain = torch.cat([model.embed(x) if qvars is None
+                               else quant_embed_plain(model.encoder, qvars, x)
+                               for x in plain_fragments(store, cfg, n_utts)])
+        cos_plain = min_cosine(table, plain)
+        if cos_plain < TABLE_MIN_COSINE:
+            raise AssertionError(f"{path} table vs plain path: min cosine {cos_plain}")
+        # The tasks evaluate drew, redrawn: B9's scores against the plain
+        # version's, and the accuracy they give.
+        tasks = sampling.sample_nshot_tasks(torch.Generator(device=DEVICE).manual_seed(seed),
+                                            store.speaker_utts, store.speaker_counts, 500, 1, 5)
+        q = table[tasks.query_idx.long()]
+        s = table[tasks.support_idx.long()].reshape(500, 5, d)
+        held = b9_scores_held(path, lambda: dist_ops.head_scores(q, s, w, b, "weighted_l1"))
+        with torch.inference_mode():
+            pred = nshot.siamese_nshot_predictions(table, tasks.query_idx, tasks.support_idx,
+                                                   w, b, "weighted_l1")
+        if abs(float((pred == 0).float().mean()) - acc) > 1e-6:
+            raise AssertionError(f"{path}: redrawn tasks disagree with evaluate's {acc}")
+        record = {"phase": path + "_slice", "config": "siamese_verification",
+                  "metric": "weighted_l1", "utterances": n_utts,
+                  "speakers": len(host.label_names), "tasks": 500, "n_shot": 1, "k_way": 5,
+                  "accuracy": acc, "table_shape": list(table.shape), "launches": launches,
+                  "min_cosine_vs_plain": cos_plain, "cosine_tolerance": TABLE_MIN_COSINE,
+                  "b9_vs_plain": held, "seconds": seconds}
+        if qvars is not None:
+            record.update(calibration_rows=min(256, n_utts), calibration_seconds=calib_seconds,
+                          min_cosine_int8_vs_bf16_table=min_cosine(table, out["table_bf16"]))
+        emit(record)
+        out[path] = launches
+        out["table_" + path[8:]] = table
+        out["accuracy_" + path[8:]] = acc
+
+    table = out["table_bf16"]
+    nothing = {name: 0 for name in KERNELS}
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = verification.evaluate_verification(
+        model, store, cfg, torch.Generator(device=DEVICE).manual_seed(seed + 1),
+        num_pairs=SIAMESE_PAIRS, table=table)
+    launches = read_counts()
+    seconds = time.perf_counter() - t0
+    if launches != {**nothing, "weighted_l1": 1}:
+        raise AssertionError(f"verification launches {launches}, want weighted_l1 1")
+    if not all(np.isfinite(rep[k]) and 0.0 <= rep[k] <= 1.0 for k in ("eer", "auc")):
+        raise AssertionError(f"verification: EER/AUC not finite in [0, 1]: {rep}")
+    pairs = sampling.sample_verification_batch(torch.Generator(device=DEVICE).manual_seed(seed + 1),
+                                               store.speaker_utts, store.speaker_counts,
+                                               SIAMESE_PAIRS, cfg.siamese.same_label)
+    held = b9_scores_held("verification", lambda: verification.pair_scores(
+        table, pairs.idx_1, pairs.idx_2, cfg, model))
+    labels = pairs.labels.cpu().numpy()
+    n_same = int((labels == cfg.siamese.same_label).sum())
+    emit({"phase": "verification", "config": "siamese_verification", **rep,
+          "eer_stderr": verification.eer_stderr(rep["eer"], n_same, len(labels) - n_same),
+          "auc_stderr": verification.auc_stderr(rep["auc"], n_same, len(labels) - n_same),
+          "launches": launches, "b9_vs_plain": held, "seconds": seconds})
+    out["verification"] = launches
+
+    reset_counts()
+    t0 = time.perf_counter()
+    scores = model.score_support(table, table)
+    launches = read_counts()
+    seconds = time.perf_counter() - t0
+    if launches != {**nothing, "weighted_l1": 1}:
+        raise AssertionError(f"score_support launches {launches}, want weighted_l1 1")
+    if scores.shape != (n_utts, n_utts) or not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"score_support: {tuple(scores.shape)}, finite "
+                             f"{bool(torch.isfinite(scores).all())}")
+    held = b9_scores_held("score_support", lambda: model.score_support(table, table))
+    emit({"phase": "score_support", "config": "siamese_verification",
+          "shape": list(scores.shape), "launches": launches, "b9_vs_plain": held,
+          "seconds": seconds})
+    out["score_support"] = launches
+    return out
+
+
+def run_siamese_train_slice(host, seed: int) -> dict:
+    """``fit`` on config #2 (BCE, ``weighted_l1``) at full width, batch
+    SIAMESE_BATCH pairs, TRAIN_STEPS steps, then one n-shot evaluation whose
+    launches are counted apart; then a BCE and a contrastive step against
+    their plain-version steps, held in f32 compute and reported in bf16.
+
+    In bf16 the kernels' f32 statistics, summed in another order than their
+    plain versions', flip a bf16 rounding of BatchNorm's affine now and then,
+    and blocks 1-3 carry it on: the embeddings differ by ~1e-3 relative, as
+    the classifier's do (its step's loss, 10.73, differs by 1.6e-3). The
+    siamese BCE loss starts near 1.2 and reads |e1 - e2|, so its relative
+    difference (1.4e-3 on the H100) exceeds STEP_LOSS_RTOL. In f32 only the
+    kernels' own summation order is left, so f32 is where the steps are
+    held."""
+    base = siamese_config()
+    cfg = base.replace(train=dataclasses.replace(
+        base.train, batch_size=SIAMESE_BATCH, num_steps=TRAIN_STEPS,
+        evaluate_every=TRAIN_STEPS, num_eval_tasks=500, seed=seed))
+    losses, accs = [], []
+
+    def on_step(i, m):
+        losses.append(m["loss"])
+        accs.append(m["accuracy"])
+
+    reset_counts()
+    with evaluation_launches() as eval_counts:
+        t0 = time.perf_counter()
+        state, history = fit(cfg, host, device=DEVICE, verbose=False, on_step=on_step)
+        total = read_counts()
+        seconds = time.perf_counter() - t0
+    train = {k: total[k] - eval_counts[k] for k in total}
+    S = TRAIN_STEPS
+    want = {name: 0 for name in KERNELS}
+    want.update(gather_whiten=2 * S, conv_block0_train=S, conv_block0_train_bwd=S,
+                pool_fwd=3 * S, route_bwd=3 * S)
+    if train != want:
+        raise AssertionError(f"siamese train launches {train}, want {want} (per step: B1 2, "
+                             f"B4 1, B5 1, B7 3 + 3)")
+    if eval_counts["weighted_l1"] != 1 or eval_counts["conv_block0"] == 0:
+        raise AssertionError(f"siamese evaluation launches {eval_counts}: want B2 and B9 1")
+    loss = torch.stack(losses).float().cpu()
+    acc = torch.stack(accs).float().cpu()
+    if not bool(torch.isfinite(loss).all()):
+        raise AssertionError(f"non-finite siamese train loss: {loss.tolist()}")
+    first, last = float(loss[:5].mean()), float(loss[-5:].mean())
+    if not last < first:
+        raise AssertionError(f"siamese train loss did not fall: first 5 {first}, last 5 {last}")
+    val_acc = history[-1]["val_1-shot_acc"]
+    if not (bool(((acc >= 0) & (acc <= 1)).all()) and 0.0 <= val_acc <= 1.0):
+        raise AssertionError(f"accuracy outside [0, 1]: {acc.tolist()}, val {val_acc}")
+
+    store = device_store_for(cfg, host, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    pairs = sampling.sample_verification_batch(gen, store.speaker_utts, store.speaker_counts,
+                                               SIAMESE_BATCH, cfg.siamese.same_label)
+    x1 = fetch_batch(store, pairs.idx_1, cfg, gen)
+    x2 = fetch_batch(store, pairs.idx_2, cfg, gen)
+    held = {}
+    for dtype in ("float32", "bfloat16"):
+        for loss_name in ("bce", "contrastive"):
+            lcfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder, compute_dtype=dtype),
+                               train=dataclasses.replace(cfg.train, loss=loss_name))
+            model = SiameseNet(lcfg.encoder, lcfg.siamese, device=DEVICE)
+            model.load_state_dict(from_flax(random_flax_variables(lcfg.encoder, 1, seed),
+                                            lcfg.encoder))
+            loss_fn = steps.siamese_loss_fn(model, lcfg)
+            held[f"{loss_name}_{dtype}"] = held_steps(
+                model, lcfg, lambda st, f=loss_fn: steps.train_on_pairs(
+                    st, x1, x2, pairs.labels, None, f)[1], hold=dtype == "float32")
+    emit({"phase": "siamese_train_slice", "config": "siamese_verification",
+          "metric": "weighted_l1", "loss": "bce", "dtype": "bfloat16",
+          "batch_pairs": SIAMESE_BATCH, "steps": S, "speakers": len(host.label_names),
+          "launches": train, "eval_launches": eval_counts,
+          "loss_first5_mean": first, "loss_last5_mean": last, "losses": loss.tolist(),
+          "final_record": history[-1], "seconds": seconds, "plain_steps": held})
+    return {"launches": train, "cfg": cfg, "store": store}
+
+
+def run_siamese_timing(sliced: dict, trained: dict, seed: int, card: str) -> dict:
+    """B9 at B9_TIMING and B9_NSHOT beside its bound, its plain version, the
+    broadcast form and ``torch.cdist``; the 500-task head scoring; the
+    siamese train step at SIAMESE_BATCH pairs under the auto policy."""
+    t0 = time.perf_counter()
+    rows = {}
+    for name, shape in (("timing", B9_TIMING), ("nshot", B9_NSHOT)):
+        q, s, w, b = b9_inputs(70, *shape)
+        work = weighted_l1_work(*shape)
+        qw, sw = q * w.abs(), s * w.abs()
+
+        def broadcast():
+            return (q[:, :, None, :] - s[:, None, :, :]).abs() @ w + b
+
+        rows[name] = {
+            "shape": list(shape), "bytes": work["bytes"], "ops": work["ops"],
+            **bound(work["bytes"], work["ops"], F32_INSTR_PER_S),
+            "ms": time_fn(weighted_l1, q, s, w, b, iters=50)["mean_s"] * 1e3,
+            "plain_ms": time_fn(weighted_l1_reference, q, s, w, b, iters=3,
+                                warmup=1)["mean_s"] * 1e3,
+            "broadcast_ms": time_fn(broadcast, iters=10, warmup=2)["mean_s"] * 1e3,
+            "library_ms": time_fn(torch.cdist, qw, sw, p=1.0, iters=20)["mean_s"] * 1e3,
+            "library": "torch.cdist(q*|w|, s*|w|, p=1): the same sums for w >= 0, no bias",
+        }
+        del q, s, qw, sw
+        torch.cuda.empty_cache()
+
+    model, cfg, store = sliced["model"], sliced["cfg"], sliced["store"]
+    table = sliced["table_bf16"]
+
+    def score():
+        return nshot.score_table(table, store, cfg, torch.Generator(device=DEVICE)
+                                 .manual_seed(seed), 500, 1, 5, model=model)
+
+    scoring = time_fn(score, iters=20, warmup=2)
+    tcfg, tstore = trained["cfg"], trained["store"]
+    tmodel = init_model(tcfg, 1, DEVICE, seed)
+    state = init_state(tmodel, tcfg.train.clipnorm, tcfg.train.learning_rate)
+    step, loss_fn = steps.make_siamese_train_step(tmodel, tcfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = time_fn(step, state, tstore, gen, iters=20, warmup=2)
+    train_step = {"batch_pairs": SIAMESE_BATCH, "rows": 2 * SIAMESE_BATCH,
+                  "fused_block0": loss_fn.fused_block0, "blockn": loss_fn.blockn,
+                  "step_ms": r["mean_s"] * 1e3, "step_p50_ms": r["p50_s"] * 1e3,
+                  "pairs_per_s": SIAMESE_BATCH / r["mean_s"],
+                  "utt_per_s": 2 * SIAMESE_BATCH / r["mean_s"],
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit({"phase": "siamese_timing", "card": card, "weighted_l1": rows,
+          "nshot_scoring_500_tasks_ms": scoring["mean_s"] * 1e3,
+          "nshot_scoring_500_tasks_p50_ms": scoring["p50_s"] * 1e3,
+          "train_step": train_step, "seconds": time.perf_counter() - t0})
+    row = rows["timing"]
+    return {"ms": {"weighted_l1": row["ms"]}, "plain_ms": {"weighted_l1": row["plain_ms"]},
+            "bounds": {"weighted_l1": {k: row[k] for k in ("bound_ms", "bound_by")}},
+            "library_ms": {"weighted_l1": row["library_ms"]}}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1280,28 +1657,44 @@ def main(argv=None) -> int:
     mel_gate = run_mel_fidelity(raw, mel_offsets, mel["model"], args.seed)
     mel_times = run_mel_timing(raw, mel_idx, mel_offsets, mel["model"], mel_gate["qvars"],
                                args.seed, card)
+    del raw
+    torch.cuda.empty_cache()
+    checked_siamese = check_siamese_kernels()
+    siamese = run_siamese_slices(sliced["host"], args.seed)
+    siamese_trained = run_siamese_train_slice(sliced["host"], args.seed)
+    siamese_times = run_siamese_timing(siamese, siamese_trained, args.seed, card)
     for key in ("ms", "plain_ms", "bounds", "library_ms"):
         times[key].update(train_times[key])
         times[key].update(mel_times[key])
+        times[key].update(siamese_times[key])
     checked["errors"].update(checked_train["errors"])
     checked["errors"].update(checked_mel["errors"])
+    checked["errors"].update(checked_siamese["errors"])
 
     # Each entry's launches: the counts of the path runs above (phases slice,
-    # int8_slice, train_slice, mel_bf16_slice and mel_int8_slice), set to 0
-    # just before each run and read just after.
+    # int8_slice, train_slice, mel_bf16_slice, mel_int8_slice,
+    # siamese_bf16_slice, siamese_int8_slice, verification, score_support and
+    # siamese_train_slice), set to 0 just before each run and read just after.
     paths = {"bf16": sliced["launches"], "int8": sliced_int8["launches"],
              "train": trained["launches"], "mel_bf16": mel["mel_bf16"],
-             "mel_int8": mel["mel_int8"]}
+             "mel_int8": mel["mel_int8"], "siamese_bf16": siamese["siamese_bf16"],
+             "siamese_int8": siamese["siamese_int8"], "verification": siamese["verification"],
+             "score_support": siamese["score_support"],
+             "siamese_train": siamese_trained["launches"]}
+    train_paths = ("train", "siamese_train")
     entries = (("gather_whiten", "gather_whiten",
-                ("bf16", "int8", "train", "mel_bf16", "mel_int8")),
-               ("conv_block0", "conv_block0", ("bf16",)),
-               ("conv_block0_int8", "conv_block0", ("int8",)),
-               ("quant_block", "quant_block", ("int8",)),
-               ("conv_block0_train", "conv_block0_train", ("train",)),
-               ("conv_block0_train_bwd", "conv_block0_train_bwd", ("train",)),
-               ("pool_fwd", "pool_fwd", ("train",)),
-               ("route_bwd", "route_bwd", ("train",)),
-               ("log_mel", "log_mel", ("mel_bf16", "mel_int8")))
+                ("bf16", "int8", "train", "mel_bf16", "mel_int8", "siamese_bf16",
+                 "siamese_int8", "siamese_train")),
+               ("conv_block0", "conv_block0", ("bf16", "siamese_bf16")),
+               ("conv_block0_int8", "conv_block0", ("int8", "siamese_int8")),
+               ("quant_block", "quant_block", ("int8", "siamese_int8")),
+               ("conv_block0_train", "conv_block0_train", train_paths),
+               ("conv_block0_train_bwd", "conv_block0_train_bwd", train_paths),
+               ("pool_fwd", "pool_fwd", train_paths),
+               ("route_bwd", "route_bwd", train_paths),
+               ("log_mel", "log_mel", ("mel_bf16", "mel_int8")),
+               ("weighted_l1", "weighted_l1",
+                ("siamese_bf16", "siamese_int8", "verification", "score_support")))
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[kernel][1],

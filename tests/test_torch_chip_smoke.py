@@ -4,7 +4,9 @@ The script routes every tensor through ``chip_smoke.DEVICE``; here that is the
 CPU, the kernels' plain versions stand in for the kernels (and count as their
 launches), the build and the CUDA-event timers are stubbed, and the sizes
 and the configs are cut down (filters 32, 0.128 s fragments, train batches
-of 8, 12 train steps; config #4 at 0.15 s, 16 frames, 32 mels); the train
+of 8, 12 train steps; config #4 at 0.15 s, 16 frames, 32 mels; config #2 at
+the same 0.128 s and filters 32, 8 pairs a train step, 40 verification
+pairs, B9 timed at (1, 40, 36, 16) and (50, 1, 5, 16)); the train
 policies resolve as they do on the card (B4/B5 and the fused blocks-1+ op).
 What this shows
 is the control flow, the shapes and the records of every phase, the
@@ -20,10 +22,11 @@ import torch
 
 import chip_smoke as cs
 from voicemap_tpu_torch.config import (
-    DataConfig, EncoderConfig, ExperimentConfig, MelConfig,
+    DataConfig, EncoderConfig, ExperimentConfig, MelConfig, SiameseConfig, TrainConfig,
 )
 from voicemap_tpu_torch.ops import (
-    cuda_conv, cuda_conv_train, cuda_melspec, cuda_preprocess, cuda_quant_block, cuda_routing,
+    cuda_conv, cuda_conv_train, cuda_distance, cuda_melspec, cuda_preprocess, cuda_quant_block,
+    cuda_routing,
 )
 from voicemap_tpu_torch.train import steps
 
@@ -39,6 +42,12 @@ def on_the_cpu(monkeypatch):
                                  data=DataConfig(seconds=0.15, downsampling=1),
                                  encoder=EncoderConfig(filters=32, embedding_dim=16),
                                  mel=MelConfig(hop_length=128, win_length=384, n_mels=32))
+    small_siamese = ExperimentConfig(name="siamese_verification", mode="siamese",
+                                     data=DataConfig(seconds=0.128, downsampling=4),
+                                     encoder=EncoderConfig(filters=32, embedding_dim=16,
+                                                           dropout=0.0),
+                                     siamese=SiameseConfig(distance_metric="weighted_l1"),
+                                     train=TrainConfig(batch_size=64, loss="bce"))
     for name, value in (("DEVICE", "cpu"), ("BATCH", 512), ("STORE_T", 2600), ("FRAG", 400),
                         ("CHECK_ROWS", 64), ("SWEEP", (1, 8, 512)),
                         ("QBLOCKS", ((100, 32, 64, False), (50, 64, 96, False),
@@ -51,6 +60,9 @@ def on_the_cpu(monkeypatch):
                         ("TRAIN_BATCH", 8), ("TRAIN_C0", 16), ("TRAIN_STEPS", 12),
                         ("TRAIN_BLOCKS", ((64, 100), (96, 50), (128, 24))),
                         ("TRAIN_TIMING_BATCHES", (4, 8)),
+                        ("siamese_config", lambda: small_siamese),
+                        ("B9_TIMING", (1, 40, 36, 16)), ("B9_NSHOT", (50, 1, 5, 16)),
+                        ("SIAMESE_PAIRS", 40), ("SIAMESE_BATCH", 8),
                         ("card_line", lambda: "CPU rehearsal, 0 W")):
         monkeypatch.setattr(cs, name, value)
     # The policies as they resolve on the card: B4/B5, and the fused
@@ -70,7 +82,9 @@ def on_the_cpu(monkeypatch):
                                cuda_conv_train.conv_block0_train_bwd),
                               (cuda_routing, "pool_fwd_reference", cuda_routing.pool_fwd),
                               (cuda_routing, "route_bwd_reference", cuda_routing.route_bwd),
-                              (cuda_melspec, "log_mel_reference", cuda_melspec.log_mel)):
+                              (cuda_melspec, "log_mel_reference", cuda_melspec.log_mel),
+                              (cuda_distance, "weighted_l1_reference",
+                               cuda_distance.weighted_l1)):
         def counted(*a, _ref=getattr(mod, ref), _w=wrapper, **k):
             _w.launches += 1
             return _ref(*a, **k)
@@ -113,7 +127,9 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert phases == ["device", "build", "kernels", "train_kernels", "slice", "int8_slice",
                       "int8_fidelity_gate", "train_slice", "timing", "train_timing",
                       "mel_kernels", "mel_bf16_slice", "mel_int8_slice", "mel_int8_fidelity",
-                      "mel_timing"]
+                      "mel_timing", "siamese_kernels", "siamese_bf16_slice",
+                      "siamese_int8_slice", "verification", "score_support",
+                      "siamese_train_slice", "siamese_timing"]
     by_phase = {r["phase"]: r for r in records if "phase" in r}
     nothing = {name: 0 for name in cs.KERNELS}
     assert by_phase["int8_slice"]["launches"] == {**nothing, "gather_whiten": 2,
@@ -152,17 +168,68 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
         assert {"utt_per_s_b2048", "batch1_p50_ms_events", "peak_mem_gb"} <= set(
             mel_timing["paths"][path])
     assert [r["batch"] for r in by_phase["timing"]["int8_vs_bf16_sweep"]] == [1, 8, 512]
+    # config #2: each n-shot run B1 and B2 once an embed chunk, B9 once (and
+    # B3 three times a chunk in int8); verification and score_support B9 once
+    assert by_phase["siamese_bf16_slice"]["launches"] == {
+        **nothing, "gather_whiten": 2, "conv_block0": 2, "weighted_l1": 1}
+    assert by_phase["siamese_int8_slice"]["launches"] == {
+        **nothing, "gather_whiten": 2, "conv_block0": 2, "quant_block": 6, "weighted_l1": 1}
+    for phase in ("verification", "score_support"):
+        assert by_phase[phase]["launches"] == {**nothing, "weighted_l1": 1}
+        assert by_phase[phase]["b9_vs_plain"]["tolerance"] == "equal"
+    assert 0.0 <= by_phase["verification"]["eer"] <= 1.0
+    assert 0.0 <= by_phase["verification"]["auc"] <= 1.0
+    assert by_phase["verification"]["num_pairs"] == 40
+    assert by_phase["score_support"]["shape"] == [320, 320]
+    b9_checks = by_phase["siamese_kernels"]["checks"]
+    assert [c["shape"] + [c["D"]] for c in b9_checks] == [
+        [1, 40, 36, 16], [50, 1, 5, 16], [1, 33, 41, 64], [1, 1, 1, 64], [3, 7, 130, 17],
+        [1, 5, 7, cs.MAX_D], [4, 1, 3, cs.MAX_D]]
+    assert all(c["max_abs_err"] == 0.0 for c in b9_checks)
+    strain = by_phase["siamese_train_slice"]
+    assert strain["launches"] == {**nothing, "gather_whiten": 2 * steps_run,
+                                  "conv_block0_train": steps_run,
+                                  "conv_block0_train_bwd": steps_run,
+                                  "pool_fwd": 3 * steps_run, "route_bwd": 3 * steps_run}
+    assert strain["eval_launches"] == {**nothing, "gather_whiten": 2, "conv_block0": 2,
+                                       "weighted_l1": 1}
+    assert strain["loss_last5_mean"] < strain["loss_first5_mean"]
+    plain_steps = strain["plain_steps"]
+    assert set(plain_steps) == {f"{loss}_{dt}" for loss in ("bce", "contrastive")
+                                for dt in ("float32", "bfloat16")}
+    for name, rec in plain_steps.items():
+        assert rec["held"] == name.endswith("float32")
+        assert rec["min_grad_cosine"] >= cs.STEP_MIN_COSINE
+        # e1 − e2 cancels the last block's BatchNorm bias and the embedding bias
+        assert set(rec["zero_grad"]) <= {"encoder.blocks.3.bn.bias", "encoder.embed.bias"}
+    # the contrastive loss does not reach the head
+    assert plain_steps["contrastive_float32"]["params_with_grad"] == \
+        plain_steps["bce_float32"]["params_with_grad"] - 2
+    stiming = by_phase["siamese_timing"]
+    assert stiming["weighted_l1"]["timing"]["shape"] == [1, 40, 36, 16]
+    assert stiming["weighted_l1"]["nshot"]["bound_by"] == "bytes"
+    assert {"ms", "plain_ms", "broadcast_ms", "library_ms", "bound_ms"} <= set(
+        stiming["weighted_l1"]["timing"])
+    assert stiming["train_step"]["rows"] == 16 and stiming["train_step"]["blockn"] == "fused"
     kernels = records[-2]["kernels"]
     assert [k["name"] for k in kernels] == ["gather_whiten", "conv_block0",
                                             "conv_block0_int8", "quant_block",
                                             "conv_block0_train", "conv_block0_train_bwd",
-                                            "pool_fwd", "route_bwd", "log_mel"]
+                                            "pool_fwd", "route_bwd", "log_mel", "weighted_l1"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k) and k["launches"] > 0 and k["bound_by"] in (
             "bytes", "operations")
     by_name = {k["name"]: k for k in kernels}
-    assert by_name["pool_fwd"]["launches_by_path"] == {"train": 3 * steps_run}
+    assert by_name["pool_fwd"]["launches_by_path"] == {"train": 3 * steps_run,
+                                                       "siamese_train": 3 * steps_run}
     assert by_name["gather_whiten"]["launches_by_path"]["train"] == steps_run
+    assert by_name["gather_whiten"]["launches_by_path"]["siamese_train"] == 2 * steps_run
+    assert by_name["weighted_l1"]["launches_by_path"] == {
+        "siamese_bf16": 1, "siamese_int8": 1, "verification": 1, "score_support": 1}
+    assert by_name["weighted_l1"]["launches"] == 4
+    assert by_name["weighted_l1"]["max_abs_err"] == 0.0
+    assert by_name["weighted_l1"]["library_ms"] is not None
+    assert by_name["quant_block"]["launches_by_path"] == {"int8": 6, "siamese_int8": 6}
     assert by_name["conv_block0_train_bwd"]["library_ms"] is not None
     assert by_name["log_mel"]["launches_by_path"] == {"mel_bf16": 2, "mel_int8": 2}
     assert by_name["log_mel"]["library_ms"] is not None

@@ -61,6 +61,19 @@ def test_the_mel_modules_are_covered():
     assert "vm_log_mel" in _build.SIGNATURES
 
 
+def test_the_siamese_modules_are_covered():
+    """The import tests reach every module of config #2's port and B9's
+    source is among the ones the build compiles."""
+    from voicemap_tpu_torch import _build
+
+    modules = set(_modules())
+    for name in ("ops.cuda_distance", "ops.distance", "ops.sampling", "models.siamese",
+                 "eval.verification", "eval.nshot", "models.fused_train", "train.steps"):
+        assert f"voicemap_tpu_torch.{name}" in modules, name
+    assert "weighted_l1.cu" in {p.name for p in _build.sources()}
+    assert "vm_weighted_l1" in _build.SIGNATURES
+
+
 def test_no_jax_flax_pandas_import_in_the_port():
     banned = re.compile(r"^\s*(import|from)\s+(jax|flax|pandas|voicemap_tpu)\b", re.M)
     offenders = [str(p.relative_to(REPO)) for p in SOURCES if banned.search(p.read_text())]

@@ -170,5 +170,8 @@ def test_evaluate_guards_and_range(small_eval):
     acc = nshot.evaluate(model, store, cfg, g, num_tasks=50, n=1, k=3, fast=True,
                          embed_batch=5)
     assert 0.0 <= acc <= 1.0
-    with pytest.raises(NotImplementedError):
+    # A siamese net's head scores its tasks: without the net there is no head.
+    with pytest.raises(ValueError):
         nshot.score_table(torch.zeros(12, 16), store, cfg.replace(mode="siamese"), g, 5, 1, 2)
+    with pytest.raises(ValueError):
+        nshot.score_table(torch.zeros(12, 16), store, cfg.replace(mode="pairs"), g, 5, 1, 2)

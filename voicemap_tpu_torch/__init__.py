@@ -10,15 +10,17 @@ where its counterpart does:
 - :mod:`voicemap_tpu_torch.ops` — preprocess, sampling, distances, the
   log-mel reference (``melspec``), the hand-written CUDA kernels
   (``cuda_preprocess``, ``cuda_conv``, ``cuda_quant_block``,
-  ``cuda_conv_train``, ``cuda_routing``, ``cuda_melspec``) and the fused
-  train blocks' autograd Functions (``conv_train``)
+  ``cuda_conv_train``, ``cuda_routing``, ``cuda_melspec``,
+  ``cuda_distance``) and the fused train blocks' autograd Functions
+  (``conv_train``)
 - :mod:`voicemap_tpu_torch.models` — conv encoder (eval and train mode),
-  classifier, the log-mel 2D models of config #4 (``spectrogram``), fast
+  classifier, the siamese verification net (``siamese``), the log-mel 2D models of config #4 (``spectrogram``), fast
   inference, the fused train forward, int8 serving (``quant_infer``),
   flax-tree and qvars converters
 - :mod:`voicemap_tpu_torch.train` — the device store, batch fetch, the
-  classifier train step, losses, optimizer, metrics, checkpoints and ``fit``
-- :mod:`voicemap_tpu_torch.eval` — batched n-shot k-way evaluation
+  classifier and siamese train steps, losses, optimizer, metrics, checkpoints and ``fit``
+- :mod:`voicemap_tpu_torch.eval` — batched n-shot k-way evaluation and
+  threshold-free verification (EER, AUC)
 - :mod:`voicemap_tpu_torch.utils` — CUDA-event timing and the serving and
   train-step profilers
 

@@ -53,6 +53,8 @@ SIGNATURES = {
     "vm_route_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, cs, fbt, bands, out, B, T, n_frames, win, hop, M, K, log_eps, stream
     "vm_log_mel": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, s, w, b, out, T, nq, ns, D, stream
+    "vm_weighted_l1": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,23 +1,30 @@
-"""Batched n-shot k-way speaker-identification evaluation (classifier scoring).
+"""Batched n-shot k-way speaker-identification evaluation.
 
-Port of ``voicemap_tpu/eval/nshot.py`` (``embed_all``, ``classifier_nshot_accuracy``,
-``evaluate``, ``score_table``):
+Port of ``voicemap_tpu/eval/nshot.py`` (``embed_all``,
+``classifier_nshot_accuracy``, ``siamese_nshot_accuracy``, ``evaluate``,
+``score_table``):
 
 1. embed the whole evaluation store once, from deterministic offset-0
    fragments, in chunks → an ``(N, D)`` table;
 2. sample every task's indices on the device (true class at index 0);
-3. score all tasks at once: euclidean distance in matmul form, averaged per
-   class for n > 1, argmin over classes.
+3. score all tasks at once:
+   - classifier and melspec2d modes: euclidean distance in matmul form,
+     averaged per class for n > 1, argmin over classes;
+   - siamese mode: the trained Dense(1) head's logits
+     (``ops/distance.head_scores``; ``weighted_l1`` through the B9 kernel),
+     averaged per class, argmin under ``same_label = 0`` and argmax under
+     ``same_label = 1``. A contrastive-trained siamese net never trains its
+     head, so it is scored by embedding distance, as the classifier is.
 
 ``fast=True`` embeds through ``models/fast_infer.fast_embed`` (the B2 kernel
 for block 0); ``qvars=`` (from ``models/quant_infer``) embeds through the
 int8 serving path, ``quant_embed`` (B2 with its requantizing epilogue, then
 the B3 kernel for blocks 1+). Either way fragments come through the B1
-kernel. ``melspec2d`` (config #4) embeds through the model's own forward
-(B1, then the B6 log-mel kernel and cuDNN's 2D convs) or, with mel
-``qvars``, through ``quant_embed`` → ``quant_embed_mel``; ``fast`` does not
-apply to it, as in the JAX package, and it is scored as the classifier is.
-Siamese scoring and streaming come with their own slices.
+kernel. The siamese net embeds as the classifier does, through its encoder.
+``melspec2d`` (config #4) embeds through the model's own forward (B1, then
+the B6 log-mel kernel and cuDNN's 2D convs) or, with mel ``qvars``, through
+``quant_embed`` → ``quant_embed_mel``; ``fast`` does not apply to it, as in
+the JAX package. Streaming comes with its own slice.
 """
 
 from __future__ import annotations
@@ -30,12 +37,14 @@ from ..config import ExperimentConfig
 from ..models.classifier import SpeakerClassifier
 from ..models.fast_infer import fast_embed
 from ..models.quant_infer import check_qvars_mode, quant_embed
+from ..models.siamese import SiameseNet
 from ..models.spectrogram import MelSpecClassifier
+from ..ops import distance as dist_ops
 from ..ops import sampling
 from ..train.steps import DeviceStore, fetch_batch
 
 
-Model = Union[SpeakerClassifier, MelSpecClassifier]
+Model = Union[SpeakerClassifier, SiameseNet, MelSpecClassifier]
 
 
 def embed_all(model: Model, store: DeviceStore, cfg: ExperimentConfig,
@@ -85,17 +94,67 @@ def classifier_nshot_accuracy(table: torch.Tensor, speaker_utts: torch.Tensor,
     return (pred == 0).float().mean()
 
 
+def siamese_nshot_predictions(table: torch.Tensor, query_idx: torch.Tensor,
+                              support_idx: torch.Tensor, w: torch.Tensor, b,
+                              metric: str, same_label: int = 0) -> torch.Tensor:
+    """Predicted class ``(tasks,)`` of each task by the verification head:
+    its logits of the query against every support (``head_scores``), the
+    mean per class, then argmin for ``same_label = 0`` (a low logit means
+    "same") and argmax for ``same_label = 1``."""
+    tasks, k, n = support_idx.shape
+    q = table[query_idx.long()]  # (tasks, D)
+    s = table[support_idx.long()].reshape(tasks, k * n, -1)  # (tasks, kn, D)
+    class_scores = dist_ops.class_distances(dist_ops.head_scores(q, s, w, b, metric), n, k)
+    return class_scores.argmin(-1) if same_label == 0 else class_scores.argmax(-1)
+
+
+def siamese_nshot_accuracy(table: torch.Tensor, w: torch.Tensor, b,
+                           speaker_utts: torch.Tensor, speaker_counts: torch.Tensor,
+                           generator: Optional[torch.Generator], num_tasks: int, n: int,
+                           k: int, metric: str = "uniform_euclidean",
+                           same_label: int = 0) -> torch.Tensor:
+    """Verification-head n-shot accuracy (a 0-d tensor) over fresh tasks;
+    ``w``, ``b`` are the Dense(1)'s weight and bias."""
+    tasks = sampling.sample_nshot_tasks(generator, speaker_utts, speaker_counts,
+                                        num_tasks, n, k)
+    pred = siamese_nshot_predictions(table, tasks.query_idx, tasks.support_idx, w, b,
+                                     metric, same_label)
+    return (pred == 0).float().mean()
+
+
+def uses_head(cfg: ExperimentConfig) -> bool:
+    """Whether scoring reads the siamese head: in siamese mode unless the net
+    was trained contrastively (its head then never trained, and scoring by
+    it could even invert rankings), for a metric the head knows."""
+    return (cfg.mode == "siamese" and cfg.train.loss != "contrastive"
+            and cfg.siamese.distance_metric in dist_ops.SIAMESE_METRICS)
+
+
+def head_params(model) -> tuple[torch.Tensor, torch.Tensor]:
+    """The siamese head's ``(w (width,), b 0-d)`` in f32, detached."""
+    if not isinstance(model, SiameseNet):
+        raise ValueError("siamese head scoring needs the SiameseNet whose head scores")
+    return model.head.weight.detach().float().reshape(-1), model.head.bias.detach().float()[0]
+
+
 def score_table(table: torch.Tensor, store: DeviceStore, cfg: ExperimentConfig,
                 generator: Optional[torch.Generator], num_tasks: int, n: int,
-                k: int) -> float:
-    """Score one (n, k) setting against a precomputed embedding table:
-    nearest class by embedding distance (classifier and melspec2d modes)."""
-    if cfg.mode not in ("classifier", "melspec2d"):
-        raise NotImplementedError(
-            f"score_table: only classifier scoring is ported, not {cfg.mode!r}")
-    return float(classifier_nshot_accuracy(table, store.speaker_utts,
-                                           store.speaker_counts, generator,
-                                           num_tasks, n, k))
+                k: int, model: Optional[Model] = None) -> float:
+    """Score one (n, k) setting against a precomputed embedding table: by
+    the siamese head (``model``'s) where :func:`uses_head`, else the nearest
+    class by embedding distance."""
+    if cfg.mode not in ("classifier", "siamese", "melspec2d"):
+        raise ValueError(f"score_table: unknown mode {cfg.mode!r}")
+    with torch.inference_mode():
+        if uses_head(cfg):
+            w, b = head_params(model)
+            acc = siamese_nshot_accuracy(table, w, b, store.speaker_utts,
+                                         store.speaker_counts, generator, num_tasks, n, k,
+                                         cfg.siamese.distance_metric, cfg.siamese.same_label)
+        else:
+            acc = classifier_nshot_accuracy(table, store.speaker_utts, store.speaker_counts,
+                                            generator, num_tasks, n, k)
+    return float(acc)
 
 
 def evaluate(model: Model, store: DeviceStore, cfg: ExperimentConfig,
@@ -122,4 +181,4 @@ def evaluate(model: Model, store: DeviceStore, cfg: ExperimentConfig,
     if table is None:
         table = embed_all(model, store, cfg, batch_size=embed_batch, fast=fast,
                           qvars=qvars)
-    return score_table(table, store, cfg, generator, num_tasks, n, k)
+    return score_table(table, store, cfg, generator, num_tasks, n, k, model=model)

@@ -1,2 +1,2 @@
-"""Conv encoder, speaker classifier, the log-mel 2D models, fast and int8
-inference, the converters."""
+"""Conv encoder, speaker classifier, siamese verification net, the log-mel 2D
+models, fast and int8 inference, the converters."""

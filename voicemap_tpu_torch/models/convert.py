@@ -12,7 +12,11 @@ parameters) so that both packages run the same weights:
   or ``BatchNorm2d`` (its epsilon, 1e-3, is set by the module from the config).
 
 Takes either the classifier's tree (``params/encoder/block_i/...``,
-``params/encoder/embed``, ``params/head``) or the bare encoder's.
+``params/encoder/embed``, ``params/head``) or the bare encoder's. The
+siamese net's tree (:class:`SiameseNet`) is the same ``encoder`` + ``head``
+tree: its Dense(1) kernel ``(D, 1)`` (``(1, 1)`` for the metrics that merge a
+pair to one value) maps to ``head.weight (1, D)`` and back by the same
+transpose, with its bias ``(1,)`` as it is.
 ``to_flax`` is the inverse: a ``state_dict``, or a dict of gradients keyed by
 parameter name, back to the flax tree as numpy arrays, so the tests can hold
 the port's gradients, updated parameters and batch statistics against the

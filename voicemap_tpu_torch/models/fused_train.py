@@ -1,7 +1,8 @@
 """The training forward with the fused block ops.
 
-Port of ``voicemap_tpu/models/fused_train.py :: encoder_train_forward`` and
-``classifier_train_forward``. Block 0 runs through
+Port of ``voicemap_tpu/models/fused_train.py :: encoder_train_forward``,
+``classifier_train_forward``, ``siamese_train_forward`` and
+``siamese_embed_train_forward``. Block 0 runs through
 ``ops/conv_train.FusedBlock0Train`` (B4 forward, B5 backward) when it is
 eligible; blocks 1+ run either flax's ``ConvBlock`` train semantics
 differentiated by autograd (``blockn="jnp"``, ``ConvBlock.forward_train_nct``)
@@ -23,10 +24,12 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import distance as dist_ops
 from ..ops.conv_train import FusedBlock0Train, FusedBlocknTrain, symmetric_padding
 from ..ops.cuda_conv_train import KERNEL_POOL, KERNEL_TAPS, MAX_CHANNELS
 from .classifier import SpeakerClassifier
 from .encoder import ConvEncoder, spatial_dropout
+from .siamese import SiameseNet
 
 BLOCKN = ("jnp", "fused")
 
@@ -93,3 +96,24 @@ def classifier_train_forward(model: SpeakerClassifier, x: torch.Tensor,
     """``SpeakerClassifier`` train forward → ``(B, num_classes)`` f32 logits."""
     return model.logits(encoder_train_forward(model.encoder, x, generator, blockn,
                                               fused_block0))
+
+
+def siamese_train_forward(model: SiameseNet, x1: torch.Tensor, x2: torch.Tensor,
+                          generator: torch.Generator | None = None, blockn: str = "jnp",
+                          fused_block0: bool = True) -> torch.Tensor:
+    """``SiameseNet`` train forward → ``(B,)`` f32 logits: ``[x1; x2]``
+    through ONE encoder forward at 2B rows (BatchNorm's batch statistics
+    over both halves), then the merge and the Dense(1) in f32."""
+    B = x1.shape[0]
+    emb = encoder_train_forward(model.encoder, torch.cat([x1, x2], dim=0), generator, blockn,
+                                fused_block0)
+    feats = dist_ops.merge_features(emb[:B], emb[B:], model.siamese.distance_metric)
+    return model.head_logits(feats)
+
+
+def siamese_embed_train_forward(model: SiameseNet, x: torch.Tensor,
+                                generator: torch.Generator | None = None, blockn: str = "jnp",
+                                fused_block0: bool = True) -> torch.Tensor:
+    """``SiameseNet.embed`` in train mode → ``(B, D)`` f32 (the contrastive
+    loss's path: the head is not used)."""
+    return encoder_train_forward(model.encoder, x, generator, blockn, fused_block0)

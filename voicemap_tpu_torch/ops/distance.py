@@ -1,12 +1,19 @@
 """Batched distances for n-shot evaluation and the verification head.
 
 Port of ``voicemap_tpu/ops/distance.py``. The squared euclidean matrix is in
-matmul form, ‖q‖² + ‖s‖² − 2QSᵀ; L1 has no matmul form and broadcasts.
+matmul form, ‖q‖² + ‖s‖² − 2QSᵀ; L1 has no matmul form and broadcasts. The
+weighted-L1 scores of the siamese head (``pairwise_weighted_l1`` and the
+``weighted_l1`` branch of ``head_scores``) go through B9
+(``ops/cuda_distance.weighted_l1``): the kernel on a CUDA tensor, its plain
+version, a loop over the embedding dims in the kernel's order, on a CPU one.
+``merge_features`` is the per-pair merge that feeds the siamese Dense(1).
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import cuda_distance
 
 SIAMESE_METRICS = (
     "uniform_euclidean",
@@ -40,9 +47,10 @@ def pairwise_l1(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_weighted_l1(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor,
-                         b: torch.Tensor) -> torch.Tensor:
-    """Weighted-L1 verification scores ``|q − s| @ w + b`` of every pair."""
-    return (q[:, None, :] - s[None, :, :]).abs() @ w.reshape(-1) + b
+                         b) -> torch.Tensor:
+    """Weighted-L1 verification scores ``|q − s| @ w + b`` of every pair,
+    ``(nq, D) × (ns, D) → (nq, ns)`` f32, through B9."""
+    return cuda_distance.weighted_l1(q[None], s[None], w, b)[0]
 
 
 def pairwise_cosine_distance(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -54,12 +62,30 @@ def pairwise_dot(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return -(q @ s.T)
 
 
+def merge_features(e1: torch.Tensor, e2: torch.Tensor, metric: str) -> torch.Tensor:
+    """Per-pair features of the siamese Dense(1) head: ``weighted_l1`` keeps
+    the D-dim ``|e1 − e2|`` (the Dense weights it), the others collapse each
+    pair to one value, ``(B, 1)``."""
+    if metric == "weighted_l1":
+        return (e1 - e2).abs()
+    if metric == "uniform_l1":
+        return (e1 - e2).abs().sum(-1, keepdim=True)
+    if metric == "uniform_euclidean":
+        return torch.sqrt((e1 - e2).square().sum(-1, keepdim=True) + 1e-12)
+    if metric == "dot_product":
+        return (e1 * e2).sum(-1, keepdim=True)
+    if metric == "cosine_distance":
+        return 1.0 - (_unit(e1) * _unit(e2)).sum(-1, keepdim=True)
+    raise ValueError(f"unknown distance metric: {metric}")
+
+
 def head_scores(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor,
-                b: torch.Tensor, metric: str) -> torch.Tensor:
-    """Verification-head logits: ``q`` (T, D), ``s`` (T, P, D) → (T, P)."""
+                b, metric: str) -> torch.Tensor:
+    """Verification-head logits: ``q`` (T, D), ``s`` (T, P, D) → (T, P);
+    ``weighted_l1`` through B9 in its ``(T, 1, P)`` form."""
     w = w.reshape(-1)
     if metric == "weighted_l1":
-        return (q[:, None, :] - s).abs() @ w + b
+        return cuda_distance.weighted_l1(q[:, None, :], s, w, b)[:, 0, :]
     if metric == "uniform_l1":
         d = (q[:, None, :] - s).abs().sum(-1)
     elif metric == "uniform_euclidean":

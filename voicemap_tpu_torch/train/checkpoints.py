@@ -7,7 +7,9 @@ state. ``latest/<step>.pt`` keeps the newest ``max_to_keep``; ``best/``
 keeps the one with the highest n-shot accuracy, whose value persists in
 ``best_metric.json`` so that a resumed run cannot overwrite it with a worse
 one. Batch sampling is a function of (seed, step), so restoring the step
-resumes the data stream.
+resumes the data stream. The state may be a classifier's or a siamese net's
+(whose Dense(1) head, width 1, :meth:`CheckpointManager.head_num_classes`
+does not read as a class count).
 """
 
 from __future__ import annotations

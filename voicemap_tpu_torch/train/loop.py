@@ -1,13 +1,14 @@
 """The training loop: steps → periodic n-shot eval → plateau LR → checkpoints
 → JSONL metrics.
 
-Port of ``voicemap_tpu/train/loop.py :: fit`` for the device pipeline in
-classifier mode on one card. The JAX ``fit`` reads its corpus through
-``data/dataset.py`` (pandas and LibriSpeech on disk); this one takes an
-``AudioStore`` (``data/store.py``), which the caller builds, for example
-with ``synthetic_store``. Not ported yet: siamese steps, the streaming
-pipeline, data parallel, and the ``fused_recompute`` and ``fused_int8``
-train forwards.
+Port of ``voicemap_tpu/train/loop.py :: fit`` for the device pipeline on
+one card, in classifier mode (config #1) and siamese mode (config #2, BCE or
+contrastive). The JAX ``fit`` reads its corpus through ``data/dataset.py``
+(pandas and LibriSpeech on disk); this one takes an ``AudioStore``
+(``data/store.py``), which the caller builds, for example with
+``synthetic_store``. Not ported yet: the log-mel mode's training, the
+streaming pipeline, data parallel, and the ``fused_recompute`` and
+``fused_int8`` train forwards.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ..config import ExperimentConfig
 from ..data.store import AudioStore
 from ..eval import nshot
 from ..models.classifier import SpeakerClassifier
+from ..models.siamese import SiameseNet
 from . import steps as steps_mod
 from .checkpoints import CheckpointManager
 from .metrics import JSONLWriter, PlateauScheduler
@@ -31,11 +33,17 @@ from .state import TrainState, init_state
 _LECUN_TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
-def init_model(cfg: ExperimentConfig, num_classes: int, device, seed: int) -> SpeakerClassifier:
-    """A classifier initialised as flax initialises it, from ``seed``: conv
+def init_model(cfg: ExperimentConfig, num_classes: int, device,
+               seed: int) -> SpeakerClassifier | SiameseNet:
+    """The model of ``cfg.mode`` (a classifier of ``num_classes``, or for
+    ``"siamese"`` the siamese net, whose Dense(1) head ignores
+    ``num_classes``) initialised as flax initialises it, from ``seed``: conv
     and Dense kernels lecun-normal (truncated at two standard deviations),
     biases zero, BatchNorm scale 1, bias 0, running mean 0, variance 1."""
-    model = SpeakerClassifier(cfg.encoder, num_classes, device=device)
+    if cfg.mode == "siamese":
+        model = SiameseNet(cfg.encoder, cfg.siamese, device=device)
+    else:
+        model = SpeakerClassifier(cfg.encoder, num_classes, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -56,7 +64,8 @@ def fit(cfg: ExperimentConfig, train_store: AudioStore, val_store: Optional[Audi
     ``val_store`` (the training store, with a warning, when none is given),
     the plateau schedule, one JSONL record (loss, accuracy,
     ``val_{n}-shot_acc``, lr, ``utterances_per_sec`` of the steps since the
-    last record) and, with ``checkpoint_dir``, the latest and best
+    last record; for a siamese net, of pairs) and, with ``checkpoint_dir``,
+    the latest and best
     checkpoints. A run with a checkpoint in ``checkpoint_dir`` resumes from
     it. The batch of step i is drawn from a generator seeded with
     (seed, i), so a resumed run draws what the first would have.
@@ -64,8 +73,9 @@ def fit(cfg: ExperimentConfig, train_store: AudioStore, val_store: Optional[Audi
     tensors on the device, not waited for).
     """
     t = cfg.train
-    if cfg.mode != "classifier":
-        raise NotImplementedError(f"fit: only classifier mode is ported, not {cfg.mode!r}")
+    if cfg.mode not in ("classifier", "siamese"):
+        raise NotImplementedError(
+            f"fit: classifier and siamese modes are ported, not {cfg.mode!r}")
     store = steps_mod.device_store_for(cfg, train_store, device)
     if val_store is not None:
         val = steps_mod.device_store_for(cfg, val_store, device)
@@ -78,7 +88,10 @@ def fit(cfg: ExperimentConfig, train_store: AudioStore, val_store: Optional[Audi
         val = store
     model = init_model(cfg, len(train_store.label_names), device, t.seed)
     state = init_state(model, t.clipnorm, t.learning_rate)
-    step, loss_fn = steps_mod.make_classifier_train_step(model, cfg)
+    if cfg.mode == "siamese":
+        step, loss_fn = steps_mod.make_siamese_train_step(model, cfg)
+    else:
+        step, loss_fn = steps_mod.make_classifier_train_step(model, cfg)
     if verbose:
         print(f"block 0: {'B4/B5' if loss_fn.fused_block0 else 'autograd'}, "
               f"blocks 1+: {loss_fn.blockn}")
@@ -105,7 +118,8 @@ def fit(cfg: ExperimentConfig, train_store: AudioStore, val_store: Optional[Audi
             utt_per_s = steps_since * t.batch_size / max(time.perf_counter() - t_last, 1e-9)
             model.eval()
             eval_gen = torch.Generator(device=store.audio.device).manual_seed(t.seed + 1 + i)
-            # The evaluation embeds through B2 where the step trains through B4/B5.
+            # The evaluation embeds through B2 where the step trains through
+            # B4/B5; a siamese net's head scores the tasks (B9 for weighted_l1).
             acc = nshot.evaluate(model, val, cfg, eval_gen, num_tasks=t.num_eval_tasks,
                                  n=t.n_shot, k=t.k_way, fast=loss_fn.fused_block0)
             model.train()

@@ -1,14 +1,20 @@
-"""The corpus on the device, batch fetch, and the classifier train step.
+"""The corpus on the device, batch fetch, and the classifier and siamese
+train steps.
 
 Port of ``voicemap_tpu/train/steps.py``: ``DeviceStore``,
 ``device_store_for``, ``fetch_batch``, ``resolve_fused_block0``,
-``resolve_blockn``, ``classifier_loss_fn`` and ``make_classifier_train_step``.
-One step samples utterance ids, gathers and whitens their fragments (B1),
-runs the train forward (``models/fused_train``: B4 for block 0, cuDNN convs
-and B7 for blocks 1+), the softmax cross-entropy, the backward (B7's
-routing, cuDNN's dX and dW, B5 for block 0) and the clipped Adam update,
-all on the device. ``train_on_batch`` is the step after sampling, for a
-batch the caller gives. The siamese and streaming steps are not ported yet.
+``resolve_blockn``, ``classifier_loss_fn``, ``make_classifier_train_step``,
+``siamese_loss_fn`` and ``make_siamese_train_step``. A classifier step
+samples utterance ids, gathers and whitens their fragments (B1), runs the
+train forward (``models/fused_train``: B4 for block 0, cuDNN convs and B7 for
+blocks 1+), the softmax cross-entropy, the backward (B7's routing, cuDNN's dX
+and dW, B5 for block 0) and the clipped Adam update, all on the device. A
+siamese step samples half alike and half differing pairs, fetches x1 and x2
+through B1 apart (two launches, as the JAX step fetches them), encodes
+``[x1; x2]`` as one batch and trains on the BCE of the head's logits or on
+the contrastive loss of the embeddings' distance. ``train_on_batch`` and
+``train_on_pairs`` are the steps after sampling, for a batch the caller
+gives. The streaming steps are not ported yet.
 
 The port has one preprocessing path, the fused one: the store is decimated
 once when it is shipped, and every batch goes through the B1 gather+whiten
@@ -28,6 +34,7 @@ from ..config import ExperimentConfig
 from ..data.store import AudioStore
 from ..models import fused_train
 from ..models.classifier import SpeakerClassifier
+from ..models.siamese import SiameseNet
 from ..ops import preprocess, sampling
 from ..ops.cuda_preprocess import decimate_store, gather_whiten
 from . import losses
@@ -106,9 +113,10 @@ def _device_of(model: torch.nn.Module) -> torch.device:
 
 
 def resolve_fused_block0(cfg: ExperimentConfig, model) -> bool:
-    """The block-0 op (B4/B5) for the classifier: None = auto, on for a model
-    on the card (on the CPU its plain versions are slower than autograd)."""
-    if not isinstance(model, SpeakerClassifier):
+    """The block-0 op (B4/B5) for the waveform models, the classifier and
+    the siamese net: None = auto, on for a model on the card (on the CPU its
+    plain versions are slower than autograd)."""
+    if not isinstance(model, (SpeakerClassifier, SiameseNet)):
         return False
     flag = cfg.train.use_fused_block0
     if flag is None:
@@ -187,5 +195,68 @@ def make_classifier_train_step(model: SpeakerClassifier, cfg: ExperimentConfig):
                                                store.audio.device)
         x = fetch_batch(store, idx, cfg, generator, stochastic=cfg.data.stochastic)
         return train_on_batch(state, x, store.labels[idx], generator, loss_fn)
+
+    return step, loss_fn
+
+
+def siamese_loss_fn(model: SiameseNet, cfg: ExperimentConfig) -> Callable:
+    """``loss_fn(x1, x2, y, generator) → (loss, accuracy)`` with the policies
+    this config resolves to (the function's ``fused_block0`` and ``blockn``).
+
+    BCE (the default): the head's logits against ``y``, binary accuracy.
+    Contrastive: the Hadsell loss of the embeddings' euclidean distance
+    ``d``; a pair is predicted "different" when ``d > margin / 2``, which is
+    the label ``1 − same_label``.
+    """
+    fused0 = resolve_fused_block0(cfg, model)
+    blockn = resolve_blockn(cfg, _device_of(model))
+    same = cfg.siamese.same_label
+    margin = cfg.train.contrastive_margin
+    contrastive = cfg.train.loss == "contrastive"
+
+    def loss_fn(x1: torch.Tensor, x2: torch.Tensor, y: torch.Tensor,
+                generator: Optional[torch.Generator]):
+        model.train()
+        if contrastive:
+            B = x1.shape[0]
+            emb = fused_train.siamese_embed_train_forward(
+                model, torch.cat([x1, x2], dim=0), generator, blockn, fused0)
+            d = torch.sqrt((emb[:B] - emb[B:]).square().sum(-1) + 1e-12)
+            pred = torch.where(d > margin / 2, 1.0 - same, float(same))
+            return (losses.contrastive(d, y, margin=margin, same_label=same),
+                    (pred == y).float().mean())
+        logits = fused_train.siamese_train_forward(model, x1, x2, generator, blockn, fused0)
+        return losses.bce_with_logits(logits, y), losses.binary_accuracy(logits, y)
+
+    loss_fn.fused_block0, loss_fn.blockn = fused0, blockn
+    return loss_fn
+
+
+def train_on_pairs(state: TrainState, x1: torch.Tensor, x2: torch.Tensor, y: torch.Tensor,
+                   generator: Optional[torch.Generator], loss_fn: Callable):
+    """One update on the pairs ``(x1, x2)`` (each ``(B, T, 1)`` f32) with
+    labels ``y (B,)`` f32 → ``(state, {"loss", "accuracy"})``, as
+    :func:`train_on_batch`."""
+    state.optimizer.zero_grad()
+    loss, acc = loss_fn(x1, x2, y, generator)
+    loss.backward()
+    apply_updates(state)
+    return state, {"loss": loss.detach(), "accuracy": acc}
+
+
+def make_siamese_train_step(model: SiameseNet, cfg: ExperimentConfig):
+    """``(step, loss_fn)``; ``step(state, store, generator) → (state,
+    metrics)`` samples ``batch_size`` pairs (half alike, half differing),
+    fetches x1 and x2 and trains on them."""
+    loss_fn = siamese_loss_fn(model, cfg)
+    B = cfg.train.batch_size
+    same = cfg.siamese.same_label
+
+    def step(state: TrainState, store: DeviceStore, generator: Optional[torch.Generator]):
+        batch = sampling.sample_verification_batch(generator, store.speaker_utts,
+                                                   store.speaker_counts, B, same)
+        x1 = fetch_batch(store, batch.idx_1, cfg, generator, stochastic=cfg.data.stochastic)
+        x2 = fetch_batch(store, batch.idx_2, cfg, generator, stochastic=cfg.data.stochastic)
+        return train_on_pairs(state, x1, x2, batch.labels, generator, loss_fn)
 
     return step, loss_fn

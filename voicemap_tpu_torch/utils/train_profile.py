@@ -13,8 +13,13 @@ blocks-1+ policy (``jnp``, ``fused``):
 2. ``torch.profiler`` over 3 steps: device time by kernel name, device
    events a step, and the device's idle share (as ``stage_profile``).
 
-Prints the card line, then one JSON line per (batch, policy). Needs a CUDA
-device.
+Then config #2 (``siamese_verification`` with ``weighted_l1``, BCE) at its
+batch of 64 pairs (128 rows through the encoder), under the auto policy,
+through ``make_siamese_train_step`` (B1 twice, B4/B5, B7 under ``fused``),
+measured the same way.
+
+Prints the card line, then one JSON line per (config, batch, policy). Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import time
 
 import torch
 
-from ..config import classifier_baseline
+from ..config import SiameseConfig, classifier_baseline, siamese_verification
 from ..data.store import synthetic_store
 from ..train import steps
 from ..train.loop import init_model
@@ -56,31 +61,35 @@ def main(argv=None) -> int:
                            min_seconds=3.5, max_seconds=6.0)
     base = classifier_baseline()
     store = steps.device_store_for(base, host, "cuda")
-    for batch in args.batches:
-        for blockn in ("jnp", "fused"):
-            cfg = base.replace(train=dataclasses.replace(
-                base.train, batch_size=batch, use_fused_blockn=blockn == "fused"))
-            model = init_model(cfg, len(host.label_names), "cuda", args.seed)
-            state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
-            step, loss_fn = steps.make_classifier_train_step(model, cfg)
-            gen = torch.Generator(device="cuda").manual_seed(args.seed)
-            host_s = []
-            for i in range(12):
-                t0 = time.perf_counter()
-                step(state, store, gen)
-                torch.cuda.synchronize()
-                if i >= 2:
-                    host_s.append(time.perf_counter() - t0)
-            events = time_fn(step, state, store, gen, iters=10, warmup=1)
-            prof = profile([("step", lambda _: step(state, store, gen))])
-            print(json.dumps({"batch": batch, "blockn": blockn,
-                              "fused_block0": loss_fn.fused_block0,
-                              "host_ms_median": statistics.median(host_s) * 1e3,
-                              "events_ms_mean": events["mean_s"] * 1e3,
-                              "events_ms_p50": events["p50_s"] * 1e3,
-                              "profile": prof}), flush=True)
-            del model, state, step, loss_fn
-            torch.cuda.empty_cache()
+    runs = [(base.replace(train=dataclasses.replace(
+        base.train, batch_size=batch, use_fused_blockn=blockn == "fused")), batch, blockn)
+        for batch in args.batches for blockn in ("jnp", "fused")]
+    sia = siamese_verification(siamese=SiameseConfig(distance_metric="weighted_l1"))
+    runs.append((sia, sia.train.batch_size, "auto"))
+    for cfg, batch, blockn in runs:
+        model = init_model(cfg, len(host.label_names), "cuda", args.seed)
+        state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
+        make = (steps.make_siamese_train_step if cfg.mode == "siamese"
+                else steps.make_classifier_train_step)
+        step, loss_fn = make(model, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        host_s = []
+        for i in range(12):
+            t0 = time.perf_counter()
+            step(state, store, gen)
+            torch.cuda.synchronize()
+            if i >= 2:
+                host_s.append(time.perf_counter() - t0)
+        events = time_fn(step, state, store, gen, iters=10, warmup=1)
+        prof = profile([("step", lambda _: step(state, store, gen))])
+        print(json.dumps({"config": cfg.name, "batch": batch, "blockn": loss_fn.blockn,
+                          "policy": blockn, "fused_block0": loss_fn.fused_block0,
+                          "host_ms_median": statistics.median(host_s) * 1e3,
+                          "events_ms_mean": events["mean_s"] * 1e3,
+                          "events_ms_p50": events["p50_s"] * 1e3,
+                          "profile": prof}), flush=True)
+        del model, state, step, loss_fn
+        torch.cuda.empty_cache()
     return 0
 
 
