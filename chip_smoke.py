@@ -10,16 +10,22 @@ Each phase prints one JSON line; nothing here imports JAX.
 2. build — compile ``voicemap_tpu_torch/csrc`` for ``sm_90a``;
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
    at the main paths' shapes and at edge shapes, with the tolerance stated:
-   B1, B2 (bf16, f32 and its int8 requantizing epilogue) and B3 at the three
-   config #1 block shapes;
+   B1, B2 (bf16, f32 and its int8 requantizing epilogue), B3 at the three
+   config #1 block shapes; B8 at the same three shapes in f32 output (each
+   output within a bound derived from its K = k·Cin products and f32
+   rounding) and bf16 output (row cosine), and at edges (odd T, T = 2 and 3,
+   B = 1, T no tile multiple, k = 5, Cin = 40, Cout = 24 and 72, BN scales of
+   both signs); B10's mma and pool stages exactly against their plain
+   versions and its full stage equal to B3, at the three shapes;
    train kernels — B4 and B5 at the train step's (32, 12000, 128) and at edge
    shapes, B7's pool and routing passes at the three config #1 block shapes
    of the train step and at an odd C, each against its plain version;
 4. slice — config #1 at full width (filters 128, embedding 64, 3 s at 16 kHz,
    downsampling 4) built from a flax-layout tree through ``from_flax``,
    serving 500 1-shot 5-way n-shot tasks over a seeded synthetic store in
-   bf16, with the kernels' launch counters read around that run and its
-   embedding table held against the plain-version path;
+   bf16 (B1 → B2 → B8 × 3), with the kernels' launch counters read around
+   that run and its embedding table held against the plain-version path
+   (cuDNN for every block);
 5. int8 slice — the same model calibrated with ``quantize_from_store`` and
    served in int8 (B1 → B2 with requant → B3 × 3), the same 500 tasks, its
    launch counters read around that run, its table held against the
@@ -30,13 +36,20 @@ Each phase prints one JSON line; nothing here imports JAX.
 7. train slice — ``fit`` at full config #1 width, batch 32, for 40 steps on
    the seeded 40-speaker store with an n-shot evaluation at the end, the
    launch counters read around it and the evaluation's own launches counted
-   apart: per step B1 1, B4 1, B5 1, B7 3 + 3; every loss finite and the
+   apart: per step B1 1, B4 1, B5 1, B7 3 + 3; the evaluation, on the model's
+   own forward as the reference's fit, B1 only; every loss finite and the
    last five below the first five; then one step from fixed weights and a
    fixed batch through the kernels and through their plain versions,
    held together (loss, gradient cosine per parameter);
 8. timing — CUDA-event times of each kernel beside its plain version, its
-   bound and (B3) a library GEMM; embed throughput at B=2048 in bf16 and
-   int8; batch-1 latency; int8 against bf16 embed time over batch sizes;
+   bound and (B3) a library GEMM; B8 per block beside its bound, its plain
+   version, ``F.conv1d`` (conv and bias only) and the cuDNN block it
+   replaced; the bf16 embed's stages (``stage_profile``); embed throughput
+   at B=2048 in bf16 and int8, and bf16 through B8 against the cuDNN chain
+   in turns; batch-1 latency; int8 against bf16 embed time over batch sizes;
+8b. attribution — ``utils/qblock_attrib``: B10's stages and B3 at config
+   #1's three block shapes, B=2048, ms, increments and TOP/s, the launch
+   counters read around it; the mma stage beside its plain version and bound;
 9. train timing — B4, B5 and B7 beside their bounds, plain versions and
    (B5) a library weight-gradient conv at the train step's shapes; the train
    step's ms and utt/s at B=32 and B=2048 under both blocks-1+ policies, in
@@ -66,7 +79,7 @@ Each phase prints one JSON line; nothing here imports JAX.
 15. siamese slice — config #2 (``siamese_verification`` with
     ``weighted_l1``: filters 128, embedding 64, dropout 0, 3 s at 16 kHz,
     downsampling 4) at full width from a flax-layout tree, the same 500
-    tasks over the same store scored by the head in bf16 (B1 → B2 → cuDNN,
+    tasks over the same store scored by the head in bf16 (B1 → B2 → B8 × 3,
     B9) and in int8 (B1 → B2 requant → B3 × 3, B9), 1,000 verification
     pairs → EER and AUC (B9), and ``score_support`` of the table against
     itself (B9), the launch counters read around each run, each table held
@@ -74,7 +87,8 @@ Each phase prints one JSON line; nothing here imports JAX.
     plain version's;
 16. siamese train slice — ``fit`` on config #2 with ``weighted_l1`` (BCE),
     batch 64 pairs, 40 steps, the evaluation's launches counted apart: per
-    step B1 2, B4 1, B5 1, B7 3 + 3; losses finite and falling; then one BCE
+    step B1 2, B4 1, B5 1, B7 3 + 3; the evaluation B1 and B9 only; losses
+    finite and falling; then one BCE
     and one contrastive step through the kernels and through their plain
     versions, held together;
 17. siamese timing — B9 at both shapes beside its bound, its plain version,
@@ -109,7 +123,7 @@ from voicemap_tpu_torch.data.store import synthetic_store
 from voicemap_tpu_torch.eval import nshot, verification
 from voicemap_tpu_torch.models.classifier import SpeakerClassifier
 from voicemap_tpu_torch.models.convert import from_flax
-from voicemap_tpu_torch.models.fast_infer import fast_embed
+from voicemap_tpu_torch.models.fast_infer import fast_embed, takes_blockn
 from voicemap_tpu_torch.models.quant_infer import (
     quant_embed, quant_embed_mel, quantize_encoder, quantize_from_store, quantize_mel_encoder,
 )
@@ -119,7 +133,9 @@ from voicemap_tpu_torch.ops import (
     cuda_conv_train, cuda_distance, cuda_melspec, cuda_routing, sampling,
 )
 from voicemap_tpu_torch.ops import distance as dist_ops
-from voicemap_tpu_torch.ops.cuda_conv import conv_block0, conv_block0_reference
+from voicemap_tpu_torch.ops.cuda_conv import (
+    bn_affine, conv_block0, conv_block0_reference, conv_blockn, conv_blockn_reference,
+)
 from voicemap_tpu_torch.ops.cuda_distance import (
     MAX_D, weighted_l1, weighted_l1_reference, weighted_l1_work,
 )
@@ -131,7 +147,9 @@ from voicemap_tpu_torch.ops.cuda_conv_train import (
 from voicemap_tpu_torch.ops.cuda_preprocess import (
     decimate_store, gather_whiten, gather_whiten_reference,
 )
-from voicemap_tpu_torch.ops.cuda_quant_block import quant_block, quant_block_reference
+from voicemap_tpu_torch.ops.cuda_quant_block import (
+    STAGES, quant_block, quant_block_reference, quant_block_stage, quant_block_stage_reference,
+)
 from voicemap_tpu_torch.ops.cuda_routing import (
     pool_fwd, pool_fwd_reference, route_bwd, route_bwd_reference,
 )
@@ -139,6 +157,7 @@ from voicemap_tpu_torch.train import steps
 from voicemap_tpu_torch.train.loop import fit, init_model
 from voicemap_tpu_torch.train.state import init_state
 from voicemap_tpu_torch.train.steps import DeviceStore, device_store_for, fetch_batch
+from voicemap_tpu_torch.utils import qblock_attrib, stage_profile
 from voicemap_tpu_torch.utils.profiling import throughput, time_fn
 
 DEVICE = "cuda"  # every tensor of the run lives here
@@ -149,8 +168,11 @@ STORE_T = 56000
 DS = 4
 FRAG = 12000
 CHECK_ROWS = 256  # rows of the on-card checks and of each plain-version chunk
-# Config #1's int8 blocks 1-3: (T in, Cin, Cout, last).
+# Config #1's blocks 1-3: (T in, Cin, Cout, last), int8 (B3) and bf16 (B8, k = 3).
 QBLOCKS = ((3000, 128, 256, False), (1500, 256, 384, False), (750, 384, 512, True))
+# B8's edges: (B, T, Cin, Cout, k).
+B8_EDGES = ((3, 1001, 128, 256, 3), (1, 2, 128, 64, 3), (2, 3, 64, 72, 3),
+            (1, 300, 128, 128, 5), (2, 257, 40, 24, 3), (2, 130, 384, 512, 3))
 SWEEP = (1, 8, 64, 256, 2048)
 # The train step of config #1: batch 32 of 12000 samples; block 0's width;
 # blocks 1-3's full-rate conv outputs (C, T), pool 2; train steps of the slice.
@@ -187,6 +209,20 @@ INT8_FIDELITY_GATE = 0.999  # bench.py's gate
 B6_ATOL = 1e-3  # log-mel, the JAX package's bound for its own kernel
 MEL_INT8_MIN_COSINE = 0.99  # int8 against bf16, tests/test_quant_infer.py's bound for config #4
 B9_MAX_ABS = 0.0  # B9 and its plain version sum in one pinned order: bit for bit
+# B8 against its plain version, f32 output. Both multiply the same bf16
+# values, so every product is exact in f32 and only the order of the f32 sums
+# differs: each order lies within (K − 1)·u·S of the exact sum (u = 2^-24,
+# S = Σ|x·w| over the K = k·Cin products), and the tensor cores' additions
+# need not round to nearest (up to 2u each). So per output:
+#   |out − ref| <= u·(B8_TERM_ULPS·K·|mul|·(S + |bias|) + B8_EPILOGUE_ULPS·(|ref| + |add|))
+# the second term for the epilogue's own roundings. bf16 output: each side
+# rounds once, so they differ by at most about one bf16 ulp an element
+# (1 − cosine ≤ 2^-17); held by row cosine.
+F32_UNIT_ROUNDOFF = 2.0 ** -24
+BN_EPS = 1e-3  # the configs' BatchNorm epsilon (flax's)
+B8_TERM_ULPS = 4
+B8_EPILOGUE_ULPS = 4
+B8_BF16_MIN_COSINE = 0.9999
 
 # Published H100 SXM peaks (NVIDIA's data sheet): device memory, dense bf16
 # and int8 tensor-core rates.
@@ -220,6 +256,10 @@ KERNELS = {
                 "voicemap_tpu/ops/pallas_melspec.py:52"),
     "weighted_l1": (weighted_l1, "voicemap_tpu_torch/csrc/weighted_l1.cu",
                     "voicemap_tpu/ops/pallas_distance.py:33"),
+    "conv_blockn": (conv_blockn, "voicemap_tpu_torch/csrc/conv_blockn.cu",
+                    "voicemap_tpu/ops/pallas_conv.py:300"),
+    "quant_block_stage": (quant_block_stage, "voicemap_tpu_torch/csrc/quant_block.cu",
+                          "benchmarks/bench_qblock_attrib.py:43"),
 }
 # The train kernels' plain versions, by the module attribute each wrapper
 # is reached through on the train path.
@@ -338,17 +378,109 @@ def requant_scale_for(x: torch.Tensor, params: tuple) -> torch.Tensor:
 
 
 def qblock_inputs(seed: int, B: int, T: int, cin: int, cout: int) -> tuple:
-    """Random int8 activations and weights and epilogue vectors on the card;
-    alpha crosses zero, and alpha and beta follow the accumulator's spread
-    (≈ √(3·Cin)·5400 for uniform int8) so most outputs land inside ±127."""
+    """B3's inputs on the card, as ``utils/qblock_attrib`` draws them."""
+    return qblock_attrib.block_inputs(seed, B, T, cin, cout, DEVICE)
+
+
+def blockn_inputs(seed: int, B: int, T: int, cin: int, cout: int, k: int = 3) -> tuple:
+    """bf16 activations and a block's parameters on the card: w at the
+    fan-in scale, half the BatchNorm scales negative (the max after the
+    affine then differs from the max before it)."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    x = torch.randint(-127, 128, (B, T, cin), generator=g, device=DEVICE, dtype=torch.int8)
-    w = torch.randint(-127, 128, (3, cin, cout), generator=g, device=DEVICE, dtype=torch.int8)
-    spread = (3 * cin) ** 0.5 * 5400.0
-    alpha = torch.randn(cout, generator=g, device=DEVICE) * (40.0 / spread)
-    beta = torch.randn(cout, generator=g, device=DEVICE) * (0.5 * spread)
-    gamma = torch.randn(cout, generator=g, device=DEVICE) * 10.0
-    return x, w, alpha, beta, gamma
+    x = torch.randn(B, T, cin, generator=g, device=DEVICE).to(torch.bfloat16)
+    w = torch.randn(k, cin, cout, generator=g, device=DEVICE) * (k * cin) ** -0.5
+    b = torch.randn(cout, generator=g, device=DEVICE) * 0.05
+    scale = torch.rand(cout, generator=g, device=DEVICE) + 0.5
+    scale[::2] *= -1.0
+    bias, mean = (torch.randn(cout, generator=g, device=DEVICE) * 0.1 for _ in range(2))
+    var = torch.rand(cout, generator=g, device=DEVICE) * 1.5 + 0.5
+    return x, (w, b, scale, bias, mean, var)
+
+
+def block_params(blk) -> tuple:
+    """A ConvBlock's parameters as B8 takes them: the flax-layout kernel, the
+    conv bias, BatchNorm's scale, bias, running mean and variance."""
+    return (blk.conv.weight.permute(2, 1, 0), blk.conv.bias, blk.bn.weight, blk.bn.bias,
+            blk.bn.running_mean, blk.bn.running_var)
+
+
+def blockn_bound(x: torch.Tensor, params: tuple, ref: torch.Tensor) -> torch.Tensor:
+    """The per-output bound on B8 against its plain version (f32 output)."""
+    w = params[0]
+    k, cin, cout = w.shape
+    zeros, ones = torch.zeros(cout, device=x.device), torch.ones(cout, device=x.device)
+    s = conv_blockn_reference(x.abs(), w.abs(), zeros, ones, zeros, zeros, ones, 0.0,
+                              out_dtype=torch.float32)  # Σ|x·w|, the larger of the pair
+    bias, mul, add = bn_affine(*params[1:], BN_EPS)
+    return F32_UNIT_ROUNDOFF * (B8_TERM_ULPS * k * cin * mul.abs() * (s + bias.abs())
+                                + B8_EPILOGUE_ULPS * (ref.abs() + add.abs()))
+
+
+def check_blockn(x: torch.Tensor, params: tuple) -> dict:
+    """B8 against its plain version: f32 output within ``blockn_bound``,
+    bf16 output by row cosine."""
+    B, T, cin = x.shape
+    k, _, cout = params[0].shape
+    shape = (B, T // 2, cout)
+    out = conv_blockn(x, *params, BN_EPS, out_dtype=torch.float32)
+    ref = conv_blockn_reference(x, *params, BN_EPS, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    if tuple(out.shape) != shape or tuple(ref.shape) != shape:
+        raise AssertionError(f"conv_blockn {(B, T, cin, cout, k)}: {tuple(out.shape)}, "
+                             f"want {shape}")
+    diff = (out - ref).abs()
+    ratio, err = 0.0, 0.0
+    if diff.numel():
+        ratio = float((diff / blockn_bound(x, params, ref).clamp(min=1e-30)).max())
+        err = float(diff.max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"conv_blockn {(B, T, cin, cout, k)} f32: max abs err {err}, "
+                             f"{ratio} of its bound")
+    outb = conv_blockn(x, *params, BN_EPS)
+    refb = conv_blockn_reference(x, *params, BN_EPS)
+    torch.cuda.synchronize()
+    cos, ulps = 1.0, 0
+    if outb.numel():
+        cos = min_cosine(outb.reshape(B, -1).float(), refb.reshape(B, -1).float())
+        ulps = bf16_ulps(outb, refb)
+    if not cos >= B8_BF16_MIN_COSINE:
+        raise AssertionError(f"conv_blockn {(B, T, cin, cout, k)} bf16: row cosine {cos}")
+    return {"kernel": "conv_blockn", "shape": [B, T, cin, cout, k], "out": list(shape),
+            "max_abs_err": err, "err_over_bound": ratio,
+            "bf16_min_row_cosine": cos, "bf16_max_ulps": ulps,
+            "tolerance": f"f32: |err| <= u*({B8_TERM_ULPS}*K*|mul|*(S+|bias|) + "
+                         f"{B8_EPILOGUE_ULPS}*(|ref|+|add|)), u = 2^-24, S = sum|x*w|; "
+                         f"bf16: row cosine >= {B8_BF16_MIN_COSINE}"}
+
+
+def check_blockn_kernels() -> tuple[list, float]:
+    """B8 at config #1's three block shapes (CHECK_ROWS rows) and B8_EDGES;
+    the largest f32 error at the main shapes."""
+    checks = []
+    for i, (T, cin, cout, _) in enumerate(QBLOCKS):
+        x, params = blockn_inputs(100 + i, CHECK_ROWS, T, cin, cout)
+        checks.append(check_blockn(x, params))
+        del x, params
+    err = max(c["max_abs_err"] for c in checks)
+    for B, T, cin, cout, k in B8_EDGES:
+        checks.append(check_blockn(*blockn_inputs(B + T + cin, B, T, cin, cout, k)))
+    return checks, err
+
+
+def check_qblock_stages() -> list:
+    """B10 at the three block shapes: mma and pool equal to their plain
+    versions, full equal to B3's mid block."""
+    checks = []
+    for i, (T, cin, cout, _) in enumerate(QBLOCKS):
+        args = qblock_inputs(i, CHECK_ROWS, T, cin, cout)
+        for stage in STAGES:
+            want = (quant_block(*args) if stage == "full"
+                    else quant_block_stage_reference(*args, stage))
+            c = check_exact("quant_block_stage", quant_block_stage(*args, stage), want,
+                            (CHECK_ROWS, T // 2, cout))
+            checks.append({**c, "stage": stage})
+        del args
+    return checks
 
 
 def check_exact(name: str, out: torch.Tensor, ref: torch.Tensor, shape: tuple) -> dict:
@@ -459,6 +591,11 @@ def check_kernels(store, idx, offsets, params) -> dict:
         checks.append(c)
         del args
     checks.extend(check_edges())
+    blockn_checks, errors["conv_blockn"] = check_blockn_kernels()
+    checks.extend(blockn_checks)
+    checks.extend(check_qblock_stages())
+    errors["quant_block_stage"] = max(c["max_abs_err"] for c in checks
+                                      if c["kernel"] == "quant_block_stage")
     emit({"phase": "kernels", "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                                        "matmul": torch.backends.cuda.matmul.allow_tf32},
           "checks": checks})
@@ -494,6 +631,10 @@ def run_slice(seed: int) -> dict:
     missing = [name for name in ("gather_whiten", "conv_block0") if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched by the slice: {missing}")
+    want_b8 = blockn_launches(model.encoder, n_utts)
+    if launches["conv_blockn"] != want_b8:
+        raise AssertionError(f"conv_blockn launched {launches['conv_blockn']} times, want "
+                             f"{want_b8} (the blocks B8 takes x the embed chunks)")
 
     # The plain-version path: reference gather + the module forward (cuDNN
     # for every block), from the same offset-0 fragments.
@@ -511,6 +652,12 @@ def run_slice(seed: int) -> dict:
           "seconds": seconds})
     return {"launches": launches, "model": model, "cfg": cfg, "store": store,
             "table": table, "accuracy": acc, "host": host}
+
+
+def blockn_launches(encoder, n_utts: int) -> int:
+    """B8's launches for one ``embed_all`` of ``n_utts`` rows: the blocks it
+    takes times the chunks of 256 rows."""
+    return sum(takes_blockn(b) for b in encoder.blocks[1:]) * -(-n_utts // 256)
 
 
 def plain_fragments(store: DeviceStore, cfg, n_utts: int):
@@ -653,6 +800,55 @@ def time_quant_blocks(seed: int) -> dict:
     return {"blocks": rows}
 
 
+def embed_cudnn_blocks(encoder, x: torch.Tensor) -> torch.Tensor:
+    """The bf16 embed as it ran before B8: B2, then ``ConvBlock.forward_nct``
+    (cuDNN) for every later block, then the head."""
+    blk = encoder.blocks[0]
+    cdt = encoder.compute_dtype
+    with torch.inference_mode():
+        h = conv_block0(x, *block_params(blk), blk.bn.eps, out_dtype=cdt,
+                        gemm_dtype=cdt).transpose(1, 2)
+        for blk in encoder.blocks[1:]:
+            h = blk.forward_nct(h)
+        return encoder.pool_and_embed(h)
+
+
+def time_blockn(encoder, x: torch.Tensor) -> list:
+    """B8 at each of config #1's blocks 1-3 at B=BATCH, on the block's own
+    input (B2's output, then B8's), beside its bound, its plain version,
+    ``F.conv1d`` in bf16 at the block's shape (conv and bias only: the port
+    never calls it for B8's work) and the cuDNN block it replaced
+    (``ConvBlock.forward_nct`` on the same input, channel first)."""
+    cdt = encoder.compute_dtype
+    blk0 = encoder.blocks[0]
+    rows = []
+    with torch.inference_mode():
+        h = conv_block0(x, *block_params(blk0), blk0.bn.eps, out_dtype=cdt, gemm_dtype=cdt)
+        for i, blk in enumerate(encoder.blocks[1:], start=1):
+            params = block_params(blk)
+            B, T, cin = h.shape
+            k, _, cout = params[0].shape
+            moved = h.numel() * 2 + k * cin * cout * 4 + 5 * cout * 4 + B * (T // 2) * cout * 2
+            ops = 2.0 * B * T * k * cin * cout
+            row = {"block": i, "B": B, "T": T, "cin": cin, "cout": cout, "k": k,
+                   "ops": ops, "bytes": moved, **bound(moved, ops, BF16_OPS_PER_S),
+                   "ms": time_fn(conv_blockn, h, *params, blk.bn.eps, iters=20)["mean_s"] * 1e3,
+                   "plain_ms": time_fn(in_chunks(conv_blockn_reference, h, *params, blk.bn.eps),
+                                       iters=2, warmup=1)["mean_s"] * 1e3}
+            xc = h.transpose(1, 2).contiguous()  # (B, Cin, T), the layout F.conv1d takes
+            wc, bc = blk.conv.weight.to(cdt), blk.conv.bias.to(cdt)
+            row["library_ms"] = time_fn(torch.nn.functional.conv1d, xc, wc, bc,
+                                        padding=(k - 1) // 2, iters=20)["mean_s"] * 1e3
+            row["library"] = "F.conv1d bf16 (cuDNN), conv and bias only: no relu, BN or pool"
+            row["cudnn_block_ms"] = time_fn(blk.forward_nct, h.transpose(1, 2),
+                                            iters=20)["mean_s"] * 1e3
+            del xc
+            rows.append(row)
+            h = conv_blockn(h, *params, blk.bn.eps)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_timing(store, idx, offsets, params, s0, model, cfg, qvars, seed, card) -> dict:
     x = gather_whiten(store, idx, offsets, FRAG)[..., None]
     c = params[1].shape[0]
@@ -679,15 +875,23 @@ def run_timing(store, idx, offsets, params, s0, model, cfg, qvars, seed, card) -
         "conv_block0": bound(x_bytes + BATCH * (FRAG // 4) * c * 2, conv_ops, BF16_OPS_PER_S),
         "conv_block0_int8": bound(x_bytes + BATCH * (FRAG // 4) * c, conv_ops, BF16_OPS_PER_S),
     }
-    del x
+    b8 = time_blockn(model.encoder, x)
+    # fast_embed's stages after the gather, each on the previous one's output
+    stage_ms, h = {}, x
+    with torch.inference_mode():
+        for name, fn in stage_profile.stages_bf16(model.encoder, lambda: x)[1:]:
+            stage_ms[name] = time_fn(fn, h, iters=10)["mean_s"] * 1e3
+            h = fn(h)
+    del x, h
     qb = time_quant_blocks(seed)
-    ms["quant_block"] = sum(r["ms"] for r in qb["blocks"])
-    plain_ms["quant_block"] = sum(r["plain_ms"] for r in qb["blocks"])
-    bounds["quant_block"] = {"bound_ms": sum(r["bound_ms"] for r in qb["blocks"]),
-                             "bound_by": max(qb["blocks"], key=lambda r: r["bound_ms"])["bound_by"]}
-    lib = [r["library_ms"] for r in qb["blocks"]]
-    library_ms = {"gather_whiten": None, "conv_block0": None, "conv_block0_int8": None,
-                  "quant_block": None if None in lib else sum(lib)}
+    library_ms = {"gather_whiten": None, "conv_block0": None, "conv_block0_int8": None}
+    for name, rows_ in (("quant_block", qb["blocks"]), ("conv_blockn", b8)):
+        ms[name] = sum(r["ms"] for r in rows_)
+        plain_ms[name] = sum(r["plain_ms"] for r in rows_)
+        bounds[name] = {"bound_ms": sum(r["bound_ms"] for r in rows_),
+                        "bound_by": max(rows_, key=lambda r: r["bound_ms"])["bound_by"]}
+        lib = [r["library_ms"] for r in rows_]
+        library_ms[name] = None if None in lib else sum(lib)
 
     lengths = torch.full((BATCH,), store.shape[1], dtype=torch.int32, device=DEVICE)
     rows = torch.arange(BATCH, dtype=torch.int32, device=DEVICE)
@@ -710,7 +914,18 @@ def run_timing(store, idx, offsets, params, s0, model, cfg, qvars, seed, card) -
             xp = gather_whiten_reference(store, indices, offs, FRAG)[..., None]
             return model.embed(xp)
 
+    def serve_cudnn(indices):
+        return embed_cudnn_blocks(model.encoder, fetch_batch(bench, indices, cfg, gen))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     tput = throughput(serve, rows, items_per_call=BATCH, iters=10, warmup=2)
+    peak_bf16 = torch.cuda.max_memory_allocated() / 1e9
+    # bf16 through B8 against the cuDNN blocks it replaced, in turns.
+    turns = [{"blocks": name, "ms_b2048": throughput(fn, rows, items_per_call=BATCH, iters=5,
+                                                     warmup=1)["sec_per_call"] * 1e3}
+             for name, fn in (("b8", serve), ("cudnn", serve_cudnn), ("cudnn", serve_cudnn),
+                              ("b8", serve))]
     tput_int8 = throughput(serve_int8, rows, items_per_call=BATCH, iters=10, warmup=2)
     tput_plain = throughput(serve_plain, rows, items_per_call=BATCH, iters=3, warmup=1)
     one = rows[:1]
@@ -732,10 +947,16 @@ def run_timing(store, idx, offsets, params, s0, model, cfg, qvars, seed, card) -
     faster = [r["batch"] for r in sweep if r["int8_ms"] < r["bf16_ms"]]
     min_batch = next((b for b in SWEEP if all(r["int8_ms"] < r["bf16_ms"]
                                               for r in sweep if r["batch"] >= b)), None)
+    b8_ms = [t["ms_b2048"] for t in turns if t["blocks"] == "b8"]
+    cudnn_ms = [t["ms_b2048"] for t in turns if t["blocks"] == "cudnn"]
     emit({"phase": "timing", "card": card, "kernel_ms": ms, "plain_ms": plain_ms,
           "bound": bounds, "library_ms": library_ms, "quant_block": qb["blocks"],
+          "conv_blockn": b8, "bf16_stage_ms": stage_ms,
           "embed_utt_per_s_b2048": tput["items_per_sec"],
-          "embed_ms_b2048": tput["sec_per_call"] * 1e3,
+          "embed_ms_b2048": tput["sec_per_call"] * 1e3, "bf16_peak_mem_gb": peak_bf16,
+          "b8_against_cudnn_blocks_turns": turns,
+          "embed_ms_b2048_b8_blocks": sum(b8_ms) / len(b8_ms),
+          "embed_ms_b2048_cudnn_blocks": sum(cudnn_ms) / len(cudnn_ms),
           "int8_embed_utt_per_s_b2048": tput_int8["items_per_sec"],
           "int8_embed_ms_b2048": tput_int8["sec_per_call"] * 1e3,
           "plain_path_utt_per_s_b2048": tput_plain["items_per_sec"],
@@ -745,7 +966,39 @@ def run_timing(store, idx, offsets, params, s0, model, cfg, qvars, seed, card) -
           "int8_vs_bf16_sweep": sweep, "int8_faster_at": faster,
           "int8_min_batch_measured": min_batch,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return {"ms": ms, "plain_ms": plain_ms, "bounds": bounds, "library_ms": library_ms}
+    return {"ms": ms, "plain_ms": plain_ms, "bounds": bounds, "library_ms": library_ms,
+            "b3_library": [r["library_ms"] for r in qb["blocks"]]}
+
+
+def run_attribution(seed: int, card: str, b3_library: list) -> dict:
+    """``utils/qblock_attrib`` at config #1's block shapes and B=BATCH: B10's
+    stages and B3, the launch counters read around it; then the mma stage
+    beside its plain version and its bound (its output is int32), and B3's
+    library GEMM (``time_quant_blocks``) as its yardstick."""
+    t0 = time.perf_counter()
+    reset_counts()
+    rows = qblock_attrib.attribute(BATCH, seed, QBLOCKS, device=DEVICE, timer=time_fn)
+    launches = read_counts()
+    if launches["quant_block_stage"] == 0:
+        raise AssertionError(f"attribution launches {launches}: want quant_block_stage")
+    for i, (row, (T, cin, cout, _)) in enumerate(zip(rows, QBLOCKS)):
+        args = qblock_inputs(seed + i, BATCH, T, cin, cout)
+        row["mma_plain_ms"] = time_fn(in_chunks(quant_block_stage_reference, *args, "mma"),
+                                      iters=2, warmup=1)["mean_s"] * 1e3
+        moved = BATCH * T * cin + 3 * cin * cout + 12 * cout + BATCH * (T // 2) * cout * 4
+        row["mma_bound"] = bound(moved, row["ops"], INT8_OPS_PER_S)
+        del args
+        torch.cuda.empty_cache()
+    emit({"phase": "attribution", "card": card, "blocks": rows, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    worst = max(rows, key=lambda r: r["mma_bound"]["bound_ms"])
+    return {"launches": launches,
+            "ms": {"quant_block_stage": sum(r["stages"][0]["ms"] for r in rows)},
+            "plain_ms": {"quant_block_stage": sum(r["mma_plain_ms"] for r in rows)},
+            "bounds": {"quant_block_stage": {
+                "bound_ms": sum(r["mma_bound"]["bound_ms"] for r in rows),
+                "bound_by": worst["mma_bound"]["bound_by"]}},
+            "library_ms": {"quant_block_stage": None if None in b3_library else sum(b3_library)}}
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -969,8 +1222,12 @@ def run_train_slice(sliced: dict, seed: int) -> dict:
     if train != want:
         raise AssertionError(f"train launches {train}, want {want} (per step: B1 1, B4 1, "
                              f"B5 1, B7 3 + 3)")
-    if eval_counts["gather_whiten"] == 0 or eval_counts["conv_block0"] == 0:
-        raise AssertionError(f"evaluation launches {eval_counts}: want B1 and B2")
+    # As the reference's fit, the evaluation embeds through the model's own
+    # forward: B1 for the fragments, then cuDNN; neither B2 nor B8.
+    want_eval = {name: 0 for name in KERNELS}
+    want_eval["gather_whiten"] = -(-len(host.labels) // 256)
+    if eval_counts != want_eval:
+        raise AssertionError(f"evaluation launches {eval_counts}, want {want_eval}")
     loss = torch.stack(losses).float().cpu()
     acc = torch.stack(accs).float().cpu()
     if not bool(torch.isfinite(loss).all()):
@@ -1396,7 +1653,9 @@ def run_siamese_slices(host, seed: int) -> dict:
         check_table(path, table, n_utts, d, acc)
         want = {name: 0 for name in KERNELS}
         want.update(gather_whiten=chunks, conv_block0=chunks, weighted_l1=1)
-        if qvars is not None:
+        if qvars is None:
+            want["conv_blockn"] = blockn_launches(model.encoder, n_utts)
+        else:
             want["quant_block"] = len(qvars["blocks"]) * chunks
         if launches != want:
             raise AssertionError(f"{path} launches {launches}, want {want}")
@@ -1515,8 +1774,11 @@ def run_siamese_train_slice(host, seed: int) -> dict:
     if train != want:
         raise AssertionError(f"siamese train launches {train}, want {want} (per step: B1 2, "
                              f"B4 1, B5 1, B7 3 + 3)")
-    if eval_counts["weighted_l1"] != 1 or eval_counts["conv_block0"] == 0:
-        raise AssertionError(f"siamese evaluation launches {eval_counts}: want B2 and B9 1")
+    want_eval = {name: 0 for name in KERNELS}
+    want_eval.update(gather_whiten=-(-len(host.labels) // 256), weighted_l1=1)
+    if eval_counts != want_eval:
+        raise AssertionError(f"siamese evaluation launches {eval_counts}, want {want_eval} "
+                             f"(the model's own forward, then the head)")
     loss = torch.stack(losses).float().cpu()
     acc = torch.stack(accs).float().cpu()
     if not bool(torch.isfinite(loss).all()):
@@ -1648,6 +1910,7 @@ def main(argv=None) -> int:
     trained = run_train_slice(sliced, args.seed)
     times = run_timing(store, idx, offsets, params, checked["s0"], sliced["model"],
                        sliced["cfg"], gate["qvars"], args.seed, card)
+    attributed = run_attribution(args.seed, card, times["b3_library"])
     train_times = run_train_timing(store, idx, offsets, trained, args.seed, card)
     del store
     torch.cuda.empty_cache()
@@ -1664,6 +1927,7 @@ def main(argv=None) -> int:
     siamese_trained = run_siamese_train_slice(sliced["host"], args.seed)
     siamese_times = run_siamese_timing(siamese, siamese_trained, args.seed, card)
     for key in ("ms", "plain_ms", "bounds", "library_ms"):
+        times[key].update(attributed[key])
         times[key].update(train_times[key])
         times[key].update(mel_times[key])
         times[key].update(siamese_times[key])
@@ -1672,10 +1936,11 @@ def main(argv=None) -> int:
     checked["errors"].update(checked_siamese["errors"])
 
     # Each entry's launches: the counts of the path runs above (phases slice,
-    # int8_slice, train_slice, mel_bf16_slice, mel_int8_slice,
+    # int8_slice, train_slice, attribution, mel_bf16_slice, mel_int8_slice,
     # siamese_bf16_slice, siamese_int8_slice, verification, score_support and
     # siamese_train_slice), set to 0 just before each run and read just after.
     paths = {"bf16": sliced["launches"], "int8": sliced_int8["launches"],
+             "attribution": attributed["launches"],
              "train": trained["launches"], "mel_bf16": mel["mel_bf16"],
              "mel_int8": mel["mel_int8"], "siamese_bf16": siamese["siamese_bf16"],
              "siamese_int8": siamese["siamese_int8"], "verification": siamese["verification"],
@@ -1694,7 +1959,9 @@ def main(argv=None) -> int:
                ("route_bwd", "route_bwd", train_paths),
                ("log_mel", "log_mel", ("mel_bf16", "mel_int8")),
                ("weighted_l1", "weighted_l1",
-                ("siamese_bf16", "siamese_int8", "verification", "score_support")))
+                ("siamese_bf16", "siamese_int8", "verification", "score_support")),
+               ("conv_blockn", "conv_blockn", ("bf16", "siamese_bf16")),
+               ("quant_block_stage", "quant_block_stage", ("attribution",)))
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[kernel][1],

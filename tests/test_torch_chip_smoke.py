@@ -4,7 +4,8 @@ The script routes every tensor through ``chip_smoke.DEVICE``; here that is the
 CPU, the kernels' plain versions stand in for the kernels (and count as their
 launches), the build and the CUDA-event timers are stubbed, and the sizes
 and the configs are cut down (filters 32, 0.128 s fragments, train batches
-of 8, 12 train steps; config #4 at 0.15 s, 16 frames, 32 mels; config #2 at
+of 8, 12 train steps, B8 and B3 at (100, 32 → 64), (50, 64 → 96) and
+(25, 96 → 128); config #4 at 0.15 s, 16 frames, 32 mels; config #2 at
 the same 0.128 s and filters 32, 8 pairs a train step, 40 verification
 pairs, B9 timed at (1, 40, 36, 16) and (50, 1, 5, 16)); the train
 policies resolve as they do on the card (B4/B5 and the fused blocks-1+ op).
@@ -72,6 +73,9 @@ def on_the_cpu(monkeypatch):
         "jnp" if cfg.train.use_fused_blockn is False else "fused"))
     # The plain versions count as launches where the wrappers call them.
     for mod, ref, wrapper in ((cuda_conv, "conv_block0_reference", cuda_conv.conv_block0),
+                              (cuda_conv, "conv_blockn_reference", cuda_conv.conv_blockn),
+                              (cuda_quant_block, "quant_block_stage_reference",
+                               cuda_quant_block.quant_block_stage),
                               (cuda_preprocess, "gather_whiten_reference",
                                cuda_preprocess.gather_whiten),
                               (cuda_quant_block, "quant_block_reference",
@@ -125,22 +129,38 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     records = [json.loads(line) for line in lines if line.startswith("{")]
     phases = [r["phase"] for r in records if "phase" in r]
     assert phases == ["device", "build", "kernels", "train_kernels", "slice", "int8_slice",
-                      "int8_fidelity_gate", "train_slice", "timing", "train_timing",
+                      "int8_fidelity_gate", "train_slice", "timing", "attribution",
+                      "train_timing",
                       "mel_kernels", "mel_bf16_slice", "mel_int8_slice", "mel_int8_fidelity",
                       "mel_timing", "siamese_kernels", "siamese_bf16_slice",
                       "siamese_int8_slice", "verification", "score_support",
                       "siamese_train_slice", "siamese_timing"]
     by_phase = {r["phase"]: r for r in records if "phase" in r}
     nothing = {name: 0 for name in cs.KERNELS}
+    # bf16: B1 and B2 once an embed chunk, B8 three times (blocks 1-3)
+    assert by_phase["slice"]["launches"] == {**nothing, "gather_whiten": 2, "conv_block0": 2,
+                                             "conv_blockn": 6}
     assert by_phase["int8_slice"]["launches"] == {**nothing, "gather_whiten": 2,
                                                   "conv_block0": 2, "quant_block": 6}
+    checks = by_phase["kernels"]["checks"]
+    b8 = [c for c in checks if c["kernel"] == "conv_blockn"]
+    assert [c["shape"] for c in b8] == [[64, 100, 32, 64, 3], [64, 50, 64, 96, 3],
+                                        [64, 25, 96, 128, 3]] + [list(e) for e in cs.B8_EDGES]
+    assert all(c["err_over_bound"] <= 1.0 and c["bf16_min_row_cosine"] >= cs.B8_BF16_MIN_COSINE
+               for c in b8)
+    assert [c["out"] for c in b8[3:6]] == [[3, 500, 256], [1, 1, 64], [2, 1, 72]]
+    b10 = [c for c in checks if c["kernel"] == "quant_block_stage"]
+    assert [(c["stage"], c["dtype"]) for c in b10] == [
+        ("mma", "int32"), ("pool", "int32"), ("full", "int8")] * 3
+    assert all(c["max_abs_err"] == 0.0 for c in b10)
     train = by_phase["train_slice"]
     steps_run = 12
     assert train["launches"] == {**nothing, "gather_whiten": steps_run,
                                  "conv_block0_train": steps_run,
                                  "conv_block0_train_bwd": steps_run,
                                  "pool_fwd": 3 * steps_run, "route_bwd": 3 * steps_run}
-    assert train["eval_launches"] == {**nothing, "gather_whiten": 2, "conv_block0": 2}
+    # the evaluation embeds through the model's own forward: B1, no B2 or B8
+    assert train["eval_launches"] == {**nothing, "gather_whiten": 2}
     assert train["loss_last5_mean"] < train["loss_first5_mean"]
     assert train["plain_step"]["min_grad_cosine"] >= cs.STEP_MIN_COSINE
     timing = by_phase["train_timing"]
@@ -171,7 +191,7 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     # config #2: each n-shot run B1 and B2 once an embed chunk, B9 once (and
     # B3 three times a chunk in int8); verification and score_support B9 once
     assert by_phase["siamese_bf16_slice"]["launches"] == {
-        **nothing, "gather_whiten": 2, "conv_block0": 2, "weighted_l1": 1}
+        **nothing, "gather_whiten": 2, "conv_block0": 2, "conv_blockn": 6, "weighted_l1": 1}
     assert by_phase["siamese_int8_slice"]["launches"] == {
         **nothing, "gather_whiten": 2, "conv_block0": 2, "quant_block": 6, "weighted_l1": 1}
     for phase in ("verification", "score_support"):
@@ -191,8 +211,7 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
                                   "conv_block0_train": steps_run,
                                   "conv_block0_train_bwd": steps_run,
                                   "pool_fwd": 3 * steps_run, "route_bwd": 3 * steps_run}
-    assert strain["eval_launches"] == {**nothing, "gather_whiten": 2, "conv_block0": 2,
-                                       "weighted_l1": 1}
+    assert strain["eval_launches"] == {**nothing, "gather_whiten": 2, "weighted_l1": 1}
     assert strain["loss_last5_mean"] < strain["loss_first5_mean"]
     plain_steps = strain["plain_steps"]
     assert set(plain_steps) == {f"{loss}_{dt}" for loss in ("bce", "contrastive")
@@ -211,11 +230,26 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert {"ms", "plain_ms", "broadcast_ms", "library_ms", "bound_ms"} <= set(
         stiming["weighted_l1"]["timing"])
     assert stiming["train_step"]["rows"] == 16 and stiming["train_step"]["blockn"] == "fused"
+    timing = by_phase["timing"]
+    assert [(r["block"], r["T"], r["cin"], r["cout"]) for r in timing["conv_blockn"]] == [
+        (1, 100, 32, 64), (2, 50, 64, 96), (3, 25, 96, 128)]
+    assert all({"ms", "plain_ms", "bound_ms", "library_ms", "cudnn_block_ms"} <= set(r)
+               for r in timing["conv_blockn"])
+    assert list(timing["bf16_stage_ms"]) == ["conv_block0", "block_1", "block_2", "block_3",
+                                             "global_max_dense"]
+    assert [t["blocks"] for t in timing["b8_against_cudnn_blocks_turns"]] == [
+        "b8", "cudnn", "cudnn", "b8"]
+    attribution = by_phase["attribution"]
+    assert [[st["stage"] for st in r["stages"]] for r in attribution["blocks"]] == [
+        ["mma", "pool", "full"]] * 3
+    assert [r["quant_block_out"] for r in attribution["blocks"]] == ["int8", "int8", "bfloat16"]
+    assert attribution["launches"]["quant_block_stage"] > 0
     kernels = records[-2]["kernels"]
     assert [k["name"] for k in kernels] == ["gather_whiten", "conv_block0",
                                             "conv_block0_int8", "quant_block",
                                             "conv_block0_train", "conv_block0_train_bwd",
-                                            "pool_fwd", "route_bwd", "log_mel", "weighted_l1"]
+                                            "pool_fwd", "route_bwd", "log_mel", "weighted_l1",
+                                            "conv_blockn", "quant_block_stage"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k) and k["launches"] > 0 and k["bound_by"] in (
             "bytes", "operations")
@@ -230,6 +264,11 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert by_name["weighted_l1"]["max_abs_err"] == 0.0
     assert by_name["weighted_l1"]["library_ms"] is not None
     assert by_name["quant_block"]["launches_by_path"] == {"int8": 6, "siamese_int8": 6}
+    assert by_name["conv_blockn"]["launches_by_path"] == {"bf16": 6, "siamese_bf16": 6}
+    assert by_name["conv_blockn"]["library_ms"] is not None
+    assert by_name["conv_blockn"]["source"] == "voicemap_tpu_torch/csrc/conv_blockn.cu"
+    assert list(by_name["quant_block_stage"]["launches_by_path"]) == ["attribution"]
+    assert by_name["quant_block_stage"]["max_abs_err"] == 0.0
     assert by_name["conv_block0_train_bwd"]["library_ms"] is not None
     assert by_name["log_mel"]["launches_by_path"] == {"mel_bf16": 2, "mel_int8": 2}
     assert by_name["log_mel"]["library_ms"] is not None

@@ -74,6 +74,20 @@ def test_the_siamese_modules_are_covered():
     assert "vm_weighted_l1" in _build.SIGNATURES
 
 
+def test_the_b8_and_b10_modules_are_covered():
+    """The import tests reach the pooled-GEMM encoder and the attribution
+    tool; B8's source is among the ones the build compiles, and both new
+    entry points are bound."""
+    from voicemap_tpu_torch import _build
+
+    modules = set(_modules())
+    for name in ("models.fused_encoder", "models.fast_infer", "ops.cuda_conv",
+                 "ops.cuda_quant_block", "utils.qblock_attrib", "utils.stage_profile"):
+        assert f"voicemap_tpu_torch.{name}" in modules, name
+    assert "conv_blockn.cu" in {p.name for p in _build.sources()}
+    assert {"vm_conv_blockn", "vm_quant_block_stage"} <= set(_build.SIGNATURES)
+
+
 def test_no_jax_flax_pandas_import_in_the_port():
     banned = re.compile(r"^\s*(import|from)\s+(jax|flax|pandas|voicemap_tpu)\b", re.M)
     offenders = [str(p.relative_to(REPO)) for p in SOURCES if banned.search(p.read_text())]
@@ -108,9 +122,10 @@ def test_timing_refuses_to_time_the_cpu():
 
 
 def test_profilers_refuse_to_run_without_a_gpu():
-    from voicemap_tpu_torch.utils import stage_profile, train_profile
+    from voicemap_tpu_torch.utils import qblock_attrib, stage_profile, train_profile
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert train_profile.main([]) == 1
     assert stage_profile.main([]) == 1
+    assert qblock_attrib.main([]) == 1

@@ -15,14 +15,15 @@ where its counterpart does:
   (``conv_train``)
 - :mod:`voicemap_tpu_torch.models` — conv encoder (eval and train mode),
   classifier, the siamese verification net (``siamese``), the log-mel 2D models of config #4 (``spectrogram``), fast
-  inference, the fused train forward, int8 serving (``quant_infer``),
+  inference, the pooled-GEMM specification of the fused blocks
+  (``fused_encoder``), the fused train forward, int8 serving (``quant_infer``),
   flax-tree and qvars converters
 - :mod:`voicemap_tpu_torch.train` — the device store, batch fetch, the
   classifier and siamese train steps, losses, optimizer, metrics, checkpoints and ``fit``
 - :mod:`voicemap_tpu_torch.eval` — batched n-shot k-way evaluation and
   threshold-free verification (EER, AUC)
-- :mod:`voicemap_tpu_torch.utils` — CUDA-event timing and the serving and
-  train-step profilers
+- :mod:`voicemap_tpu_torch.utils` — CUDA-event timing, the serving and
+  train-step profilers and the int8 mid block's stage attribution
 
 Public functions keep the JAX layout: ``(B, T, C)`` activations, ``(B, T, 1)``
 model input, ``(B, D)`` float32 embeddings. Models are built on the card

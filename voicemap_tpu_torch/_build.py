@@ -43,6 +43,10 @@ SIGNATURES = {
     "vm_conv_block0": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, w, aff, out, B, T, Cin, Cout, out_kind, stream
     "vm_quant_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, aff, out, B, T, Cin, Cout, stage, stream
+    "vm_quant_block_stage": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, aff, out, B, T, Cin, Cout, k, out_kind, stream
+    "vm_conv_blockn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, w, bias, sgn, sel, part, stats, B, T, C, n_ctas, gemm_bf16, sel_bf16, stream
     "vm_block0_train_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, w, bias, sgn, g, cc, part, out, B, T, C, n_ctas, gemm_bf16, stream

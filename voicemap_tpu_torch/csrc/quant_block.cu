@@ -42,6 +42,18 @@
 // bytes) so the fragment loads of a warp hit 32 distinct banks. The full-rate
 // int32 accumulator never leaves the registers; only the pool-rate output is
 // written. wgmma, TMA and ldmatrix are later work.
+//
+// B10, the stage prefixes that attribute this kernel's time, are the same
+// kernel cut short by its STAGE template parameter. They replace
+// benchmarks/bench_qblock_attrib.py :: _kernel_staged and _kernel_xk, whose
+// stages 1-2 (a (t+2, Cin) @ (Cin, 3 * Cout) product, then the shifted tap
+// adds) have no separate form here: the taps are already inside K = 3 * Cin,
+// the layout of _kernel_xk. Unlike the TPU prefixes, each writes a defined
+// output, so it can be held against a plain version:
+//   kStageMma:  the tile loads and the mma over K; writes acc[2u] as int32;
+//   kStagePool: + the pair select by the sign of alpha; writes sel[u] int32;
+//   kStageFull: + the epilogue and requantization: B3 itself, which every
+//               B3 launch runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,6 +72,7 @@ constexpr int kWPad = 16;  // bytes after each weight row in shared memory
 constexpr int kCtasPerSm = 16;  // grid size target, in CTAs per SM
 
 enum OutKind { kInt8 = 0, kBF16 = 1, kF32 = 2 };
+enum Stage { kStageMma = 0, kStagePool = 1, kStageFull = 2 };
 
 __host__ __device__ constexpr int x_stride(int cin) { return cin + kXPad; }
 __host__ __device__ constexpr int w_stride(int cin) { return 3 * cin + kWPad; }
@@ -107,8 +120,9 @@ __device__ __forceinline__ void store(void* out, long long o, float z) {
 }
 
 // x: (B, T, Cin) int8; w: (Cout, 3 * Cin) int8, K index j * Cin + ci;
-// aff: (3, Cout) f32 rows alpha, beta, gamma; out: (B, T / 2, Cout).
-template <int OUT>
+// aff: (3, Cout) f32 rows alpha, beta, gamma; out: (B, T / 2, Cout), int32
+// for the mma and pool stages.
+template <int OUT, int STAGE>
 __global__ void __launch_bounds__(kThreads)
 quant_block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                    const float* __restrict__ aff, void* __restrict__ out, int T,
@@ -225,8 +239,16 @@ quant_block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           const int c = n0 + n_base + nt * 8 + 2 * tig + e;
           if (c >= Cout) continue;
           const int a0 = acc[mt][nt][e], a1 = acc[mt][nt][2 + e];
+          if (STAGE == kStageMma) {
+            static_cast<int*>(out)[orow + c] = a0;
+            continue;
+          }
           const float al = alpha[nt][e];
           const int sel = al > 0.f ? max(a0, a1) : min(a0, a1);
+          if (STAGE == kStagePool) {
+            static_cast<int*>(out)[orow + c] = sel;
+            continue;
+          }
           const float h = fmaxf(__fadd_rn(__int2float_rn(sel), beta[nt][e]), 0.f);
           store<OUT>(out, orow + c, __fadd_rn(__fmul_rn(h, al), gamma[nt][e]));
         }
@@ -235,7 +257,7 @@ quant_block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-template <int OUT>
+template <int OUT, int STAGE>
 cudaError_t launch(const void* x, const void* w, const void* aff, void* out, int B,
                    int T, int Cin, int Cout, cudaStream_t s) {
   const int t_even = (T / 2) * 2;
@@ -254,10 +276,10 @@ cudaError_t launch(const void* x, const void* w, const void* aff, void* out, int
   const long long tiles_per_cta = (n_tiles + per_ch - 1) / per_ch;
   const dim3 grid(n_ch, (unsigned)((n_tiles + tiles_per_cta - 1) / tiles_per_cta));
   const size_t smem = smem_bytes(Cin);
-  err = cudaFuncSetAttribute(quant_block_kernel<OUT>,
+  err = cudaFuncSetAttribute(quant_block_kernel<OUT, STAGE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  quant_block_kernel<OUT><<<grid, kThreads, smem, s>>>(
+  quant_block_kernel<OUT, STAGE><<<grid, kThreads, smem, s>>>(
       (const int8_t*)x, (const int8_t*)w, (const float*)aff, out, T, Cin, Cout,
       tiles_per_row, n_tiles, tiles_per_cta);
   return cudaGetLastError();
@@ -276,7 +298,25 @@ extern "C" int vm_quant_block(const void* x, const void* w, const void* aff,
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T < 2 || Cout == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (out_kind == kInt8) return (int)launch<kInt8>(x, w, aff, out, B, T, Cin, Cout, s);
-  if (out_kind == kBF16) return (int)launch<kBF16>(x, w, aff, out, B, T, Cin, Cout, s);
-  return (int)launch<kF32>(x, w, aff, out, B, T, Cin, Cout, s);
+  if (out_kind == kInt8)
+    return (int)launch<kInt8, kStageFull>(x, w, aff, out, B, T, Cin, Cout, s);
+  if (out_kind == kBF16)
+    return (int)launch<kBF16, kStageFull>(x, w, aff, out, B, T, Cin, Cout, s);
+  return (int)launch<kF32, kStageFull>(x, w, aff, out, B, T, Cin, Cout, s);
+}
+
+// B10. stage: 0 mma (out int32, acc[2u]), 1 pool (out int32, sel[u]), 2 full
+// (out int8, the mid block's requantized output). The same limits as above.
+extern "C" int vm_quant_block_stage(const void* x, const void* w, const void* aff,
+                                    void* out, int B, int T, int Cin, int Cout,
+                                    int stage, void* stream) {
+  if (Cin % 32 != 0 || smem_bytes(Cin) > 232448 || stage < 0 || stage > 2)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || T < 2 || Cout == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (stage == kStageMma)
+    return (int)launch<kInt8, kStageMma>(x, w, aff, out, B, T, Cin, Cout, s);
+  if (stage == kStagePool)
+    return (int)launch<kInt8, kStagePool>(x, w, aff, out, B, T, Cin, Cout, s);
+  return (int)launch<kInt8, kStageFull>(x, w, aff, out, B, T, Cin, Cout, s);
 }

@@ -17,7 +17,8 @@ Port of ``voicemap_tpu/eval/nshot.py`` (``embed_all``,
      head, so it is scored by embedding distance, as the classifier is.
 
 ``fast=True`` embeds through ``models/fast_infer.fast_embed`` (the B2 kernel
-for block 0); ``qvars=`` (from ``models/quant_infer``) embeds through the
+for block 0 and, in bf16, the B8 kernel for blocks 1+ of k odd, pool 2 and
+dilation 1); ``qvars=`` (from ``models/quant_infer``) embeds through the
 int8 serving path, ``quant_embed`` (B2 with its requantizing epilogue, then
 the B3 kernel for blocks 1+). Either way fragments come through the B1
 kernel. The siamese net embeds as the classifier does, through its encoder.

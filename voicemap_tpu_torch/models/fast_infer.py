@@ -1,22 +1,48 @@
-"""Fast inference embedding: the fused block-0 kernel, then cuDNN blocks.
+"""Fast inference embedding: every block in a fused kernel where one exists.
 
 Port of ``voicemap_tpu/models/fast_infer.py :: fast_embed``. Block 0 runs
-through ``ops/cuda_conv.conv_block0`` (B2), so its full-rate ``(B, T, 128)``
-activation never reaches device memory; blocks 1+ run ``F.conv1d``, then the
-global max over time and the Dense. Same parameters, same inference
-semantics as ``ConvEncoder.forward``; at bf16 the two round in different
-places (the kernel rounds block 0 once, at its output).
+through ``ops/cuda_conv.conv_block0`` (B2). In bf16, every later block that
+B8 takes (k odd, pool 2, dilation 1) runs through ``ops/cuda_conv.conv_blockn``
+(B8), so no full-rate activation reaches device memory and the chain stays
+channels last: config #1's
 
-Unlike the JAX package there is no backend switch: on a CUDA tensor block 0
-is the kernel, on a CPU tensor its plain version.
+    B2 (B, T/4, 128) → B8 → B8 → B8 (B, 375, 512) → global max and Dense.
+
+Blocks B8 does not take (config #3's dilated and pool-1 ones) and f32 or f16
+compute keep ``ConvBlock.forward_nct`` (``F.conv1d``), as the JAX package's
+blocks 1+ keep XLA's conv; the config decides the route, never a failure.
+The JAX package keeps its B8 off this path because of a TPU timing; that
+policy was re-decided on the H100. Same parameters, same inference
+semantics as ``ConvEncoder.forward``; at bf16 the two round in different
+places (the kernels round each block once, at its output).
+
+Unlike the JAX package there is no backend switch: on a CUDA tensor each
+fused block is its kernel, on a CPU tensor its plain version.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.cuda_conv import conv_block0
-from .encoder import ConvEncoder
+from ..ops.cuda_conv import BLOCKN_POOL, conv_block0, conv_blockn
+from .encoder import ConvBlock, ConvEncoder
+
+
+def takes_blockn(blk: ConvBlock) -> bool:
+    """Whether B8 computes this block: bf16, k odd, pool 2, dilation 1."""
+    return (blk.compute_dtype == torch.bfloat16 and blk.conv.kernel_size[0] % 2 == 1
+            and blk.pool_size == BLOCKN_POOL and blk.conv.dilation[0] == 1)
+
+
+def blockn(blk: ConvBlock, h: torch.Tensor) -> torch.Tensor:
+    """One block 1+ channels last, ``(B, T, Cin)`` → ``(B, T // pool, C)``:
+    B8 where it takes the block, else the module's own forward."""
+    if not takes_blockn(blk):
+        return blk.forward_nct(h.transpose(1, 2)).transpose(1, 2)
+    cdt = blk.compute_dtype
+    return conv_blockn(h.contiguous(), blk.conv.weight.permute(2, 1, 0), blk.conv.bias,
+                       blk.bn.weight, blk.bn.bias, blk.bn.running_mean, blk.bn.running_var,
+                       blk.bn.eps, out_dtype=cdt, gemm_dtype=cdt)
 
 
 def fast_embed(encoder: ConvEncoder, x: torch.Tensor) -> torch.Tensor:
@@ -39,7 +65,7 @@ def fast_embed(encoder: ConvEncoder, x: torch.Tensor) -> torch.Tensor:
             pool=blk.pool_size,
             out_dtype=cdt,
             gemm_dtype=cdt,
-        ).transpose(1, 2)  # (B, C, T/4) view for the channel-first blocks
+        )  # (B, T/4, C)
         for blk in encoder.blocks[1:]:
-            h = blk.forward_nct(h)
-        return encoder.pool_and_embed(h)
+            h = blockn(blk, h)
+        return encoder.pool_and_embed(h.transpose(1, 2))

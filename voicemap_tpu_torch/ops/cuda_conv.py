@@ -1,12 +1,24 @@
-"""B2: the encoder's block 0 fused in one kernel.
+"""B2 and B8: the encoder's conv blocks fused in one kernel each.
 
-Port of ``voicemap_tpu/ops/pallas_conv.py :: pallas_conv_block0``: SAME conv
-(Cin=1, k=32) + bias → relu → BatchNorm inference affine → max-pool 4, with
-only the pool-rate ``(B, T//4, C)`` output written. The kernel is
-``csrc/conv_block0.cu``; ``conv_block0_reference`` is its plain PyTorch
-version.
+B2 ports ``voicemap_tpu/ops/pallas_conv.py :: pallas_conv_block0``: block 0,
+SAME conv (Cin=1, k=32) + bias → relu → BatchNorm inference affine →
+max-pool 4, with only the pool-rate ``(B, T//4, C)`` output written. The
+kernel is ``csrc/conv_block0.cu``; ``conv_block0_reference`` is its plain
+PyTorch version.
 
-Semantics shared by both, each pinned by a test:
+B8 ports ``pallas_conv_blockn`` and ``pallas_conv_blockn_streamed`` of the
+same file: a bf16 block 1+, SAME conv (k odd, channels last) + bias → relu →
+BN affine → max-pool 2 → ``(B, T//2, Cout)``. The kernel is
+``csrc/conv_blockn.cu``; ``conv_blockn_reference`` is its plain version,
+the pooled GEMM of ``models/fused_encoder.fused_block_apply`` at pool 2 and
+dilation 1 with this module's epilogue. Unlike the TPU wrappers it takes an
+odd T and floors, as the unfused block does: the conv still reads the last
+row and the pool drops its output. The tensor cores' f32 summation order
+cannot be pinned, so B8 agrees with its plain version to a bound, not bit
+for bit.
+
+Semantics shared by both kernels and their plain versions, each pinned by a
+test:
 
 - x and w are rounded to ``gemm_dtype``; products and sums are f32; the
   epilogue is f32 and the output is rounded once, to ``out_dtype``;
@@ -15,12 +27,13 @@ Semantics shared by both, each pinned by a test:
 - with ``requant_scale`` ``s0`` (the int8 serving path) the output is int8,
   ``clamp(round_half_even(pooled * (1 / s0)), ±127)`` from the f32 pooled
   value, with ``1 / s0`` computed in f32 first, as the Pallas wrapper does;
-- SAME padding of the even k=32 puts 15 zeros left and 16 right;
+- SAME padding of the even k=32 puts 15 zeros left and 16 right; of an odd
+  k, (k−1)/2 each side;
 - ``T % pool`` tail samples are dropped from the pooled output (floor).
 
 Dispatch is by the input's device: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel (k=32, pool=4), and a failed build or launch
-raises.
+CUDA tensor launches the kernel (B2: k=32, pool=4; B8: k odd, pool 2, bf16
+in), and a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -153,3 +166,142 @@ def conv_block0(
 
 
 conv_block0.launches = 0  # kernel launches, bf16, f32 and int8; the CPU path does not count
+
+
+# ---------------------------------------------------------------------------
+# B8: blocks 1+ in bf16 (k odd, pool 2, dilation 1), channels last
+# ---------------------------------------------------------------------------
+
+BLOCKN_POOL = 2
+BLOCKN_CIN_MULTIPLE = 8  # an 8-element half of the kernel's mma k-step stays within one tap
+_BLOCKN_OUT = {torch.bfloat16: 1, torch.float32: 2}
+_CUDA_ERROR_INVALID_VALUE = 1
+
+
+def stacked_weights_chan(w: torch.Tensor, pool: int = BLOCKN_POOL) -> torch.Tensor:
+    """w (k, Cin, C') → W4 (win·Cin, pool·C') in f32, win = k − 1 + pool,
+    ``W4[m·Cin + ci, j·C' + c'] = w[m − j, ci, c']`` (zero where m − j is no
+    tap): the phase-stacked weights of the pooled GEMM."""
+    k, cin, cout = w.shape
+    win = k - 1 + pool
+    w4 = torch.zeros((win, cin, pool, cout), dtype=torch.float32, device=w.device)
+    for j in range(pool):
+        w4[j:j + k, :, j, :] = w.float()
+    return w4.reshape(win * cin, pool * cout)
+
+
+def conv_blockn_reference(
+    x: torch.Tensor,  # (B, T, Cin)
+    w: torch.Tensor,  # (k, Cin, Cout) flax layout, k odd
+    b: torch.Tensor,
+    bn_scale: torch.Tensor,
+    bn_bias: torch.Tensor,
+    bn_mean: torch.Tensor,
+    bn_var: torch.Tensor,
+    bn_eps: float = 1e-3,
+    pool: int = BLOCKN_POOL,
+    out_dtype: torch.dtype = torch.bfloat16,
+    gemm_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Plain PyTorch version of the B8 kernel → ``(B, T // 2, Cout)``.
+
+    The pooled GEMM: each output position's window of k + 1 input rows
+    (SAME-padded, rounded to ``gemm_dtype``) times ``stacked_weights_chan``,
+    summed in f32, gives the conv at times 2u and 2u + 1 side by side; then
+    ``relu(y + bias) * mul + add`` in f32, the max of the two phases, and one
+    rounding to ``out_dtype``. An odd T floors.
+    """
+    if pool != BLOCKN_POOL:
+        raise ValueError(f"conv_blockn: pool {BLOCKN_POOL} only, got {pool}")
+    k, _, cout = w.shape
+    if k % 2 == 0:
+        raise ValueError(f"conv_blockn: k must be odd, got {k}")
+    B, T, cin = x.shape
+    t_out = T // pool
+    if t_out == 0:
+        return torch.zeros((B, 0, cout), dtype=out_dtype, device=x.device)
+    win = k - 1 + pool
+    h = (k - 1) // 2
+    xp = F.pad(x.to(gemm_dtype).float(), (0, 0, h, h + pool - 1))  # (B, T + k, Cin)
+    frames = xp.unfold(1, win, pool)[:, :t_out]  # (B, t_out, Cin, win)
+    frames = frames.transpose(2, 3).reshape(B, t_out, win * cin)
+    y = frames @ stacked_weights_chan(w.to(gemm_dtype), pool)  # (B, t_out, pool·Cout)
+    bias, mul, add = (v.repeat(pool) for v in
+                      bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps))
+    y = torch.relu(y + bias) * mul + add
+    return torch.maximum(y[..., :cout], y[..., cout:]).to(out_dtype)
+
+
+def check_blockn_launch(x: torch.Tensor, w: torch.Tensor, vecs: tuple, pool: int,
+                        out_dtype: torch.dtype, gemm_dtype: torch.dtype) -> None:
+    """Raise ``ValueError`` for what the B8 kernel does not take: ``vecs``
+    are the bias and the four BatchNorm tensors."""
+    if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError("conv_blockn: x must be a contiguous (B, T, Cin) bfloat16 tensor")
+    cin = x.shape[2]
+    if w.dim() != 3 or w.shape[1] != cin:
+        raise ValueError(f"conv_blockn: w must be (k, {cin}, Cout)")
+    k, _, cout = w.shape
+    if k % 2 == 0 or pool != BLOCKN_POOL:
+        raise ValueError(f"conv_blockn: the kernel takes k odd and pool {BLOCKN_POOL}; "
+                         f"got k={k}, pool={pool}")
+    if gemm_dtype != torch.bfloat16 or out_dtype not in _BLOCKN_OUT:
+        raise ValueError("conv_blockn: the kernel multiplies in bfloat16 and writes "
+                         "bfloat16 or float32")
+    if cin % BLOCKN_CIN_MULTIPLE:
+        raise ValueError(f"conv_blockn: the kernel takes Cin a multiple of "
+                         f"{BLOCKN_CIN_MULTIPLE}, got {cin}")
+    if any(p.device != x.device for p in (w, *vecs)):
+        raise ValueError(f"conv_blockn: every parameter must lie on {x.device}")
+    if any(p.shape != (cout,) for p in vecs):
+        raise ValueError(f"conv_blockn: bias and BatchNorm tensors must be ({cout},)")
+    if x.data_ptr() % 16:
+        raise ValueError("conv_blockn: x must be 16-byte aligned")
+
+
+def conv_blockn(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    bn_scale: torch.Tensor,
+    bn_bias: torch.Tensor,
+    bn_mean: torch.Tensor,
+    bn_var: torch.Tensor,
+    bn_eps: float = 1e-3,
+    pool: int = BLOCKN_POOL,
+    out_dtype: torch.dtype = torch.bfloat16,
+    gemm_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Fused conv(SAME, k odd)+relu+BN(inference)+maxpool(2) of a block 1+,
+    channels last: ``(B, T, Cin)`` → ``(B, T // 2, Cout)``."""
+    if x.device.type == "cpu":
+        return conv_blockn_reference(x, w, b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps,
+                                     pool, out_dtype, gemm_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_blockn: no kernel for device {x.device}")
+    check_blockn_launch(x, w, (b, bn_scale, bn_bias, bn_mean, bn_var), pool, out_dtype,
+                        gemm_dtype)
+    B, T, cin = x.shape
+    k, _, cout = w.shape
+    out = torch.empty((B, T // BLOCKN_POOL, cout), dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    # (Cout, k·Cin) K-major: [c, j·Cin + ci] = w[j, ci, c]
+    wp = w.permute(2, 0, 1).reshape(cout, k * cin).to(torch.bfloat16).contiguous()
+    aff = torch.stack(bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps)).contiguous()
+    from .._build import check, library
+
+    lib = library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.vm_conv_blockn(x.data_ptr(), wp.data_ptr(), aff.data_ptr(), out.data_ptr(),
+                                 B, T, cin, cout, k, _BLOCKN_OUT[out_dtype], stream)
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"conv_blockn: Cin={cin} at k={k} is too wide for the kernel's "
+                         f"shared memory")
+    check(err, "conv_blockn")
+    conv_blockn.launches += 1
+    return out
+
+
+conv_blockn.launches = 0  # kernel launches; the CPU path does not count

@@ -23,6 +23,17 @@ The kernel pools the raw accumulator first (max where ``alpha > 0``, min
 elsewhere) and runs the epilogue at pool rate; by monotonicity this equals
 the plain version's epilogue-then-pool bit for bit.
 
+B10, the stage prefixes of ``benchmarks/bench_qblock_attrib.py``
+(``_kernel_staged``, ``_kernel_xk``) that attribute B3's time, is the same
+kernel cut short (``quant_block_stage``): ``"mma"`` writes the int32
+accumulator of the even times, ``acc[:, 0::2]``; ``"pool"`` the pair select
+by the sign of alpha, ``sel``; ``"full"`` is B3's mid block itself, int8.
+``quant_block_stage_reference`` is its plain version; every stage is exact.
+The TPU's stages 1–2 (a ``(t+2, Cin) @ (Cin, 3·Cout)`` product, then the
+shifted tap adds) have no separate stage here: the taps already sit inside
+K = 3·Cin, the layout of the TPU's ``_kernel_xk``, which the ``full`` stage
+is.
+
 Dispatch is by the input's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel, and a failed build or launch raises. PyTorch
 has no int32 matrix product on the card, so the plain version accumulates in
@@ -40,6 +51,7 @@ KERNEL_POOL = 2
 CIN_MULTIPLE = 32  # one mma k-step of 32 bytes stays within one tap
 MAX_CIN = 480  # the CTA's shared memory: a 64-channel weight slab and two input tiles
 _OUT_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+STAGES = ("mma", "pool", "full")  # B10's prefixes, in kernel order
 
 
 def pack_weights(w_q: torch.Tensor) -> torch.Tensor:
@@ -60,15 +72,43 @@ def quant_block_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of the B3 kernel → ``(B, T // 2, Cout)``: int8,
     or ``out_dtype`` for the last block."""
+    acc = accumulate(x_q, w_q)
+    z = torch.relu(acc.float() + beta.float()) * alpha.float() + gamma.float()
+    y = z.to(out_dtype) if last else torch.round(z).clamp(-127, 127).to(torch.int8)
+    return pairs(y).amax(dim=2)
+
+
+def accumulate(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The exact int32 conv sums ``(B, T, Cout)``, zero rows at t = −1 and T,
+    accumulated in float64."""
     B, T, cin = x_q.shape
     k, _, cout = w_q.shape
     xp = F.pad(x_q.double(), (0, 0, 1, 1))  # SAME: one zero row each side
     cols = torch.cat([xp[:, j:j + T] for j in range(k)], dim=-1)  # (B, T, 3·Cin)
-    acc = (cols @ w_q.reshape(k * cin, cout).double()).to(torch.int32)
-    z = torch.relu(acc.float() + beta.float()) * alpha.float() + gamma.float()
-    y = z.to(out_dtype) if last else torch.round(z).clamp(-127, 127).to(torch.int8)
-    t_full = (T // 2) * 2
-    return y[:, :t_full].reshape(B, T // 2, 2, cout).amax(dim=2)
+    return (cols @ w_q.reshape(k * cin, cout).double()).to(torch.int32)
+
+
+def pairs(y: torch.Tensor) -> torch.Tensor:
+    """``(B, T, C)`` → ``(B, T // 2, 2, C)``: the pooling pairs, floor."""
+    B, T, c = y.shape
+    return y[:, :(T // 2) * 2].reshape(B, T // 2, 2, c)
+
+
+def quant_block_stage_reference(x_q: torch.Tensor, w_q: torch.Tensor, alpha: torch.Tensor,
+                                beta: torch.Tensor, gamma: torch.Tensor,
+                                stage: str) -> torch.Tensor:
+    """Plain PyTorch version of B10's ``stage`` → ``(B, T // 2, Cout)``:
+    int32 ``acc[2u]`` (``"mma"``), int32 ``sel[u]``, the max of the pair
+    where ``alpha > 0`` and the min elsewhere (``"pool"``), or the mid
+    block's int8 output (``"full"``)."""
+    if stage == "full":
+        return quant_block_reference(x_q, w_q, alpha, beta, gamma)
+    if stage not in STAGES:
+        raise ValueError(f"quant_block_stage: stage must be one of {STAGES}, got {stage!r}")
+    p = pairs(accumulate(x_q, w_q))
+    if stage == "mma":
+        return p[:, :, 0]
+    return torch.where(alpha > 0, p.amax(dim=2), p.amin(dim=2))
 
 
 def quant_block(
@@ -86,46 +126,81 @@ def quant_block(
     if x_q.device.type == "cpu":
         return quant_block_reference(x_q, w_q, alpha, beta, gamma, last=last,
                                      out_dtype=out_dtype)
-    if x_q.device.type != "cuda":
-        raise ValueError(f"quant_block: no kernel for device {x_q.device}")
-    if x_q.dim() != 3 or x_q.dtype != torch.int8 or not x_q.is_contiguous():
-        raise ValueError("quant_block: x_q must be a contiguous (B, T, Cin) int8 tensor")
-    B, T, cin = x_q.shape
-    if w_q.dim() != 3 or w_q.dtype != torch.int8 or w_q.shape[1] != cin:
-        raise ValueError(f"quant_block: w_q must be (3, {cin}, Cout) int8")
-    k, _, cout = w_q.shape
-    if k != KERNEL_TAPS:
-        raise ValueError(f"quant_block: the kernel takes k={KERNEL_TAPS}, got k={k}")
-    if cin % CIN_MULTIPLE or cin > MAX_CIN:
-        raise ValueError(
-            f"quant_block: the kernel takes Cin a multiple of {CIN_MULTIPLE} up to "
-            f"{MAX_CIN}, got {cin}")
     out_dtype = out_dtype if last else torch.int8
     if last and out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("quant_block: the last block dequantizes to bfloat16 or float32")
-    vecs = (alpha, beta, gamma)
-    if any(p.device != x_q.device for p in (w_q, *vecs)):
-        raise ValueError(f"quant_block: every parameter must lie on {x_q.device}")
-    if any(p.shape != (cout,) for p in vecs):
-        raise ValueError(f"quant_block: alpha, beta and gamma must be ({cout},)")
-    if x_q.data_ptr() % 16:
-        raise ValueError("quant_block: x_q must be 16-byte aligned")
-    out = torch.empty((B, T // KERNEL_POOL, cout), dtype=out_dtype, device=x_q.device)
+    out, wp, aff = _prepare("quant_block", x_q, w_q, alpha, beta, gamma, out_dtype)
     if out.numel() == 0:
         return out
-    wp = pack_weights(w_q)
-    aff = torch.stack([v.float() for v in vecs]).contiguous()  # (3, Cout)
     from .._build import check, library
 
     lib = library()
     with torch.cuda.device(x_q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vm_quant_block(x_q.data_ptr(), wp.data_ptr(), aff.data_ptr(),
-                                 out.data_ptr(), B, T, cin, cout, _OUT_KIND[out_dtype],
-                                 stream)
+                                 out.data_ptr(), *x_q.shape, out.shape[2],
+                                 _OUT_KIND[out_dtype], stream)
     check(err, "quant_block")
     quant_block.launches += 1
     return out
 
 
 quant_block.launches = 0  # kernel launches; the CPU path does not count
+
+
+def _prepare(name: str, x_q, w_q, alpha, beta, gamma, out_dtype) -> tuple:
+    """Check a launch of B3's kernel on a CUDA tensor; the output, the packed
+    weights and the epilogue rows ``(3, Cout)``."""
+    if x_q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x_q.device}")
+    if x_q.dim() != 3 or x_q.dtype != torch.int8 or not x_q.is_contiguous():
+        raise ValueError(f"{name}: x_q must be a contiguous (B, T, Cin) int8 tensor")
+    B, T, cin = x_q.shape
+    if w_q.dim() != 3 or w_q.dtype != torch.int8 or w_q.shape[1] != cin:
+        raise ValueError(f"{name}: w_q must be (3, {cin}, Cout) int8")
+    k, _, cout = w_q.shape
+    if k != KERNEL_TAPS:
+        raise ValueError(f"{name}: the kernel takes k={KERNEL_TAPS}, got k={k}")
+    if cin % CIN_MULTIPLE or cin > MAX_CIN:
+        raise ValueError(
+            f"{name}: the kernel takes Cin a multiple of {CIN_MULTIPLE} up to "
+            f"{MAX_CIN}, got {cin}")
+    vecs = (alpha, beta, gamma)
+    if any(p.device != x_q.device for p in (w_q, *vecs)):
+        raise ValueError(f"{name}: every parameter must lie on {x_q.device}")
+    if any(p.shape != (cout,) for p in vecs):
+        raise ValueError(f"{name}: alpha, beta and gamma must be ({cout},)")
+    if x_q.data_ptr() % 16:
+        raise ValueError(f"{name}: x_q must be 16-byte aligned")
+    out = torch.empty((B, T // KERNEL_POOL, cout), dtype=out_dtype, device=x_q.device)
+    aff = torch.stack([v.float() for v in vecs]).contiguous()  # (3, Cout)
+    return out, pack_weights(w_q), aff
+
+
+def quant_block_stage(x_q: torch.Tensor, w_q: torch.Tensor, alpha: torch.Tensor,
+                      beta: torch.Tensor, gamma: torch.Tensor, stage: str) -> torch.Tensor:
+    """B10: B3's kernel cut after ``stage`` (``"mma"``, ``"pool"`` or
+    ``"full"``) → ``(B, T // 2, Cout)``, int32 for the first two, int8 for
+    ``"full"``."""
+    if stage not in STAGES:
+        raise ValueError(f"quant_block_stage: stage must be one of {STAGES}, got {stage!r}")
+    if x_q.device.type == "cpu":
+        return quant_block_stage_reference(x_q, w_q, alpha, beta, gamma, stage)
+    out_dtype = torch.int8 if stage == "full" else torch.int32
+    out, wp, aff = _prepare("quant_block_stage", x_q, w_q, alpha, beta, gamma, out_dtype)
+    if out.numel() == 0:
+        return out
+    from .._build import check, library
+
+    lib = library()
+    with torch.cuda.device(x_q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.vm_quant_block_stage(x_q.data_ptr(), wp.data_ptr(), aff.data_ptr(),
+                                       out.data_ptr(), *x_q.shape, out.shape[2],
+                                       STAGES.index(stage), stream)
+    check(err, "quant_block_stage")
+    quant_block_stage.launches += 1
+    return out
+
+
+quant_block_stage.launches = 0  # kernel launches; the CPU path does not count

@@ -118,10 +118,11 @@ def fit(cfg: ExperimentConfig, train_store: AudioStore, val_store: Optional[Audi
             utt_per_s = steps_since * t.batch_size / max(time.perf_counter() - t_last, 1e-9)
             model.eval()
             eval_gen = torch.Generator(device=store.audio.device).manual_seed(t.seed + 1 + i)
-            # The evaluation embeds through B2 where the step trains through
-            # B4/B5; a siamese net's head scores the tasks (B9 for weighted_l1).
+            # As the reference's fit: the table comes from the model's own
+            # forward (fast=False), whatever the step trains through; a siamese
+            # net's head scores the tasks (B9 for weighted_l1).
             acc = nshot.evaluate(model, val, cfg, eval_gen, num_tasks=t.num_eval_tasks,
-                                 n=t.n_shot, k=t.k_way, fast=loss_fn.fused_block0)
+                                 n=t.n_shot, k=t.k_way, fast=False)
             model.train()
             state.lr = plateau.update(acc)
             rec = log.write(i + 1, loss=loss, accuracy=acc_train,

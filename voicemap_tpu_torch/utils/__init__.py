@@ -1,1 +1,1 @@
-"""Timing on CUDA events."""
+"""Timing on CUDA events, the profilers and the stage attribution."""

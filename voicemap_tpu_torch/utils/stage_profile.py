@@ -8,7 +8,7 @@ that ``chip_smoke.py`` and ``bench.py`` measure (rows of 3.5 s int16 at
 path (calibrated on the first 256 rows):
 
 - config #1: 12000-sample fragments of the store decimated by 4; bf16 is
-  ``fast_embed`` (B1, B2, cuDNN blocks 1–3, head), int8 ``quant_embed``
+  ``fast_embed`` (B1, B2, B8 × 3 for blocks 1–3, head), int8 ``quant_embed``
   (B1, B2 with requant, B3 × 3, head);
 - config #4: 48000-sample fragments at downsampling 1; bf16 is the
   ``MelSpecEncoder`` forward (B1, B6, standardize, cuDNN 2D blocks 0–3,
@@ -39,6 +39,7 @@ import torch
 
 from ..config import classifier_baseline, melspec_2d
 from ..models.classifier import SpeakerClassifier
+from ..models.fast_infer import blockn
 from ..models.quant_infer import mel_int8_stages, quantize_encoder, quantize_mel_encoder
 from ..models.spectrogram import MelSpecClassifier
 from ..ops.cuda_conv import conv_block0
@@ -57,11 +58,11 @@ def stages_bf16(encoder, x_fn):
            ("conv_block0", lambda x: conv_block0(
                x, blk0.conv.weight.permute(2, 1, 0), blk0.conv.bias, blk0.bn.weight,
                blk0.bn.bias, blk0.bn.running_mean, blk0.bn.running_var, blk0.bn.eps,
-               out_dtype=cdt, gemm_dtype=cdt).transpose(1, 2))]
+               out_dtype=cdt, gemm_dtype=cdt))]
     for i, blk in enumerate(encoder.blocks[1:], start=1):
-        # block 1 reads B2's (B, T, C) output through a channel-first view
-        out.append((f"block_{i}", blk.forward_nct))
-    out.append(("global_max_dense", encoder.pool_and_embed))
+        # channels last: B8 where it takes the block, else cuDNN
+        out.append((f"block_{i}", lambda h, blk=blk: blockn(blk, h)))
+    out.append(("global_max_dense", lambda h: encoder.pool_and_embed(h.transpose(1, 2))))
     return out
 
 
