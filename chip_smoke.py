@@ -11,12 +11,15 @@ Each phase prints one JSON line; nothing here imports JAX.
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
    at the main paths' shapes and at edge shapes, with the tolerance stated:
    B1, B2 (bf16, f32 and its int8 requantizing epilogue), B3 at the three
-   config #1 block shapes; B8 at the same three shapes in f32 output (each
-   output within a bound derived from its K = k·Cin products and f32
-   rounding) and bf16 output (row cosine), and at edges (odd T, T = 2 and 3,
-   B = 1, T no tile multiple, k = 5, Cin = 40, Cout = 24 and 72, BN scales of
-   both signs); B10's mma and pool stages exactly against their plain
-   versions and its full stage equal to B3, at the three shapes;
+   config #1 block shapes and at edges (odd T, T no tile multiple, Couts 40,
+   72, 100 and 75, Cin = 480 and 512, B = 1 at each block shape, rows of very
+   different scale); B8 at the same three shapes in f32 output (each output
+   within a bound derived from its K = k·Cin products and f32 rounding) and
+   bf16 output (row cosine), and at edges (odd T, T = 2 and 3, B = 1 at each
+   block shape, T no tile multiple, k = 5, Cin = 40, Couts 24, 72, 100 and 75,
+   rows scaled by 1, 1e3 and 1e-3, BN scales of both signs); B10's mma and
+   pool stages exactly against their plain versions and its full stage equal
+   to B3, at the three shapes;
    train kernels — B4 and B5 at the train step's (32, 12000, 128) and at edge
    shapes, B7's pool and routing passes at the three config #1 block shapes
    of the train step and at an odd C, each against its plain version;
@@ -170,9 +173,16 @@ FRAG = 12000
 CHECK_ROWS = 256  # rows of the on-card checks and of each plain-version chunk
 # Config #1's blocks 1-3: (T in, Cin, Cout, last), int8 (B3) and bf16 (B8, k = 3).
 QBLOCKS = ((3000, 128, 256, False), (1500, 256, 384, False), (750, 384, 512, True))
-# B8's edges: (B, T, Cin, Cout, k).
+# B8's edges: (B, T, Cin, Cout, k). The kernel's tiles are 256 (or 128)
+# conv rows by 128 channels and it stores 8 channels at a time: T = 1001 and
+# 257 end in a partial tile, Couts 24, 72, 100 and 75 in a partial channel
+# tile (100 and 75 no multiple of 8, 75 odd), Cin = 40 pads its tap's run.
 B8_EDGES = ((3, 1001, 128, 256, 3), (1, 2, 128, 64, 3), (2, 3, 64, 72, 3),
-            (1, 300, 128, 128, 5), (2, 257, 40, 24, 3), (2, 130, 384, 512, 3))
+            (1, 300, 128, 128, 5), (2, 257, 40, 24, 3), (2, 130, 384, 512, 3),
+            (2, 301, 64, 100, 3), (3, 513, 128, 75, 3))
+# Rows of very different scale, so that a read across the batch-row
+# boundary (row t < 0 or t >= T taken from the neighbouring row) shows.
+ROW_SCALES = (1.0, 1e3, 1e-3)
 SWEEP = (1, 8, 64, 256, 2048)
 # The train step of config #1: batch 32 of 12000 samples; block 0's width;
 # blocks 1-3's full-rate conv outputs (C, T), pool 2; train steps of the slice.
@@ -453,17 +463,28 @@ def check_blockn(x: torch.Tensor, params: tuple) -> dict:
                          f"bf16: row cosine >= {B8_BF16_MIN_COSINE}"}
 
 
+def scaled_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its batch rows scaled by ROW_SCALES in turn."""
+    scale = torch.tensor(ROW_SCALES, device=x.device)[torch.arange(x.shape[0]) % len(ROW_SCALES)]
+    return (x.float() * scale[:, None, None]).to(x.dtype)
+
+
 def check_blockn_kernels() -> tuple[list, float]:
-    """B8 at config #1's three block shapes (CHECK_ROWS rows) and B8_EDGES;
-    the largest f32 error at the main shapes."""
+    """B8 at config #1's three block shapes (CHECK_ROWS rows), at B = 1 at
+    each of them, at B8_EDGES and with rows of ROW_SCALES; the largest f32
+    error at the main shapes."""
     checks = []
     for i, (T, cin, cout, _) in enumerate(QBLOCKS):
         x, params = blockn_inputs(100 + i, CHECK_ROWS, T, cin, cout)
         checks.append(check_blockn(x, params))
         del x, params
     err = max(c["max_abs_err"] for c in checks)
+    for i, (T, cin, cout, _) in enumerate(QBLOCKS):
+        checks.append(check_blockn(*blockn_inputs(200 + i, 1, T, cin, cout)))
     for B, T, cin, cout, k in B8_EDGES:
         checks.append(check_blockn(*blockn_inputs(B + T + cin, B, T, cin, cout, k)))
+    x, params = blockn_inputs(7, len(ROW_SCALES), 300, 128, 256)
+    checks.append({**check_blockn(scaled_rows(x), params), "row_scales": list(ROW_SCALES)})
     return checks, err
 
 
@@ -503,8 +524,11 @@ def check_exact(name: str, out: torch.Tensor, ref: torch.Tensor, shape: tuple) -
 def check_edges() -> list:
     """Shapes off the main path: T % 4 != 0 and C != 128 for B2 (bf16 and
     int8); a negative offset and indices outside the store for B1 (NaN rows,
-    no stray read); odd T, B=3, a Cout that is no multiple of the CTA's 64
-    channels (int8, bf16 and f32 out), Cin=480 and a one-step output for B3."""
+    no stray read); for B3 odd T, B = 3, Couts that are no multiple of the
+    kernel's 128-channel tile (40, 72, 100, 75: no multiple of 8, 75 odd; int8,
+    bf16 and f32 out), Cin = 480 and 512 (past the first design's cap), a
+    one-step output, B = 1 at config #1's three block shapes, and rows of very
+    different scale."""
     checks = []
     g = torch.Generator().manual_seed(1)
     for B, T, c in ((3, 1001, 16), (2, 4098, 160)):
@@ -535,15 +559,24 @@ def check_edges() -> list:
     checks.append({"kernel": "gather_whiten", "shape": list(got.shape),
                    "max_abs_err": float((got[:2] - want).abs().max()),
                    "tolerance": f"rtol {B1_RTOL}, atol {B1_ATOL}; NaN rows for indices -1, N"})
-    for B, T, cin, cout, last, dt in ((3, 1001, 96, 40, False, None),
-                                      (3, 1001, 96, 40, True, torch.bfloat16),
-                                      (3, 1001, 96, 40, True, torch.float32),
-                                      (1, 3, 32, 8, False, None),
-                                      (2, 130, 480, 72, True, torch.bfloat16)):
+    edges = ((3, 1001, 96, 40, False, None), (3, 1001, 96, 40, True, torch.bfloat16),
+             (3, 1001, 96, 40, True, torch.float32), (1, 3, 32, 8, False, None),
+             (2, 130, 480, 72, True, torch.bfloat16), (2, 130, 512, 72, False, None),
+             (2, 301, 64, 100, False, None), (3, 513, 128, 75, True, torch.bfloat16))
+    edges += tuple((1, T, cin, cout, last, torch.bfloat16 if last else None)
+                   for T, cin, cout, last in QBLOCKS)
+    for B, T, cin, cout, last, dt in edges:
         args = qblock_inputs(T + cin, B, T, cin, cout)
         kw = {"last": last, "out_dtype": dt} if last else {}
         checks.append(check_exact("quant_block", quant_block(*args, **kw),
                                   quant_block_reference(*args, **kw), (B, T // 2, cout)))
+    # rows of very different scale: a read across the batch-row boundary shows
+    x, *rest = qblock_inputs(9, 3, 300, 128, 256)
+    x[1] = torch.div(x[1], 64, rounding_mode="trunc")
+    x[2] = torch.div(x[2], 8, rounding_mode="trunc")
+    checks.append({**check_exact("quant_block", quant_block(x, *rest),
+                                 quant_block_reference(x, *rest), (3, 150, 256)),
+                   "row_divisors": [1, 64, 8]})
     return checks
 
 
@@ -781,6 +814,7 @@ def time_quant_blocks(seed: int) -> dict:
         row = {"T": T, "cin": cin, "cout": cout, "out": "bfloat16" if last else "int8",
                **bound(moved, 2.0 * BATCH * T * 3 * cin * cout, INT8_OPS_PER_S)}
         row["ms"] = time_fn(quant_block, *args, last=last, iters=20)["mean_s"] * 1e3
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         row["plain_ms"] = time_fn(in_chunks(quant_block_reference, *args, last=last),
                                   iters=2, warmup=1)["mean_s"] * 1e3
         x, w = args[0], args[1]
@@ -835,6 +869,7 @@ def time_blockn(encoder, x: torch.Tensor) -> list:
                    "ms": time_fn(conv_blockn, h, *params, blk.bn.eps, iters=20)["mean_s"] * 1e3,
                    "plain_ms": time_fn(in_chunks(conv_blockn_reference, h, *params, blk.bn.eps),
                                        iters=2, warmup=1)["mean_s"] * 1e3}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             xc = h.transpose(1, 2).contiguous()  # (B, Cin, T), the layout F.conv1d takes
             wc, bc = blk.conv.weight.to(cdt), blk.conv.bias.to(cdt)
             row["library_ms"] = time_fn(torch.nn.functional.conv1d, xc, wc, bc,

@@ -5,7 +5,7 @@ CPU, the kernels' plain versions stand in for the kernels (and count as their
 launches), the build and the CUDA-event timers are stubbed, and the sizes
 and the configs are cut down (filters 32, 0.128 s fragments, train batches
 of 8, 12 train steps, B8 and B3 at (100, 32 → 64), (50, 64 → 96) and
-(25, 96 → 128); config #4 at 0.15 s, 16 frames, 32 mels; config #2 at
+(25, 96 → 128), and at their edge shapes as the card runs them; config #4 at 0.15 s, 16 frames, 32 mels; config #2 at
 the same 0.128 s and filters 32, 8 pairs a train step, 40 verification
 pairs, B9 timed at (1, 40, 36, 16) and (50, 1, 5, 16)); the train
 policies resolve as they do on the card (B4/B5 and the fused blocks-1+ op).
@@ -144,11 +144,19 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
                                                   "conv_block0": 2, "quant_block": 6}
     checks = by_phase["kernels"]["checks"]
     b8 = [c for c in checks if c["kernel"] == "conv_blockn"]
-    assert [c["shape"] for c in b8] == [[64, 100, 32, 64, 3], [64, 50, 64, 96, 3],
-                                        [64, 25, 96, 128, 3]] + [list(e) for e in cs.B8_EDGES]
+    assert [c["shape"] for c in b8] == (
+        [[64, 100, 32, 64, 3], [64, 50, 64, 96, 3], [64, 25, 96, 128, 3],
+         [1, 100, 32, 64, 3], [1, 50, 64, 96, 3], [1, 25, 96, 128, 3]]
+        + [list(e) for e in cs.B8_EDGES] + [[3, 300, 128, 256, 3]])
     assert all(c["err_over_bound"] <= 1.0 and c["bf16_min_row_cosine"] >= cs.B8_BF16_MIN_COSINE
                for c in b8)
-    assert [c["out"] for c in b8[3:6]] == [[3, 500, 256], [1, 1, 64], [2, 1, 72]]
+    assert [c["out"] for c in b8[6:9]] == [[3, 500, 256], [1, 1, 64], [2, 1, 72]]
+    assert b8[-1]["row_scales"] == list(cs.ROW_SCALES)
+    b3 = [c for c in checks if c["kernel"] == "quant_block"]
+    assert [c["shape"] for c in b3[3:]] == [
+        [3, 500, 40], [3, 500, 40], [3, 500, 40], [1, 1, 8], [2, 65, 72], [2, 65, 72],
+        [2, 150, 100], [3, 256, 75], [1, 50, 64], [1, 25, 96], [1, 12, 128], [3, 150, 256]]
+    assert all(c["max_abs_err"] == 0.0 for c in b3)
     b10 = [c for c in checks if c["kernel"] == "quant_block_stage"]
     assert [(c["stage"], c["dtype"]) for c in b10] == [
         ("mma", "int32"), ("pool", "int32"), ("full", "int8")] * 3

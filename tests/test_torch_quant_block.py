@@ -85,12 +85,15 @@ def test_b3_plain_equals_pallas_interpret(cin, cout, T, last):
 
 
 def test_pack_weights_is_k_major():
+    """K-major, each tap's run of 4 input channels padded with zeros to the
+    kernel's 128 bytes."""
     w = torch.arange(3 * 4 * 5, dtype=torch.int32).reshape(3, 4, 5).to(torch.int8)
     p = pack_weights(w)
-    assert p.shape == (5, 12) and p.is_contiguous()
+    assert p.shape == (5, 3 * 128) and p.is_contiguous()
     for j in range(3):
         for ci in range(4):
-            torch.testing.assert_close(p[:, j * 4 + ci], w[j, ci, :], rtol=0, atol=0)
+            torch.testing.assert_close(p[:, j * 128 + ci], w[j, ci, :], rtol=0, atol=0)
+        assert not p[:, j * 128 + 4:(j + 1) * 128].any()
 
 
 def test_b3_wrapper_on_cpu_is_the_plain_version():

@@ -41,6 +41,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import conv_sm90
+
 KERNEL_TAPS = 32
 KERNEL_POOL = 4
 _SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -173,9 +175,8 @@ conv_block0.launches = 0  # kernel launches, bf16, f32 and int8; the CPU path do
 # ---------------------------------------------------------------------------
 
 BLOCKN_POOL = 2
-BLOCKN_CIN_MULTIPLE = 8  # an 8-element half of the kernel's mma k-step stays within one tap
+BLOCKN_CIN_MULTIPLE = 8  # TMA's row stride of the input: a multiple of 16 bytes
 _BLOCKN_OUT = {torch.bfloat16: 1, torch.float32: 2}
-_CUDA_ERROR_INVALID_VALUE = 1
 
 
 def stacked_weights_chan(w: torch.Tensor, pool: int = BLOCKN_POOL) -> torch.Tensor:
@@ -251,6 +252,9 @@ def check_blockn_launch(x: torch.Tensor, w: torch.Tensor, vecs: tuple, pool: int
     if cin % BLOCKN_CIN_MULTIPLE:
         raise ValueError(f"conv_blockn: the kernel takes Cin a multiple of "
                          f"{BLOCKN_CIN_MULTIPLE}, got {cin}")
+    if conv_sm90.stages(k, 2) < 1:
+        raise ValueError(f"conv_blockn: k={k} is too wide for one stage of the kernel's "
+                         f"shared memory")
     if any(p.device != x.device for p in (w, *vecs)):
         raise ValueError(f"conv_blockn: every parameter must lie on {x.device}")
     if any(p.shape != (cout,) for p in vecs):
@@ -286,8 +290,8 @@ def conv_blockn(
     out = torch.empty((B, T // BLOCKN_POOL, cout), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    # (Cout, k·Cin) K-major: [c, j·Cin + ci] = w[j, ci, c]
-    wp = w.permute(2, 0, 1).reshape(cout, k * cin).to(torch.bfloat16).contiguous()
+    # (Cout, k·Kp) K-major, each tap's Cin padded with zeros to 128 bytes
+    wp = conv_sm90.pack_taps(w.to(torch.bfloat16))
     aff = torch.stack(bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps)).contiguous()
     from .._build import check, library
 
@@ -296,9 +300,6 @@ def conv_blockn(
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vm_conv_blockn(x.data_ptr(), wp.data_ptr(), aff.data_ptr(), out.data_ptr(),
                                  B, T, cin, cout, k, _BLOCKN_OUT[out_dtype], stream)
-    if err == _CUDA_ERROR_INVALID_VALUE:
-        raise ValueError(f"conv_blockn: Cin={cin} at k={k} is too wide for the kernel's "
-                         f"shared memory")
     check(err, "conv_blockn")
     conv_blockn.launches += 1
     return out

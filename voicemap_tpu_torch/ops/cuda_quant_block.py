@@ -38,7 +38,7 @@ Dispatch is by the input's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel, and a failed build or launch raises. PyTorch
 has no int32 matrix product on the card, so the plain version accumulates in
 float64, where every product and sum of int8 values here is exact
-(|acc| ≤ 3·480·127² < 2⁵³).
+(|acc| ≤ 3·MAX_CIN·128² < 2³¹ < 2⁵³).
 """
 
 from __future__ import annotations
@@ -46,18 +46,23 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import conv_sm90
+
 KERNEL_TAPS = 3
 KERNEL_POOL = 2
-CIN_MULTIPLE = 32  # one mma k-step of 32 bytes stays within one tap
-MAX_CIN = 480  # the CTA's shared memory: a 64-channel weight slab and two input tiles
+CIN_MULTIPLE = 32  # one wgmma k-step of 32 bytes stays within one tap
+# The kernel streams its weights, so shared memory no longer bounds Cin; the
+# int32 sum does: |acc| <= 3 * Cin * 128^2 must stay below 2^31.
+MAX_CIN = (2 ** 31 - 1) // (KERNEL_TAPS * 128 * 128) // CIN_MULTIPLE * CIN_MULTIPLE
 _OUT_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 STAGES = ("mma", "pool", "full")  # B10's prefixes, in kernel order
 
 
 def pack_weights(w_q: torch.Tensor) -> torch.Tensor:
-    """``(3, Cin, Cout)`` → ``(Cout, 3·Cin)`` K-major: ``[co, j·Cin + ci] = w_q[j, ci, co]``."""
-    k, cin, cout = w_q.shape
-    return w_q.permute(2, 0, 1).reshape(cout, k * cin).contiguous()
+    """``(3, Cin, Cout)`` → ``(Cout, 3·Kp)`` K-major, each tap's K run padded
+    with zeros to Kp, a multiple of 128: ``[co, j·Kp + ci] = w_q[j, ci, co]``
+    (``conv_sm90.pack_taps``)."""
+    return conv_sm90.pack_taps(w_q)
 
 
 def quant_block_reference(
@@ -148,14 +153,12 @@ def quant_block(
 quant_block.launches = 0  # kernel launches; the CPU path does not count
 
 
-def _prepare(name: str, x_q, w_q, alpha, beta, gamma, out_dtype) -> tuple:
-    """Check a launch of B3's kernel on a CUDA tensor; the output, the packed
-    weights and the epilogue rows ``(3, Cout)``."""
-    if x_q.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x_q.device}")
+def check_quant_launch(name: str, x_q, w_q, vecs: tuple) -> None:
+    """Raise ``ValueError`` for what B3's kernel does not take: ``vecs`` are
+    alpha, beta and gamma."""
     if x_q.dim() != 3 or x_q.dtype != torch.int8 or not x_q.is_contiguous():
         raise ValueError(f"{name}: x_q must be a contiguous (B, T, Cin) int8 tensor")
-    B, T, cin = x_q.shape
+    cin = x_q.shape[2]
     if w_q.dim() != 3 or w_q.dtype != torch.int8 or w_q.shape[1] != cin:
         raise ValueError(f"{name}: w_q must be (3, {cin}, Cout) int8")
     k, _, cout = w_q.shape
@@ -165,13 +168,23 @@ def _prepare(name: str, x_q, w_q, alpha, beta, gamma, out_dtype) -> tuple:
         raise ValueError(
             f"{name}: the kernel takes Cin a multiple of {CIN_MULTIPLE} up to "
             f"{MAX_CIN}, got {cin}")
-    vecs = (alpha, beta, gamma)
     if any(p.device != x_q.device for p in (w_q, *vecs)):
         raise ValueError(f"{name}: every parameter must lie on {x_q.device}")
     if any(p.shape != (cout,) for p in vecs):
         raise ValueError(f"{name}: alpha, beta and gamma must be ({cout},)")
     if x_q.data_ptr() % 16:
         raise ValueError(f"{name}: x_q must be 16-byte aligned")
+
+
+def _prepare(name: str, x_q, w_q, alpha, beta, gamma, out_dtype) -> tuple:
+    """Check a launch of B3's kernel on a CUDA tensor; the output, the packed
+    weights and the epilogue rows ``(3, Cout)``."""
+    if x_q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x_q.device}")
+    vecs = (alpha, beta, gamma)
+    check_quant_launch(name, x_q, w_q, vecs)
+    B, T, _ = x_q.shape
+    cout = w_q.shape[2]
     out = torch.empty((B, T // KERNEL_POOL, cout), dtype=out_dtype, device=x_q.device)
     aff = torch.stack([v.float() for v in vecs]).contiguous()  # (3, Cout)
     return out, pack_weights(w_q), aff
