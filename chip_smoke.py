@@ -9,8 +9,12 @@ Each phase prints one JSON line; nothing here imports JAX.
    power limit;
 2. build — compile ``voicemap_tpu_torch/csrc`` for ``sm_90a``;
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
-   at the main paths' shapes and at edge shapes, with the tolerance stated:
-   B1, B2 (bf16, f32 and its int8 requantizing epilogue), B3 at the three
+   at the main paths' shapes and at edge shapes, with the tolerance stated,
+   the launch counters read around the phase: B1; B2's tensor-core kernel
+   (every bf16 GEMM) in f32 out within its order bound, bf16 out within that
+   bound before its rounding and by row cosine, int8 out by the flip rule,
+   at B = 256 and 1, T % 4 != 0 with C = 16 and 160, rows of very different
+   scale and B = 70000, and its f32-GEMM kernel bit for bit; B3 at the three
    config #1 block shapes and at edges (odd T, T no tile multiple, Couts 40,
    72, 100 and 75, Cin = 480 and 512, B = 1 at each block shape, rows of very
    different scale); B8 at the same three shapes in f32 output (each output
@@ -45,7 +49,7 @@ Each phase prints one JSON line; nothing here imports JAX.
    fixed batch through the kernels and through their plain versions,
    held together (loss, gradient cosine per parameter);
 8. timing — CUDA-event times of each kernel beside its plain version, its
-   bound and (B3) a library GEMM; B8 per block beside its bound, its plain
+   bound and (B2) ``F.conv1d`` at (B, 1, T), (B3) a library GEMM; B8 per block beside its bound, its plain
    version, ``F.conv1d`` (conv and bias only) and the cuDNN block it
    replaced; the bf16 embed's stages (``stage_profile``); embed throughput
    at B=2048 in bf16 and int8, and bf16 through B8 against the cuDNN chain
@@ -58,9 +62,12 @@ Each phase prints one JSON line; nothing here imports JAX.
    step's ms and utt/s at B=32 and B=2048 under both blocks-1+ policies, in
    turns (jnp, fused, fused, jnp), and peak memory;
 10. mel kernels — config #4's: B1 at downsampling 1, frag 48000, over the
-    bench store undecimated; B6 against its plain version on 256 whitened
-    48000-sample fragments at config #4's geometry and at edge shapes (the
-    librosa hop 160 / win 400, n_mels 32, B = 1 and 5, T = 47999, one frame);
+    bench store undecimated; B6's FFT kernel against its plain version (and
+    against the rfft route) on 256 whitened 48000-sample fragments at
+    config #4's geometry and at edge shapes (the librosa hop 160 / win 400,
+    n_mels 32, B = 1 and 5, T = 47999 and 30001, one frame, n_fft 256 and
+    1024, a tone, a zero row, rows × 1e3 and 1e-3), its DFT kernel at n_fft
+    400, the launch counters read around the phase;
 11. mel slice — config #4 (``melspec_2d``: log-mel + 2D CNN, filters 128,
     embedding 64, 3 s at 16 kHz, downsampling 1) at full width from a
     flax-layout tree, the same 500 tasks over the same store in bf16 (B1 →
@@ -70,10 +77,11 @@ Each phase prints one JSON line; nothing here imports JAX.
     mel qvars (B1 → B6 → int8 patch-matrix convs), launch counters around
     the run, the table held against the plain-version int8 path; the min row
     cosine of int8 against bf16 on held-out bench rows, held ≥ 0.99;
-13. mel timing — B6 at B=2048 beside its bound (the function's bytes and
-    its rfft operations), the floors of its DFT-as-matmul algorithm at the
-    TF32 and f32 rates, its plain version and ``torch.stft`` (spectrum
-    only); config #4 embed utt/s
+13. mel timing — B6 at B=2048 on both routes (config #4's FFT, the DFT at
+    n_fft 400) beside its bound (the function's bytes and its rfft
+    operations), the floors of the DFT-as-matmul algorithm at the TF32 and
+    f32 rates, its plain version and ``torch.stft`` (spectrum only); config
+    #4 embed utt/s
     at B=2048, batch-1 latency and peak memory, in bf16 and in int8;
 14. siamese kernels — B9 against its plain version, bit for bit, at
     (T, nq, ns, D) = (1, 4096, 4096, 64), the n-shot form (500, 1, 5, 64) and
@@ -133,7 +141,7 @@ from voicemap_tpu_torch.models.quant_infer import (
 from voicemap_tpu_torch.models.siamese import SiameseNet
 from voicemap_tpu_torch.models.spectrogram import MelSpecClassifier
 from voicemap_tpu_torch.ops import (
-    cuda_conv_train, cuda_distance, cuda_melspec, cuda_routing, sampling,
+    block0_tc, cuda_conv_train, cuda_distance, cuda_melspec, cuda_routing, melspec, sampling,
 )
 from voicemap_tpu_torch.ops import distance as dist_ops
 from voicemap_tpu_torch.ops.cuda_conv import (
@@ -180,6 +188,10 @@ QBLOCKS = ((3000, 128, 256, False), (1500, 256, 384, False), (750, 384, 512, Tru
 B8_EDGES = ((3, 1001, 128, 256, 3), (1, 2, 128, 64, 3), (2, 3, 64, 72, 3),
             (1, 300, 128, 128, 5), (2, 257, 40, 24, 3), (2, 130, 384, 512, 3),
             (2, 301, 64, 100, 3), (3, 513, 128, 75, 3))
+# B2's edges: (B, T, C): T % 4 != 0, C = 16 and 160 (no multiple of the
+# kernel's 32-channel slice); and more rows than a launch's grid.y takes.
+B2_EDGES = ((3, 1001, 16), (2, 4098, 160))
+B2_WIDE = (70000, 64, 16)
 # Rows of very different scale, so that a read across the batch-row
 # boundary (row t < 0 or t >= T taken from the neighbouring row) shows.
 ROW_SCALES = (1.0, 1e3, 1e-3)
@@ -193,10 +205,19 @@ TRAIN_STEPS = 40
 TRAIN_TIMING_BATCHES = (32, 2048)
 # Config #4: 3 s at 16 kHz, downsampling 1, over the bench store undecimated.
 MEL_FRAG = 48000
+# B6's edges (B, T, geometry): n_mels 32; T = 47999 and 30001, ending
+# mid-frame and mid-tile; the librosa hop 160 / win 400 at n_fft 512; one
+# frame; n_fft 256 and 1024 on the FFT route; n_fft 400 on the DFT route.
 MEL_EDGES = ((1, 48000, dict(n_mels=32)), (5, 47999, {}),
              (5, 48000, dict(hop_length=160, win_length=400)),
              (3, 47999, dict(hop_length=160, win_length=400, n_mels=32)),
-             (2, 384, {}))
+             (2, 384, {}), (2, 30001, {}),
+             (4, 48000, dict(n_fft=256, win_length=256, hop_length=128)),
+             (2, 48000, dict(n_fft=1024, win_length=1024, hop_length=256)),
+             (3, 48000, dict(n_fft=400, win_length=400, hop_length=160)),
+             (3, 47999, dict(n_fft=400, win_length=400, hop_length=160, n_mels=32)))
+# B6's DFT route at B=2048 in the timing phase: the librosa geometry.
+MEL_DFT = dict(n_fft=400, win_length=400, hop_length=160)
 # Config #2: B9's (T, nq, ns, D) at the timing shape, in the n-shot form of
 # 500 1-shot 5-way tasks, and at edges; the verification pairs; the train
 # step's batch of pairs (2x the rows through the encoder).
@@ -208,8 +229,24 @@ SIAMESE_PAIRS = 1000
 SIAMESE_BATCH = 64
 
 B1_RTOL, B1_ATOL = 1e-5, 1e-6
+# B2's f32-GEMM kernel (CUDA cores) sums its taps in the plain version's
+# order: bit for bit, held at this rtol.
 B2_F32_RTOL, B2_F32_ATOL = 1e-5, 1e-5
-B2_BF16_ULPS = 1
+# B2's tensor-core kernel against its plain version: both multiply the same
+# bf16 values, exact in f32, and only the order of the f32 sums differs,
+# which the tensor cores do not let one pin. Per output, f32 out:
+#   |out − ref| <= u·(4·K·|mul|·(S + |bias|) + 4·(|ref| + |add|))
+# (ops/block0_tc.order_bound: K = 32 taps, S = Σ|x·w| of the larger phase,
+# u = 2^-24; the reasoning of B8's bound below). bf16 out: the same bound
+# before the one rounding, so |out − ref| <= (1 + 2^-8)·bound + 2^-8·|ref|
+# against the plain version's f32 value, and a row cosine; one bf16 ulp does
+# not hold, because where the BatchNorm affine cancels to near zero a
+# difference within the bound is many ulps of the result (up to 208 seen on
+# an H100). int8 out: |q − q_ref| <= 1, and a differing entry only where
+# the plain pooled value × inv_s0 lies within bound·|inv_s0| of a
+# half-integer (block0_tc.requant_flips); the flips are counted.
+B2_BF16_REL = 2.0 ** -8
+B2_BF16_MIN_COSINE = 0.9999
 TABLE_MIN_COSINE = 0.999
 TRAIN_REL_TOL = 1e-4  # stats, dW, db: of max |value|, for the other sum order
 STEP_LOSS_RTOL = 1e-3
@@ -245,30 +282,39 @@ F32_OPS_PER_S = 67e12  # CUDA cores, outside the tensor cores
 # instructions (132 SMs x 128 lanes at ~1.98 GHz).
 F32_INSTR_PER_S = F32_OPS_PER_S / 2
 
-# name -> (wrapper, source, TPU kernel it replaces)
+# name -> (wrapper, its launch counter, source, TPU kernel it replaces). B2
+# and B6 have two kernels each, chosen by their arguments: B2's tensor-core
+# kernel counts on ``launches`` (every bf16 GEMM), its f32-GEMM kernel on
+# ``f32_launches``; B6's ``launches`` counts both of its routes and
+# ``dft_launches`` the DFT route alone.
 KERNELS = {
-    "gather_whiten": (gather_whiten, "voicemap_tpu_torch/csrc/gather_whiten.cu",
+    "gather_whiten": (gather_whiten, "launches", "voicemap_tpu_torch/csrc/gather_whiten.cu",
                       "voicemap_tpu/ops/pallas_preprocess.py:88"),
-    "conv_block0": (conv_block0, "voicemap_tpu_torch/csrc/conv_block0.cu",
+    "conv_block0": (conv_block0, "launches", "voicemap_tpu_torch/csrc/conv_block0.cu",
                     "voicemap_tpu/ops/pallas_conv.py:97"),
-    "quant_block": (quant_block, "voicemap_tpu_torch/csrc/quant_block.cu",
+    "conv_block0_f32": (conv_block0, "f32_launches", "voicemap_tpu_torch/csrc/conv_block0.cu",
+                        "voicemap_tpu/ops/pallas_conv.py:97"),
+    "quant_block": (quant_block, "launches", "voicemap_tpu_torch/csrc/quant_block.cu",
                     "voicemap_tpu/ops/pallas_quant_block.py:99"),
-    "conv_block0_train": (conv_block0_train, "voicemap_tpu_torch/csrc/conv_block0_train.cu",
+    "conv_block0_train": (conv_block0_train, "launches",
+                          "voicemap_tpu_torch/csrc/conv_block0_train.cu",
                           "voicemap_tpu/ops/pallas_conv_train.py:58"),
-    "conv_block0_train_bwd": (conv_block0_train_bwd,
+    "conv_block0_train_bwd": (conv_block0_train_bwd, "launches",
                               "voicemap_tpu_torch/csrc/conv_block0_train.cu",
                               "voicemap_tpu/ops/pallas_conv_train.py:125"),
-    "pool_fwd": (pool_fwd, "voicemap_tpu_torch/csrc/routing.cu",
+    "pool_fwd": (pool_fwd, "launches", "voicemap_tpu_torch/csrc/routing.cu",
                  "voicemap_tpu/ops/pallas_routing.py:69"),
-    "route_bwd": (route_bwd, "voicemap_tpu_torch/csrc/routing.cu",
+    "route_bwd": (route_bwd, "launches", "voicemap_tpu_torch/csrc/routing.cu",
                   "voicemap_tpu/ops/pallas_routing.py:133"),
-    "log_mel": (log_mel, "voicemap_tpu_torch/csrc/log_mel.cu",
+    "log_mel": (log_mel, "launches", "voicemap_tpu_torch/csrc/log_mel.cu",
                 "voicemap_tpu/ops/pallas_melspec.py:52"),
-    "weighted_l1": (weighted_l1, "voicemap_tpu_torch/csrc/weighted_l1.cu",
+    "log_mel_dft": (log_mel, "dft_launches", "voicemap_tpu_torch/csrc/log_mel.cu",
+                    "voicemap_tpu/ops/pallas_melspec.py:52"),
+    "weighted_l1": (weighted_l1, "launches", "voicemap_tpu_torch/csrc/weighted_l1.cu",
                     "voicemap_tpu/ops/pallas_distance.py:33"),
-    "conv_blockn": (conv_blockn, "voicemap_tpu_torch/csrc/conv_blockn.cu",
+    "conv_blockn": (conv_blockn, "launches", "voicemap_tpu_torch/csrc/conv_blockn.cu",
                     "voicemap_tpu/ops/pallas_conv.py:300"),
-    "quant_block_stage": (quant_block_stage, "voicemap_tpu_torch/csrc/quant_block.cu",
+    "quant_block_stage": (quant_block_stage, "launches", "voicemap_tpu_torch/csrc/quant_block.cu",
                           "benchmarks/bench_qblock_attrib.py:43"),
 }
 # The train kernels' plain versions, by the module attribute each wrapper
@@ -292,13 +338,14 @@ def card_line() -> str:
 
 
 def reset_counts() -> None:
-    for wrapper, _, _ in KERNELS.values():
-        wrapper.launches = 0
+    for wrapper, counter, _, _ in KERNELS.values():
+        setattr(wrapper, counter, 0)
 
 
 def read_counts() -> dict:
     torch.cuda.synchronize()
-    return {name: wrapper.launches for name, (wrapper, _, _) in KERNELS.items()}
+    return {name: getattr(wrapper, counter)
+            for name, (wrapper, counter, _, _) in KERNELS.items()}
 
 
 def bound(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
@@ -504,6 +551,68 @@ def check_qblock_stages() -> list:
     return checks
 
 
+def check_block0(x: torch.Tensor, params: tuple) -> list:
+    """B2's tensor-core kernel against its plain version at f32, bf16 and
+    int8 output, each to its stated tolerance (B2_BF16_REL above)."""
+    B, T = x.shape[:2]
+    c = params[1].shape[0]
+    shape = (B, T // 4, c)
+    ref = conv_block0_reference(x, *params, BN_EPS, out_dtype=torch.float32)
+    bias, mul, add = bn_affine(*params[1:], BN_EPS)
+    bnd = block0_tc.order_bound(x, params[0], bias, mul, add, ref)
+    out = conv_block0(x, *params, BN_EPS, out_dtype=torch.float32)
+    outb = conv_block0(x, *params, BN_EPS)
+    refb = conv_block0_reference(x, *params, BN_EPS)
+    s0 = ref.abs().amax(dim=(0, 1)).clamp(min=1e-8) / 127.0
+    q = conv_block0(x, *params, BN_EPS, requant_scale=s0)
+    q_ref = conv_block0_reference(x, *params, BN_EPS, requant_scale=s0)
+    torch.cuda.synchronize()
+    for got, dt in ((out, torch.float32), (outb, torch.bfloat16), (q, torch.int8)):
+        if tuple(got.shape) != shape or got.dtype != dt:
+            raise AssertionError(f"conv_block0 {(B, T, c)}: {tuple(got.shape)} {got.dtype}, "
+                                 f"want {shape} {dt}")
+    tiny = torch.full((), 1e-30, dtype=torch.float64, device=x.device)
+    diff = (out - ref).abs()
+    ratio = float((diff / torch.maximum(bnd, tiny)).max()) if diff.numel() else 0.0
+    if not ratio <= 1.0:
+        raise AssertionError(f"conv_block0 {(B, T, c)} f32: {ratio} of its order bound")
+    tolb = (1 + B2_BF16_REL) * bnd + B2_BF16_REL * ref.abs().double()
+    ratio_b = float(((outb.float() - ref).abs() / torch.maximum(tolb, tiny)).max())
+    cos = min_cosine(outb.reshape(B, -1).float(), refb.reshape(B, -1).float())
+    if not (ratio_b <= 1.0 and cos >= B2_BF16_MIN_COSINE):
+        raise AssertionError(f"conv_block0 {(B, T, c)} bf16: {ratio_b} of its bound, "
+                             f"row cosine {cos}")
+    flips = block0_tc.requant_flips(q, q_ref, ref, 1.0 / s0.float(), bnd)
+    base = {"kernel": "conv_block0", "route": "tensor cores", "shape": list(shape)}
+    return [{**base, "dtype": "float32", "max_abs_err": float(diff.max()),
+             "err_over_bound": ratio,
+             "tolerance": "|err| <= u*(4*K*|mul|*(S+|bias|) + 4*(|ref|+|add|)), u = 2^-24, "
+                          "K = 32, S = sum|x*w|"},
+            {**base, "dtype": "bfloat16",
+             "max_abs_err": float((outb.float() - refb.float()).abs().max()),
+             "err_over_bound": ratio_b, "min_row_cosine": cos,
+             "max_ulps_vs_plain_bf16": bf16_ulps(outb, refb),
+             "tolerance": f"|out - ref_f32| <= (1 + 2^-8)*bound + 2^-8*|ref_f32|; row cosine "
+                          f">= {B2_BF16_MIN_COSINE}"},
+            {**base, "dtype": "int8",
+             "max_abs_err": float((q.float() - q_ref.float()).abs().max()), "flips": flips,
+             "tolerance": "|q - q_ref| <= 1, only where ref*inv_s0 is within "
+                          "bound*|inv_s0| of a half-integer"}]
+
+
+def check_block0_f32(x: torch.Tensor, params: tuple) -> dict:
+    """B2's f32-GEMM kernel (CUDA cores) against its plain version: the same
+    tap order, held at B2_F32_RTOL."""
+    out = conv_block0(x, *params, BN_EPS, out_dtype=torch.float32, gemm_dtype=torch.float32)
+    ref = conv_block0_reference(x, *params, BN_EPS, out_dtype=torch.float32,
+                                gemm_dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=B2_F32_RTOL, atol=B2_F32_ATOL)
+    return {"kernel": "conv_block0", "route": "float32 GEMM", "dtype": "float32",
+            "shape": list(out.shape), "max_abs_err": float((out - ref).abs().max()),
+            "tolerance": f"rtol {B2_F32_RTOL}, atol {B2_F32_ATOL}"}
+
+
 def check_exact(name: str, out: torch.Tensor, ref: torch.Tensor, shape: tuple) -> dict:
     """``out`` equal to ``ref``: int8 by value, bf16 to 0 ulps."""
     torch.cuda.synchronize()
@@ -522,8 +631,10 @@ def check_exact(name: str, out: torch.Tensor, ref: torch.Tensor, shape: tuple) -
 
 
 def check_edges() -> list:
-    """Shapes off the main path: T % 4 != 0 and C != 128 for B2 (bf16 and
-    int8); a negative offset and indices outside the store for B1 (NaN rows,
+    """Shapes off the main path: for B2 T % 4 != 0 and C = 16 and 160 (the
+    tensor-core kernel in f32, bf16 and int8 out, and the f32-GEMM kernel),
+    rows of very different scale, and more rows than a grid's y dimension
+    holds (the persistent grid); a negative offset and indices outside the store for B1 (NaN rows,
     no stray read); for B3 odd T, B = 3, Couts that are no multiple of the
     kernel's 128-channel tile (40, 72, 100, 75: no multiple of 8, 75 odd; int8,
     bf16 and f32 out), Cin = 480 and 512 (past the first design's cap), a
@@ -531,22 +642,17 @@ def check_edges() -> list:
     different scale."""
     checks = []
     g = torch.Generator().manual_seed(1)
-    for B, T, c in ((3, 1001, 16), (2, 4098, 160)):
+    for B, T, c in B2_EDGES:
         x = (torch.randn(B, T, 1, generator=g) * 0.05).to(DEVICE)
         params = block0_params(B + T, c)
-        out = conv_block0(x, *params)
-        ref = conv_block0_reference(x, *params)
-        torch.cuda.synchronize()
-        ulps = bf16_ulps(out, ref)
-        if out.shape != (B, T // 4, c) or ulps > B2_BF16_ULPS:
-            raise AssertionError(f"conv_block0 {(B, T, c)}: {tuple(out.shape)}, {ulps} ulps")
-        checks.append({"kernel": "conv_block0", "dtype": "bfloat16", "shape": list(out.shape),
-                       "max_abs_err": float((out.float() - ref.float()).abs().max()),
-                       "tolerance": f"<= {B2_BF16_ULPS} bf16 ulp (max {ulps})"})
-        s0 = requant_scale_for(x, params)
-        checks.append(check_exact("conv_block0", conv_block0(x, *params, requant_scale=s0),
-                                  conv_block0_reference(x, *params, requant_scale=s0),
-                                  (B, T // 4, c)))
+        checks.extend(check_block0(x, params))
+        checks.append(check_block0_f32(x, params))
+    x = (torch.randn(len(ROW_SCALES), FRAG, 1, generator=g) * 0.3).to(DEVICE)
+    checks.extend({**c, "row_scales": list(ROW_SCALES)}
+                  for c in check_block0(scaled_rows(x), block0_params(5)))
+    B, T, c = B2_WIDE
+    x = (torch.randn(B, T, 1, generator=g) * 0.3).to(DEVICE)
+    checks.extend(check_block0(x, block0_params(6, c)))
     store = torch.randint(-20000, 20000, (4, 1500), generator=g, dtype=torch.int16).to(DEVICE)
     idx = torch.tensor([2, 0, -1, 4], dtype=torch.int32, device=DEVICE)
     offsets = torch.tensor([-7, 600, 0, 0], dtype=torch.int32, device=DEVICE)
@@ -581,6 +687,9 @@ def check_edges() -> list:
 
 
 def check_kernels(store, idx, offsets, params) -> dict:
+    """Every config #1 kernel against its plain version, the launch
+    counters read around the phase (B2's f32-GEMM kernel runs only here)."""
+    reset_counts()
     got = gather_whiten(store, idx, offsets, FRAG)
     want = gather_whiten_reference(store, idx, offsets, FRAG)
     torch.cuda.synchronize()
@@ -591,28 +700,14 @@ def check_kernels(store, idx, offsets, params) -> dict:
                "tolerance": f"rtol {B1_RTOL}, atol {B1_ATOL}"}]
 
     x = got[:CHECK_ROWS, :, None]
-    for dt in (torch.bfloat16, torch.float32):
-        out = conv_block0(x, *params, out_dtype=dt, gemm_dtype=dt)
-        ref = conv_block0_reference(x, *params, out_dtype=dt, gemm_dtype=dt)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        if dt == torch.bfloat16:
-            ulps = bf16_ulps(out, ref)
-            if ulps > B2_BF16_ULPS:
-                raise AssertionError(f"conv_block0 bf16: {ulps} ulps > {B2_BF16_ULPS}")
-            errors["conv_block0"] = err
-            tol = f"<= {B2_BF16_ULPS} bf16 ulp (max {ulps})"
-        else:
-            torch.testing.assert_close(out, ref, rtol=B2_F32_RTOL, atol=B2_F32_ATOL)
-            tol = f"rtol {B2_F32_RTOL}, atol {B2_F32_ATOL}"
-        checks.append({"kernel": "conv_block0", "dtype": str(dt).split(".")[-1],
-                       "shape": list(out.shape), "max_abs_err": err, "tolerance": tol})
+    b2 = check_block0(x, params)
+    b2.append(check_block0_f32(x, params))
+    b2.extend(check_block0(x[:1], params))  # B = 1: the tiles narrow to reach the SMs
+    errors["conv_block0"] = max(c["max_abs_err"] for c in b2 if c["dtype"] == "bfloat16")
+    errors["conv_block0_int8"] = max(c["max_abs_err"] for c in b2 if c["dtype"] == "int8")
+    errors["conv_block0_f32"] = b2[3]["max_abs_err"]
+    checks.extend(b2)
     s0 = requant_scale_for(x, params)
-    c = check_exact("conv_block0", conv_block0(x, *params, requant_scale=s0),
-                    conv_block0_reference(x, *params, requant_scale=s0),
-                    (CHECK_ROWS, FRAG // 4, params[1].shape[0]))
-    errors["conv_block0_int8"] = c["max_abs_err"]
-    checks.append(c)
     del x, got, want
 
     errors["quant_block"] = 0.0
@@ -629,10 +724,11 @@ def check_kernels(store, idx, offsets, params) -> dict:
     checks.extend(check_qblock_stages())
     errors["quant_block_stage"] = max(c["max_abs_err"] for c in checks
                                       if c["kernel"] == "quant_block_stage")
+    launches = read_counts()
     emit({"phase": "kernels", "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                                        "matmul": torch.backends.cuda.matmul.allow_tf32},
-          "checks": checks})
-    return {"errors": errors, "s0": s0}
+          "checks": checks, "launches": launches})
+    return {"errors": errors, "s0": s0, "launches": launches}
 
 
 def run_slice(seed: int) -> dict:
@@ -895,6 +991,8 @@ def run_timing(store, idx, offsets, params, s0, model, cfg, qvars, seed, card) -
         "conv_block0": time_fn(conv_block0, x, *params, iters=20)["mean_s"] * 1e3,
         "conv_block0_int8": time_fn(conv_block0, x, *params, requant_scale=s0,
                                     iters=20)["mean_s"] * 1e3,
+        "conv_block0_f32": time_fn(conv_block0, x, *params, out_dtype=torch.float32,
+                                   gemm_dtype=torch.float32, iters=5)["mean_s"] * 1e3,
     }
     plain_ms = {
         "gather_whiten": time_fn(gather_whiten_reference, store, idx, offsets, FRAG,
@@ -904,12 +1002,28 @@ def run_timing(store, idx, offsets, params, s0, model, cfg, qvars, seed, card) -
         "conv_block0_int8": time_fn(in_chunks(conv_block0_reference, x, *params,
                                               requant_scale=s0),
                                     iters=3, warmup=1)["mean_s"] * 1e3,
+        "conv_block0_f32": time_fn(in_chunks(conv_block0_reference, x, *params,
+                                             out_dtype=torch.float32, gemm_dtype=torch.float32),
+                                   iters=2, warmup=1)["mean_s"] * 1e3,
     }
     bounds = {
         "gather_whiten": bound(BATCH * FRAG * (2 + 4) + BATCH * 8, 0.0, BF16_OPS_PER_S),
         "conv_block0": bound(x_bytes + BATCH * (FRAG // 4) * c * 2, conv_ops, BF16_OPS_PER_S),
         "conv_block0_int8": bound(x_bytes + BATCH * (FRAG // 4) * c, conv_ops, BF16_OPS_PER_S),
+        # f32 products: no tensor-core type computes them, so the CUDA cores' rate
+        "conv_block0_f32": bound(x_bytes + BATCH * (FRAG // 4) * c * 4, conv_ops,
+                                 F32_OPS_PER_S),
     }
+    # B2's yardstick: F.conv1d at (B, 1, T), conv and bias only (no relu, BN
+    # or pool), in bf16 for the tensor-core kernel and in f32 (TF32 off) for
+    # the f32-GEMM one; the port never calls it.
+    w_nct = params[0].permute(2, 1, 0).contiguous()  # (C, 1, 32)
+    b2_library = {}
+    for name, dt in (("conv_block0", torch.bfloat16), ("conv_block0_f32", torch.float32)):
+        b2_library[name] = time_fn(torch.nn.functional.conv1d, x.transpose(1, 2).to(dt),
+                                   w_nct.to(dt), params[1].to(dt), padding="same",
+                                   iters=5)["mean_s"] * 1e3
+    b2_library["conv_block0_int8"] = b2_library["conv_block0"]
     b8 = time_blockn(model.encoder, x)
     # fast_embed's stages after the gather, each on the previous one's output
     stage_ms, h = {}, x
@@ -919,7 +1033,7 @@ def run_timing(store, idx, offsets, params, s0, model, cfg, qvars, seed, card) -
             h = fn(h)
     del x, h
     qb = time_quant_blocks(seed)
-    library_ms = {"gather_whiten": None, "conv_block0": None, "conv_block0_int8": None}
+    library_ms = {"gather_whiten": None, **b2_library}
     for name, rows_ in (("quant_block", qb["blocks"]), ("conv_blockn", b8)):
         ms[name] = sum(r["ms"] for r in rows_)
         plain_ms[name] = sum(r["plain_ms"] for r in rows_)
@@ -987,6 +1101,9 @@ def run_timing(store, idx, offsets, params, s0, model, cfg, qvars, seed, card) -
     emit({"phase": "timing", "card": card, "kernel_ms": ms, "plain_ms": plain_ms,
           "bound": bounds, "library_ms": library_ms, "quant_block": qb["blocks"],
           "conv_blockn": b8, "bf16_stage_ms": stage_ms,
+          "conv_block0_library": "F.conv1d (cuDNN) at (B, 1, T), conv and bias only: bf16 "
+                                 "for the tensor-core kernel (bf16 and int8 out), f32 with "
+                                 "TF32 off for the f32-GEMM kernel",
           "embed_utt_per_s_b2048": tput["items_per_sec"],
           "embed_ms_b2048": tput["sec_per_call"] * 1e3, "bf16_peak_mem_gb": peak_bf16,
           "b8_against_cudnn_blocks_turns": turns,
@@ -1413,16 +1530,30 @@ def check_log_mel(x: torch.Tensor, cfg: MelConfig, sr: int) -> dict:
     err = float((out - ref).abs().max())
     if not err <= B6_ATOL:
         raise AssertionError(f"log_mel {tuple(x.shape)} {cfg}: max abs err {err} > {B6_ATOL}")
-    return {"kernel": "log_mel", "shape": list(x.shape), "out": list(out.shape),
+    return {"kernel": "log_mel", "route": cuda_melspec.log_mel_route(cfg, sr),
+            "shape": list(x.shape), "out": list(out.shape), "n_fft": cfg.n_fft,
             "hop": cfg.hop_length, "win": cfg.win_length, "n_mels": cfg.n_mels,
             "max_abs_err": err, "tolerance": f"max abs <= {B6_ATOL}"}
 
 
+def special_rows(x: torch.Tensor) -> torch.Tensor:
+    """Four rows: a pure tone (440 Hz at 16 kHz), zeros, and ``x``'s rows
+    scaled by 1e3 and 1e-3 (the log floor and a frame's own energy set the
+    FFT's error)."""
+    t = torch.arange(x.shape[1], device=x.device, dtype=torch.float32)
+    tone = torch.sin(2 * np.pi * 440.0 / 16000.0 * t)
+    return torch.stack([tone, torch.zeros_like(tone), x[0] * 1e3, x[1] * 1e-3]).contiguous()
+
+
 def check_mel_kernels(raw, idx, offsets) -> dict:
     """B1 at frag 48000 over the undecimated store; B6 on 256 of those
-    whitened fragments at config #4's geometry and at MEL_EDGES."""
+    whitened fragments at config #4's geometry (and against the rfft route),
+    at MEL_EDGES and on special rows on both routes, the launch counters
+    read around the phase (the DFT route runs only here)."""
     t0 = time.perf_counter()
     cfg = melspec_2d()
+    sr = cfg.data.sample_rate
+    reset_counts()
     got = gather_whiten(raw, idx, offsets, MEL_FRAG)
     want = gather_whiten_reference(raw, idx, offsets, MEL_FRAG)
     torch.cuda.synchronize()
@@ -1434,13 +1565,27 @@ def check_mel_kernels(raw, idx, offsets) -> dict:
     del want
     x = got[:CHECK_ROWS].contiguous()
     del got
-    checks.append(check_log_mel(x, cfg.mel, cfg.data.sample_rate))
+    checks.append(check_log_mel(x, cfg.mel, sr))
     errors["log_mel"] = checks[-1]["max_abs_err"]
+    rfft = melspec.log_mel_spectrogram(x, cfg.mel, sr)
+    checks[-1]["max_abs_err_vs_rfft_route"] = float((log_mel(x, cfg.mel, sr) - rfft).abs().max())
+    del rfft
     for B, T, kw in MEL_EDGES:
-        mcfg = dataclasses.replace(cfg.mel, **kw)
-        checks.append(check_log_mel(x[:B, :T], mcfg, cfg.data.sample_rate))
-    emit({"phase": "mel_kernels", "checks": checks, "seconds": time.perf_counter() - t0})
-    return {"errors": errors}
+        checks.append(check_log_mel(x[:B, :T], dataclasses.replace(cfg.mel, **kw), sr))
+    rows = special_rows(x)
+    for kw in ({}, MEL_DFT):
+        checks.append({**check_log_mel(rows, dataclasses.replace(cfg.mel, **kw), sr),
+                       "rows": ["tone 440 Hz", "zeros", "x * 1e3", "x * 1e-3"]})
+    launches = read_counts()
+    want_dft = sum(c["route"] == "dft" for c in checks if c["kernel"] == "log_mel")
+    errors["log_mel_dft"] = max(c["max_abs_err"] for c in checks
+                                if c["kernel"] == "log_mel" and c["route"] == "dft")
+    if launches["log_mel_dft"] != want_dft:
+        raise AssertionError(f"mel_kernels: the DFT route ran {launches['log_mel_dft']} times, "
+                             f"want {want_dft}")
+    emit({"phase": "mel_kernels", "checks": checks, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return {"errors": errors, "launches": launches}
 
 
 def mel_model(cfg, n_speakers: int, seed: int) -> MelSpecClassifier:
@@ -1539,18 +1684,15 @@ def run_mel_fidelity(raw, offsets, model, seed: int) -> dict:
     return {"qvars": qvars}
 
 
-def run_mel_timing(raw, idx, offsets, model, qvars, seed: int, card: str) -> dict:
-    """B6 at B=2048 beside its bounds, plain version and ``torch.stft``;
-    config #4's embed throughput in bf16 and int8, batch-1 latency, peak
-    memory of each path."""
-    t0 = time.perf_counter()
-    cfg = melspec_2d()
-    mel, sr = cfg.mel, cfg.data.sample_rate
-    x = gather_whiten(raw, idx, offsets, MEL_FRAG)
-    work = log_mel_work(BATCH, MEL_FRAG, mel, sr)
-    # The bound is the function's (an rfft's operations, f32); the DFT-matmul
-    # floors are those of the kernel's own algorithm, kept apart.
-    row = {"shape": list(x.shape), **bound(work["bytes"], work["ops"], F32_OPS_PER_S),
+def time_log_mel(x: torch.Tensor, mel: MelConfig, sr: int) -> dict:
+    """B6 on ``x`` beside its bound (the function's bytes against an rfft's
+    operations at the f32 rate), the floors of the DFT-as-matmul algorithm
+    at the TF32 and f32 rates, its plain version and ``torch.stft``."""
+    B, T = x.shape
+    work = log_mel_work(B, T, mel, sr)
+    row = {"shape": list(x.shape), "n_fft": mel.n_fft, "hop": mel.hop_length,
+           "win": mel.win_length, "route": cuda_melspec.log_mel_route(mel, sr),
+           **bound(work["bytes"], work["ops"], F32_OPS_PER_S),
            "bytes": work["bytes"], "ops": work["ops"], "dft_ops": work["dft_ops"],
            "dft_tf32_ms": work["dft_ops"] / TF32_OPS_PER_S * 1e3,
            "dft_f32_ms": work["dft_ops"] / F32_OPS_PER_S * 1e3,
@@ -1562,6 +1704,21 @@ def run_mel_timing(raw, idx, offsets, model, qvars, seed: int, card: str) -> dic
                                 win_length=mel.win_length, window=window, center=False,
                                 return_complex=True, iters=10, warmup=2)["mean_s"] * 1e3
     row["library"] = "torch.stft (cuFFT), spectrum only: no power, mel or log"
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def run_mel_timing(raw, idx, offsets, model, qvars, seed: int, card: str) -> dict:
+    """B6 at B=2048 beside its bounds, plain version and ``torch.stft``, on
+    the FFT route (config #4) and the DFT route (MEL_DFT); config #4's embed
+    throughput in bf16 and int8, batch-1 latency, peak
+    memory of each path."""
+    t0 = time.perf_counter()
+    cfg = melspec_2d()
+    mel, sr = cfg.mel, cfg.data.sample_rate
+    x = gather_whiten(raw, idx, offsets, MEL_FRAG)
+    row = time_log_mel(x, mel, sr)
+    row_dft = time_log_mel(x, dataclasses.replace(mel, **MEL_DFT), sr)
     del x
 
     rows = torch.arange(BATCH, dtype=torch.int32, device=DEVICE)
@@ -1592,10 +1749,12 @@ def run_mel_timing(raw, idx, offsets, model, qvars, seed: int, card: str) -> dic
         paths[name].update(batch1_p50_ms_events=lat["p50_s"] * 1e3,
                            batch1_p95_ms_events=lat["p95_s"] * 1e3)
     emit({"phase": "mel_timing", "card": card, "config": "melspec_2d", "log_mel": row,
-          "paths": paths, "seconds": time.perf_counter() - t0})
-    return {"ms": {"log_mel": row["ms"]}, "plain_ms": {"log_mel": row["plain_ms"]},
-            "bounds": {"log_mel": {k: row[k] for k in ("bound_ms", "bound_by")}},
-            "library_ms": {"log_mel": row["library_ms"]}}
+          "log_mel_dft": row_dft, "paths": paths, "seconds": time.perf_counter() - t0})
+    rows = {"log_mel": row, "log_mel_dft": row_dft}
+    return {"ms": {k: r["ms"] for k, r in rows.items()},
+            "plain_ms": {k: r["plain_ms"] for k, r in rows.items()},
+            "bounds": {k: {b: r[b] for b in ("bound_ms", "bound_by")} for k, r in rows.items()},
+            "library_ms": {k: r["library_ms"] for k, r in rows.items()}}
 
 
 def b9_inputs(seed: int, T: int, nq: int, ns: int, D: int) -> tuple:
@@ -1973,8 +2132,12 @@ def main(argv=None) -> int:
     # Each entry's launches: the counts of the path runs above (phases slice,
     # int8_slice, train_slice, attribution, mel_bf16_slice, mel_int8_slice,
     # siamese_bf16_slice, siamese_int8_slice, verification, score_support and
-    # siamese_train_slice), set to 0 just before each run and read just after.
-    paths = {"bf16": sliced["launches"], "int8": sliced_int8["launches"],
+    # siamese_train_slice), set to 0 just before each run and read just after;
+    # for the two kernels no path runs (B2's f32 GEMM, B6's DFT route), the
+    # count of the check phase that ran them. On the mel paths the DFT route
+    # launched nothing, so B6's count there is the FFT kernel's.
+    paths = {"kernels": checked["launches"], "mel_kernels": checked_mel["launches"],
+             "bf16": sliced["launches"], "int8": sliced_int8["launches"],
              "attribution": attributed["launches"],
              "train": trained["launches"], "mel_bf16": mel["mel_bf16"],
              "mel_int8": mel["mel_int8"], "siamese_bf16": siamese["siamese_bf16"],
@@ -1987,20 +2150,22 @@ def main(argv=None) -> int:
                  "siamese_int8", "siamese_train")),
                ("conv_block0", "conv_block0", ("bf16", "siamese_bf16")),
                ("conv_block0_int8", "conv_block0", ("int8", "siamese_int8")),
+               ("conv_block0_f32", "conv_block0_f32", ("kernels",)),
                ("quant_block", "quant_block", ("int8", "siamese_int8")),
                ("conv_block0_train", "conv_block0_train", train_paths),
                ("conv_block0_train_bwd", "conv_block0_train_bwd", train_paths),
                ("pool_fwd", "pool_fwd", train_paths),
                ("route_bwd", "route_bwd", train_paths),
                ("log_mel", "log_mel", ("mel_bf16", "mel_int8")),
+               ("log_mel_dft", "log_mel_dft", ("mel_kernels",)),
                ("weighted_l1", "weighted_l1",
                 ("siamese_bf16", "siamese_int8", "verification", "score_support")),
                ("conv_blockn", "conv_blockn", ("bf16", "siamese_bf16")),
                ("quant_block_stage", "quant_block_stage", ("attribution",)))
     print(card, flush=True)
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[kernel][1],
-         "replaces": KERNELS[kernel][2],
+        {"name": name, "route": "cuda", "source": KERNELS[kernel][2],
+         "replaces": KERNELS[kernel][3],
          "launches": sum(paths[p][kernel] for p in on),
          "launches_by_path": {p: paths[p][kernel] for p in on},
          "max_abs_err": checked["errors"][name], "ms": times["ms"][name],

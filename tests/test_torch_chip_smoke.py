@@ -57,7 +57,14 @@ def on_the_cpu(monkeypatch):
                         ("melspec_2d", lambda: small_mel), ("MEL_FRAG", 2400),
                         ("MEL_EDGES", ((1, 2400, dict(n_mels=16)), (5, 2399, {}),
                                        (5, 2400, dict(hop_length=160, win_length=400)),
-                                       (2, 384, {}))),
+                                       (2, 384, {}), (2, 1501, {}),
+                                       (4, 2400, dict(n_fft=256, win_length=256,
+                                                      hop_length=128)),
+                                       (2, 2400, dict(n_fft=1024, win_length=1024,
+                                                      hop_length=256)),
+                                       (3, 2400, dict(n_fft=400, win_length=400,
+                                                      hop_length=160)))),
+                        ("B2_WIDE", (300, 64, 16)),
                         ("TRAIN_BATCH", 8), ("TRAIN_C0", 16), ("TRAIN_STEPS", 12),
                         ("TRAIN_BLOCKS", ((64, 100), (96, 50), (128, 24))),
                         ("TRAIN_TIMING_BATCHES", (4, 8)),
@@ -71,9 +78,28 @@ def on_the_cpu(monkeypatch):
     monkeypatch.setattr(steps, "resolve_fused_block0", lambda cfg, model: True)
     monkeypatch.setattr(steps, "resolve_blockn", lambda cfg, device: (
         "jnp" if cfg.train.use_fused_blockn is False else "fused"))
-    # The plain versions count as launches where the wrappers call them.
-    for mod, ref, wrapper in ((cuda_conv, "conv_block0_reference", cuda_conv.conv_block0),
-                              (cuda_conv, "conv_blockn_reference", cuda_conv.conv_blockn),
+    # The plain versions count as launches where the wrappers call them, on
+    # the counter of the kernel the card would launch: B2's f32-GEMM kernel
+    # for a float32 GEMM, B6's DFT route for an n_fft it takes.
+    block0_ref, mel_ref = cuda_conv.conv_block0_reference, cuda_melspec.log_mel_reference
+
+    def block0_counted(*a, **k):
+        gemm = a[10] if len(a) > 10 else k.get("gemm_dtype", torch.bfloat16)
+        if gemm == torch.float32:
+            cuda_conv.conv_block0.f32_launches += 1
+        else:
+            cuda_conv.conv_block0.launches += 1
+        return block0_ref(*a, **k)
+
+    def mel_counted(x, cfg, sr):
+        cuda_melspec.log_mel.launches += 1
+        if cuda_melspec.log_mel_route(cfg, sr) == "dft":
+            cuda_melspec.log_mel.dft_launches += 1
+        return mel_ref(x, cfg, sr)
+
+    monkeypatch.setattr(cuda_conv, "conv_block0_reference", block0_counted)
+    monkeypatch.setattr(cuda_melspec, "log_mel_reference", mel_counted)
+    for mod, ref, wrapper in ((cuda_conv, "conv_blockn_reference", cuda_conv.conv_blockn),
                               (cuda_quant_block, "quant_block_stage_reference",
                                cuda_quant_block.quant_block_stage),
                               (cuda_preprocess, "gather_whiten_reference",
@@ -86,7 +112,6 @@ def on_the_cpu(monkeypatch):
                                cuda_conv_train.conv_block0_train_bwd),
                               (cuda_routing, "pool_fwd_reference", cuda_routing.pool_fwd),
                               (cuda_routing, "route_bwd_reference", cuda_routing.route_bwd),
-                              (cuda_melspec, "log_mel_reference", cuda_melspec.log_mel),
                               (cuda_distance, "weighted_l1_reference",
                                cuda_distance.weighted_l1)):
         def counted(*a, _ref=getattr(mod, ref), _w=wrapper, **k):
@@ -185,8 +210,31 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert by_phase["mel_int8_fidelity"]["pass"]
     mel_checks = by_phase["mel_kernels"]["checks"]
     assert [c["shape"] for c in mel_checks] == [[512, 2400], [64, 2400], [1, 2400], [5, 2399],
-                                                [5, 2400], [2, 384]]
+                                                [5, 2400], [2, 384], [2, 1501], [4, 2400],
+                                                [2, 2400], [3, 2400], [4, 2400], [4, 2400]]
     assert all(c["max_abs_err"] <= cs.B6_ATOL for c in mel_checks[1:])
+    # n_fft 512, 256 and 1024 take the FFT kernel, n_fft 400 the DFT kernel
+    assert [(c["n_fft"], c["route"]) for c in mel_checks[1:]] == (
+        [(512, "fft")] * 6 + [(256, "fft"), (1024, "fft"), (400, "dft"), (512, "fft"),
+                              (400, "dft")])
+    assert mel_checks[1]["max_abs_err_vs_rfft_route"] <= cs.B6_ATOL
+    assert mel_checks[-1]["rows"][:2] == ["tone 440 Hz", "zeros"]
+    assert by_phase["mel_kernels"]["launches"]["log_mel_dft"] == 2
+    assert by_phase["mel_timing"]["log_mel_dft"]["route"] == "dft"
+    assert by_phase["mel_timing"]["log_mel"]["route"] == "fft"
+    # B2: the tensor-core kernel in f32, bf16 and int8 out and the f32-GEMM
+    # kernel at the main shape, B = 1, T % 4 != 0 with C = 16 and 160, rows of
+    # very different scale and more rows than a grid's y dimension held
+    b2 = [c for c in checks if c["kernel"] == "conv_block0"]
+    tc = [("tensor cores", dt) for dt in ("float32", "bfloat16", "int8")]
+    f32 = [("float32 GEMM", "float32")]
+    want_b2 = (([64, 100, 128], tc + f32), ([1, 100, 128], tc), ([3, 250, 16], tc + f32),
+               ([2, 1024, 160], tc + f32), ([3, 100, 128], tc), ([300, 16, 16], tc))
+    assert [(c["shape"], c["route"], c["dtype"]) for c in b2] == [
+        (shape, route, dt) for shape, kinds in want_b2 for route, dt in kinds]
+    assert all(c.get("err_over_bound", 0.0) <= 1.0 for c in b2)
+    assert all(c["max_abs_err"] <= 1.0 for c in b2 if c["dtype"] == "int8")
+    assert by_phase["kernels"]["launches"]["conv_block0_f32"] == 3
     mel_timing = by_phase["mel_timing"]
     # an rfft's operations at the f32 rate take less than moving the bytes
     assert mel_timing["log_mel"]["bound_by"] == "bytes"
@@ -254,9 +302,10 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert attribution["launches"]["quant_block_stage"] > 0
     kernels = records[-2]["kernels"]
     assert [k["name"] for k in kernels] == ["gather_whiten", "conv_block0",
-                                            "conv_block0_int8", "quant_block",
-                                            "conv_block0_train", "conv_block0_train_bwd",
-                                            "pool_fwd", "route_bwd", "log_mel", "weighted_l1",
+                                            "conv_block0_int8", "conv_block0_f32",
+                                            "quant_block", "conv_block0_train",
+                                            "conv_block0_train_bwd", "pool_fwd", "route_bwd",
+                                            "log_mel", "log_mel_dft", "weighted_l1",
                                             "conv_blockn", "quant_block_stage"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k) and k["launches"] > 0 and k["bound_by"] in (
@@ -279,6 +328,9 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert by_name["quant_block_stage"]["max_abs_err"] == 0.0
     assert by_name["conv_block0_train_bwd"]["library_ms"] is not None
     assert by_name["log_mel"]["launches_by_path"] == {"mel_bf16": 2, "mel_int8": 2}
+    assert by_name["log_mel_dft"]["launches_by_path"] == {"mel_kernels": 2}
+    assert by_name["conv_block0_f32"]["launches_by_path"] == {"kernels": 3}
+    assert by_name["conv_block0"]["library_ms"] is not None
     assert by_name["log_mel"]["library_ms"] is not None
     assert by_name["gather_whiten"]["launches_by_path"]["mel_int8"] == 2
     assert records[-1] == {"ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 1}}

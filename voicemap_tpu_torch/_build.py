@@ -41,6 +41,8 @@ SIGNATURES = {
     # x, w, aff, inv_s0 (NULL unless int8 out), out, B, T, C, K, pool,
     # round_x_bf16, out_bf16, stream
     "vm_conv_block0": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, wp, aff, inv_s0 (NULL unless int8 out), out, B, T, C, out_kind, tile, stream
+    "vm_conv_block0_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, aff, out, B, T, Cin, Cout, out_kind, stream
     "vm_quant_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, aff, out, B, T, Cin, Cout, stage, stream
@@ -57,6 +59,9 @@ SIGNATURES = {
     "vm_route_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, cs, fbt, bands, out, B, T, n_frames, win, hop, M, K, log_eps, stream
     "vm_log_mel": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # x, tables, weights, bands, out, B, T, n_frames, win, hop, M, n_weights,
+    # log_nc, log_eps, stream
+    "vm_log_mel_fft": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, s, w, b, out, T, nq, ns, D, stream
     "vm_weighted_l1": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -3,8 +3,12 @@
 B2 ports ``voicemap_tpu/ops/pallas_conv.py :: pallas_conv_block0``: block 0,
 SAME conv (Cin=1, k=32) + bias → relu → BatchNorm inference affine →
 max-pool 4, with only the pool-rate ``(B, T//4, C)`` output written. The
-kernel is ``csrc/conv_block0.cu``; ``conv_block0_reference`` is its plain
-PyTorch version.
+kernels are in ``csrc/conv_block0.cu``, chosen by ``gemm_dtype``: every
+bf16 GEMM (the serving paths, bf16, f32 or int8 out) runs the tensor-core
+kernel (``mma.sync``; its host side in ``ops/block0_tc``), whose f32 sums
+agree with the plain version to an order bound; a float32 GEMM runs the
+CUDA-core kernel, bit for bit the plain version. ``conv_block0_reference``
+is the plain PyTorch version of both.
 
 B8 ports ``pallas_conv_blockn`` and ``pallas_conv_blockn_streamed`` of the
 same file: a bf16 block 1+, SAME conv (k odd, channels last) + bias → relu →
@@ -32,7 +36,7 @@ test:
 - ``T % pool`` tail samples are dropped from the pooled output (floor).
 
 Dispatch is by the input's device: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel (B2: k=32, pool=4; B8: k odd, pool 2, bf16
+CUDA tensor launches a kernel (B2: k=32, pool=4; B8: k odd, pool 2, bf16
 in), and a failed build or launch raises.
 """
 
@@ -41,11 +45,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import conv_sm90
+from . import block0_tc, conv_sm90
 
 KERNEL_TAPS = 32
 KERNEL_POOL = 4
 _SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+_B2_OUT = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps):
@@ -137,8 +142,6 @@ def conv_block0(
     if out_dtype not in _SUPPORTED_DTYPES or gemm_dtype not in _SUPPORTED_DTYPES:
         raise ValueError("conv_block0: out_dtype and gemm_dtype must be float32 or bfloat16")
     B, T = x.shape
-    if B > 65535:
-        raise ValueError("conv_block0: at most 65535 rows a launch")
     params = (w, b, bn_scale, bn_bias, bn_mean, bn_var)
     if requant_scale is not None:
         params += (requant_scale,)
@@ -147,7 +150,17 @@ def conv_block0(
         raise ValueError(f"conv_block0: every parameter must lie on {x.device}")
     if any(p.shape != (c,) for p in params[1:]):
         raise ValueError(f"conv_block0: bias and BatchNorm tensors must be ({c},)")
-    wk = w[:, 0, :].to(gemm_dtype).float().contiguous()  # (k, C), GEMM-rounded
+    tensor_cores = gemm_dtype == torch.bfloat16
+    if tensor_cores:
+        tile = block0_tc.pick_tile(B, T, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+        need = block0_tc.smem_bytes(c, tile, block0_tc.OUT_BYTES[out_dtype])
+        if need > block0_tc.SMEM_LIMIT:
+            raise ValueError(f"conv_block0: C = {c} needs {need} bytes of shared memory a "
+                             f"CTA, over {block0_tc.SMEM_LIMIT}")
+    elif B > 65535:
+        raise ValueError("conv_block0: the float32 GEMM kernel takes at most 65535 rows a "
+                         "launch")
     aff = torch.stack(bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps)).contiguous()
     inv_s0 = None if requant_scale is None else (1.0 / requant_scale.float()).contiguous()
     out = torch.empty((B, T // pool, c), dtype=out_dtype, device=x.device)
@@ -156,18 +169,29 @@ def conv_block0(
     lib = library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vm_conv_block0(
-            x.data_ptr(), wk.data_ptr(), aff.data_ptr(),
-            None if inv_s0 is None else inv_s0.data_ptr(), out.data_ptr(),
-            B, T, c, k, pool, int(gemm_dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), stream,
-        )
-    check(err, "conv_block0")
-    conv_block0.launches += 1
+        inv_ptr = None if inv_s0 is None else inv_s0.data_ptr()
+        if tensor_cores:
+            wp = block0_tc.pack_weights(w)
+            err = lib.vm_conv_block0_tc(x.data_ptr(), wp.data_ptr(), aff.data_ptr(), inv_ptr,
+                                        out.data_ptr(), B, T, c, _B2_OUT[out_dtype], tile,
+                                        stream)
+        else:
+            wk = w[:, 0, :].float().contiguous()  # (k, C)
+            err = lib.vm_conv_block0(x.data_ptr(), wk.data_ptr(), aff.data_ptr(), inv_ptr,
+                                     out.data_ptr(), B, T, c, k, pool, 0,
+                                     int(out_dtype == torch.bfloat16), stream)
+    check(err, "conv_block0 (" + ("tensor cores" if tensor_cores else "float32 GEMM") + ")")
+    if tensor_cores:
+        conv_block0.launches += 1
+    else:
+        conv_block0.f32_launches += 1
     return out
 
 
-conv_block0.launches = 0  # kernel launches, bf16, f32 and int8; the CPU path does not count
+# kernel launches; the CPU path does not count: the tensor-core kernel (every
+# bf16 GEMM: bf16, f32 and int8 out) and the f32 CUDA-core kernel
+conv_block0.launches = 0
+conv_block0.f32_launches = 0
 
 
 # ---------------------------------------------------------------------------

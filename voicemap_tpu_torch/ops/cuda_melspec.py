@@ -1,21 +1,30 @@
-"""B6: the fused log-mel frontend of config #4 (STFT as a DFT matmul, power,
-mel, log) in one kernel.
+"""B6: the fused log-mel frontend of config #4 (window, spectrum, power, mel,
+log) in one kernel, chosen by n_fft between two routes.
 
-Port of ``voicemap_tpu/ops/pallas_melspec.py :: pallas_log_mel``. The kernel
-is ``csrc/log_mel.cu``; ``log_mel_reference`` is its plain PyTorch version,
-the same DFT-as-matmul function in f32:
+Port of ``voicemap_tpu/ops/pallas_melspec.py :: pallas_log_mel``. The
+kernels are in ``csrc/log_mel.cu``:
+
+- the FFT route (``log_mel_fft_kernel``), for n_fft a power of two in
+  [64, 1024] (config #4's 512): a real FFT in f32 on the CUDA cores, its
+  tables and a plain model of its schedule in ``ops/mel_fft``;
+- the DFT route (``log_mel_kernel``), for any other n_fft ≤ 574: the DFT
+  as a matmul in f32 FMAs, as the TPU kernel computes it.
+
+``log_mel_route`` picks one by the config's shape, never on a failure, and
+raises for a shape neither takes. ``log_mel_reference`` is the plain PyTorch
+version of both, the DFT-as-matmul function in f32:
 ``log(((F·C)² + (F·S)²)·fb + log_eps)`` with F the ``(B, n_frames, win)``
 frame view, C and S the Hann-windowed cos and −sin bases of
 ``melspec.dft_bases`` and fb the Slaney filterbank. The CPU tests hold it
 against ``pallas_log_mel(interpret=True)`` and the rfft reference; the GPU
-smoke run holds the kernel against it.
+smoke run holds each kernel against it.
 
-One kernel serves both of the TPU's framings: it frames from the waveform at
-``f·hop`` itself, for any hop, any ``win_length ≤ n_fft`` and any T ≥ win.
-The TPU's duplicate-row batch padding and block-size search are not ported.
+Both kernels frame from the waveform at ``f·hop`` themselves, for any hop,
+any ``win_length ≤ n_fft`` and any T ≥ win. The TPU's duplicate-row batch
+padding and block-size search are not ported.
 
 Dispatch is by the input's device: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel, and a failed build or launch raises. Both
+CUDA tensor launches a kernel, and a failed build or launch raises. Both
 refuse a non-float32 input, T < win_length and win_length > n_fft.
 """
 
@@ -29,9 +38,10 @@ import numpy as np
 import torch
 
 from ..config import MelConfig
-from . import melspec
+from . import mel_fft, melspec
 
-KERNEL_MAX_FREQS = 288  # the kernel's padded frequency columns: n_fft ≤ 574
+KERNEL_MAX_FREQS = 288  # the DFT kernel's padded frequency columns: n_fft ≤ 574
+DFT_TILE_FLOATS = 2 * 16 * 2 * KERNEL_MAX_FREQS  # its two basis slabs
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,6 +90,34 @@ def log_mel_reference(x: torch.Tensor, cfg: MelConfig, sample_rate: int) -> torc
     return torch.log(power @ c["fb"] + cfg.log_eps)
 
 
+def log_mel_route(cfg: MelConfig, sample_rate: int) -> str:
+    """The kernel that takes this config on the card: ``"fft"`` for n_fft
+    a power of two in [64, 1024], ``"dft"`` for any other n_fft ≤ 574;
+    ``ValueError`` for a shape neither takes or whose CTA does not fit the
+    H100's shared memory."""
+    n_fft, win, hop = cfg.n_fft, cfg.win_length, cfg.hop_length
+    if mel_fft.takes(n_fft):
+        need = mel_fft.smem_bytes(cfg, mel_fft.fft_tables(cfg, sample_rate)["weights"].size)
+        route = "fft"
+    elif n_fft & (n_fft - 1) and n_fft // 2 + 1 <= KERNEL_MAX_FREQS:
+        need = 4 * (DFT_TILE_FLOATS + (mel_fft.FRAME_TILE - 1) * hop + win)
+        route = "dft"
+    else:
+        raise ValueError(f"log_mel: no kernel takes n_fft {n_fft}: the FFT kernel takes a "
+                         f"power of two in [{mel_fft.FFT_MIN}, {mel_fft.FFT_MAX}], the DFT "
+                         f"kernel any other n_fft up to {2 * KERNEL_MAX_FREQS - 2}")
+    if need > mel_fft.SMEM_LIMIT:
+        raise ValueError(f"log_mel: hop {hop} and win {win} need {need} bytes of shared "
+                         f"memory a CTA on the {route} route, over {mel_fft.SMEM_LIMIT}")
+    return route
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_constants(cfg: MelConfig, sample_rate: int, device: torch.device) -> dict:
+    t = mel_fft.fft_tables(cfg, sample_rate)
+    return {k: torch.from_numpy(v).to(device) for k, v in t.items()}
+
+
 def log_mel(x: torch.Tensor, cfg: MelConfig, sample_rate: int) -> torch.Tensor:
     """Fused log-mel: ``(B, T)`` or ``(B, T, 1)`` float32 waveform →
     ``(B, n_frames, n_mels)`` float32."""
@@ -88,45 +126,54 @@ def log_mel(x: torch.Tensor, cfg: MelConfig, sample_rate: int) -> torch.Tensor:
         return log_mel_reference(x, cfg, sample_rate)
     if x.device.type != "cuda":
         raise ValueError(f"log_mel: no kernel for device {x.device}")
+    route = log_mel_route(cfg, sample_rate)
     B, T = x.shape
     win, hop = cfg.win_length, cfg.hop_length
-    K = cfg.n_fft // 2 + 1
-    if K > KERNEL_MAX_FREQS:
-        raise ValueError(f"log_mel: the kernel takes n_fft up to {2 * KERNEL_MAX_FREQS - 2}")
     x = x.contiguous()
     F = melspec.num_frames(T, cfg)
     out = torch.empty((B, F, cfg.n_mels), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    c = _constants(cfg, sample_rate, x.device)
     from .._build import check, library
 
     lib = library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vm_log_mel(x.data_ptr(), c["cs"].data_ptr(), c["fbt"].data_ptr(),
-                             c["bands"].data_ptr(), out.data_ptr(), B, T, F, win, hop,
-                             cfg.n_mels, K, ctypes.c_float(cfg.log_eps), stream)
-    # A hop and win whose frame tile does not fit a CTA's shared memory is
-    # refused by the entry point (cudaErrorInvalidValue).
-    check(err, f"log_mel at hop {hop}, win {win}")
+        if route == "fft":
+            c = _fft_constants(cfg, sample_rate, x.device)
+            err = lib.vm_log_mel_fft(x.data_ptr(), c["tables"].data_ptr(),
+                                     c["weights"].data_ptr(), c["bands"].data_ptr(),
+                                     out.data_ptr(), B, T, F, win, hop, cfg.n_mels,
+                                     c["weights"].numel(), cfg.n_fft.bit_length() - 2,
+                                     ctypes.c_float(cfg.log_eps), stream)
+        else:
+            c = _constants(cfg, sample_rate, x.device)
+            err = lib.vm_log_mel(x.data_ptr(), c["cs"].data_ptr(), c["fbt"].data_ptr(),
+                                 c["bands"].data_ptr(), out.data_ptr(), B, T, F, win, hop,
+                                 cfg.n_mels, cfg.n_fft // 2 + 1, ctypes.c_float(cfg.log_eps),
+                                 stream)
+    check(err, f"log_mel ({route} route) at n_fft {cfg.n_fft}, hop {hop}, win {win}")
     log_mel.launches += 1
+    if route == "dft":
+        log_mel.dft_launches += 1
     return out
 
 
-log_mel.launches = 0  # kernel launches; the CPU path does not count
+log_mel.launches = 0  # kernel launches, both routes; the CPU path does not count
+log_mel.dft_launches = 0  # of which the DFT route's
 
 
 def log_mel_work(B: int, T: int, cfg: MelConfig, sample_rate: int) -> dict:
     """Work at these shapes.
 
     ``bytes``: the waveform read once, the log-mel written once. ``ops``:
-    the least arithmetic of the function, by the rfft route a frame: the
-    window (``win``), a real FFT of ``n_fft`` points (``2.5·n·log₂ n``, half
-    the radix-2 count of a complex one), the power (``3K``), the mel product
-    over the filterbank's nonzero bands (``2·Σ band``) and the log (``M``).
-    ``dft_ops``: what this kernel's DFT-as-matmul algorithm does, the
-    ``2·win·2K`` products a frame and the same mel bands.
+    the least arithmetic of the function, by the rfft route a frame, which
+    is the FFT kernel's own algorithm: the window (``win``), a real FFT of
+    ``n_fft`` points (``2.5·n·log₂ n``, half the radix-2 count of a complex
+    one), the power (``3K``), the mel product over the filterbank's nonzero
+    bands (``2·Σ band``) and the log (``M``). ``dft_ops``: what the DFT
+    route's DFT-as-matmul algorithm does, the ``2·win·2K`` products a frame
+    and the same mel bands.
     """
     F = melspec.num_frames(T, cfg)
     K = cfg.n_fft // 2 + 1
