@@ -25,8 +25,12 @@ Each phase prints one JSON line; nothing here imports JAX.
    pool stages exactly against their plain versions and its full stage equal
    to B3, at the three shapes;
    train kernels — B4 and B5 at the train step's (32, 12000, 128) and at edge
-   shapes, B7's pool and routing passes at the three config #1 block shapes
-   of the train step and at an odd C, each against its plain version;
+   shapes, B7's pool and routing passes (on a raw conv output and its bias,
+   channels last, the cotangent in f32) at the three config #1 block shapes
+   of the train step and at ROUTING_EDGES (C = 67 with odd T/pool, pool 4
+   in f32, B = 1, rows of very different scale, forced ties, pool 3, 257
+   channel vectors), a_sel and dz bit for bit, each against its plain
+   version;
 4. slice — config #1 at full width (filters 128, embedding 64, 3 s at 16 kHz,
    downsampling 4) built from a flax-layout tree through ``from_flax``,
    serving 500 1-shot 5-way n-shot tasks over a seeded synthetic store in
@@ -44,8 +48,9 @@ Each phase prints one JSON line; nothing here imports JAX.
    the seeded 40-speaker store with an n-shot evaluation at the end, the
    launch counters read around it and the evaluation's own launches counted
    apart: per step B1 1, B4 1, B5 1, B7 3 + 3; the evaluation, on the model's
-   own forward as the reference's fit, B1 only; every loss finite and the
-   last five below the first five; then one step from fixed weights and a
+   own forward as the reference's fit, B1 only; no fused block's backward
+   copies its cotangent into the channels-last layout; every loss finite
+   and the last five below the first five; then one step from fixed weights and a
    fixed batch through the kernels and through their plain versions,
    held together (loss, gradient cosine per parameter);
 8. timing — CUDA-event times of each kernel beside its plain version, its
@@ -58,7 +63,10 @@ Each phase prints one JSON line; nothing here imports JAX.
    #1's three block shapes, B=2048, ms, increments and TOP/s, the launch
    counters read around it; the mma stage beside its plain version and bound;
 9. train timing — B4, B5 and B7 beside their bounds, plain versions and
-   (B5) a library weight-gradient conv at the train step's shapes; the train
+   (B5) a library weight-gradient conv at the train step's shapes, B7 also
+   per block at B=2048 beside its bound (queued: the device's time alone);
+   on an earlier line (train_layout) the fused step at B=2048 under the
+   profiler, with the device ms of cuDNN's NCHW↔NHWC conversions; the train
    step's ms and utt/s at B=32 and B=2048 under both blocks-1+ policies, in
    turns (jnp, fused, fused, jnp), and peak memory;
 10. mel kernels — config #4's: B1 at downsampling 1, frag 48000, over the
@@ -105,7 +113,8 @@ Each phase prints one JSON line; nothing here imports JAX.
 17. siamese timing — B9 at both shapes beside its bound, its plain version,
     the broadcast form and ``torch.cdist`` (the library call for w >= 0);
     the 500-task head scoring; the siamese train step at batch 64 pairs
-    under the auto policy, with peak memory.
+    under the auto policy, with peak memory, and its layout conversions
+    under the profiler.
 
 It ends with the per-kernel summary line, then
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the exit code
@@ -161,8 +170,9 @@ from voicemap_tpu_torch.ops.cuda_preprocess import (
 from voicemap_tpu_torch.ops.cuda_quant_block import (
     STAGES, quant_block, quant_block_reference, quant_block_stage, quant_block_stage_reference,
 )
+from voicemap_tpu_torch.ops.conv_train import FusedBlocknTrain
 from voicemap_tpu_torch.ops.cuda_routing import (
-    pool_fwd, pool_fwd_reference, route_bwd, route_bwd_reference,
+    is_channels_last, pool_fwd, pool_fwd_reference, route_bwd, route_bwd_reference,
 )
 from voicemap_tpu_torch.train import steps
 from voicemap_tpu_torch.train.loop import fit, init_model
@@ -203,6 +213,18 @@ TRAIN_C0 = 128
 TRAIN_BLOCKS = ((256, 3000), (384, 1500), (512, 750))
 TRAIN_STEPS = 40
 TRAIN_TIMING_BATCHES = (32, 2048)
+# B7's edges (B, C, T, pool, dtype, rows): C = 67 (no multiple of 8: one
+# channel a thread) with odd T/pool, pool 4 in f32 on both widths, B = 1,
+# rows × 1, 1e3, 1e-3, forced ties, pool 3 (the any-pool path on vectors),
+# and C = 2056 (257 vectors: a second column chunk of CTAs).
+ROUTING_EDGES = ((5, 67, 250, 2, torch.bfloat16, "plain"),
+                 (3, 67, 1000, 4, torch.float32, "plain"),
+                 (2, 384, 1000, 4, torch.float32, "plain"),
+                 (1, 256, 3000, 2, torch.bfloat16, "plain"),
+                 (4, 256, 602, 2, torch.bfloat16, "scaled"),
+                 (3, 128, 512, 2, torch.bfloat16, "ties"),
+                 (2, 72, 96, 3, torch.bfloat16, "ties"),
+                 (2, 2056, 64, 2, torch.bfloat16, "plain"))
 # Config #4: 3 s at 16 kHz, downsampling 1, over the bench store undecimated.
 MEL_FRAG = 48000
 # B6's edges (B, T, geometry): n_mels 32; T = 47999 and 30001, ending
@@ -1182,15 +1204,27 @@ def block0_train_inputs(seed: int, B: int, T: int, c: int) -> tuple:
     return w, b, sgn, cot, c0, c1, c2
 
 
-def routing_inputs(seed: int, B: int, c: int, T: int, pool: int, dtype) -> tuple:
-    """A relu activation (B, C, T) in ``dtype`` (half of it zero, ties among
-    the rest), sgn of both signs, a pooled f32 cotangent and dz constants."""
-    g = torch.Generator().manual_seed(seed)
-    a = torch.relu(torch.randn(B, c, T, generator=g)).to(dtype).to(DEVICE)
-    sgn = torch.where(torch.arange(c) % 3 == 1, -1.0, 1.0).to(DEVICE)
-    cot = torch.randn(B, c, T // pool, generator=g).to(DEVICE)
-    c0, c1, c2 = (torch.randn(c, generator=g).mul(s).to(DEVICE) for s in (1.0, 0.1, 0.05))
-    return a, sgn, cot, c0, c1, c2
+def routing_inputs(seed: int, B: int, c: int, T: int, pool: int, dtype,
+                   rows: str = "plain") -> tuple:
+    """B7's inputs as the train op hands them, channels last ((B, C, T)
+    tensors with (B, T, C) memory): a raw conv output z in ``dtype`` (both
+    signs; with the bias of both signs, ~half of the activation is 0), the
+    bias, sgn of both signs, a pooled f32 cotangent and the dz constants.
+    ``rows="scaled"``: batch rows × ROW_SCALES in turn; ``rows="ties"``: z
+    on a coarse grid, so that phases tie exactly. Made on the card, from a
+    generator there."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    z = torch.randn(B, T, c, generator=g, device=DEVICE)
+    if rows == "scaled":
+        z *= torch.tensor(ROW_SCALES, device=DEVICE).repeat(B)[:B, None, None]
+    elif rows == "ties":
+        z = torch.round(z * 2.0) / 2.0
+    z = z.to(dtype).permute(0, 2, 1)
+    b = torch.randn(c, generator=g, device=DEVICE) * 0.5
+    sgn = torch.where(torch.arange(c, device=DEVICE) % 3 == 1, -1.0, 1.0)
+    cot = torch.randn(B, T // pool, c, generator=g, device=DEVICE).permute(0, 2, 1)
+    c0, c1, c2 = (torch.randn(c, generator=g, device=DEVICE) * s for s in (1.0, 0.1, 0.05))
+    return z, b, sgn, cot, c0, c1, c2
 
 
 def check_block0_train(x: torch.Tensor, seed: int, c: int, dt) -> tuple[list, dict]:
@@ -1215,19 +1249,25 @@ def check_block0_train(x: torch.Tensor, seed: int, c: int, dt) -> tuple[list, di
     return checks, errors
 
 
-def check_routing(seed: int, B: int, c: int, T: int, pool: int, dt) -> tuple[list, dict]:
-    """B7 forward and backward against their plain versions: a_sel and dz
-    0 ulps (bf16) or equal (f32), stats and db to TRAIN_REL_TOL."""
-    a, sgn, cot, c0, c1, c2 = routing_inputs(seed, B, c, T, pool, dt)
-    sel, s1, s2 = pool_fwd(a, sgn, pool, dt)
-    want = pool_fwd_reference(a, sgn, pool, dt)
+def check_routing(seed: int, B: int, c: int, T: int, pool: int, dt,
+                  rows: str = "plain") -> tuple[list, dict]:
+    """B7 forward and backward on a raw conv output and its bias against
+    their plain versions: a_sel and dz 0 ulps (bf16) or equal (f32), both
+    channels last, stats and db to TRAIN_REL_TOL."""
+    z, b, sgn, cot, c0, c1, c2 = routing_inputs(seed, B, c, T, pool, dt, rows)
+    sel, s1, s2 = pool_fwd(z, b, sgn, pool, dt)
+    want = pool_fwd_reference(z, b, sgn, pool, dt)
     checks = [check_exact("pool_fwd", sel, want[0], (B, c, T // pool)),
               check_rel("pool_fwd", s1, want[1], TRAIN_REL_TOL),
               check_rel("pool_fwd", s2, want[2], TRAIN_REL_TOL)]
-    dz, db = route_bwd(a, sel, cot, c0, c1, c2, pool, dt)
-    want_dz, want_db = route_bwd_reference(a, sel, cot, c0, c1, c2, pool, dt)
+    dz, db = route_bwd(z, b, sel, cot, c0, c1, c2, pool, dt)
+    want_dz, want_db = route_bwd_reference(z, b, sel, cot, c0, c1, c2, pool, dt)
     checks += [check_exact("route_bwd", dz, want_dz, (B, c, T)),
                check_rel("route_bwd", db, want_db, TRAIN_REL_TOL)]
+    if not (is_channels_last(sel) and is_channels_last(dz)):
+        raise AssertionError(f"B7 outputs not channels last: {sel.stride()}, {dz.stride()}")
+    for ch in checks:
+        ch.update(B=B, pool=pool, rows=rows)
     errors = {"pool_fwd": max(ch["max_abs_err"] for ch in checks[:3]),
               "route_bwd": max(ch["max_abs_err"] for ch in checks[3:])}
     return checks, errors
@@ -1236,7 +1276,7 @@ def check_routing(seed: int, B: int, c: int, T: int, pool: int, dt) -> tuple[lis
 def check_train_kernels(store, idx, offsets) -> dict:
     """B4/B5 at the train step's shape and at edges (B=3 with T/4 = 250, not
     a multiple of the 128-output tile; f32 at C=72); B7 at the three block
-    shapes of the train step and at an odd C, bf16 and f32."""
+    shapes of the train step and at ROUTING_EDGES, bf16 and f32."""
     x = gather_whiten(store, idx[:TRAIN_BATCH], offsets[:TRAIN_BATCH], FRAG)[..., None]
     checks, errors = check_block0_train(x, 10, TRAIN_C0, torch.bfloat16)
     del x
@@ -1249,8 +1289,8 @@ def check_train_kernels(store, idx, offsets) -> dict:
         checks += ch
         for k, v in err.items():
             errors[k] = max(errors.get(k, 0.0), v)
-    for B, c, T, pool, dt in ((5, 67, 250, 2, torch.bfloat16), (3, 67, 1000, 4, torch.float32)):
-        checks += check_routing(B + c, B, c, T, pool, dt)[0]
+    for B, c, T, pool, dt, rows in ROUTING_EDGES:
+        checks += check_routing(B + c + T, B, c, T, pool, dt, rows)[0]
     emit({"phase": "train_kernels", "checks": checks})
     return {"errors": errors}
 
@@ -1345,6 +1385,14 @@ def compare_plain_step(cfg, host, store, seed: int) -> dict:
     return held_steps(model, cfg, run)
 
 
+def check_channels_last_path(copies: int) -> None:
+    """The fused blocks' backward found every cotangent channels last, as
+    the train forward lays them out: none was copied into that layout."""
+    if copies:
+        raise AssertionError(f"{copies} fused-block backward calls took their cotangent in "
+                             f"another layout than channels last and copied it")
+
+
 def run_train_slice(sliced: dict, seed: int) -> dict:
     """``fit`` at full config #1 width, TRAIN_STEPS steps at batch 32, then
     one n-shot evaluation; the train launches are the counts read around
@@ -1360,6 +1408,7 @@ def run_train_slice(sliced: dict, seed: int) -> dict:
         losses.append(m["loss"])
         accs.append(m["accuracy"])
 
+    copies = FusedBlocknTrain.cotangent_copies
     reset_counts()
     with evaluation_launches() as eval_counts:
         t0 = time.perf_counter()
@@ -1367,6 +1416,7 @@ def run_train_slice(sliced: dict, seed: int) -> dict:
         total = read_counts()
         seconds = time.perf_counter() - t0
     train = {k: total[k] - eval_counts[k] for k in total}
+    check_channels_last_path(FusedBlocknTrain.cotangent_copies - copies)
     S = TRAIN_STEPS
     want = {name: 0 for name in KERNELS}
     want.update(gather_whiten=S, conv_block0_train=S, conv_block0_train_bwd=S,
@@ -1400,10 +1450,29 @@ def run_train_slice(sliced: dict, seed: int) -> dict:
     return {"launches": train, "cfg": cfg, "store": store, "host": host}
 
 
+def layout_profile(cfg, n_classes: int, dstore, batch: int, seed: int) -> dict:
+    """One ``fused`` train step of ``cfg`` at ``batch`` under the profiler
+    (``stage_profile.profile``): cuDNN's NCHW↔NHWC conversion kernels' device
+    ms a step (0 where the convs run channels last end to end), the idle
+    share, device events and the top kernels."""
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=batch,
+                                                use_fused_blockn=True))
+    model = init_model(cfg, n_classes, DEVICE, seed)
+    state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
+    make = (steps.make_siamese_train_step if cfg.mode == "siamese"
+            else steps.make_classifier_train_step)
+    step, loss_fn = make(model, cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    prof = stage_profile.profile([("step", lambda _: step(state, dstore, gen))])
+    return {"config": cfg.name, "batch": batch, "blockn": loss_fn.blockn, **prof}
+
+
 def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -> dict:
     """B4, B5 and B7 at the train step's shapes beside bounds, plain
-    versions and (B5) a library call; the train step at each batch of
-    TRAIN_TIMING_BATCHES under both blocks-1+ policies."""
+    versions and (B5) a library call, B7 per block at B=2048 beside its
+    bound; the ``fused`` step's layout conversions at B=2048 (an earlier
+    line); the train step at each batch of TRAIN_TIMING_BATCHES under both
+    blocks-1+ policies."""
     B, T, c = TRAIN_BATCH, FRAG, TRAIN_C0
     x = gather_whiten(store, idx[:B], offsets[:B], FRAG)[..., None]
     w, b, sgn, cot, c0, c1, c2 = block0_train_inputs(30, B, T, c)
@@ -1431,28 +1500,48 @@ def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -
                                                    dz, iters=20)["mean_s"] * 1e3}
     del dz, xp, x
     blocks = []
-    for i, (cb, tb) in enumerate(TRAIN_BLOCKS):
-        a, sg, g, k0, k1, k2 = routing_inputs(40 + i, B, cb, tb, 2, torch.bfloat16)
-        sel = pool_fwd(a, sg, 2)[0]
-        full, half = B * cb * tb, B * cb * (tb // 2)
-        row = {"C": cb, "T": tb,
-               "pool_fwd_ms": time_fn(pool_fwd, a, sg, 2, iters=50)["mean_s"] * 1e3,
-               "route_bwd_ms": time_fn(route_bwd, a, sel, g, k0, k1, k2, 2,
-                                       iters=50)["mean_s"] * 1e3,
-               "pool_fwd_plain_ms": time_fn(pool_fwd_reference, a, sg, 2, iters=3,
-                                            warmup=1)["mean_s"] * 1e3,
-               "route_bwd_plain_ms": time_fn(route_bwd_reference, a, sel, g, k0, k1, k2, 2,
-                                             iters=3, warmup=1)["mean_s"] * 1e3,
-               "pool_fwd_bound": bound(full * 2 + half * 2 + 3 * cb * 4, 3.0 * full,
-                                       BF16_OPS_PER_S),
-               "route_bwd_bound": bound(full * 2 + half * 2 + half * 4 + full * 2 + 4 * cb * 4,
-                                        6.0 * full, BF16_OPS_PER_S)}
-        blocks.append(row)
-        del a, sel, g
+    big = TRAIN_TIMING_BATCHES[-1]
+    for bt in (B, big):  # the train step's batch, then B=2048 (kernels and bounds only)
+        for i, (cb, tb) in enumerate(TRAIN_BLOCKS):
+            z, bias, sg, g, k0, k1, k2 = routing_inputs(40 + i, bt, cb, tb, 2, torch.bfloat16)
+            sel = pool_fwd(z, bias, sg, 2)[0]
+            full, half = bt * cb * tb, bt * cb * (tb // 2)
+            iters = 50 if bt == B else 10
+            # queued: the device's time alone; at B=32 a call's host work
+            # outlasts it, and back to back the span times the host.
+            row = {"batch": bt, "C": cb, "T": tb,
+                   "pool_fwd_ms": time_fn(pool_fwd, z, bias, sg, 2, iters=iters,
+                                          queued=True)["mean_s"] * 1e3,
+                   "route_bwd_ms": time_fn(route_bwd, z, bias, sel, g, k0, k1, k2, 2,
+                                           iters=iters, queued=True)["mean_s"] * 1e3,
+                   "pool_fwd_back_to_back_ms": time_fn(pool_fwd, z, bias, sg, 2,
+                                                       iters=iters)["mean_s"] * 1e3,
+                   "route_bwd_back_to_back_ms": time_fn(route_bwd, z, bias, sel, g, k0, k1, k2,
+                                                        2, iters=iters)["mean_s"] * 1e3,
+                   # Bytes: z, a_sel, and bias, sgn, Σa, Σa² (C each); z, a_sel, g in
+                   # f32, dz, and bias, c0, c1, c2, db. Operations: f32 on the CUDA
+                   # cores, 8 an element forward (add, round, relu, 2 sums, a square,
+                   # the sign, the max), 12 backward.
+                   "pool_fwd_bound": bound(full * 2 + half * 2 + 4 * cb * 4, 8.0 * full,
+                                           F32_OPS_PER_S),
+                   "route_bwd_bound": bound(full * 2 + half * 2 + half * 4 + full * 2
+                                            + 5 * cb * 4, 12.0 * full, F32_OPS_PER_S)}
+            if bt == B:
+                row["pool_fwd_plain_ms"] = time_fn(pool_fwd_reference, z, bias, sg, 2, iters=3,
+                                                   warmup=1)["mean_s"] * 1e3
+                row["route_bwd_plain_ms"] = time_fn(route_bwd_reference, z, bias, sel, g, k0,
+                                                    k1, k2, 2, iters=3,
+                                                    warmup=1)["mean_s"] * 1e3
+            for name in ("pool_fwd", "route_bwd"):
+                row[f"{name}_bound_share"] = row[f"{name}_bound"]["bound_ms"] / row[f"{name}_ms"]
+            blocks.append(row)
+            del z, sel, g
+            torch.cuda.empty_cache()
+    at_b = [r for r in blocks if r["batch"] == B]
     for name in ("pool_fwd", "route_bwd"):
-        ms[name] = sum(r[f"{name}_ms"] for r in blocks)
-        plain_ms[name] = sum(r[f"{name}_plain_ms"] for r in blocks)
-        bounds[name] = {"bound_ms": sum(r[f"{name}_bound"]["bound_ms"] for r in blocks),
+        ms[name] = sum(r[f"{name}_ms"] for r in at_b)
+        plain_ms[name] = sum(r[f"{name}_plain_ms"] for r in at_b)
+        bounds[name] = {"bound_ms": sum(r[f"{name}_bound"]["bound_ms"] for r in at_b),
                         "bound_by": "bytes"}
 
     host, base = trained["host"], trained["cfg"]
@@ -1477,6 +1566,8 @@ def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -
                               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
             del model, state, step, loss_fn
     torch.cuda.empty_cache()
+    emit({"phase": "train_layout", "card": card,
+          "fused_step": layout_profile(base, len(host.label_names), dstore, big, seed)})
     summary = []
     for bt in TRAIN_TIMING_BATCHES:
         for blockn in ("jnp", "fused"):
@@ -1954,6 +2045,7 @@ def run_siamese_train_slice(host, seed: int) -> dict:
         losses.append(m["loss"])
         accs.append(m["accuracy"])
 
+    copies = FusedBlocknTrain.cotangent_copies
     reset_counts()
     with evaluation_launches() as eval_counts:
         t0 = time.perf_counter()
@@ -1961,6 +2053,7 @@ def run_siamese_train_slice(host, seed: int) -> dict:
         total = read_counts()
         seconds = time.perf_counter() - t0
     train = {k: total[k] - eval_counts[k] for k in total}
+    check_channels_last_path(FusedBlocknTrain.cotangent_copies - copies)
     S = TRAIN_STEPS
     want = {name: 0 for name in KERNELS}
     want.update(gather_whiten=2 * S, conv_block0_train=S, conv_block0_train_bwd=S,
@@ -2060,10 +2153,12 @@ def run_siamese_timing(sliced: dict, trained: dict, seed: int, card: str) -> dic
                   "pairs_per_s": SIAMESE_BATCH / r["mean_s"],
                   "utt_per_s": 2 * SIAMESE_BATCH / r["mean_s"],
                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    layout = layout_profile(tcfg, 1, tstore, SIAMESE_BATCH, seed)
     emit({"phase": "siamese_timing", "card": card, "weighted_l1": rows,
           "nshot_scoring_500_tasks_ms": scoring["mean_s"] * 1e3,
           "nshot_scoring_500_tasks_p50_ms": scoring["p50_s"] * 1e3,
-          "train_step": train_step, "seconds": time.perf_counter() - t0})
+          "train_step": train_step, "train_step_layout": layout,
+          "seconds": time.perf_counter() - t0})
     row = rows["timing"]
     return {"ms": {"weighted_l1": row["ms"]}, "plain_ms": {"weighted_l1": row["plain_ms"]},
             "bounds": {"weighted_l1": {k: row[k] for k in ("bound_ms", "bound_by")}},

@@ -126,7 +126,7 @@ def on_the_cpu(monkeypatch):
         out[bad] = float("nan")
         return out
 
-    def fake_time(fn, *a, iters=30, warmup=5, **k):
+    def fake_time(fn, *a, iters=30, warmup=5, queued=False, **k):
         fn(*a, **k)
         return {"mean_s": 1e-3, "p50_s": 1e-3, "p95_s": 1e-3, "min_s": 1e-3}
 
@@ -134,8 +134,15 @@ def on_the_cpu(monkeypatch):
         fn(*a, **k)
         return {"items_per_sec": items_per_call / 1e-3, "sec_per_call": 1e-3}
 
+    def fake_profile(stages, batches=3):  # torch.profiler traces the card only there
+        cs.stage_profile.run(stages)
+        return {"window_ms_per_batch": 1.0, "idle_share": 0.0, "device_events_per_batch": 1.0,
+                "layout_conversion_ms_per_batch": 0.0, "layout_conversion_kernels": {},
+                "device_ms_by_op_per_batch": {}}
+
     monkeypatch.setattr(cs, "gather_whiten", gather_nan)
     monkeypatch.setattr(cs, "time_fn", fake_time)
+    monkeypatch.setattr(cs.stage_profile, "profile", fake_profile)
     monkeypatch.setattr(cs, "throughput", fake_tput)
     monkeypatch.setattr(cs._build, "build", lambda: (Path("none.so"), 0.0, ""))
     monkeypatch.setattr(cs._build, "library", lambda: None)
@@ -155,7 +162,7 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     phases = [r["phase"] for r in records if "phase" in r]
     assert phases == ["device", "build", "kernels", "train_kernels", "slice", "int8_slice",
                       "int8_fidelity_gate", "train_slice", "timing", "attribution",
-                      "train_timing",
+                      "train_layout", "train_timing",
                       "mel_kernels", "mel_bf16_slice", "mel_int8_slice", "mel_int8_fidelity",
                       "mel_timing", "siamese_kernels", "siamese_bf16_slice",
                       "siamese_int8_slice", "verification", "score_support",
@@ -201,6 +208,17 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
         (b, p) for b in (4, 8) for p in ("jnp", "fused", "fused", "jnp")]
     assert [(r["batch"], r["blockn"], len(r["turns_ms"])) for r in timing["train_step"]] == [
         (4, "jnp", 2), (4, "fused", 2), (8, "jnp", 2), (8, "fused", 2)]
+    # B7 per block at the train step's batch (with its plain version) and at
+    # the largest timing batch; the fused step's layout conversions apart
+    routing = timing["routing_blocks"]
+    assert [(r["batch"], r["C"]) for r in routing] == [
+        (b, c) for b in (8, 8) for c, _ in cs.TRAIN_BLOCKS]
+    assert all("route_bwd_plain_ms" in r for r in routing[:3])
+    assert by_phase["train_layout"]["fused_step"]["layout_conversion_ms_per_batch"] == 0.0
+    b7 = [c for c in by_phase["train_kernels"]["checks"] if c["kernel"] == "route_bwd"][::2]
+    assert [(c["B"], c["pool"], c["rows"]) for c in b7[3:]] == [
+        (e[0], e[3], e[5]) for e in cs.ROUTING_EDGES]
+    assert all(c["max_abs_err"] == 0.0 for c in b7)
     assert by_phase["int8_fidelity_gate"]["pass"]
     # config #4: B1 and B6 once for each of the two embed chunks, in each path
     for path in ("mel_bf16", "mel_int8"):

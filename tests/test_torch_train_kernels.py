@@ -16,6 +16,7 @@ bf16 ulp. Every case has negative BatchNorm scales, dead relu regions and
 tied pool phases.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,7 +31,8 @@ from voicemap_tpu_torch.ops.cuda_conv_train import (
     conv_block0_train_reference,
 )
 from voicemap_tpu_torch.ops.cuda_routing import (
-    pool_fwd, pool_fwd_reference, route_bwd, route_bwd_reference,
+    BWD_CTAS_PER_SM, FWD_CTAS_PER_SM, THREADS, UNROLL, channels_last, is_channels_last,
+    launch_plan, pool_fwd, pool_fwd_reference, route_bwd, route_bwd_reference, vector_width,
 )
 
 C = 16
@@ -128,34 +130,44 @@ def routing_case(seed, B, T, c, pool, dtype):
     return a, sgn, g, consts
 
 
-def nct(a, dtype):
-    """JAX (B, T, C) numpy → the port's (B, C, T) tensor."""
-    return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1))).to(dtype)
+def btc(a, dtype):
+    """JAX (B, T, C) numpy → the port's channels-last (B, C, T) view of the
+    same memory (no transpose copy)."""
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype).permute(0, 2, 1)
+
+
+def as_jax(t):
+    """The port's channels-last (B, C, T) tensor → its (B, T, C) memory as
+    f32 numpy (a view, then a widening)."""
+    return t.permute(0, 2, 1).float().numpy()
+
+
+B7_CASES = [(8, 2), (6, 4)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("c,pool", [(8, 2), (6, 4)])
+@pytest.mark.parametrize("c,pool", B7_CASES)
 def test_b7_plain_matches_pallas_interpret(dtype, c, pool):
+    """A relu activation as z, bias 0: the plain versions on the (B, T, C)
+    memory held directly against the Pallas kernels."""
     tdt, jdt = DTYPES[dtype]
     B, T = 3, 64
     a, sgn, g, (c0, c1, c2) = routing_case(c + pool, B, T, c, pool, jdt)
     aj = jnp.asarray(a).astype(jdt)
     want_sel, want_s1, want_s2 = pallas_pool_fwd(aj, jnp.asarray(sgn), pool, sel_dtype=jdt,
                                                  interpret=True)
-    sel, s1, s2 = pool_fwd_reference(nct(a, tdt), torch.from_numpy(sgn), pool, tdt)
-    assert sel.dtype == tdt and sel.shape == (B, c, T // pool)
-    np.testing.assert_array_equal(sel.float().numpy().transpose(0, 2, 1),
-                                  np.asarray(want_sel.astype(jnp.float32)))
+    z, b0 = btc(a, tdt), torch.zeros(c)
+    sel, s1, s2 = pool_fwd_reference(z, b0, torch.from_numpy(sgn), pool, tdt)
+    assert sel.dtype == tdt and sel.shape == (B, c, T // pool) and is_channels_last(sel)
+    np.testing.assert_array_equal(as_jax(sel), np.asarray(want_sel.astype(jnp.float32)))
     assert_rel(s1.numpy(), want_s1, 1e-5, "sum")
     assert_rel(s2.numpy(), want_s2, 1e-5, "sumsq")
 
     want_dz, want_db = pallas_route_bwd(aj, want_sel, jnp.asarray(g), *map(jnp.asarray,
                                         (c0, c1, c2)), pool, out_dtype=jdt, interpret=True)
-    dz, db = route_bwd_reference(nct(a, tdt), sel, nct(g, torch.float32),
-                                 *t(c0, c1, c2), pool, tdt)
-    assert dz.dtype == tdt and dz.shape == (B, c, T)
-    got_dz = dz.float().numpy().transpose(0, 2, 1)
-    want_dz = np.asarray(want_dz.astype(jnp.float32))
+    dz, db = route_bwd_reference(z, b0, sel, btc(g, torch.float32), *t(c0, c1, c2), pool, tdt)
+    assert dz.dtype == tdt and dz.shape == (B, c, T) and is_channels_last(dz)
+    got_dz, want_dz = as_jax(dz), np.asarray(want_dz.astype(jnp.float32))
     if dtype == "float32":
         assert_rel(got_dz, want_dz, 1e-6, "dz")
     else:
@@ -163,17 +175,88 @@ def test_b7_plain_matches_pallas_interpret(dtype, c, pool):
     assert_rel(db.numpy(), want_db, 1e-5, "db")
 
 
+def conv_output_case(seed, B, T, c, dtype):
+    """A raw conv output of both signs on a coarse grid (ties and dead relu
+    regions once the bias is added) and a bias of both signs."""
+    rng = np.random.default_rng(seed)
+    z = (np.round(rng.standard_normal((B, T, c)) * 4.0) / 4.0).astype(np.float32)
+    z = np.asarray(jnp.asarray(z).astype(dtype).astype(jnp.float32))
+    b = (rng.standard_normal(c) * 0.37).astype(np.float32)
+    return z, b
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,pool", B7_CASES)
+def test_b7_plain_folds_bias_and_relu(dtype, c, pool):
+    """The plain versions take the raw conv output z and the bias and match
+    ``jax.nn.relu(z + b.astype(dtype))`` then the Pallas kernels: a_sel bit
+    for bit, dz bit for bit in bf16 (the same f32 ops on the same values,
+    rounded once) and within 1e-6 of the largest in f32 (XLA on the CPU
+    contracts ``c0·g + c1 + c2·a`` into FMAs, the port's versions do not),
+    Σa, Σa² and db within 1e-5 of the largest (the sum order)."""
+    tdt, jdt = DTYPES[dtype]
+    B, T = 3, 64
+    z, b = conv_output_case(100 + c + pool, B, T, c, jdt)
+    _, sgn, g, (c0, c1, c2) = routing_case(c + pool, B, T, c, pool, jdt)
+    aj = jax.nn.relu(jnp.asarray(z).astype(jdt) + jnp.asarray(b).astype(jdt))
+    assert float((aj == 0).mean()) > 0.2  # dead regions: the relu is exercised
+    want_sel, want_s1, want_s2 = pallas_pool_fwd(aj, jnp.asarray(sgn), pool, sel_dtype=jdt,
+                                                 interpret=True)
+    zt = btc(z, tdt)
+    sel, s1, s2 = pool_fwd_reference(zt, torch.from_numpy(b), torch.from_numpy(sgn), pool, tdt)
+    np.testing.assert_array_equal(as_jax(sel), np.asarray(want_sel.astype(jnp.float32)))
+    assert_rel(s1.numpy(), want_s1, 1e-5, "sum")
+    assert_rel(s2.numpy(), want_s2, 1e-5, "sumsq")
+    want_dz, want_db = pallas_route_bwd(aj, want_sel, jnp.asarray(g), *map(jnp.asarray,
+                                        (c0, c1, c2)), pool, out_dtype=jdt, interpret=True)
+    dz, db = route_bwd_reference(zt, torch.from_numpy(b), sel, btc(g, torch.float32),
+                                 *t(c0, c1, c2), pool, tdt)
+    got_dz, want_dz = as_jax(dz), np.asarray(want_dz.astype(jnp.float32))
+    if dtype == "float32":
+        assert_rel(got_dz, want_dz, 1e-6, "dz")
+    else:
+        np.testing.assert_array_equal(got_dz, want_dz)
+    assert_rel(db.numpy(), want_db, 1e-5, "db")
+
+
+def test_b7_backward_rounds_the_f32_cotangent_as_the_pallas_wrapper():
+    """g in f32, off the bf16 grid: the plain backward rounds it to z's dtype
+    inside, as ``pallas_route_bwd`` casts it, and equals the same call on g
+    rounded beforehand."""
+    c, pool, B, T = 8, 2, 2, 32
+    z, b = conv_output_case(7, B, T, c, jnp.bfloat16)
+    _, sgn, _, (c0, c1, c2) = routing_case(7, B, T, c, pool, jnp.bfloat16)
+    g = (np.random.default_rng(8).standard_normal((B, T // pool, c)) * 3.0).astype(np.float32)
+    g_bf16 = np.asarray(jnp.asarray(g).astype(jnp.bfloat16).astype(jnp.float32))
+    assert (g != g_bf16).mean() > 0.9
+    zt, bt = btc(z, torch.bfloat16), torch.from_numpy(b)
+    sel, _, _ = pool_fwd_reference(zt, bt, torch.from_numpy(sgn), pool, torch.bfloat16)
+    dz, db = route_bwd_reference(zt, bt, sel, btc(g, torch.float32), *t(c0, c1, c2), pool,
+                                 torch.bfloat16)
+    dz_pre, db_pre = route_bwd_reference(zt, bt, sel, btc(g_bf16, torch.float32),
+                                         *t(c0, c1, c2), pool, torch.bfloat16)
+    assert torch.equal(dz, dz_pre) and torch.equal(db, db_pre)
+    aj = jax.nn.relu(jnp.asarray(z).astype(jnp.bfloat16) + jnp.asarray(b).astype(jnp.bfloat16))
+    want_dz, _ = pallas_route_bwd(aj, jnp.asarray(as_jax(sel)).astype(jnp.bfloat16),
+                                  jnp.asarray(g), *map(jnp.asarray, (c0, c1, c2)), pool,
+                                  out_dtype=jnp.bfloat16, interpret=True)
+    np.testing.assert_array_equal(as_jax(dz), np.asarray(want_dz.astype(jnp.float32)))
+
+
 def test_b7_routing_goes_to_the_first_equal_phase():
     a = torch.tensor([[[1.0, 1.0, 0.0, 2.0, 3.0, 3.0]]])  # (1, 1, 6), pool 2
-    sel, _, _ = pool_fwd_reference(a, torch.tensor([1.0]), 2, torch.float32)
-    assert sel.tolist() == [[[1.0, 2.0, 3.0]]]
     one, zero = torch.ones(1), torch.zeros(1)
-    dz, db = route_bwd_reference(a, sel, torch.ones(1, 1, 3), one, zero, zero, 2,
+    sel, _, _ = pool_fwd_reference(a, zero, one, 2, torch.float32)
+    assert sel.tolist() == [[[1.0, 2.0, 3.0]]]
+    dz, db = route_bwd_reference(a, zero, sel, torch.ones(1, 1, 3), one, zero, zero, 2,
                                  torch.float32)
     assert dz.tolist() == [[[1.0, 0.0, 0.0, 1.0, 1.0, 0.0]]]
     assert db.tolist() == [3.0]
-    sel_neg, _, _ = pool_fwd_reference(a, -one, 2, torch.float32)  # γ < 0: the min
+    sel_neg, _, _ = pool_fwd_reference(a, zero, -one, 2, torch.float32)  # γ < 0: the min
     assert sel_neg.tolist() == [[[1.0, 0.0, 3.0]]]
+    # The bias moves every phase alike and the relu zeroes what falls below 0.
+    sel_b, _, _ = pool_fwd_reference(a, -torch.full((1,), 1.5), one, 2, torch.float32)
+    assert sel_b.tolist() == [[[0.0, 0.5, 1.5]]]
 
 
 def test_wrappers_on_cpu_are_the_plain_versions():
@@ -186,14 +269,63 @@ def test_wrappers_on_cpu_are_the_plain_versions():
     bwd = t(x, w, b, sgn, g, c0, c1, c2)
     for got, want in zip(conv_block0_train_bwd(*bwd), conv_block0_train_bwd_reference(*bwd)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    a = torch.relu(torch.randn(2, 5, 8, generator=torch.Generator().manual_seed(0)))
-    s = torch.ones(5)
-    sel, _, _ = pool_fwd(a, s, 2, torch.float32)
-    torch.testing.assert_close(sel, pool_fwd_reference(a, s, 2, torch.float32)[0], rtol=0, atol=0)
-    route_bwd(a, sel, torch.ones(2, 5, 4), s, s, s, 2, torch.float32)
+    z = torch.randn(2, 8, 5, generator=torch.Generator().manual_seed(0)).permute(0, 2, 1)
+    s, b = torch.ones(5), torch.full((5,), 0.1)
+    sel, _, _ = pool_fwd(z, b, s, 2, torch.float32)
+    torch.testing.assert_close(sel, pool_fwd_reference(z, b, s, 2, torch.float32)[0], rtol=0,
+                               atol=0)
+    g = torch.ones(2, 4, 5).permute(0, 2, 1)
+    for got, want in zip(route_bwd(z, b, sel, g, s, s, s, 2, torch.float32),
+                         route_bwd_reference(z, b, sel, g, s, s, s, 2, torch.float32)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert (conv_block0_train.launches, conv_block0_train_bwd.launches,
             pool_fwd.launches, route_bwd.launches) == before  # the CPU path launches nothing
     with pytest.raises(ValueError):
         conv_block0_train(*[v.to("meta") for v in args])
     with pytest.raises(ValueError):
-        pool_fwd(a.to("meta"), s.to("meta"), 2)
+        pool_fwd(z.to("meta"), b.to("meta"), s.to("meta"), 2)
+
+
+def test_b7_wrappers_refuse_channel_first_tensors():
+    """The wrappers take channels-last tensors only and never copy one into
+    that layout: a (B, C, T)-contiguous z, a_sel or g raises, on the CPU too."""
+    gen = torch.Generator().manual_seed(1)
+    z_nct = torch.randn(2, 5, 8, generator=gen)
+    z = z_nct.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+    s, b = torch.ones(5), torch.zeros(5)
+    with pytest.raises(ValueError, match="channels last"):
+        pool_fwd(z_nct, b, s, 2)
+    sel, _, _ = pool_fwd(z, b, s, 2, torch.float32)
+    g = torch.ones(2, 4, 5).permute(0, 2, 1)
+    with pytest.raises(ValueError, match="channels last"):
+        route_bwd(z_nct, b, sel, g, s, s, s, 2, torch.float32)
+    with pytest.raises(ValueError, match="channels last"):
+        route_bwd(z, b, sel.contiguous(), g, s, s, s, 2, torch.float32)
+    with pytest.raises(ValueError, match="channels last"):
+        route_bwd(z, b, sel, g.contiguous(), s, s, s, 2, torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        route_bwd(z, b, sel, g.to(torch.bfloat16), s, s, s, 2, torch.float32)
+    assert is_channels_last(channels_last((2, 5, 8), torch.bfloat16, "cpu"))
+    assert not is_channels_last(z_nct)
+
+
+@pytest.mark.parametrize("B,c,T,pool,dtype,vec", [
+    (32, 256, 3000, 2, torch.bfloat16, 8), (2048, 512, 750, 2, torch.bfloat16, 8),
+    (5, 67, 250, 2, torch.bfloat16, 1), (1, 384, 1501 * 2, 2, torch.float32, 4),
+    (3, 2048 * 8, 8, 4, torch.bfloat16, 8)])
+@pytest.mark.parametrize("per_sm", [FWD_CTAS_PER_SM, BWD_CTAS_PER_SM])
+def test_b7_launch_plan_covers_every_position_once(B, c, T, pool, dtype, vec, per_sm):
+    """csrc/routing.cu's grid from ``launch_plan``: the strips cover each
+    row's T/pool positions once, every thread of a cut row gets at least two
+    batches of UNROLL positions, and the CTAs fill the 132 SMs' slots at
+    most once, as many as the batch and that floor allow."""
+    tp, slots = T // pool, 132 * per_sm
+    strips, span = launch_plan(B, c, T, pool, vec, slots)
+    assert strips >= 1 and (strips - 1) * span < tp <= strips * span
+    chunks = -(-(c // vec) // THREADS)
+    rows = THREADS // min(c // vec, THREADS)
+    floor = max(1, tp // (rows * UNROLL * 2))
+    assert span == -(-tp // max(1, min(slots // (B * chunks), floor)))
+    if strips > 1:
+        assert span >= rows * UNROLL * 2 and B * strips * chunks <= slots
+    assert vector_width(c, dtype, torch.empty(16, dtype=dtype)) == vec

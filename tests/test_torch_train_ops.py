@@ -6,9 +6,14 @@ the Pallas cores in interpret mode) and ``FusedBlocknTrain`` against
 interpret mode, at f32: the same numpy inputs and parameters, values and
 ``torch.autograd.grad`` against ``jax.grad`` of one scalar that reads the
 pooled output, μ and σ², within 1e-4. Negative BatchNorm scales and dead
-relu regions in every case. The port's blocks-1+ op is channel-first; the
-test transposes at its edge.
+relu regions in every case. The port's blocks-1+ op takes and gives
+``(B, C, T)`` tensors; the test transposes at its edge (the op lays its
+tensors out channels last itself). Then the fused path's layout: the
+residual is the raw conv output, channels last from block 0's output to the
+head, with no copy between blocks.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +22,12 @@ import pytest
 import torch
 
 from voicemap_tpu.ops.conv_train import make_fused_block0_train, make_fused_blockn_train
+from voicemap_tpu_torch.config import classifier_baseline
+from voicemap_tpu_torch.models import fused_train
+from voicemap_tpu_torch.models.classifier import SpeakerClassifier
+from voicemap_tpu_torch.ops import cuda_routing
 from voicemap_tpu_torch.ops.conv_train import FusedBlock0Train, FusedBlocknTrain
+from voicemap_tpu_torch.ops.cuda_routing import is_channels_last
 
 EPS = 1e-3
 TOL = 1e-4
@@ -134,3 +144,66 @@ def test_fused_blockn_refuses_asymmetric_same_padding():
     out, _, _ = FusedBlocknTrain.apply(x, torch.randn(5, 3, 3), *args[1:], 2, EPS, 2,
                                        torch.float32)
     assert out.shape == (2, 5, 16)
+
+
+def test_fused_blockn_saves_the_raw_conv_output_channels_last():
+    """The op's residual is the conv's output without bias and relu (B7 adds
+    both as it reads it), the conv runs on channels-last tensors, and
+    ``pooled`` and dX come back channels last."""
+    cin, cout, k, B, T, pool = 6, 8, 3, 2, 32, 2
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(B, T, cin, generator=gen).permute(0, 2, 1).requires_grad_()
+    w = (torch.randn(cout, cin, k, generator=gen) * 0.4).requires_grad_()
+    b = torch.randn(cout, generator=gen).mul(0.5).requires_grad_()
+    gamma, beta = torch.ones(cout, requires_grad=True), torch.zeros(cout, requires_grad=True)
+    out, _, _ = FusedBlocknTrain.apply(x, w, b, gamma, beta, pool, EPS, 1, torch.float32)
+    x4, w4, z, *_ = out.grad_fn.saved_tensors
+    want_z = torch.nn.functional.conv1d(x.detach(), w.detach(), None, padding=1)
+    torch.testing.assert_close(z, want_z, rtol=1e-6, atol=1e-6)
+    a = torch.relu(want_z + b.detach()[:, None])
+    assert (a == 0).any() and (z < 0).any() and not torch.allclose(z, a)
+    assert x4.data_ptr() == x.data_ptr()  # channels last in the GEMM dtype: not copied
+    for t4 in (x4, w4):
+        assert t4.dim() == 4 and t4.is_contiguous(memory_format=torch.channels_last)
+    assert is_channels_last(z) and is_channels_last(out)
+    (gx,) = torch.autograd.grad((out * out).sum(), [x])
+    assert is_channels_last(gx)
+
+
+def test_fused_train_forward_hands_channels_last_tensors_without_copies():
+    """Under ``blockn="fused"`` block 0's pooled output enters block 1 as a
+    channels-last view (no transpose copy), every fused block's z, a_sel and
+    cotangent are channels last, and no backward copies its cotangent."""
+    cfg = classifier_baseline()
+    enc = dataclasses.replace(cfg.encoder, filters=8, compute_dtype="bfloat16")
+    model = SpeakerClassifier(enc, 5, device="cpu")
+    seen = []
+
+    def pool_spy(z, *a, _real=cuda_routing.pool_fwd):
+        seen.append(("z", is_channels_last(z)))
+        return _real(z, *a)
+
+    def route_spy(z, b, sel, g, *a, _real=cuda_routing.route_bwd):
+        seen.append(("g", is_channels_last(sel) and is_channels_last(g)))
+        return _real(z, b, sel, g, *a)
+
+    inputs = []
+    real_apply = FusedBlocknTrain.apply
+
+    def apply_spy(x, *a):
+        inputs.append(x)
+        return real_apply(x, *a)
+
+    before = FusedBlocknTrain.cotangent_copies
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cuda_routing, "pool_fwd", pool_spy)
+        mp.setattr(cuda_routing, "route_bwd", route_spy)
+        mp.setattr(fused_train.FusedBlocknTrain, "apply", apply_spy)
+        x = torch.randn(4, 2048, 1, generator=torch.Generator().manual_seed(0))
+        logits = fused_train.classifier_train_forward(model, x, torch.Generator().manual_seed(1),
+                                                      blockn="fused")
+        logits.sum().backward()
+    assert seen == [("z", True)] * 3 + [("g", True)] * 3
+    assert len(inputs) == 3 and all(is_channels_last(h) for h in inputs)
+    assert inputs[0]._base is not None  # block 0's output, viewed, not copied
+    assert FusedBlocknTrain.cotangent_copies == before

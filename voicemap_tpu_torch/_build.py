@@ -53,10 +53,13 @@ SIGNATURES = {
     "vm_block0_train_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, w, bias, sgn, g, cc, part, out, B, T, C, n_ctas, gemm_bf16, stream
     "vm_block0_train_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # a, sgn, sel, part, stats, B, C, T, pool, a_bf16, sel_bf16, stream
-    "vm_pool_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # a, a_sel, g, cc, dz, part, db, B, C, T, pool, a_bf16, out_bf16, stream
-    "vm_route_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # z, bias, sgn, sel, part, stats, B, C, T, pool, vec, strips, span, a_bf16,
+    # sel_bf16, stream
+    "vm_pool_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # z, bias, a_sel, g, c0, c1, c2, dz, part, db, B, C, T, pool, vec, strips,
+    # span, a_bf16, out_bf16, stream
+    "vm_route_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P),
     # x, cs, fbt, bands, out, B, T, n_frames, win, hop, M, K, log_eps, stream
     "vm_log_mel": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # x, tables, weights, bands, out, B, T, n_frames, win, hop, M, n_weights,

@@ -7,8 +7,10 @@ Port of ``voicemap_tpu/models/fused_train.py :: encoder_train_forward``,
 eligible; blocks 1+ run either flax's ``ConvBlock`` train semantics
 differentiated by autograd (``blockn="jnp"``, ``ConvBlock.forward_train_nct``)
 or the save-act fused op ``FusedBlocknTrain`` (``blockn="fused"``: cuDNN
-convs around B7's pool and routing passes). With f32 compute and dropout 0
-the forward matches flax's ``model.apply(train=True)``.
+convs around B7's pool and routing passes, channels last from block 0's
+pooled output to the head, with no copy between blocks; a block that falls
+back to ``forward_train_nct`` reads the strided tensor as it is). With f32
+compute and dropout 0 the forward matches flax's ``model.apply(train=True)``.
 
 These functions take the module and use its parameters, so gradients land in
 ``.grad`` as usual, and they **update the BatchNorm running buffers of the
@@ -73,7 +75,9 @@ def encoder_train_forward(encoder: ConvEncoder, x: torch.Tensor,
             blk.pool_size, blk.bn.eps, gdt, gdt)
         y = spatial_dropout(pooled.to(cdt), cfg.dropout, generator, channel_dim=2)
         blk.update_running_stats(mu, var)
-        h = y.transpose(1, 2).contiguous()  # (B, C, T/4) for the channel-first blocks
+        h = y.transpose(1, 2)  # (B, C, T/4), channels last: what the fused blocks take
+        if blockn != "fused":
+            h = h.contiguous()  # channel first for the jnp blocks' cuDNN convs
         start = 1
     for i in range(start, len(encoder.blocks)):
         blk = encoder.blocks[i]

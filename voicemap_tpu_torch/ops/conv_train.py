@@ -19,11 +19,15 @@ full-rate position, so the full-rate sums equal their pooled sums).
   memory. The input gradient is ``None``: block 0's input is audio, not a
   parameter (the TPU op returned zeros).
 - :class:`FusedBlocknTrain` — blocks 1+, the save-act variant: cuDNN's conv
-  in the GEMM dtype with the bias added in that dtype, relu, then B7's pool
-  pass (``ops/cuda_routing.pool_fwd``); the backward takes the pool-rate
-  sums, B7's routing pass (``route_bwd``) for ``dz``, then cuDNN's dW and dX
-  (``aten.convolution_backward``, as the JAX package left them to XLA).
-  Channel-first ``(B, C, T)`` in and out, the layout cuDNN writes.
+  in the GEMM dtype without its bias, then B7's pool pass
+  (``ops/cuda_routing.pool_fwd``), which adds the bias in that dtype and
+  applies the relu as it reads the conv's output; the backward takes the
+  pool-rate sums, B7's routing pass (``route_bwd``), which recomputes the
+  activation from the same saved conv output, for ``dz``, then cuDNN's dW and
+  dX (``aten.convolution_backward``, as the JAX package left them to XLA).
+  Channels last, as the JAX package lays it out: ``(B, C, T)`` tensors with
+  the memory of ``(B, T, C)``, so cuDNN runs its NHWC convs with no layout
+  conversion around them.
 
 Both return ``(pooled f32, μ, σ²)``, the biased variance
 ``max(E[a²] − E[a]², 0)`` as flax takes it, and both μ and σ² carry
@@ -101,21 +105,35 @@ def symmetric_padding(kernel_size: int, dilation: int) -> int | None:
     return None if reach % 2 else reach // 2
 
 
-def _conv_backward(dz, x, w, pad, dilation, need_dx: bool):
-    """cuDNN's dX and dW of ``F.conv1d(x, w, padding=pad, dilation=dilation)``."""
+def _conv_backward(dz4, x4, w4, pad, dilation, need_dx: bool):
+    """cuDNN's dX and dW of ``F.conv2d(x4, w4, padding=(0, pad), dilation=(1,
+    dilation))`` on the (B, C, 1, T) channels-last views."""
     dx, dw, _ = torch.ops.aten.convolution_backward(
-        dz, x, w, None, [1], [pad], [dilation], False, [0], 1, [need_dx, True, False])
+        dz4, x4, w4, None, [1, 1], [0, pad], [1, dilation], False, [0, 0], 1,
+        [need_dx, True, False])
     return dx, dw
+
+
+def _nhwc(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``(B, C, T)`` → its ``(B, C, 1, T)`` view in ``dtype``, channels last;
+    no copy where ``t`` is channels last in ``dtype`` already."""
+    return t.unsqueeze(2).to(dtype, memory_format=torch.channels_last)
 
 
 class FusedBlocknTrain(torch.autograd.Function):
     """``(x (B, Cin, T), w (Cout, Cin, k), b, γ, β)`` → ``(pooled (B, Cout, T/pool) f32, μ, σ²)``.
 
-    ``a_sel`` is kept in the GEMM dtype, the activation's own, so that the
-    routing pass can match it exactly. The conv's SAME padding must be
-    symmetric (:func:`symmetric_padding`), as for every block 1+ of the
-    configs (k = 3).
+    Channels last: ``x`` may come in any layout, and one that is channels
+    last (``cuda_routing.is_channels_last``, as the train forward hands it)
+    in the GEMM dtype is not copied; ``pooled`` and dX come back channels
+    last. The saved residual is the conv's raw output ``z``, in the GEMM
+    dtype, which B7 reads in both passes (the activation itself is never
+    written). ``a_sel`` is kept in the same dtype, so that the routing pass
+    can match it exactly. The conv's SAME padding must be symmetric
+    (:func:`symmetric_padding`), as for every block 1+ of the configs (k = 3).
     """
+
+    cotangent_copies = 0  # backward calls whose cotangent came in another layout
 
     @staticmethod
     def forward(ctx, x, w, b, gamma, beta, pool: int, eps: float, dilation: int,
@@ -124,27 +142,33 @@ class FusedBlocknTrain(torch.autograd.Function):
         if pad is None:
             raise ValueError(f"FusedBlocknTrain: SAME padding of k={w.shape[2]}, "
                              f"dilation={dilation} is not symmetric")
-        xg, wg = x.to(gemm_dtype), w.to(gemm_dtype)
-        a = F.conv1d(xg, wg, None, padding=pad, dilation=dilation)
-        a.add_(b.to(gemm_dtype)[:, None]).relu_()
+        x4, w4 = _nhwc(x, gemm_dtype), _nhwc(w, gemm_dtype)
+        z = F.conv2d(x4, w4, None, padding=(0, pad), dilation=(1, dilation)).squeeze(2)
         sgn = _sign(gamma)
-        a_sel, sum_a, sumsq_a = cuda_routing.pool_fwd(a, sgn, pool, gemm_dtype)
-        mu, var, r = _stats(sum_a, sumsq_a, a.shape[0] * a.shape[2], eps)
+        a_sel, sum_a, sumsq_a = cuda_routing.pool_fwd(z, b, sgn, pool, gemm_dtype)
+        mu, var, r = _stats(sum_a, sumsq_a, z.shape[0] * z.shape[2], eps)
         pooled = (a_sel.float() - mu[:, None]) * (gamma * r)[:, None] + beta[:, None]
-        ctx.save_for_backward(xg, wg, a, a_sel, gamma, mu, var)
+        ctx.save_for_backward(x4, w4, z, b, a_sel, gamma, mu, var)
         ctx.cfg = (pool, eps, pad, dilation, gemm_dtype, x.dtype, w.dtype)
         return pooled, mu, var
 
     @staticmethod
     def backward(ctx, g, g_mu, g_var):
-        xg, wg, a, a_sel, gamma, mu, var = ctx.saved_tensors
+        x4, w4, z, b, a_sel, gamma, mu, var = ctx.saved_tensors
         pool, eps, pad, dilation, gemm_dtype, x_dtype, w_dtype = ctx.cfg
-        n = a.shape[0] * a.shape[2]
+        n = z.shape[0] * z.shape[2]
         g = g.float()
+        if not cuda_routing.is_channels_last(g):
+            # Autograd hands the cotangent in its producer's layout: on the
+            # train forward the next block's dX or the head's max, channels
+            # last both; a caller that reads ``pooled`` another way pays this copy.
+            FusedBlocknTrain.cotangent_copies += 1
+            g = g.permute(0, 2, 1).contiguous().permute(0, 2, 1)
         s1, s2, c0, c1, c2 = _bn_backward_constants(g, a_sel, gamma, mu, var, g_mu, g_var,
                                                      n, eps, 1)
-        dz, db = cuda_routing.route_bwd(a, a_sel, g, c0, c1, c2, pool, gemm_dtype)
+        dz, db = cuda_routing.route_bwd(z, b, a_sel, g, c0, c1, c2, pool, gemm_dtype)
         need_dx = ctx.needs_input_grad[0]
-        dx, dw = _conv_backward(dz, xg, wg, pad, dilation, need_dx)
-        return (dx.to(x_dtype) if need_dx else None, dw.to(w_dtype), db, s2, s1,
+        dx, dw = _conv_backward(dz.unsqueeze(2), x4, w4, pad, dilation, need_dx)
+        return (dx.squeeze(2).to(x_dtype) if need_dx else None,
+                dw.squeeze(2).to(w_dtype, memory_format=torch.contiguous_format), db, s2, s1,
                 None, None, None, None)

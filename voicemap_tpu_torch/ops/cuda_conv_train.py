@@ -65,7 +65,7 @@ def conv_block0_train_reference(x, w, b, sgn, pool: int = KERNEL_POOL,
     B, c, T = a.shape
     s = sgn.float()
     best = (a.view(B, c, T // pool, pool) * s[None, :, None, None]).amax(-1)
-    a_sel = (best * s[None, :, None]).to(sel_dtype).transpose(1, 2)
+    a_sel = (best * s[None, :, None]).to(sel_dtype).transpose(1, 2).contiguous()  # as B4 lays it
     return (a_sel, a.sum((0, 2)), (a * a).sum((0, 2)), (a > 0).float().sum((0, 2)))
 
 

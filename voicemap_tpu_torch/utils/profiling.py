@@ -15,18 +15,30 @@ from typing import Callable, Dict
 import torch
 
 
+# A queued timing holds the stream this long a call (at ~2 GHz) before its
+# start event, longer than the host takes to enqueue one.
+HOLD_CYCLES_PER_CALL = 400_000
+
+
 def _event() -> torch.cuda.Event:
     return torch.cuda.Event(enable_timing=True)
 
 
-def _mean_seconds(fn: Callable, args, kw, iters: int, warmup: int) -> float:
-    """Device seconds per call over ``iters`` back-to-back calls, after warm-up."""
+def _mean_seconds(fn: Callable, args, kw, iters: int, warmup: int,
+                  queued: bool = False) -> float:
+    """Device seconds per call over ``iters`` back-to-back calls, after warm-up.
+
+    ``queued``: the stream first sleeps while the host enqueues every call,
+    so that the span is the device's alone even for calls shorter than their
+    host overhead (without it such calls time the host)."""
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA-event timing needs a CUDA device")
     for _ in range(warmup):
         fn(*args, **kw)
     torch.cuda.synchronize()
     start, end = _event(), _event()
+    if queued:
+        torch.cuda._sleep(HOLD_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn(*args, **kw)
@@ -35,15 +47,17 @@ def _mean_seconds(fn: Callable, args, kw, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / 1e3 / iters
 
 
-def time_fn(fn: Callable, *args, iters: int = 30, warmup: int = 5,
+def time_fn(fn: Callable, *args, iters: int = 30, warmup: int = 5, queued: bool = False,
             **kw) -> Dict[str, float]:
     """Seconds per call of ``fn(*args, **kw)`` on the device.
 
-    ``mean_s`` is the span of ``iters`` back-to-back calls over ``iters``;
+    ``mean_s`` is the span of ``iters`` back-to-back calls over ``iters``
+    (with ``queued``, all enqueued before the first starts: see
+    ``_mean_seconds``);
     ``p50_s``, ``p95_s`` and ``min_s`` come from ``iters`` calls timed one at
     a time, each waited for before the next starts.
     """
-    mean = _mean_seconds(fn, args, kw, iters, warmup)
+    mean = _mean_seconds(fn, args, kw, iters, warmup, queued)
     samples = []
     for _ in range(iters):
         s, e = _event(), _event()

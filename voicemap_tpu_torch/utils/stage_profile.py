@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -117,8 +118,14 @@ def stage_ms(stages, repeats: int = 5) -> dict:
     return {name: statistics.median(v) for name, v in times.items()}
 
 
+# cuDNN's kernels that convert a tensor between NCHW and NHWC around a conv
+# (nchwToNhwcKernel, nhwcToNchwKernel and their kin).
+LAYOUT_CONVERSION = re.compile(r"nchw_?2_?nhwc|nhwc_?2_?nchw|nchwtonhwc|nhwctonchw", re.I)
+
+
 def profile(stages, batches: int = 3) -> dict:
-    """Device time by kernel and the idle share over ``batches`` batches."""
+    """Device time by kernel, the idle share and the device ms of layout
+    conversions (:data:`LAYOUT_CONVERSION`) over ``batches`` batches."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -147,10 +154,16 @@ def profile(stages, batches: int = 3) -> dict:
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0.0)
         if t > 0 and not e.key.startswith("aten::"):
-            by_kernel[e.key[:80]] = t / 1e3 / batches
-    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15])
+            by_kernel[e.key] = t / 1e3 / batches
+    short = {}  # names cut to 80 characters; kernels that share a cut name are summed
+    for k, v in by_kernel.items():
+        short[k[:80]] = short.get(k[:80], 0.0) + v
+    conversions = {k: v for k, v in short.items() if LAYOUT_CONVERSION.search(k)}
+    top = dict(sorted(short.items(), key=lambda kv: -kv[1])[:15])
     return {"window_ms_per_batch": window / 1e3 / batches,
             "idle_share": 1.0 - busy / window, "device_events_per_batch": len(spans) / batches,
+            "layout_conversion_ms_per_batch": sum(conversions.values()),
+            "layout_conversion_kernels": conversions,
             "device_ms_by_op_per_batch": top}
 
 
