@@ -24,13 +24,20 @@ Each phase prints one JSON line; nothing here imports JAX.
    rows scaled by 1, 1e3 and 1e-3, BN scales of both signs); B10's mma and
    pool stages exactly against their plain versions and its full stage equal
    to B3, at the three shapes;
-   train kernels — B4 and B5 at the train step's (32, 12000, 128) and at edge
-   shapes, B7's pool and routing passes (on a raw conv output and its bias,
+   train kernels — B4 and B5 on the tensor cores at the train step's
+   (32, 12000, 128) and at B45_EDGES (T/4 no tile multiple, C = 72, 16 and
+   256, B = 1, rows of very different scale, exact ties): a_sel within its
+   order bound (f32 out) and that bound before its rounding and a row cosine
+   (bf16 out), #(a > 0) and B5's routing flipping only within the bound,
+   the statistics, dW and db to 1e-4 of their largest value, B5's
+   recomputed selection (its stage entry) equal to B4's a_sel bit for bit;
+   their f32 route (CUDA cores) at (2, 4100, 72) exactly as its plain
+   version; B7's pool and routing passes (on a raw conv output and its bias,
    channels last, the cotangent in f32) at the three config #1 block shapes
    of the train step and at ROUTING_EDGES (C = 67 with odd T/pool, pool 4
    in f32, B = 1, rows of very different scale, forced ties, pool 3, 257
    channel vectors), a_sel and dz bit for bit, each against its plain
-   version;
+   version; the launch counters read around the phase;
 4. slice — config #1 at full width (filters 128, embedding 64, 3 s at 16 kHz,
    downsampling 4) built from a flax-layout tree through ``from_flax``,
    serving 500 1-shot 5-way n-shot tasks over a seeded synthetic store in
@@ -62,9 +69,10 @@ Each phase prints one JSON line; nothing here imports JAX.
 8b. attribution — ``utils/qblock_attrib``: B10's stages and B3 at config
    #1's three block shapes, B=2048, ms, increments and TOP/s, the launch
    counters read around it; the mma stage beside its plain version and bound;
-9. train timing — B4, B5 and B7 beside their bounds, plain versions and
-   (B5) a library weight-gradient conv at the train step's shapes, B7 also
-   per block at B=2048 beside its bound (queued: the device's time alone);
+9. train timing — B4, B5 (both routes, queued: the device's time alone,
+   and back to back) and B7 beside their bounds, plain versions and (B5) a
+   library weight-gradient conv at the train step's shapes, B4, B5 and B7
+   also at B=2048 beside their bounds;
    on an earlier line (train_layout) the fused step at B=2048 under the
    profiler, with the device ms of cuDNN's NCHW↔NHWC conversions; the train
    step's ms and utt/s at B=32 and B=2048 under both blocks-1+ policies, in
@@ -150,7 +158,8 @@ from voicemap_tpu_torch.models.quant_infer import (
 from voicemap_tpu_torch.models.siamese import SiameseNet
 from voicemap_tpu_torch.models.spectrogram import MelSpecClassifier
 from voicemap_tpu_torch.ops import (
-    block0_tc, cuda_conv_train, cuda_distance, cuda_melspec, cuda_routing, melspec, sampling,
+    block0_tc, block0_train_tc, cuda_conv_train, cuda_distance, cuda_melspec, cuda_routing,
+    melspec, sampling,
 )
 from voicemap_tpu_torch.ops import distance as dist_ops
 from voicemap_tpu_torch.ops.cuda_conv import (
@@ -162,7 +171,7 @@ from voicemap_tpu_torch.ops.cuda_distance import (
 from voicemap_tpu_torch.ops.cuda_melspec import log_mel, log_mel_reference, log_mel_work
 from voicemap_tpu_torch.ops.cuda_conv_train import (
     conv_block0_train, conv_block0_train_bwd, conv_block0_train_bwd_reference,
-    conv_block0_train_reference,
+    conv_block0_train_bwd_stage, conv_block0_train_reference,
 )
 from voicemap_tpu_torch.ops.cuda_preprocess import (
     decimate_store, gather_whiten, gather_whiten_reference,
@@ -213,6 +222,17 @@ TRAIN_C0 = 128
 TRAIN_BLOCKS = ((256, 3000), (384, 1500), (512, 750))
 TRAIN_STEPS = 40
 TRAIN_TIMING_BATCHES = (32, 2048)
+# B4/B5's edges (B, T, C, rows), the bf16 route: T/4 = 250 (no multiple of
+# the 64- or 16-position tile), C = 72 and 16 (padded to the 32-channel
+# slice) and 256 (two channel groups; the widest the kernels take), B = 1
+# (16-position tiles so the items reach the SMs), rows × 1, 1e3, 1e-3, and x
+# and w on coarse grids with silent stretches, so that sums are exact in any
+# order and phases tie exactly (the route goes to the first).
+B45_EDGES = ((3, 1000, 128, "plain"), (2, 1000, 72, "plain"), (2, 1000, 16, "plain"),
+             (2, 1000, 256, "plain"), (1, 12000, 128, "plain"), (3, 1000, 128, "scaled"),
+             (2, 1000, 72, "ties"))
+# The f32 route (CUDA cores) at an edge: C = 72, T/4 = 1025.
+B45_F32_EDGE = (2, 4100, 72)
 # B7's edges (B, C, T, pool, dtype, rows): C = 67 (no multiple of 8: one
 # channel a thread) with odd T/pool, pool 4 in f32 on both widths, B = 1,
 # rows × 1, 1e3, 1e-3, forced ties, pool 3 (the any-pool path on vectors),
@@ -271,6 +291,19 @@ B2_BF16_REL = 2.0 ** -8
 B2_BF16_MIN_COSINE = 0.9999
 TABLE_MIN_COSINE = 0.999
 TRAIN_REL_TOL = 1e-4  # stats, dW, db: of max |value|, for the other sum order
+# B4/B5 on the tensor cores (bf16 GEMM) against their plain versions: both
+# multiply the same bf16 values, exact in f32; only the order of the f32
+# sums differs. a_sel in f32 out: within block0_train_tc.sel_bound, B2's
+# order bound with the affine taken away, u·(4·K·(S + |bias|) + 4·|ref|),
+# K = 32; in bf16 out: that bound before its one rounding, (1 + 2^-8)·bound
+# + 2^-8·|ref| against the plain f32 value (B2_BF16_REL), and a row cosine.
+# #(a > 0): a channel's count may differ only by as many pre-activations as
+# lie within their bound of 0 (block0_train_tc.relu_flips); B5's routing
+# (read from its stage entry) only where two phases' s·a_j lie within their
+# bounds of each other (route_flips); the flips are counted. Σa, Σa², dW
+# and db to TRAIN_REL_TOL. B5's recomputed selection equal to B4's f32 a_sel
+# bit for bit: both run the same products in the same order.
+B45_MIN_COSINE = 0.9999
 STEP_LOSS_RTOL = 1e-3
 STEP_MIN_COSINE = 0.999
 STEP_ZERO_GRAD = 1e-6  # of the largest gradient's norm: zero but for rounding
@@ -304,11 +337,11 @@ F32_OPS_PER_S = 67e12  # CUDA cores, outside the tensor cores
 # instructions (132 SMs x 128 lanes at ~1.98 GHz).
 F32_INSTR_PER_S = F32_OPS_PER_S / 2
 
-# name -> (wrapper, its launch counter, source, TPU kernel it replaces). B2
-# and B6 have two kernels each, chosen by their arguments: B2's tensor-core
-# kernel counts on ``launches`` (every bf16 GEMM), its f32-GEMM kernel on
-# ``f32_launches``; B6's ``launches`` counts both of its routes and
-# ``dft_launches`` the DFT route alone.
+# name -> (wrapper, its launch counter, source, TPU kernel it replaces). B2,
+# B4, B5 and B6 have two kernels each, chosen by their arguments: B2's, B4's
+# and B5's tensor-core kernels count on ``launches`` (every bf16 GEMM), their
+# f32-GEMM kernels on ``f32_launches``; B6's ``launches`` counts both of its
+# routes and ``dft_launches`` the DFT route alone.
 KERNELS = {
     "gather_whiten": (gather_whiten, "launches", "voicemap_tpu_torch/csrc/gather_whiten.cu",
                       "voicemap_tpu/ops/pallas_preprocess.py:88"),
@@ -324,6 +357,12 @@ KERNELS = {
     "conv_block0_train_bwd": (conv_block0_train_bwd, "launches",
                               "voicemap_tpu_torch/csrc/conv_block0_train.cu",
                               "voicemap_tpu/ops/pallas_conv_train.py:125"),
+    "conv_block0_train_f32": (conv_block0_train, "f32_launches",
+                              "voicemap_tpu_torch/csrc/conv_block0_train.cu",
+                              "voicemap_tpu/ops/pallas_conv_train.py:58"),
+    "conv_block0_train_bwd_f32": (conv_block0_train_bwd, "f32_launches",
+                                  "voicemap_tpu_torch/csrc/conv_block0_train.cu",
+                                  "voicemap_tpu/ops/pallas_conv_train.py:125"),
     "pool_fwd": (pool_fwd, "launches", "voicemap_tpu_torch/csrc/routing.cu",
                  "voicemap_tpu/ops/pallas_routing.py:69"),
     "route_bwd": (route_bwd, "launches", "voicemap_tpu_torch/csrc/routing.cu",
@@ -1227,11 +1266,31 @@ def routing_inputs(seed: int, B: int, c: int, T: int, pool: int, dtype,
     return z, b, sgn, cot, c0, c1, c2
 
 
-def check_block0_train(x: torch.Tensor, seed: int, c: int, dt) -> tuple[list, dict]:
-    """B4 and B5 on ``x`` against their plain versions: a_sel 0 ulps (bf16)
-    or equal (f32), the count equal, stats, dW and db to TRAIN_REL_TOL."""
+def b45_edge_inputs(seed: int, B: int, T: int, c: int, rows: str) -> tuple:
+    """x (B, T, 1) for B4/B5's edges and the parameters beside it (those of
+    ``block0_train_inputs``): ``rows="scaled"`` multiplies the batch rows
+    by ROW_SCALES in turn; ``rows="ties"`` puts x on a grid of 1/4 with a
+    silent stretch in each row and w on a grid of 1/8, so that every sum is
+    exact in any order and phases tie exactly."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, T, 1, generator=g) * 0.3
+    params = list(block0_train_inputs(seed, B, T, c))
+    if rows == "scaled":
+        x = scaled_rows(x)
+    elif rows == "ties":
+        x = torch.round(x * 4) / 4
+        x[:, T // 4:T // 4 + 200] = 0.0
+        params[0] = torch.round(params[0] * 8) / 8
+    return (x.to(DEVICE), *params)
+
+
+def check_block0_train_f32(x: torch.Tensor, params: tuple) -> tuple[list, dict]:
+    """B4 and B5's f32 route (CUDA cores) against their plain versions: a_sel
+    and the count equal, stats, dW and db to TRAIN_REL_TOL."""
     B, T = x.shape[0], x.shape[1]
-    w, b, sgn, cot, c0, c1, c2 = block0_train_inputs(seed, B, T, c)
+    w, b, sgn, cot, c0, c1, c2 = params
+    dt = torch.float32
+    c = w.shape[2]
     got = conv_block0_train(x, w, b, sgn, 4, dt, dt)
     want = conv_block0_train_reference(x, w, b, sgn, 4, dt, dt)
     checks = [check_exact("conv_block0_train", got[0], want[0], (B, T // 4, c))]
@@ -1243,9 +1302,81 @@ def check_block0_train(x: torch.Tensor, seed: int, c: int, dt) -> tuple[list, di
     want_dw, want_db = conv_block0_train_bwd_reference(x, w, b, sgn, cot, c0, c1, c2, 4, dt)
     checks += [check_rel("conv_block0_train_bwd", dw, want_dw, TRAIN_REL_TOL),
                check_rel("conv_block0_train_bwd", db, want_db, TRAIN_REL_TOL)]
-    errors = {"conv_block0_train": max(checks[0]["max_abs_err"], checks[1]["max_abs_err"],
-                                       checks[2]["max_abs_err"]),
-              "conv_block0_train_bwd": max(checks[3]["max_abs_err"], checks[4]["max_abs_err"])}
+    for ch in checks:
+        ch.update(route="float32 GEMM", B=B)
+    errors = {"conv_block0_train_f32": max(ch["max_abs_err"] for ch in checks[:3]),
+              "conv_block0_train_bwd_f32": max(ch["max_abs_err"] for ch in checks[3:])}
+    return checks, errors
+
+
+def check_block0_train(x: torch.Tensor, params: tuple, rows: str = "plain") -> tuple[list, dict]:
+    """B4 and B5 on the tensor cores (bf16 GEMM) against their plain
+    versions, each to its stated tolerance (B45_MIN_COSINE above), and B5's
+    recomputed selection against B4's a_sel bit for bit."""
+    B, T = x.shape[0], x.shape[1]
+    w, b, sgn, cot, c0, c1, c2 = params
+    c = w.shape[2]
+    shape = (B, T // 4, c)
+    bf = torch.bfloat16
+    got = conv_block0_train(x, w, b, sgn, 4, bf, torch.float32)
+    gotb = conv_block0_train(x, w, b, sgn, 4, bf, bf)
+    want = conv_block0_train_reference(x, w, b, sgn, 4, bf, torch.float32)
+    wantb = conv_block0_train_reference(x, w, b, sgn, 4, bf, bf)
+    torch.cuda.synchronize()
+    for out, dt in ((got[0], torch.float32), (gotb[0], bf)):
+        if tuple(out.shape) != shape or out.dtype != dt:
+            raise AssertionError(f"conv_block0_train {shape}: {tuple(out.shape)} {out.dtype}")
+    if not all(torch.equal(u, v) for u, v in zip(got[1:], gotb[1:])):
+        raise AssertionError("conv_block0_train: the statistics differ between two launches")
+    tiny = torch.full((), 1e-30, dtype=torch.float64, device=x.device)
+    bnd = block0_train_tc.sel_bound(x, w, b, want[0])
+    diff = (got[0] - want[0]).abs()
+    ratio = float((diff / torch.maximum(bnd, tiny)).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"conv_block0_train {shape} f32 a_sel: {ratio} of its order bound")
+    tolb = (1 + B2_BF16_REL) * bnd + B2_BF16_REL * want[0].abs().double()
+    ratio_b = float(((gotb[0].float() - want[0]).abs() / torch.maximum(tolb, tiny)).max())
+    cos = min_cosine(gotb[0].reshape(B, -1).float(), wantb[0].reshape(B, -1).float())
+    if not (ratio_b <= 1.0 and cos >= B45_MIN_COSINE):
+        raise AssertionError(f"conv_block0_train {shape} bf16 a_sel: {ratio_b} of its bound, "
+                             f"row cosine {cos}")
+    z, zb = block0_train_tc.preactivation(x, w, b)
+    relu = block0_train_tc.relu_flips(got[3], want[3], z, zb)
+    stats = [check_rel("conv_block0_train", g_, w_, TRAIN_REL_TOL)
+             for g_, w_ in zip(got[1:3], want[1:3])]
+    dw, db = conv_block0_train_bwd(x, w, b, sgn, cot, c0, c1, c2, 4, bf)
+    sdw, sdb, ssel, route = conv_block0_train_bwd_stage(x, w, b, sgn, cot, c0, c1, c2)
+    want_dw, want_db = conv_block0_train_bwd_reference(x, w, b, sgn, cot, c0, c1, c2, 4, bf)
+    grads = [check_rel("conv_block0_train_bwd", dw, want_dw, TRAIN_REL_TOL),
+             check_rel("conv_block0_train_bwd", db, want_db, TRAIN_REL_TOL)]
+    if not (torch.equal(ssel, got[0]) and torch.equal(sdw, dw) and torch.equal(sdb, db)):
+        raise AssertionError(f"conv_block0_train_bwd_stage {shape}: B5's recomputed selection "
+                             f"is not B4's a_sel bit for bit, or its dW, db not B5's")
+    routes = block0_train_tc.route_flips(route, z, zb, sgn)
+    del z, zb
+    base = {"route": "tensor cores", "B": B, "rows": rows}
+    checks = [{**base, "kernel": "conv_block0_train", "shape": list(shape), "dtype": "float32",
+               "max_abs_err": float(diff.max()), "err_over_bound": ratio,
+               "tolerance": "|err| <= u*(4*K*(S+|bias|) + 4*|ref|), u = 2^-24, K = 32, "
+                            "S = sum|x*w| of the larger phase"},
+              {**base, "kernel": "conv_block0_train", "shape": list(shape), "dtype": "bfloat16",
+               "max_abs_err": float((gotb[0].float() - wantb[0].float()).abs().max()),
+               "err_over_bound": ratio_b, "min_row_cosine": cos,
+               "max_ulps_vs_plain_bf16": bf16_ulps(gotb[0], wantb[0]),
+               "tolerance": f"|out - ref_f32| <= (1 + 2^-8)*bound + 2^-8*|ref_f32|; row cosine "
+                            f">= {B45_MIN_COSINE}"},
+              {**base, "kernel": "conv_block0_train", "shape": [c], "dtype": "count",
+               "max_abs_err": float((got[3] - want[3]).abs().max()), "flips": relu,
+               "tolerance": "#(a > 0) differs only by pre-activations within their bound "
+                            "of 0"},
+              *({**base, **ch} for ch in stats + grads),
+              {**base, "kernel": "conv_block0_train_bwd_stage", "shape": list(shape),
+               "max_abs_err": 0.0, "route_flips": routes,
+               "tolerance": "selection equal to B4's f32 a_sel bit for bit; routes differ "
+                            "only where two phases tie within their bounds"}]
+    errors = {"conv_block0_train": max(float(diff.max()), stats[0]["max_abs_err"],
+                                       stats[1]["max_abs_err"]),
+              "conv_block0_train_bwd": max(ch["max_abs_err"] for ch in grads)}
     return checks, errors
 
 
@@ -1274,16 +1405,22 @@ def check_routing(seed: int, B: int, c: int, T: int, pool: int, dt,
 
 
 def check_train_kernels(store, idx, offsets) -> dict:
-    """B4/B5 at the train step's shape and at edges (B=3 with T/4 = 250, not
-    a multiple of the 128-output tile; f32 at C=72); B7 at the three block
-    shapes of the train step and at ROUTING_EDGES, bf16 and f32."""
+    """B4/B5 on the tensor cores at the train step's shape and at
+    B45_EDGES, their f32 route at B45_F32_EDGE; B7 at the three block shapes
+    of the train step and at ROUTING_EDGES, bf16 and f32; the launch
+    counters read around the phase (B4's and B5's f32 route runs only
+    here)."""
+    reset_counts()
     x = gather_whiten(store, idx[:TRAIN_BATCH], offsets[:TRAIN_BATCH], FRAG)[..., None]
-    checks, errors = check_block0_train(x, 10, TRAIN_C0, torch.bfloat16)
+    checks, errors = check_block0_train(x, block0_train_inputs(10, TRAIN_BATCH, FRAG, TRAIN_C0))
     del x
-    g = torch.Generator().manual_seed(11)
-    for B, T, c, dt in ((3, 1000, TRAIN_C0, torch.bfloat16), (2, 4100, 72, torch.float32)):
-        xe = (torch.randn(B, T, 1, generator=g) * 0.05).to(DEVICE)
-        checks += check_block0_train(xe, B + T, c, dt)[0]
+    for B, T, c, rows in B45_EDGES:
+        xe, *params = b45_edge_inputs(B + T + c, B, T, c, rows)
+        checks += check_block0_train(xe, tuple(params), rows)[0]
+    xe, *params = b45_edge_inputs(11, *B45_F32_EDGE, "plain")
+    ch, err = check_block0_train_f32(xe, tuple(params))
+    checks += ch
+    errors.update(err)
     for i, (c, T) in enumerate(TRAIN_BLOCKS):
         ch, err = check_routing(20 + i, TRAIN_BATCH, c, T, 2, torch.bfloat16)
         checks += ch
@@ -1291,8 +1428,9 @@ def check_train_kernels(store, idx, offsets) -> dict:
             errors[k] = max(errors.get(k, 0.0), v)
     for B, c, T, pool, dt, rows in ROUTING_EDGES:
         checks += check_routing(B + c + T, B, c, T, pool, dt, rows)[0]
-    emit({"phase": "train_kernels", "checks": checks})
-    return {"errors": errors}
+    launches = read_counts()
+    emit({"phase": "train_kernels", "checks": checks, "launches": launches})
+    return {"errors": errors, "launches": launches}
 
 
 @contextlib.contextmanager
@@ -1474,31 +1612,69 @@ def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -
     line); the train step at each batch of TRAIN_TIMING_BATCHES under both
     blocks-1+ policies."""
     B, T, c = TRAIN_BATCH, FRAG, TRAIN_C0
-    x = gather_whiten(store, idx[:B], offsets[:B], FRAG)[..., None]
-    w, b, sgn, cot, c0, c1, c2 = block0_train_inputs(30, B, T, c)
-    fwd, bwd = (x, w, b, sgn), (x, w, b, sgn, cot, c0, c1, c2)
-    ms = {"conv_block0_train": time_fn(conv_block0_train, *fwd, iters=50)["mean_s"] * 1e3,
-          "conv_block0_train_bwd": time_fn(conv_block0_train_bwd, *bwd,
-                                           iters=50)["mean_s"] * 1e3}
-    plain_ms = {
-        "conv_block0_train": time_fn(conv_block0_train_reference, *fwd, iters=3,
-                                     warmup=1)["mean_s"] * 1e3,
-        "conv_block0_train_bwd": time_fn(conv_block0_train_bwd_reference, *bwd, iters=3,
-                                         warmup=1)["mean_s"] * 1e3}
-    conv_ops = 2.0 * B * T * c * 32
-    pooled = B * (T // 4) * c
-    bounds = {"conv_block0_train": bound(B * T * 4 + 32 * c * 4 + pooled * 2 + 3 * c * 4,
-                                         conv_ops, BF16_OPS_PER_S),
-              "conv_block0_train_bwd": bound(B * T * 4 + 32 * c * 4 + pooled * 4 + 33 * c * 4,
-                                             2 * conv_ops, BF16_OPS_PER_S)}
-    # Library yardstick for B5: cuDNN's weight gradient of the same conv from a
-    # materialized full-rate dz, GEMM only (no recompute, routing or db).
-    dz = torch.randn(B, c, T, device=DEVICE).to(torch.bfloat16)
-    xp = torch.nn.functional.pad(x[..., 0].to(torch.bfloat16)[:, None, :], (15, 16))
-    library_ms = {"conv_block0_train": None, "pool_fwd": None, "route_bwd": None,
-                  "conv_block0_train_bwd": time_fn(torch.nn.grad.conv1d_weight, xp, (c, 1, 32),
-                                                   dz, iters=20)["mean_s"] * 1e3}
-    del dz, xp, x
+    ms, plain_ms, bounds, library_ms, b45 = {}, {}, {}, {}, []
+    f32 = torch.float32
+    for bt in TRAIN_TIMING_BATCHES:
+        x = gather_whiten(store, idx[:bt], offsets[:bt], FRAG)[..., None]
+        w, b, sgn, _, c0, c1, c2 = block0_train_inputs(30, 1, T, c)
+        cot = torch.randn(bt, T // 4, c, generator=torch.Generator(device=DEVICE).manual_seed(31),
+                          device=DEVICE)
+        fwd, bwd = (x, w, b, sgn), (x, w, b, sgn, cot, c0, c1, c2)
+        iters = 50 if bt <= 256 else 10
+        conv_ops = 2.0 * bt * T * c * 32
+        pooled = bt * (T // 4) * c
+        # Bytes: x, w, a_sel (bf16; f32 route f32), the statistics; x, w, g in
+        # f32, dW and db. Operations: the conv (B5: and the dW product) at the
+        # bf16 tensor-core rate; the f32 route's at the f32 CUDA-core rate.
+        row = {"batch": bt, "bound": {
+            "conv_block0_train": bound(bt * T * 4 + 32 * c * 4 + pooled * 2 + 3 * c * 4,
+                                       conv_ops, BF16_OPS_PER_S),
+            "conv_block0_train_bwd": bound(bt * T * 4 + 32 * c * 4 + pooled * 4 + 33 * c * 4,
+                                           2 * conv_ops, BF16_OPS_PER_S),
+            "conv_block0_train_f32": bound(bt * T * 4 + 32 * c * 4 + pooled * 4 + 3 * c * 4,
+                                           conv_ops, F32_OPS_PER_S),
+            "conv_block0_train_bwd_f32": bound(bt * T * 4 + 32 * c * 4 + pooled * 4
+                                               + 33 * c * 4, 2 * conv_ops, F32_OPS_PER_S)}}
+        # queued: the device's time alone (at B=32 a call's host work outlasts
+        # it, and back to back the span times the host)
+        for name, fn, args in (("conv_block0_train", conv_block0_train, fwd),
+                               ("conv_block0_train_bwd", conv_block0_train_bwd, bwd),
+                               ("conv_block0_train_f32", conv_block0_train, (*fwd, 4, f32, f32)),
+                               ("conv_block0_train_bwd_f32", conv_block0_train_bwd,
+                                (*bwd, 4, f32))):
+            n = iters if "f32" not in name else max(3, iters // 5)
+            row[f"{name}_ms"] = time_fn(fn, *args, iters=n, queued=True)["mean_s"] * 1e3
+            row[f"{name}_back_to_back_ms"] = time_fn(fn, *args, iters=n)["mean_s"] * 1e3
+            row[f"{name}_bound_share"] = row["bound"][name]["bound_ms"] / row[f"{name}_ms"]
+        # Library yardstick for B5: cuDNN's weight gradient of the same conv
+        # from a dz already materialized at full rate, the GEMM alone (no
+        # recompute, routing, dz or db): less work than B5.
+        dz = torch.randn(bt, c, T, device=DEVICE).to(torch.bfloat16)
+        xp = torch.nn.functional.pad(x[..., 0].to(torch.bfloat16)[:, None, :], (15, 16))
+        row["conv1d_weight_bf16_ms"] = time_fn(torch.nn.grad.conv1d_weight, xp, (c, 1, 32), dz,
+                                               iters=iters)["mean_s"] * 1e3
+        row["conv1d_weight_f32_ms"] = time_fn(torch.nn.grad.conv1d_weight, xp.float(),
+                                              (c, 1, 32), dz.float(),
+                                              iters=max(3, iters // 5))["mean_s"] * 1e3
+        del dz, xp
+        if bt == B:
+            for name, ref, args in (("conv_block0_train", conv_block0_train_reference, fwd),
+                                    ("conv_block0_train_bwd", conv_block0_train_bwd_reference,
+                                     bwd),
+                                    ("conv_block0_train_f32", conv_block0_train_reference,
+                                     (*fwd, 4, f32, f32)),
+                                    ("conv_block0_train_bwd_f32",
+                                     conv_block0_train_bwd_reference, (*bwd, 4, f32))):
+                plain_ms[name] = time_fn(ref, *args, iters=3, warmup=1)["mean_s"] * 1e3
+                ms[name] = row[f"{name}_ms"]
+                bounds[name] = row["bound"][name]
+            library_ms.update(conv_block0_train=None, conv_block0_train_f32=None,
+                              conv_block0_train_bwd=row["conv1d_weight_bf16_ms"],
+                              conv_block0_train_bwd_f32=row["conv1d_weight_f32_ms"])
+        b45.append(row)
+        del x, cot, fwd, bwd
+        torch.cuda.empty_cache()
+    library_ms.update(pool_fwd=None, route_bwd=None)
     blocks = []
     big = TRAIN_TIMING_BATCHES[-1]
     for bt in (B, big):  # the train step's batch, then B=2048 (kernels and bounds only)
@@ -1580,8 +1756,10 @@ def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -
     emit({"phase": "train_timing", "card": card, "kernel_ms": ms, "plain_ms": plain_ms,
           "bound": bounds, "library_ms": library_ms,
           "library": {"conv_block0_train_bwd": "torch.nn.grad.conv1d_weight on a "
-                      "materialized bf16 (B, C, T) dz, GEMM only"},
-          "routing_blocks": blocks, "train_step_turns": step_rows,
+                      "materialized bf16 (B, C, T) dz, the weight-gradient GEMM alone: less "
+                      "work than B5 (no recompute, routing, dz or db)",
+                      "conv_block0_train_bwd_f32": "the same call in f32 (TF32 off)"},
+          "block0_batches": b45, "routing_blocks": blocks, "train_step_turns": step_rows,
           "train_step": summary})
     return {"ms": ms, "plain_ms": plain_ms, "bounds": bounds, "library_ms": library_ms}
 
@@ -2228,10 +2406,11 @@ def main(argv=None) -> int:
     # int8_slice, train_slice, attribution, mel_bf16_slice, mel_int8_slice,
     # siamese_bf16_slice, siamese_int8_slice, verification, score_support and
     # siamese_train_slice), set to 0 just before each run and read just after;
-    # for the two kernels no path runs (B2's f32 GEMM, B6's DFT route), the
-    # count of the check phase that ran them. On the mel paths the DFT route
+    # for the kernels no path runs (B2's, B4's and B5's f32 GEMM, B6's DFT
+    # route), the count of the check phase that ran them. On the mel paths the DFT route
     # launched nothing, so B6's count there is the FFT kernel's.
-    paths = {"kernels": checked["launches"], "mel_kernels": checked_mel["launches"],
+    paths = {"kernels": checked["launches"], "train_kernels": checked_train["launches"],
+             "mel_kernels": checked_mel["launches"],
              "bf16": sliced["launches"], "int8": sliced_int8["launches"],
              "attribution": attributed["launches"],
              "train": trained["launches"], "mel_bf16": mel["mel_bf16"],
@@ -2249,6 +2428,8 @@ def main(argv=None) -> int:
                ("quant_block", "quant_block", ("int8", "siamese_int8")),
                ("conv_block0_train", "conv_block0_train", train_paths),
                ("conv_block0_train_bwd", "conv_block0_train_bwd", train_paths),
+               ("conv_block0_train_f32", "conv_block0_train_f32", ("train_kernels",)),
+               ("conv_block0_train_bwd_f32", "conv_block0_train_bwd_f32", ("train_kernels",)),
                ("pool_fwd", "pool_fwd", train_paths),
                ("route_bwd", "route_bwd", train_paths),
                ("log_mel", "log_mel", ("mel_bf16", "mel_int8")),

@@ -79,8 +79,8 @@ def on_the_cpu(monkeypatch):
     monkeypatch.setattr(steps, "resolve_blockn", lambda cfg, device: (
         "jnp" if cfg.train.use_fused_blockn is False else "fused"))
     # The plain versions count as launches where the wrappers call them, on
-    # the counter of the kernel the card would launch: B2's f32-GEMM kernel
-    # for a float32 GEMM, B6's DFT route for an n_fft it takes.
+    # the counter of the kernel the card would launch: B2's, B4's and B5's
+    # f32-GEMM kernels for a float32 GEMM, B6's DFT route for an n_fft it takes.
     block0_ref, mel_ref = cuda_conv.conv_block0_reference, cuda_melspec.log_mel_reference
 
     def block0_counted(*a, **k):
@@ -97,8 +97,31 @@ def on_the_cpu(monkeypatch):
             cuda_melspec.log_mel.dft_launches += 1
         return mel_ref(x, cfg, sr)
 
+    train_ref = cuda_conv_train.conv_block0_train_reference
+    train_bwd_ref = cuda_conv_train.conv_block0_train_bwd_reference
+
+    def train_counted(*a, **k):  # B4: the f32 route for a float32 GEMM
+        gemm = a[5] if len(a) > 5 else k.get("gemm_dtype", torch.bfloat16)
+        wrapper = cuda_conv_train.conv_block0_train
+        if gemm == torch.float32:
+            wrapper.f32_launches += 1
+        else:
+            wrapper.launches += 1
+        return train_ref(*a, **k)
+
+    def train_bwd_counted(*a, **k):  # B5, likewise
+        gemm = a[9] if len(a) > 9 else k.get("gemm_dtype", torch.bfloat16)
+        wrapper = cuda_conv_train.conv_block0_train_bwd
+        if gemm == torch.float32:
+            wrapper.f32_launches += 1
+        else:
+            wrapper.launches += 1
+        return train_bwd_ref(*a, **k)
+
     monkeypatch.setattr(cuda_conv, "conv_block0_reference", block0_counted)
     monkeypatch.setattr(cuda_melspec, "log_mel_reference", mel_counted)
+    monkeypatch.setattr(cuda_conv_train, "conv_block0_train_reference", train_counted)
+    monkeypatch.setattr(cuda_conv_train, "conv_block0_train_bwd_reference", train_bwd_counted)
     for mod, ref, wrapper in ((cuda_conv, "conv_blockn_reference", cuda_conv.conv_blockn),
                               (cuda_quant_block, "quant_block_stage_reference",
                                cuda_quant_block.quant_block_stage),
@@ -106,10 +129,6 @@ def on_the_cpu(monkeypatch):
                                cuda_preprocess.gather_whiten),
                               (cuda_quant_block, "quant_block_reference",
                                cuda_quant_block.quant_block),
-                              (cuda_conv_train, "conv_block0_train_reference",
-                               cuda_conv_train.conv_block0_train),
-                              (cuda_conv_train, "conv_block0_train_bwd_reference",
-                               cuda_conv_train.conv_block0_train_bwd),
                               (cuda_routing, "pool_fwd_reference", cuda_routing.pool_fwd),
                               (cuda_routing, "route_bwd_reference", cuda_routing.route_bwd),
                               (cuda_distance, "weighted_l1_reference",
@@ -215,6 +234,36 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
         (b, c) for b in (8, 8) for c, _ in cs.TRAIN_BLOCKS]
     assert all("route_bwd_plain_ms" in r for r in routing[:3])
     assert by_phase["train_layout"]["fused_step"]["layout_conversion_ms_per_batch"] == 0.0
+    # B4/B5 on the tensor cores at the train step's shape and B45_EDGES: a_sel
+    # in f32 within its order bound, in bf16 within it before its rounding,
+    # the count and the routing flipping only within the bound, B5's
+    # recomputed selection B4's bit for bit; the f32 route at its edge
+    train_checks = by_phase["train_kernels"]["checks"]
+    b45 = [c for c in train_checks if c.get("route") == "tensor cores"]
+    sel32 = [c for c in b45 if c.get("dtype") == "float32"]
+    assert [c["shape"] for c in sel32] == [[8, 100, 16]] + [
+        [B, T // 4, c] for B, T, c, _ in cs.B45_EDGES]
+    assert [c["rows"] for c in sel32][-2:] == ["scaled", "ties"]
+    assert all(c["err_over_bound"] <= 1.0 for c in b45 if "err_over_bound" in c)
+    assert all(c["min_row_cosine"] >= cs.B45_MIN_COSINE for c in b45 if "min_row_cosine" in c)
+    stage = [c for c in b45 if c["kernel"] == "conv_block0_train_bwd_stage"]
+    assert len(stage) == len(sel32) and all(c["route_flips"] >= 0 for c in stage)
+    assert all(c["flips"] >= 0 for c in b45 if c.get("dtype") == "count")
+    assert all(c["rel_err"] <= cs.TRAIN_REL_TOL for c in b45 if "rel_err" in c)
+    f32_route = [c for c in train_checks if c.get("route") == "float32 GEMM"]
+    assert [c["kernel"] for c in f32_route] == ["conv_block0_train"] * 3 + [
+        "conv_block0_train_bwd"] * 2
+    assert f32_route[0]["max_abs_err"] == 0.0
+    launches = by_phase["train_kernels"]["launches"]
+    assert launches["conv_block0_train_f32"] == launches["conv_block0_train_bwd_f32"] == 1
+    # B4 and B5 timed at both batches, both routes, queued and back to back
+    rows45 = by_phase["train_timing"]["block0_batches"]
+    assert [r["batch"] for r in rows45] == [4, 8]
+    for r in rows45:
+        for name in ("conv_block0_train", "conv_block0_train_bwd", "conv_block0_train_f32",
+                     "conv_block0_train_bwd_f32"):
+            assert {f"{name}_ms", f"{name}_back_to_back_ms", f"{name}_bound_share"} <= set(r)
+            assert r["bound"][name]["bound_by"] in ("bytes", "operations")
     b7 = [c for c in by_phase["train_kernels"]["checks"] if c["kernel"] == "route_bwd"][::2]
     assert [(c["B"], c["pool"], c["rows"]) for c in b7[3:]] == [
         (e[0], e[3], e[5]) for e in cs.ROUTING_EDGES]
@@ -322,7 +371,8 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert [k["name"] for k in kernels] == ["gather_whiten", "conv_block0",
                                             "conv_block0_int8", "conv_block0_f32",
                                             "quant_block", "conv_block0_train",
-                                            "conv_block0_train_bwd", "pool_fwd", "route_bwd",
+                                            "conv_block0_train_bwd", "conv_block0_train_f32",
+                                            "conv_block0_train_bwd_f32", "pool_fwd", "route_bwd",
                                             "log_mel", "log_mel_dft", "weighted_l1",
                                             "conv_blockn", "quant_block_stage"]
     for k in kernels:
@@ -345,6 +395,12 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert list(by_name["quant_block_stage"]["launches_by_path"]) == ["attribution"]
     assert by_name["quant_block_stage"]["max_abs_err"] == 0.0
     assert by_name["conv_block0_train_bwd"]["library_ms"] is not None
+    # B4's and B5's f32 route runs on no path: the train-kernels phase's count
+    for name in ("conv_block0_train_f32", "conv_block0_train_bwd_f32"):
+        assert by_name[name]["launches_by_path"] == {"train_kernels": 1}
+    assert by_name["conv_block0_train_bwd_f32"]["library_ms"] is not None
+    assert by_name["conv_block0_train"]["launches_by_path"] == {"train": steps_run,
+                                                                "siamese_train": steps_run}
     assert by_name["log_mel"]["launches_by_path"] == {"mel_bf16": 2, "mel_int8": 2}
     assert by_name["log_mel_dft"]["launches_by_path"] == {"mel_kernels": 2}
     assert by_name["conv_block0_f32"]["launches_by_path"] == {"kernels": 3}

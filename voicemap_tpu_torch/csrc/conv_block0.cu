@@ -40,6 +40,8 @@
 // - the packed weights (C rows of 32 taps, padded to 40 so that the B
 //   fragment loads miss each other's banks) and the epilogue's rows stay in
 //   shared memory for the CTA's life;
+// - the main loop (the window's two copies, the packed weights, the
+//   fragments, the mma) is block0_mma.cuh, shared with B4 and B5;
 // - a warp's unit is 8 pooled positions x 32 channels: 16 mma, then the
 //   epilogue in registers into the item's output tile in shared memory
 //   (rows padded by 16 bytes: the epilogue's writes miss each other's
@@ -73,6 +75,8 @@
 
 #include <algorithm>
 #include <cstdint>
+
+#include "block0_mma.cuh"
 
 namespace {
 
@@ -142,44 +146,18 @@ __global__ void conv_block0_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core route (gemm_dtype bf16): mma.sync m16n8k16, bf16 -> f32
+// The tensor-core route (gemm_dtype bf16): mma.sync m16n8k16, bf16 -> f32,
+// on the main loop of block0_mma.cuh
 // ---------------------------------------------------------------------------
 
-constexpr int kTcThreads = 128;
-constexpr int kTcWarps = kTcThreads / 32;
-constexpr int kTaps = 32;
-constexpr int kPadL = (kTaps - 1) / 2;
-constexpr int kWRow = 40;   // bf16 taps a channel row: 32 + 8 of padding
-constexpr int kSlice = 32;  // channels of a warp's unit
-constexpr int kGroup = 8;   // pooled positions of a warp's unit
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-constexpr int kMaxTile = 64;
-constexpr int kPrefetch = (4 * kMaxTile + kTaps + 1 + kTcThreads - 1) / kTcThreads;
-
-// A thread's share of an item's window (4·tile + 33 samples, zeros outside
-// [0, T)) into registers, issued one item ahead so its latency passes
-// under the current item's products.
-__device__ __forceinline__ void fetch_window(float* pre, const float* __restrict__ x, int item,
-                                             int n_tiles, int tile, int T, int window) {
-  const int b = item / n_tiles;
-  const long long t0 = 4LL * (item - b * n_tiles) * tile - kPadL;
-  const float* xrow = x + (long long)b * T;
-#pragma unroll
-  for (int k = 0; k < kPrefetch; ++k) {
-    const int i = threadIdx.x + k * kTcThreads;
-    const long long t = t0 + i;
-    pre[k] = (i <= window && t >= 0 && t < T) ? xrow[t] : 0.f;
-  }
-}
+using vm_block0::kGroup;
+using vm_block0::kMaxTile;
+using vm_block0::kPrefetch;
+using vm_block0::kSlice;
+using vm_block0::kTaps;
+using vm_block0::kWRow;
+constexpr int kTcThreads = vm_block0::kThreads;
+constexpr int kTcWarps = vm_block0::kWarps;
 
 __device__ __forceinline__ float block0_affine(float y, float bias, float mul, float add) {
   // Rounded op by op, never contracted into an FMA, as the plain version.
@@ -233,26 +211,22 @@ conv_block0_tc_kernel(const float* __restrict__ x, const __nv_bfloat16* __restri
   uint32_t bw[4][2][2];
   float ep[4][2][4];
   float pre[kPrefetch];
-  if (blockIdx.x < n_items) fetch_window(pre, x, blockIdx.x, n_tiles, tile, T, window);
+  if (blockIdx.x < n_items) {
+    const int b = blockIdx.x / n_tiles;
+    vm_block0::fetch_window(pre, x, b, (blockIdx.x - b * n_tiles) * tile, T, window);
+  }
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int b = item / n_tiles;
     const int p0 = (item - b * n_tiles) * tile;
     const int n_p = min(tile, t_out - p0);
-    // The window, rounded to bf16 once, as the plain version rounds x; the
-    // sync below also orders the last item's stores before this item's
+    // The sync below also orders the last item's stores before this item's
     // writes to the output tile.
-#pragma unroll
-    for (int k = 0; k < kPrefetch; ++k) {
-      const int i = threadIdx.x + k * kTcThreads;
-      if (i <= window) {
-        const __nv_bfloat16 v = __float2bfloat16(pre[k]);
-        if (i < window) xe[i] = v;
-        if (i > 0) xo[i - 1] = v;
-      }
-    }
+    vm_block0::store_window(pre, xe, xo, window);
     __syncthreads();
-    if (item + (int)gridDim.x < n_items)
-      fetch_window(pre, x, item + gridDim.x, n_tiles, tile, T, window);
+    if (item + (int)gridDim.x < n_items) {
+      const int nb = (item + gridDim.x) / n_tiles;
+      vm_block0::fetch_window(pre, x, nb, (item + gridDim.x - nb * n_tiles) * tile, T, window);
+    }
 
     // A warp's units: a contiguous run of (slice, group) pairs, slice-major,
     // the same run every item, so its slice changes at most a few times (at
@@ -267,15 +241,9 @@ conv_block0_tc_kernel(const float* __restrict__ x, const __nv_bfloat16* __restri
       if (grp * kGroup >= n_p) continue;  // warp-uniform
       if (slice != cur) {
         cur = slice;
+        vm_block0::load_b_fragments(ws, slice * kSlice, g, tq, bw);
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int n = slice * kSlice + nt * 8 + g;  // B column: channel n
-#pragma unroll
-          for (int s = 0; s < 2; ++s) {
-            const int wd = (n * kWRow + 16 * s + 2 * tq) >> 1;
-            bw[nt][s][0] = ws[wd];
-            bw[nt][s][1] = ws[wd + 4];
-          }
+        for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = slice * kSlice + nt * 8 + 2 * tq + e;
@@ -284,38 +252,10 @@ conv_block0_tc_kernel(const float* __restrict__ x, const __nv_bfloat16* __restri
             ep[nt][e][2] = affs[2 * c_pad + c];
             ep[nt][e][3] = affs[3 * c_pad + c];
           }
-        }
       }
       const int lp = grp * kGroup + g;  // this thread's pooled position
-      // A: rows g and g + 8 of m-tile mt are phases 2mt and 2mt + 1 of
-      // position lp (ops/block0_tc.phase_rows); element (row, k) is window
-      // sample 4·lp + j + k. Phase 2mt starts even (xe), 2mt + 1 odd, read
-      // from xo one sample earlier.
-      uint32_t a[2][2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          const int e = (4 * lp + 2 * mt + 16 * s + 2 * tq) >> 1;  // word of the even phase
-          a[mt][s][0] = xe32[e];
-          a[mt][s][1] = xo32[e];
-          a[mt][s][2] = xe32[e + 4];
-          a[mt][s][3] = xo32[e + 4];
-        }
       float acc[2][4][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          mma_bf16(acc[0][nt], a[0][s], bw[nt][s][0], bw[nt][s][1]);
-          mma_bf16(acc[1][nt], a[1][s], bw[nt][s][0], bw[nt][s][1]);
-        }
+      vm_block0::unit_products(xe32, xo32, lp, tq, bw, acc);
       // Epilogue in registers: accumulator (row g | g + 8, column 2tq + e)
       // of m-tile mt is phase 2mt | 2mt + 1 of channel 2tq + e. Pool first,
       // by the sign of mul: each rounded op of the affine is monotone in y

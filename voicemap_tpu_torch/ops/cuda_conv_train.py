@@ -27,8 +27,15 @@ counterpart here: both versions return ``dw (32, 1, C)`` directly.
 Layouts are the JAX package's: ``x (B, T, 1)`` f32, ``w (k, 1, C)``,
 ``a_sel`` and ``g`` ``(B, T/4, C)``. T must divide by 4 (the block-0 op falls
 back to the plain block otherwise). Dispatch is by the input's device: a CPU
-tensor takes the plain version, a CUDA tensor launches the kernel (k=32,
-pool 4, C ≤ 256), and a failed build or launch raises.
+tensor takes the plain version, a CUDA tensor launches a kernel (k=32,
+pool 4, C ≤ 256), and a failed build or launch raises. Each kernel has two
+routes, chosen by ``gemm_dtype``: a bf16 GEMM (the train step in bf16) runs
+on the tensor cores (``mma.sync``; host side ``ops/block0_train_tc``), whose
+f32 sums agree with the plain version to an order bound, counted on
+``launches``; a float32 GEMM runs on the CUDA cores, bit for bit the plain
+version, counted on ``f32_launches``. ``conv_block0_train_bwd_stage`` is B5's
+tensor-core kernel also writing what it recomputed (on no path: a check
+holds it to B4's ``a_sel``).
 """
 
 from __future__ import annotations
@@ -36,10 +43,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import block0_train_tc
+
 KERNEL_TAPS = 32
 KERNEL_POOL = 4
-MAX_CHANNELS = 256  # one thread per channel
-TILE = 128  # pooled outputs per tile, as in the kernel
+MAX_CHANNELS = 256  # the f32 route: one thread per channel
+TILE = 128  # pooled outputs per tile of the f32 route, as in its kernel
 MAX_CTAS = 1056  # fixed: every shape maps its tiles to CTAs the same way each run
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -110,8 +119,24 @@ def _check(name, x, w, pool, gemm_dtype, *params):
         raise ValueError(f"{name}: gemm_dtype must be float32 or bfloat16")
     if any(p.device != x.device for p in (w, *params)):
         raise ValueError(f"{name}: every tensor must lie on {x.device}")
-    tiles = B * -(-(T // pool) // TILE)
-    return x.contiguous(), w[:, 0, :].to(gemm_dtype).float().contiguous(), min(tiles, MAX_CTAS)
+    return x.contiguous()
+
+
+def _f32_ctas(B, T):
+    return min(B * -(-(T // KERNEL_POOL) // TILE), MAX_CTAS)
+
+
+def _tc_grid(name, x, c, kind, out_bytes=2):
+    """The tensor-core route's ``(tile, n_cps, CTAs)``; raises for a width
+    whose CTA does not fit shared memory."""
+    B, T = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tile, n_cps = block0_train_tc.grid(B, T, c, kind, sms)
+    need = block0_train_tc.smem_bytes(c, tile, kind, out_bytes)
+    if need > block0_train_tc.SMEM_LIMIT:
+        raise ValueError(f"{name}: C = {c} needs {need} bytes of shared memory a CTA, over "
+                         f"{block0_train_tc.SMEM_LIMIT}")
+    return tile, n_cps, n_cps * block0_train_tc.channel_groups(c)
 
 
 def conv_block0_train(x, w, b, sgn, pool: int = KERNEL_POOL, gemm_dtype=torch.bfloat16,
@@ -121,26 +146,87 @@ def conv_block0_train(x, w, b, sgn, pool: int = KERNEL_POOL, gemm_dtype=torch.bf
         return conv_block0_train_reference(x, w, b, sgn, pool, gemm_dtype, sel_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"conv_block0_train: no kernel for device {x.device}")
-    x2, wk, n_ctas = _check("conv_block0_train", x, w, pool, gemm_dtype, b, sgn)
+    x2 = _check("conv_block0_train", x, w, pool, gemm_dtype, b, sgn)
     if sel_dtype not in _DTYPES:
         raise ValueError("conv_block0_train: sel_dtype must be float32 or bfloat16")
     B, T = x2.shape
     c = w.shape[2]
+    tensor_cores = gemm_dtype == torch.bfloat16
+    sel_bf16 = int(sel_dtype == torch.bfloat16)
+    if tensor_cores:
+        tile, n_cps, n_ctas = _tc_grid("conv_block0_train", x2, c, "fwd", 2 if sel_bf16 else 4)
+    else:
+        n_ctas = _f32_ctas(B, T)
     sel = torch.empty((B, T // pool, c), dtype=sel_dtype, device=x.device)
     part = torch.empty((n_ctas, 3, c), dtype=torch.float32, device=x.device)
     stats = torch.empty((3, c), dtype=torch.float32, device=x.device)
-    bias, sg = b.float().contiguous(), sgn.float().contiguous()
     from .._build import check, library
 
+    bias, sg = b.float().contiguous(), sgn.float().contiguous()
     with torch.cuda.device(x.device):
-        err = library().vm_block0_train_fwd(
-            x2.data_ptr(), wk.data_ptr(), bias.data_ptr(), sg.data_ptr(), sel.data_ptr(),
-            part.data_ptr(), stats.data_ptr(), B, T, c, n_ctas,
-            int(gemm_dtype == torch.bfloat16), int(sel_dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    check(err, "conv_block0_train")
-    conv_block0_train.launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if tensor_cores:
+            wf = w.float()  # read in place, by its strides; the kernel packs it
+            err = library().vm_block0_train_tc_fwd(
+                x2.data_ptr(), wf.data_ptr(), wf.stride(0), wf.stride(2), bias.data_ptr(),
+                sg.data_ptr(), sel.data_ptr(), part.data_ptr(), stats.data_ptr(), B, T, c, tile,
+                n_cps, sel_bf16, stream)
+        else:
+            wk = w[:, 0, :].float().contiguous()
+            err = library().vm_block0_train_fwd(
+                x2.data_ptr(), wk.data_ptr(), bias.data_ptr(), sg.data_ptr(), sel.data_ptr(),
+                part.data_ptr(), stats.data_ptr(), B, T, c, n_ctas, sel_bf16, stream)
+    check(err, "conv_block0_train (" + ("tensor cores" if tensor_cores else "float32 GEMM") + ")")
+    if tensor_cores:
+        conv_block0_train.launches += 1
+    else:
+        conv_block0_train.f32_launches += 1
     return sel, stats[0], stats[1], stats[2]
+
+
+def _bwd_launch(name, x, w, b, sgn, g, c0, c1, c2, pool, gemm_dtype, stage: bool):
+    x2 = _check(name, x, w, pool, gemm_dtype, b, sgn, g, c0, c1, c2)
+    B, T = x2.shape
+    c = w.shape[2]
+    if g.shape != (B, T // pool, c):
+        raise ValueError(f"{name}: g must be {(B, T // pool, c)}, got {tuple(g.shape)}")
+    tensor_cores = gemm_dtype == torch.bfloat16
+    if stage and not tensor_cores:
+        raise ValueError(f"{name}: the stage entry is the tensor-core kernel's (bfloat16 GEMM)")
+    gf = g.float().contiguous()  # the kernels read g in f32 and round it themselves
+    if gf.data_ptr() % 16:  # an offset view: the tensor-core kernel reads pairs of floats
+        gf = gf.clone()
+    if tensor_cores:
+        tile, n_cps, n_ctas = _tc_grid(name, x2, c, "bwd")
+    else:
+        n_ctas = _f32_ctas(B, T)
+    part = torch.empty((n_ctas, KERNEL_TAPS + 1, c), dtype=torch.float32, device=x.device)
+    out = torch.empty((KERNEL_TAPS + 1, c), dtype=torch.float32, device=x.device)
+    staged = ()
+    from .._build import check, library
+
+    bias, sg = b.float().contiguous(), sgn.float().contiguous()
+    cs = [v.float().contiguous() for v in (c0, c1, c2)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if tensor_cores:
+            wf = w.float()  # read in place, by its strides; the kernel packs it
+            if stage:
+                staged = (torch.empty((B, T // pool, c), dtype=torch.float32, device=x.device),
+                          torch.empty((B, T // pool, c), dtype=torch.uint8, device=x.device))
+            sel_ptr, route_ptr = (t.data_ptr() for t in staged) if stage else (None, None)
+            err = library().vm_block0_train_tc_bwd(
+                x2.data_ptr(), wf.data_ptr(), wf.stride(0), wf.stride(2), bias.data_ptr(),
+                sg.data_ptr(), *(v.data_ptr() for v in cs), gf.data_ptr(), part.data_ptr(),
+                out.data_ptr(), sel_ptr, route_ptr, B, T, c, tile, n_cps, stream)
+        else:
+            wk = w[:, 0, :].float().contiguous()
+            cc = torch.stack(cs).contiguous()
+            err = library().vm_block0_train_bwd(
+                x2.data_ptr(), wk.data_ptr(), bias.data_ptr(), sg.data_ptr(), gf.data_ptr(),
+                cc.data_ptr(), part.data_ptr(), out.data_ptr(), B, T, c, n_ctas, stream)
+    check(err, f"{name} (" + ("tensor cores" if tensor_cores else "float32 GEMM") + ")")
+    return (out[:KERNEL_TAPS, None, :], out[KERNEL_TAPS], *staged), tensor_cores
 
 
 def conv_block0_train_bwd(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL,
@@ -150,29 +236,48 @@ def conv_block0_train_bwd(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL,
         return conv_block0_train_bwd_reference(x, w, b, sgn, g, c0, c1, c2, pool, gemm_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"conv_block0_train_bwd: no kernel for device {x.device}")
-    x2, wk, n_ctas = _check("conv_block0_train_bwd", x, w, pool, gemm_dtype, b, sgn, g,
-                            c0, c1, c2)
-    B, T = x2.shape
-    c = w.shape[2]
-    if g.shape != (B, T // pool, c):
-        raise ValueError(f"conv_block0_train_bwd: g must be {(B, T // pool, c)}, got "
-                         f"{tuple(g.shape)}")
-    gq = g.to(gemm_dtype).contiguous()
-    cc = torch.stack([c0.float(), c1.float(), c2.float()]).contiguous()
-    bias, sg = b.float().contiguous(), sgn.float().contiguous()
-    part = torch.empty((n_ctas, KERNEL_TAPS + 1, c), dtype=torch.float32, device=x.device)
-    out = torch.empty((KERNEL_TAPS + 1, c), dtype=torch.float32, device=x.device)
-    from .._build import check, library
-
-    with torch.cuda.device(x.device):
-        err = library().vm_block0_train_bwd(
-            x2.data_ptr(), wk.data_ptr(), bias.data_ptr(), sg.data_ptr(), gq.data_ptr(),
-            cc.data_ptr(), part.data_ptr(), out.data_ptr(), B, T, c, n_ctas,
-            int(gemm_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-    check(err, "conv_block0_train_bwd")
-    conv_block0_train_bwd.launches += 1
-    return out[:KERNEL_TAPS, None, :], out[KERNEL_TAPS]
+    out, tensor_cores = _bwd_launch("conv_block0_train_bwd", x, w, b, sgn, g, c0, c1, c2, pool,
+                                    gemm_dtype, stage=False)
+    if tensor_cores:
+        conv_block0_train_bwd.launches += 1
+    else:
+        conv_block0_train_bwd.f32_launches += 1
+    return out
 
 
-conv_block0_train.launches = 0  # kernel launches; the CPU path does not count
+def conv_block0_train_bwd_stage_reference(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL):
+    """Plain version of the stage entry: B5's ``(dw, db)`` (bf16 GEMM) and
+    what it recomputes, ``s·max_j(s·a_j)`` ``(B, T/pool, C)`` f32 and the
+    phase the cotangent is routed to, uint8."""
+    dw, db = conv_block0_train_bwd_reference(x, w, b, sgn, g, c0, c1, c2, pool)
+    a, _ = _activation(x, w, b, torch.bfloat16)
+    B, c, T = a.shape
+    sa = a.view(B, c, T // pool, pool) * sgn.float()[None, :, None, None]
+    best = sa.amax(-1)
+    eq = sa == best[..., None]
+    route = (eq & (eq.cumsum(-1) == 1)).float().argmax(-1)
+    sel = (best * sgn.float()[None, :, None]).transpose(1, 2).contiguous()
+    return dw, db, sel, route.to(torch.uint8).transpose(1, 2).contiguous()
+
+
+def conv_block0_train_bwd_stage(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL):
+    """B5's tensor-core kernel, also writing what it recomputed:
+    ``(dw, db, sel (B, T/pool, C) f32, route (B, T/pool, C) uint8)``. On no
+    path; ``chip_smoke.py`` holds ``sel`` to B4's f32 ``a_sel`` bit for bit."""
+    if x.device.type == "cpu":
+        return conv_block0_train_bwd_stage_reference(x, w, b, sgn, g, c0, c1, c2, pool)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_block0_train_bwd_stage: no kernel for device {x.device}")
+    out, _ = _bwd_launch("conv_block0_train_bwd_stage", x, w, b, sgn, g, c0, c1, c2, pool,
+                         torch.bfloat16, stage=True)
+    conv_block0_train_bwd_stage.launches += 1
+    return out
+
+
+# kernel launches; the CPU path does not count: the tensor-core kernels (a
+# bf16 GEMM) and the f32 CUDA-core kernels
+conv_block0_train.launches = 0
+conv_block0_train.f32_launches = 0
 conv_block0_train_bwd.launches = 0
+conv_block0_train_bwd.f32_launches = 0
+conv_block0_train_bwd_stage.launches = 0

@@ -1,8 +1,8 @@
 """Time B2, B8, B3 and B6 at config #1's and config #4's shapes on the GPU,
 through their wrappers; or, with ``--b7``, B7's two passes at the train
-step's blocks 1-3.
+step's blocks 1-3; or, with ``--b45``, B4 and B5 at the train step's block 0.
 
-    python3 -m voicemap_tpu_torch.utils.block_timing [--batch 2048] [--b7]
+    python3 -m voicemap_tpu_torch.utils.block_timing [--batch 2048] [--b7 | --b45]
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line:
 the mean ms of back-to-back launches (CUDA events) of ``conv_block0``
@@ -13,7 +13,10 @@ int8 out, bf16 at block 3) for each of blocks 1-3 and their sums, and of
 512, 64 mels). ``--b7``: the mean ms of ``pool_fwd`` and ``route_bwd``
 (bf16, pool 2; queued, the device's time alone, and back to back, which at
 small batches times the host) at each of config #1's blocks 1-3 conv outputs (C, T) =
-(256, 3000), (384, 1500), (512, 750) and their sums. A checkout whose B7
+(256, 3000), (384, 1500), (512, 750) and their sums. ``--b45``: the mean ms
+of ``conv_block0_train`` and ``conv_block0_train_bwd`` (bf16 GEMM and
+selection, the f32 cotangent as the train step hands it; queued and back to
+back) at config #1's block 0 (T = 12000, C = 128) at B = 32 and 2048. A checkout whose B7
 takes the relu activation channel first (before the bias and relu were
 folded into it) gets that activation, and the bias-and-relu pass its train
 op ran before B7 is timed beside it. It uses only the wrappers' public signatures, so the same
@@ -38,6 +41,9 @@ sys.path.insert(0, os.getcwd())
 
 from voicemap_tpu_torch.config import melspec_2d  # noqa: E402
 from voicemap_tpu_torch.ops.cuda_conv import conv_block0, conv_blockn  # noqa: E402
+from voicemap_tpu_torch.ops.cuda_conv_train import (  # noqa: E402
+    conv_block0_train, conv_block0_train_bwd,
+)
 from voicemap_tpu_torch.ops.cuda_melspec import log_mel  # noqa: E402
 from voicemap_tpu_torch.ops.cuda_quant_block import quant_block  # noqa: E402
 from voicemap_tpu_torch.ops.cuda_routing import pool_fwd, route_bwd  # noqa: E402
@@ -49,6 +55,7 @@ MEL_T = 48000  # config #4: 3 s at 16 kHz
 BN_EPS = 1e-3
 HOLD_CYCLES_PER_CALL = 400_000  # utils/profiling.py's
 TRAIN_BLOCKS = ((256, 3000), (384, 1500), (512, 750))  # B7: blocks 1-3's (C, T), pool 2
+B45_BATCHES = (32, 2048)  # B4/B5: the train step's batch and the large one
 
 
 def blockn_args(g: torch.Generator, B: int, T: int, cin: int, cout: int) -> tuple:
@@ -125,10 +132,34 @@ def time_b7(g: torch.Generator, batch: int) -> dict:
     return out
 
 
+def time_b45(g: torch.Generator) -> dict:
+    """B4 and B5 through their wrappers at config #1's block 0, bf16."""
+    T, c = BLOCK0
+    rows = []
+    for batch in B45_BATCHES:
+        x = torch.randn(batch, T, 1, generator=g, device="cuda") * 0.3
+        w = torch.randn(32, 1, c, generator=g, device="cuda") * 32 ** -0.5
+        b = torch.randn(c, generator=g, device="cuda") * 0.05
+        sgn = torch.where(torch.arange(c, device="cuda") % 3 == 1, -1.0, 1.0)
+        gp = torch.randn(batch, T // 4, c, generator=g, device="cuda")
+        cs = [torch.randn(c, generator=g, device="cuda") * s for s in (1.0, 0.1, 0.05)]
+        iters = 50 if batch <= 256 else 10
+        row = {"batch": batch}
+        for name, fn, args in (("b4", conv_block0_train, (x, w, b, sgn)),
+                               ("b5", conv_block0_train_bwd, (x, w, b, sgn, gp, *cs))):
+            row[f"{name}_ms"] = queued_ms(fn, *args, iters=iters)
+            row[f"{name}_back_to_back_ms"] = time_fn(fn, *args, iters=iters)["mean_s"] * 1e3
+        rows.append(row)
+        del x, gp
+        torch.cuda.empty_cache()
+    return {"b45": rows}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch", type=int, default=2048)
     parser.add_argument("--b7", action="store_true", help="time B7 alone")
+    parser.add_argument("--b45", action="store_true", help="time B4 and B5 alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("block_timing: no CUDA device", file=sys.stderr)
@@ -141,6 +172,9 @@ def main(argv=None) -> int:
         os.path.abspath(conv_blockn.__code__.co_filename))))
     if args.b7:
         print(json.dumps({"package": package, **time_b7(g, args.batch)}), flush=True)
+        return 0
+    if args.b45:
+        print(json.dumps({"package": package, **time_b45(g)}), flush=True)
         return 0
     T, c = BLOCK0
     x = torch.randn(args.batch, T, 1, generator=g, device="cuda") * 0.3
