@@ -31,8 +31,12 @@ Each phase prints one JSON line; nothing here imports JAX.
    (bf16 out), #(a > 0) and B5's routing flipping only within the bound,
    the statistics, dW and db to 1e-4 of their largest value, B5's
    recomputed selection (its stage entry) equal to B4's a_sel bit for bit;
-   their f32 route (CUDA cores) at (2, 4100, 72) exactly as its plain
-   version; B7's pool and routing passes (on a raw conv output and its bias,
+   B5 at the inputs of seed 0's train step, its dW and db to 1e-4 against
+   the plain ones on the routes and relu masks B5 took, the flips counted;
+   their f32 route (the conv on the CUDA cores, B5's dW in 3xTF32 on the
+   tensor cores) at (2, 4100, 72) and at (48, 12000, 128), more tiles than
+   CTAs: a_sel and #(a > 0) exactly, the statistics, dW and db to 1e-4;
+   B7's pool and routing passes (on a raw conv output and its bias,
    channels last, the cotangent in f32) at the three config #1 block shapes
    of the train step and at ROUTING_EDGES (C = 67 with odd T/pool, pool 4
    in f32, B = 1, rows of very different scale, forced ties, pool 3, 257
@@ -82,8 +86,10 @@ Each phase prints one JSON line; nothing here imports JAX.
     against the rfft route) on 256 whitened 48000-sample fragments at
     config #4's geometry and at edge shapes (the librosa hop 160 / win 400,
     n_mels 32, B = 1 and 5, T = 47999 and 30001, one frame, n_fft 256 and
-    1024, a tone, a zero row, rows × 1e3 and 1e-3), its DFT kernel at n_fft
-    400, the launch counters read around the phase;
+    1024, a tone, a zero row, rows × 1e3 and 1e-3), its DFT kernel (3xTF32
+    on the tensor cores) at n_fft 400 with win 400 / hop 160 and win 320 /
+    hop 100, B = 1, 3, 5, T = 30001, at n_fft 255 with win 200, and on the
+    special rows, the launch counters read around the phase;
 11. mel slice — config #4 (``melspec_2d``: log-mel + 2D CNN, filters 128,
     embedding 64, 3 s at 16 kHz, downsampling 1) at full width from a
     flax-layout tree, the same 500 tasks over the same store in bf16 (B1 →
@@ -96,7 +102,8 @@ Each phase prints one JSON line; nothing here imports JAX.
 13. mel timing — B6 at B=2048 on both routes (config #4's FFT, the DFT at
     n_fft 400) beside its bound (the function's bytes and its rfft
     operations), the floors of the DFT-as-matmul algorithm at the TF32 and
-    f32 rates, its plain version and ``torch.stft`` (spectrum only); config
+    f32 rates and in 3xTF32, its plain version and ``torch.stft`` (spectrum
+    only); config
     #4 embed utt/s
     at B=2048, batch-1 latency and peak memory, in bf16 and in int8;
 14. siamese kernels — B9 against its plain version, bit for bit, at
@@ -170,8 +177,9 @@ from voicemap_tpu_torch.ops.cuda_distance import (
 )
 from voicemap_tpu_torch.ops.cuda_melspec import log_mel, log_mel_reference, log_mel_work
 from voicemap_tpu_torch.ops.cuda_conv_train import (
-    conv_block0_train, conv_block0_train_bwd, conv_block0_train_bwd_reference,
-    conv_block0_train_bwd_stage, conv_block0_train_reference,
+    bwd_dz, conv_block0_train, conv_block0_train_bwd, conv_block0_train_bwd_reference,
+    conv_block0_train_bwd_routed_reference, conv_block0_train_bwd_stage,
+    conv_block0_train_bwd_stage_reference, conv_block0_train_reference,
 )
 from voicemap_tpu_torch.ops.cuda_preprocess import (
     decimate_store, gather_whiten, gather_whiten_reference,
@@ -215,6 +223,9 @@ B2_WIDE = (70000, 64, 16)
 # boundary (row t < 0 or t >= T taken from the neighbouring row) shows.
 ROW_SCALES = (1.0, 1e3, 1e-3)
 SWEEP = (1, 8, 64, 256, 2048)
+# The synthetic store every slice serves and trains on: 40 speakers x 8
+# utterances of 3.5-6 s.
+SLICE_STORE = dict(n_speakers=40, utterances_per_speaker=8, min_seconds=3.5, max_seconds=6.0)
 # The train step of config #1: batch 32 of 12000 samples; block 0's width;
 # blocks 1-3's full-rate conv outputs (C, T), pool 2; train steps of the slice.
 TRAIN_BATCH = 32
@@ -231,8 +242,14 @@ TRAIN_TIMING_BATCHES = (32, 2048)
 B45_EDGES = ((3, 1000, 128, "plain"), (2, 1000, 72, "plain"), (2, 1000, 16, "plain"),
              (2, 1000, 256, "plain"), (1, 12000, 128, "plain"), (3, 1000, 128, "scaled"),
              (2, 1000, 72, "ties"))
-# The f32 route (CUDA cores) at an edge: C = 72, T/4 = 1025.
+# The f32 route at an edge: C = 72, T/4 = 1025; and at more tiles than
+# cuda_conv_train.MAX_CTAS (48 rows of 24 tiles: 1152), so that CTAs walk
+# several tiles and B5's dW accumulators carry across them before the fold.
 B45_F32_EDGE = (2, 4100, 72)
+B45_F32_WIDE = (48, 12000, 128)
+# The train step whose inputs B5's dW is held at on its own routes: the
+# step of utils/step_attrib.py (compare_plain_step) at this seed.
+B5_STEP_SEED = 0
 # B7's edges (B, C, T, pool, dtype, rows): C = 67 (no multiple of 8: one
 # channel a thread) with odd T/pool, pool 4 in f32 on both widths, B = 1,
 # rows × 1, 1e3, 1e-3, forced ties, pool 3 (the any-pool path on vectors),
@@ -249,7 +266,9 @@ ROUTING_EDGES = ((5, 67, 250, 2, torch.bfloat16, "plain"),
 MEL_FRAG = 48000
 # B6's edges (B, T, geometry): n_mels 32; T = 47999 and 30001, ending
 # mid-frame and mid-tile; the librosa hop 160 / win 400 at n_fft 512; one
-# frame; n_fft 256 and 1024 on the FFT route; n_fft 400 on the DFT route.
+# frame; n_fft 256 and 1024 on the FFT route; on the DFT route n_fft 400
+# (win 400 and hop 160; win 320 and hop 100; B = 1; B = 5 at T = 30001) and
+# the odd n_fft 255 with win 200 (128 bins: a second pass of 6 n8 tiles).
 MEL_EDGES = ((1, 48000, dict(n_mels=32)), (5, 47999, {}),
              (5, 48000, dict(hop_length=160, win_length=400)),
              (3, 47999, dict(hop_length=160, win_length=400, n_mels=32)),
@@ -257,7 +276,11 @@ MEL_EDGES = ((1, 48000, dict(n_mels=32)), (5, 47999, {}),
              (4, 48000, dict(n_fft=256, win_length=256, hop_length=128)),
              (2, 48000, dict(n_fft=1024, win_length=1024, hop_length=256)),
              (3, 48000, dict(n_fft=400, win_length=400, hop_length=160)),
-             (3, 47999, dict(n_fft=400, win_length=400, hop_length=160, n_mels=32)))
+             (3, 47999, dict(n_fft=400, win_length=400, hop_length=160, n_mels=32)),
+             (3, 48000, dict(n_fft=400, win_length=320, hop_length=100)),
+             (2, 48000, dict(n_fft=255, win_length=200)),
+             (1, 48000, dict(n_fft=400, win_length=400, hop_length=160)),
+             (5, 30001, dict(n_fft=400, win_length=400, hop_length=160)))
 # B6's DFT route at B=2048 in the timing phase: the librosa geometry.
 MEL_DFT = dict(n_fft=400, win_length=400, hop_length=160)
 # Config #2: B9's (T, nq, ns, D) at the timing shape, in the n-shot form of
@@ -409,10 +432,12 @@ def read_counts() -> dict:
             for name, (wrapper, counter, _, _) in KERNELS.items()}
 
 
-def bound(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
+def bound(bytes_moved: float, ops: float, ops_per_s: float, *more: tuple) -> dict:
     """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the peak rate for their type."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
+    memory rate and operations over the peak rate for their type, summed
+    over the kinds of operation (``more``: further ``(ops, ops_per_s)``)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / ops_per_s + sum(o / r for o, r in more)
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -794,8 +819,7 @@ def check_kernels(store, idx, offsets, params) -> dict:
 
 def run_slice(seed: int) -> dict:
     cfg = classifier_baseline()
-    host = synthetic_store(seed, n_speakers=40, utterances_per_speaker=8,
-                           min_seconds=3.5, max_seconds=6.0)
+    host = synthetic_store(seed, **SLICE_STORE)
     n_speakers = host.speaker_counts.shape[0]
     model = SpeakerClassifier(cfg.encoder, n_speakers, device=DEVICE)
     model.load_state_dict(from_flax(random_flax_variables(cfg.encoder, n_speakers, seed),
@@ -1285,8 +1309,9 @@ def b45_edge_inputs(seed: int, B: int, T: int, c: int, rows: str) -> tuple:
 
 
 def check_block0_train_f32(x: torch.Tensor, params: tuple) -> tuple[list, dict]:
-    """B4 and B5's f32 route (CUDA cores) against their plain versions: a_sel
-    and the count equal, stats, dW and db to TRAIN_REL_TOL."""
+    """B4 and B5's f32 route (the conv on the CUDA cores, B5's dW in 3xTF32
+    on the tensor cores) against their plain versions: a_sel and the count
+    equal, stats, dW and db to TRAIN_REL_TOL."""
     B, T = x.shape[0], x.shape[1]
     w, b, sgn, cot, c0, c1, c2 = params
     dt = torch.float32
@@ -1345,7 +1370,7 @@ def check_block0_train(x: torch.Tensor, params: tuple, rows: str = "plain") -> t
     stats = [check_rel("conv_block0_train", g_, w_, TRAIN_REL_TOL)
              for g_, w_ in zip(got[1:3], want[1:3])]
     dw, db = conv_block0_train_bwd(x, w, b, sgn, cot, c0, c1, c2, 4, bf)
-    sdw, sdb, ssel, route = conv_block0_train_bwd_stage(x, w, b, sgn, cot, c0, c1, c2)
+    sdw, sdb, ssel, route, _ = conv_block0_train_bwd_stage(x, w, b, sgn, cot, c0, c1, c2)
     want_dw, want_db = conv_block0_train_bwd_reference(x, w, b, sgn, cot, c0, c1, c2, 4, bf)
     grads = [check_rel("conv_block0_train_bwd", dw, want_dw, TRAIN_REL_TOL),
              check_rel("conv_block0_train_bwd", db, want_db, TRAIN_REL_TOL)]
@@ -1380,6 +1405,113 @@ def check_block0_train(x: torch.Tensor, params: tuple, rows: str = "plain") -> t
     return checks, errors
 
 
+def b5_step_inputs(seed: int) -> dict:
+    """B5's arguments in one classifier train step, the step of
+    ``compare_plain_step`` (and ``utils/step_attrib.py``) at ``seed``: the
+    seed's 40-speaker store, weights and batch. Two captures: with every
+    other train kernel plain (step_attrib's ``b5`` variants) and with the
+    kernels (its ``all``, the step check's), whose B4 and B7 hand B5 other
+    inputs."""
+    host = synthetic_store(seed, **SLICE_STORE)
+    cfg = train_config(seed)
+    store = device_store_for(cfg, host, DEVICE)
+    model, run = classifier_step(cfg, host, store, seed)
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    captured = {}
+    for upstream in ("plain", "kernels"):
+        seen = []
+        real = cuda_conv_train.conv_block0_train_bwd if upstream == "kernels" else \
+            conv_block0_train_bwd_reference
+
+        def record(*args, _real=real, **kw):
+            # copies: the optimizer step updates the weights in place after
+            seen.append((tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args),
+                         kw))
+            return _real(*args, **kw)
+
+        model.load_state_dict(snapshot)
+        with plain_kernels() if upstream == "plain" else contextlib.nullcontext():
+            saved = cuda_conv_train.conv_block0_train_bwd
+            # the wrapper counts its launches on whatever its module's name holds
+            record.__dict__.update(vars(conv_block0_train_bwd))
+            cuda_conv_train.conv_block0_train_bwd = record
+            try:
+                run(init_state(model, cfg.train.clipnorm, cfg.train.learning_rate))
+            finally:
+                cuda_conv_train.conv_block0_train_bwd = saved
+        if len(seen) != 1:
+            raise AssertionError(f"the step called B5 {len(seen)} times, want 1")
+        captured[upstream] = seen[0]
+    return captured
+
+
+def check_b5_step(seed: int) -> tuple[list, dict]:
+    """B5 (bf16 GEMM) at a train step's own inputs (both captures of
+    ``b5_step_inputs``): its dW and db to TRAIN_REL_TOL against the plain dW
+    and db on the routes and relu masks B5 itself took (its stage entry
+    reports them), the routing and relu flips against the plain version
+    counted and each within its bound, and the gap to the plain dW on the
+    plain version's own routes reported."""
+    records, worst = [], 0.0
+    for upstream, (args, kw) in b5_step_inputs(seed).items():
+        record = b5_step_case(args, kw)
+        record.update(seed=seed, upstream=upstream)
+        worst = max(worst, max(ch["max_abs_err"] for ch in record["checks"]))
+        records.append(record)
+    return records, {"conv_block0_train_bwd": worst}
+
+
+def dw_float64(x, w, b, sgn, g, c0, c1, c2, route, relu) -> torch.Tensor:
+    """B5's dW on given routes and relu masks with the products of the bf16
+    operands (exact in float64) summed in float64: the sum both orders
+    approximate."""
+    dz, xp = bwd_dz(x, w, b, sgn, g, c0, c1, c2, 4, torch.bfloat16, route, relu)
+    dzr, xp = dz.to(torch.bfloat16).double(), xp.double()
+    T = dz.shape[2]
+    return torch.stack([torch.einsum("bt,bct->c", xp[:, j:j + T], dzr)
+                        for j in range(w.shape[0])])[:, None, :]
+
+
+def b5_step_case(args: tuple, kw: dict) -> dict:
+    """One capture of ``check_b5_step``: B5 and its stage entry on ``args``,
+    held against the plain dW and db on B5's own routes and relu masks."""
+    x, w, b, sgn, g, c0, c1, c2 = args[:8]
+    gemm = args[9] if len(args) > 9 else kw.get("gemm_dtype", torch.bfloat16)
+    if gemm != torch.bfloat16:
+        raise AssertionError(f"the train step ran B5 with a {gemm} GEMM, want bfloat16")
+    dw, db = conv_block0_train_bwd(*args, **kw)
+    sdw, sdb, _, route, relu = conv_block0_train_bwd_stage(x, w, b, sgn, g, c0, c1, c2)
+    if not (torch.equal(sdw, dw) and torch.equal(sdb, db)):
+        raise AssertionError("conv_block0_train_bwd_stage: dW, db not B5's at the step inputs")
+    want_dw, want_db = conv_block0_train_bwd_reference(*args, **kw)
+    own_dw, own_db = conv_block0_train_bwd_routed_reference(x, w, b, sgn, g, c0, c1, c2,
+                                                            route, relu)
+    _, _, _, p_route, p_relu = conv_block0_train_bwd_stage_reference(x, w, b, sgn, g, c0, c1,
+                                                                       c2)
+    z, zb = block0_train_tc.preactivation(x, w, b)
+    routes = block0_train_tc.route_flips(route, z, zb, sgn)
+    B, c, T = z.shape
+    moved = torch.stack([((relu ^ p_relu) >> j) & 1 for j in range(4)], -1).bool()
+    near = (z.abs() <= zb).view(B, c, T // 4, 4).transpose(1, 2)
+    if bool((moved & ~near).any()):
+        raise AssertionError("B5's relu masks differ from the plain version's where no "
+                             "pre-activation lies within its bound of 0")
+    relus = int(moved.sum())
+    del z, zb, near, moved
+    exact = dw_float64(x, w, b, sgn, g, c0, c1, c2, route, relu)
+    grads = [check_rel("conv_block0_train_bwd", dw, own_dw, TRAIN_REL_TOL),
+             check_rel("conv_block0_train_bwd", db, own_db, TRAIN_REL_TOL)]
+    for ch, got, want in zip(grads, (dw, db), (want_dw, want_db)):
+        ch.update(route="tensor cores", B=B, rows="train step",
+                  reference="plain dW, db on B5's own routes and relu masks",
+                  rel_err_vs_plain_routes=rel_err(got, want))
+    grads[0].update(rel_err_vs_float64=rel_err(dw, exact),
+                    plain_rel_err_vs_float64=rel_err(own_dw, exact))
+    return {"kernel": "conv_block0_train_bwd", "case": "b5_step", "shape": list(g.shape),
+            "route_flips": routes, "relu_flips": relus,
+            "route_differs": int((route != p_route).sum()), "checks": grads}
+
+
 def check_routing(seed: int, B: int, c: int, T: int, pool: int, dt,
                   rows: str = "plain") -> tuple[list, dict]:
     """B7 forward and backward on a raw conv output and its bias against
@@ -1406,7 +1538,9 @@ def check_routing(seed: int, B: int, c: int, T: int, pool: int, dt,
 
 def check_train_kernels(store, idx, offsets) -> dict:
     """B4/B5 on the tensor cores at the train step's shape and at
-    B45_EDGES, their f32 route at B45_F32_EDGE; B7 at the three block shapes
+    B45_EDGES, B5 at the train step's own inputs on its own routes
+    (check_b5_step), their f32 route at B45_F32_EDGE and B45_F32_WIDE; B7 at
+    the three block shapes
     of the train step and at ROUTING_EDGES, bf16 and f32; the launch
     counters read around the phase (B4's and B5's f32 route runs only
     here)."""
@@ -1417,10 +1551,17 @@ def check_train_kernels(store, idx, offsets) -> dict:
     for B, T, c, rows in B45_EDGES:
         xe, *params = b45_edge_inputs(B + T + c, B, T, c, rows)
         checks += check_block0_train(xe, tuple(params), rows)[0]
-    xe, *params = b45_edge_inputs(11, *B45_F32_EDGE, "plain")
-    ch, err = check_block0_train_f32(xe, tuple(params))
-    checks += ch
-    errors.update(err)
+    step_cases, err = check_b5_step(B5_STEP_SEED)
+    checks += step_cases
+    errors["conv_block0_train_bwd"] = max(errors["conv_block0_train_bwd"],
+                                          err["conv_block0_train_bwd"])
+    for i, shape in enumerate((B45_F32_EDGE, B45_F32_WIDE)):
+        xe, *params = b45_edge_inputs(11 + i, *shape, "plain")
+        ch, err = check_block0_train_f32(xe, tuple(params))
+        checks += ch
+        for k, v in err.items():
+            errors[k] = max(errors.get(k, 0.0), v)
+        del xe, params
     for i, (c, T) in enumerate(TRAIN_BLOCKS):
         ch, err = check_routing(20 + i, TRAIN_BATCH, c, T, 2, torch.bfloat16)
         checks += ch
@@ -1505,9 +1646,10 @@ def held_steps(model, cfg, run, hold: bool = True) -> dict:
             "zero_grad": zero, "zero_grad_tolerance": STEP_ZERO_GRAD}
 
 
-def compare_plain_step(cfg, host, store, seed: int) -> dict:
-    """One classifier train step from fixed weights and a fixed batch,
-    through the kernels and through their plain versions (``held_steps``)."""
+def classifier_step(cfg, host, store, seed: int):
+    """``(model, run)``: config ``cfg``'s classifier with the seed's random
+    weights and ``run(state)``, one train step on a fixed batch drawn from
+    ``store`` with fixed dropout, both from ``seed``."""
     n = len(host.label_names)
     model = SpeakerClassifier(cfg.encoder, n, device=DEVICE)
     model.load_state_dict(from_flax(random_flax_variables(cfg.encoder, n, seed), cfg.encoder))
@@ -1520,6 +1662,13 @@ def compare_plain_step(cfg, host, store, seed: int) -> dict:
         drop = torch.Generator(device=DEVICE).manual_seed(seed + 1)
         return steps.train_on_batch(state, x, y, drop, loss_fn)[1]
 
+    return model, run
+
+
+def compare_plain_step(cfg, host, store, seed: int) -> dict:
+    """One classifier train step from fixed weights and a fixed batch,
+    through the kernels and through their plain versions (``held_steps``)."""
+    model, run = classifier_step(cfg, host, store, seed)
     return held_steps(model, cfg, run)
 
 
@@ -1531,15 +1680,21 @@ def check_channels_last_path(copies: int) -> None:
                              f"another layout than channels last and copied it")
 
 
+def train_config(seed: int):
+    """Config #1 at full width as the train slice runs it: batch 32,
+    TRAIN_STEPS steps, one evaluation of 500 tasks at the end."""
+    base = classifier_baseline()
+    return base.replace(train=dataclasses.replace(
+        base.train, batch_size=TRAIN_BATCH, num_steps=TRAIN_STEPS, evaluate_every=TRAIN_STEPS,
+        num_eval_tasks=500, seed=seed))
+
+
 def run_train_slice(sliced: dict, seed: int) -> dict:
     """``fit`` at full config #1 width, TRAIN_STEPS steps at batch 32, then
     one n-shot evaluation; the train launches are the counts read around
     ``fit`` less the evaluation's own."""
     host = sliced["host"]
-    base = classifier_baseline()
-    cfg = base.replace(train=dataclasses.replace(
-        base.train, batch_size=TRAIN_BATCH, num_steps=TRAIN_STEPS, evaluate_every=TRAIN_STEPS,
-        num_eval_tasks=500, seed=seed))
+    cfg = train_config(seed)
     losses, accs = [], []
 
     def on_step(i, m):
@@ -1625,7 +1780,9 @@ def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -
         pooled = bt * (T // 4) * c
         # Bytes: x, w, a_sel (bf16; f32 route f32), the statistics; x, w, g in
         # f32, dW and db. Operations: the conv (B5: and the dW product) at the
-        # bf16 tensor-core rate; the f32 route's at the f32 CUDA-core rate.
+        # bf16 tensor-core rate; the f32 route's conv at the f32 CUDA-core
+        # rate, and B5's dW product, three TF32 products a product (3xTF32),
+        # at the TF32 tensor-core rate.
         row = {"batch": bt, "bound": {
             "conv_block0_train": bound(bt * T * 4 + 32 * c * 4 + pooled * 2 + 3 * c * 4,
                                        conv_ops, BF16_OPS_PER_S),
@@ -1634,7 +1791,8 @@ def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -
             "conv_block0_train_f32": bound(bt * T * 4 + 32 * c * 4 + pooled * 4 + 3 * c * 4,
                                            conv_ops, F32_OPS_PER_S),
             "conv_block0_train_bwd_f32": bound(bt * T * 4 + 32 * c * 4 + pooled * 4
-                                               + 33 * c * 4, 2 * conv_ops, F32_OPS_PER_S)}}
+                                               + 33 * c * 4, conv_ops, F32_OPS_PER_S,
+                                               (3 * conv_ops, TF32_OPS_PER_S))}}
         # queued: the device's time alone (at B=32 a call's host work outlasts
         # it, and back to back the span times the host)
         for name, fn, args in (("conv_block0_train", conv_block0_train, fwd),
@@ -1956,7 +2114,8 @@ def run_mel_fidelity(raw, offsets, model, seed: int) -> dict:
 def time_log_mel(x: torch.Tensor, mel: MelConfig, sr: int) -> dict:
     """B6 on ``x`` beside its bound (the function's bytes against an rfft's
     operations at the f32 rate), the floors of the DFT-as-matmul algorithm
-    at the TF32 and f32 rates, its plain version and ``torch.stft``."""
+    at the TF32 and f32 rates and of its 3xTF32 form (three TF32 products a
+    product: the DFT route's), its plain version and ``torch.stft``."""
     B, T = x.shape
     work = log_mel_work(B, T, mel, sr)
     row = {"shape": list(x.shape), "n_fft": mel.n_fft, "hop": mel.hop_length,
@@ -1964,6 +2123,7 @@ def time_log_mel(x: torch.Tensor, mel: MelConfig, sr: int) -> dict:
            **bound(work["bytes"], work["ops"], F32_OPS_PER_S),
            "bytes": work["bytes"], "ops": work["ops"], "dft_ops": work["dft_ops"],
            "dft_tf32_ms": work["dft_ops"] / TF32_OPS_PER_S * 1e3,
+           "dft_tf32x3_ms": work["dft_tf32x3_ops"] / TF32_OPS_PER_S * 1e3,
            "dft_f32_ms": work["dft_ops"] / F32_OPS_PER_S * 1e3,
            "ms": time_fn(log_mel, x, mel, sr, iters=10, warmup=2)["mean_s"] * 1e3,
            "plain_ms": time_fn(in_chunks(log_mel_reference, x, mel, sr), iters=2,

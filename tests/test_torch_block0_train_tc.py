@@ -29,8 +29,8 @@ import torch
 from voicemap_tpu.ops.pallas_conv_train import pallas_bwd_core, pallas_fwd_core
 from voicemap_tpu_torch.ops import block0_tc, block0_train_tc as tc
 from voicemap_tpu_torch.ops.cuda_conv_train import (
-    _activation, conv_block0_train_bwd_reference, conv_block0_train_bwd_stage,
-    conv_block0_train_reference,
+    _activation, conv_block0_train_bwd_reference, conv_block0_train_bwd_routed_reference,
+    conv_block0_train_bwd_stage, conv_block0_train_reference,
 )
 
 
@@ -219,11 +219,20 @@ def test_route_flip_rule_takes_only_phases_that_tie_within_their_bounds():
 
 def test_plain_stage_recomputes_b4s_selection():
     x, w, b, sgn, g, c0, c1, c2 = inputs(3, 2, 1000, 72, ties=True)
-    dw, db, sel, route = conv_block0_train_bwd_stage(x, w, b, sgn, g, c0, c1, c2)
+    dw, db, sel, route, relu = conv_block0_train_bwd_stage(x, w, b, sgn, g, c0, c1, c2)
     want = conv_block0_train_reference(x, w, b, sgn, sel_dtype=torch.float32)[0]
     assert torch.equal(sel, want) and route.dtype == torch.uint8 and route.shape == want.shape
     dw_ref, db_ref = conv_block0_train_bwd_reference(x, w, b, sgn, g, c0, c1, c2)
     assert torch.equal(dw, dw_ref) and torch.equal(db, db_ref)
+    # relu bit j: phase j's a_j > 0; on its own routes and masks the routed
+    # plain dW is the plain dW bit for bit
+    a = _activation(x, w, b, torch.bfloat16)[0]
+    B, C, T = a.shape
+    bits = torch.stack([(relu >> j) & 1 for j in range(4)], -1).bool()
+    assert relu.dtype == torch.uint8 and torch.equal(
+        bits, (a.view(B, C, T // 4, 4) > 0).transpose(1, 2))
+    routed = conv_block0_train_bwd_routed_reference(x, w, b, sgn, g, c0, c1, c2, route, relu)
+    assert torch.equal(routed[0], dw_ref) and torch.equal(routed[1], db_ref)
     z, bound = tc.preactivation(x, w, b)
     assert tc.route_flips(route, z, bound, sgn) == 0
     # on the coarse grid phases tie: the route is the first of them

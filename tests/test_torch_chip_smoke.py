@@ -63,11 +63,18 @@ def on_the_cpu(monkeypatch):
                                        (2, 2400, dict(n_fft=1024, win_length=1024,
                                                       hop_length=256)),
                                        (3, 2400, dict(n_fft=400, win_length=400,
+                                                      hop_length=160)),
+                                       (3, 2400, dict(n_fft=400, win_length=320,
+                                                      hop_length=100)),
+                                       (2, 2400, dict(n_fft=255, win_length=200)),
+                                       (1, 2400, dict(n_fft=400, win_length=400,
+                                                      hop_length=160)),
+                                       (5, 1501, dict(n_fft=400, win_length=400,
                                                       hop_length=160)))),
                         ("B2_WIDE", (300, 64, 16)),
                         ("TRAIN_BATCH", 8), ("TRAIN_C0", 16), ("TRAIN_STEPS", 12),
                         ("TRAIN_BLOCKS", ((64, 100), (96, 50), (128, 24))),
-                        ("TRAIN_TIMING_BATCHES", (4, 8)),
+                        ("TRAIN_TIMING_BATCHES", (4, 8)), ("B45_F32_WIDE", (2, 1200, 16)),
                         ("siamese_config", lambda: small_siamese),
                         ("B9_TIMING", (1, 40, 36, 16)), ("B9_NSHOT", (50, 1, 5, 16)),
                         ("SIAMESE_PAIRS", 40), ("SIAMESE_BATCH", 8),
@@ -251,11 +258,20 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert all(c["flips"] >= 0 for c in b45 if c.get("dtype") == "count")
     assert all(c["rel_err"] <= cs.TRAIN_REL_TOL for c in b45 if "rel_err" in c)
     f32_route = [c for c in train_checks if c.get("route") == "float32 GEMM"]
-    assert [c["kernel"] for c in f32_route] == ["conv_block0_train"] * 3 + [
-        "conv_block0_train_bwd"] * 2
-    assert f32_route[0]["max_abs_err"] == 0.0
+    assert [c["kernel"] for c in f32_route] == (["conv_block0_train"] * 3 + [
+        "conv_block0_train_bwd"] * 2) * 2
+    assert [c["B"] for c in f32_route] == [2] * 10
+    assert f32_route[0]["max_abs_err"] == f32_route[5]["max_abs_err"] == 0.0
     launches = by_phase["train_kernels"]["launches"]
-    assert launches["conv_block0_train_f32"] == launches["conv_block0_train_bwd_f32"] == 1
+    assert launches["conv_block0_train_f32"] == launches["conv_block0_train_bwd_f32"] == 2
+    # B5 at the train step's own inputs, against the plain dW and db on its
+    # own routes and relu masks, the flips counted
+    step = [c for c in train_checks if c.get("case") == "b5_step"]
+    assert [(c["seed"], c["upstream"]) for c in step] == [(cs.B5_STEP_SEED, "plain"),
+                                                          (cs.B5_STEP_SEED, "kernels")]
+    for c in step:
+        assert c["shape"][0] == 8 and c["route_flips"] >= 0 and c["relu_flips"] >= 0
+        assert [ch["rel_err"] <= cs.TRAIN_REL_TOL for ch in c["checks"]] == [True, True]
     # B4 and B5 timed at both batches, both routes, queued and back to back
     rows45 = by_phase["train_timing"]["block0_batches"]
     assert [r["batch"] for r in rows45] == [4, 8]
@@ -278,15 +294,18 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     mel_checks = by_phase["mel_kernels"]["checks"]
     assert [c["shape"] for c in mel_checks] == [[512, 2400], [64, 2400], [1, 2400], [5, 2399],
                                                 [5, 2400], [2, 384], [2, 1501], [4, 2400],
-                                                [2, 2400], [3, 2400], [4, 2400], [4, 2400]]
+                                                [2, 2400], [3, 2400], [3, 2400], [2, 2400],
+                                                [1, 2400], [5, 1501], [4, 2400], [4, 2400]]
     assert all(c["max_abs_err"] <= cs.B6_ATOL for c in mel_checks[1:])
-    # n_fft 512, 256 and 1024 take the FFT kernel, n_fft 400 the DFT kernel
+    # n_fft 512, 256 and 1024 take the FFT kernel, n_fft 400 and 255 the DFT kernel
     assert [(c["n_fft"], c["route"]) for c in mel_checks[1:]] == (
-        [(512, "fft")] * 6 + [(256, "fft"), (1024, "fft"), (400, "dft"), (512, "fft"),
+        [(512, "fft")] * 6 + [(256, "fft"), (1024, "fft"), (400, "dft"), (400, "dft"),
+                              (255, "dft"), (400, "dft"), (400, "dft"), (512, "fft"),
                               (400, "dft")])
+    assert [(c["win"], c["hop"]) for c in mel_checks[10:12]] == [(320, 100), (200, 128)]
     assert mel_checks[1]["max_abs_err_vs_rfft_route"] <= cs.B6_ATOL
     assert mel_checks[-1]["rows"][:2] == ["tone 440 Hz", "zeros"]
-    assert by_phase["mel_kernels"]["launches"]["log_mel_dft"] == 2
+    assert by_phase["mel_kernels"]["launches"]["log_mel_dft"] == 6
     assert by_phase["mel_timing"]["log_mel_dft"]["route"] == "dft"
     assert by_phase["mel_timing"]["log_mel"]["route"] == "fft"
     # B2: the tensor-core kernel in f32, bf16 and int8 out and the f32-GEMM
@@ -306,6 +325,8 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     # an rfft's operations at the f32 rate take less than moving the bytes
     assert mel_timing["log_mel"]["bound_by"] == "bytes"
     assert mel_timing["log_mel"]["dft_f32_ms"] > mel_timing["log_mel"]["dft_tf32_ms"] > 0
+    assert mel_timing["log_mel_dft"]["dft_tf32x3_ms"] == pytest.approx(
+        3 * mel_timing["log_mel_dft"]["dft_tf32_ms"], rel=0.05)
     assert set(mel_timing["paths"]) == {"bf16", "int8"}
     for path in ("bf16", "int8"):
         assert {"utt_per_s_b2048", "batch1_p50_ms_events", "peak_mem_gb"} <= set(
@@ -397,12 +418,12 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert by_name["conv_block0_train_bwd"]["library_ms"] is not None
     # B4's and B5's f32 route runs on no path: the train-kernels phase's count
     for name in ("conv_block0_train_f32", "conv_block0_train_bwd_f32"):
-        assert by_name[name]["launches_by_path"] == {"train_kernels": 1}
+        assert by_name[name]["launches_by_path"] == {"train_kernels": 2}
     assert by_name["conv_block0_train_bwd_f32"]["library_ms"] is not None
     assert by_name["conv_block0_train"]["launches_by_path"] == {"train": steps_run,
                                                                 "siamese_train": steps_run}
     assert by_name["log_mel"]["launches_by_path"] == {"mel_bf16": 2, "mel_int8": 2}
-    assert by_name["log_mel_dft"]["launches_by_path"] == {"mel_kernels": 2}
+    assert by_name["log_mel_dft"]["launches_by_path"] == {"mel_kernels": 6}
     assert by_name["conv_block0_f32"]["launches_by_path"] == {"kernels": 3}
     assert by_name["conv_block0"]["library_ms"] is not None
     assert by_name["log_mel"]["library_ms"] is not None

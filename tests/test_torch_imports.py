@@ -58,7 +58,8 @@ def test_the_mel_modules_are_covered():
     for name in ("ops.melspec", "ops.cuda_melspec", "models.spectrogram"):
         assert f"voicemap_tpu_torch.{name}" in modules, name
     assert "log_mel.cu" in {p.name for p in _build.sources()}
-    assert "vm_log_mel" in _build.SIGNATURES
+    assert "tf32x3.cuh" in {p.name for p in _build.sources()}
+    assert {"vm_log_mel_tc", "vm_log_mel_fft"} <= set(_build.SIGNATURES)
 
 
 def test_the_siamese_modules_are_covered():

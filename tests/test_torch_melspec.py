@@ -20,7 +20,7 @@ from voicemap_tpu.config import MelConfig as JaxMelConfig
 from voicemap_tpu.ops import melspec as jmel
 from voicemap_tpu.ops.pallas_melspec import pallas_log_mel
 from voicemap_tpu_torch.config import MelConfig
-from voicemap_tpu_torch.ops import cuda_melspec, melspec
+from voicemap_tpu_torch.ops import cuda_melspec, mel_dft_tc, melspec
 
 SR = 16000
 LOGMEL_ATOL = 2e-5
@@ -106,21 +106,26 @@ def test_wrapper_refuses_short_input_and_other_dtypes():
 
 def test_kernel_constants_pack_the_bases_and_the_filter_bands():
     """The kernel's packed operands hold what the plain version multiplies:
-    [C | S] rows with zero columns past K, fbᵀ, and bands that cover every
-    nonzero of the filterbank."""
+    the DFT kernel's bases with bin k's C and S in columns 2k and 2k + 1 and
+    zero columns past 2K, and band weights that are the filterbank's
+    nonzero runs, bands that cover every nonzero of it."""
     cfg = MelConfig(hop_length=128, win_length=384)  # config #4's frontend
     c = cuda_melspec._constants(cfg, SR, torch.device("cpu"))
     K = cfg.n_fft // 2 + 1
-    cs = c["cs"].numpy()
-    assert cs.shape == (384, 2, cuda_melspec.KERNEL_MAX_FREQS)
-    np.testing.assert_array_equal(cs[:, 0, :K], c["C"].numpy())
-    np.testing.assert_array_equal(cs[:, 1, :K], c["S"].numpy())
-    assert not cs[:, :, K:].any()
+    cs = mel_dft_tc.interleaved(cfg)
+    assert cs.shape == (384, 520)  # 2K = 514 columns, padded to the n8 tile
+    np.testing.assert_array_equal(cs[:, 0:2 * K:2], c["C"].numpy())
+    np.testing.assert_array_equal(cs[:, 1:2 * K:2], c["S"].numpy())
+    assert not cs[:, 2 * K:].any()
     fb = c["fb"].numpy()
-    np.testing.assert_array_equal(c["fbt"].numpy(), fb.T)
-    lo, hi = c["bands"].numpy()
+    bw = mel_dft_tc.band_weights(cfg, SR)
+    lo, hi, off = bw["bands"][:3 * cfg.n_mels].reshape(3, cfg.n_mels)
     inside = (np.arange(K)[:, None] >= lo) & (np.arange(K)[:, None] < hi)
     assert not fb[~inside].any() and (fb[inside] > 0).all()
+    np.testing.assert_array_equal(bw["weights"], np.concatenate(
+        [fb[lo[m]:hi[m], m] for m in range(cfg.n_mels)]))
+    np.testing.assert_array_equal(off, np.concatenate([[0], np.cumsum(hi - lo)[:-1]]))
+    assert c["band_bins"] == bw["weights"].size == int((hi - lo).sum())
     work = cuda_melspec.log_mel_work(2048, 48000, cfg, SR)
     assert work["bytes"] == 4.0 * 2048 * 48000 + 4.0 * 2048 * 373 * 64
     # the function's least work: window, a 512-point real FFT (2.5·512·9),

@@ -35,6 +35,7 @@ from voicemap_tpu.train import steps as jsteps
 from voicemap_tpu.train.metrics import PlateauScheduler as JaxPlateau
 from voicemap_tpu_torch.config import DataConfig, EncoderConfig, ExperimentConfig, TrainConfig
 from voicemap_tpu_torch.data.store import synthetic_store
+from voicemap_tpu_torch.eval import nshot
 from voicemap_tpu_torch.models.classifier import SpeakerClassifier
 from voicemap_tpu_torch.models.convert import from_flax, to_flax
 from voicemap_tpu_torch.ops.sampling import sample_classifier_batch
@@ -238,6 +239,40 @@ def test_fit_logs_checkpoints_and_resumes(tmp_path, capsys, fused):
         == [2, 4, 6]
     steps_kept = sorted(p.stem for p in (tmp_path / "ckpt" / "latest").glob("*.pt"))
     assert steps_kept == ["2", "4", "6"]
+
+
+def test_resume_schedules_the_lr_as_the_reference(tmp_path, monkeypatch):
+    """After a resume, ``fit``'s lr at every evaluation is that of the JAX
+    ``PlateauScheduler`` built fresh from the restored lr and fed the same
+    accuracies, as the reference's ``fit`` builds it after
+    ``restore_latest``: the first run's best and bad count do not carry
+    over."""
+    seq = [0.5, 0.4, 0.3, 0.3, 0.3, 0.3]
+    accs = iter(seq)
+    monkeypatch.setattr(nshot, "evaluate", lambda *a, **k: next(accs))
+    store = synthetic_store(2, n_speakers=5, utterances_per_speaker=3, min_seconds=0.2,
+                            max_seconds=0.3)
+
+    def cfg(num_steps):
+        c = tiny_fit_config(tmp_path, num_steps, False)
+        return c.replace(train=dataclasses.replace(c.train, plateau_patience=2,
+                                                   plateau_factor=0.5))
+
+    with pytest.warns(UserWarning):
+        fit(cfg(4), store, device="cpu", verbose=False)  # evaluations at 2 and 4
+    blob = CheckpointManager(str(tmp_path / "ckpt")).load()
+    assert blob["step"] == 4 and blob["plateau"]["bad_count"] == 1
+    with pytest.warns(UserWarning):
+        _, hist = fit(cfg(12), store, device="cpu", verbose=False)  # at 6, 8, 10, 12
+    t = cfg(12).train
+    ref = JaxPlateau(blob["lr"], t.plateau_factor, t.plateau_patience, t.min_lr)
+    want = [ref.update(a) for a in seq[2:]]
+    assert [r["step"] for r in hist] == [6, 8, 10, 12]
+    assert [r["lr"] for r in hist] == want
+    # the saved schedule, had it been loaded, would cut the lr at step 6
+    stale = PlateauScheduler(blob["lr"], t.plateau_factor, t.plateau_patience, t.min_lr)
+    stale.load_state_dict(blob["plateau"])
+    assert [stale.update(a) for a in seq[2:]] != want
 
 
 def test_fit_requires_holdout_when_asked(tmp_path):

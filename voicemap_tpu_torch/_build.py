@@ -67,8 +67,9 @@ SIGNATURES = {
     # span, a_bf16, out_bf16, stream
     "vm_route_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P),
-    # x, cs, fbt, bands, out, B, T, n_frames, win, hop, M, K, log_eps, stream
-    "vm_log_mel": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # x, frag, offs, weights, bands, out, B, T, n_frames, ksteps, hop, M, n_passes,
+    # n_weights, log_eps, stream
+    "vm_log_mel_tc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # x, tables, weights, bands, out, B, T, n_frames, win, hop, M, n_weights,
     # log_nc, log_eps, stream
     "vm_log_mel_fft": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),

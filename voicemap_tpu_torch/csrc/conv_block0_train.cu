@@ -58,10 +58,22 @@
 //
 // block0_train_fwd / block0_train_bwd, the route of gemm_dtype float32: the
 // conv as f32 FMAs on the CUDA cores, one thread per channel with its 32
-// taps (B5: and its 32 dW sums) in registers, taps summed in order k = 0..31
-// with each product rounded apart, bit for bit the plain version; the tile's
-// input window in shared memory, read as a broadcast; a fixed number of
-// CTAs each walk a fixed set of tiles and write one row of partial sums.
+// taps in registers, taps summed in order k = 0..31 with each product
+// rounded apart, bit for bit the plain version (B5 recomputes the phases
+// through the same code, so its a_j and routes are B4's bit for bit); the
+// tile's input window in shared memory, read as a broadcast; a fixed number
+// of CTAs each walk a fixed set of tiles and write one row of partial sums.
+// B5's dz and db stay f32 and per thread, db summed in a fixed order; its
+// weight gradient runs on the tensor cores in 3xTF32 (tf32x3.cuh): every 8
+// pooled positions each warp writes its 32 channels' dz (32 full-rate
+// positions) to its own shared-memory rows, and dW (32 taps x its 32
+// channels) += X (taps x positions) · dZ (positions x channels) as
+// mma.sync m16n8k8, X a Toeplitz view of the staged window (X[k][t] =
+// x[t + k], the A fragments read straight from it, no im2col) and dZ's B
+// fragments read from the warp's rows, both split into big and small on the
+// load. The warp keeps its dW accumulators in registers over all its tiles;
+// the CTAs fold in fold.cuh's fixed order. dW is held to an f32 sum-order
+// tolerance, not bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +83,7 @@
 
 #include "block0_mma.cuh"
 #include "fold.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -168,58 +181,113 @@ block0_train_fwd(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// B5's weight-gradient step: pooled positions a warp's dz rows hold (32
+// full-rate positions, four k8 steps), and their pitch, 32 channels + 8, so
+// that a B fragment's lanes (rows tq, channels g) fall on 32 banks.
+constexpr int kChunk = 8;
+constexpr int kDzRows = kChunk * kPool;
+constexpr int kDzPitch = 40;
+constexpr int kWinPad = (kWin + 3) / 4 * 4;  // the window, then 16-byte aligned dz rows
+
 __global__ void __launch_bounds__(kMaxThreads)
 block0_train_bwd(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ bias, const float* __restrict__ sgn,
                  const float* __restrict__ g, const float* __restrict__ cc,
                  float* __restrict__ part, int B, int T, int C) {
-  __shared__ float xs[kWin];
+  extern __shared__ __align__(16) float bwd_smem[];
+  float* xs = bwd_smem;
   const int c = threadIdx.x;
+  const int lane = c & 31, warp = c >> 5, gq = lane >> 2, tq = lane & 3;
+  float* dzw = bwd_smem + kWinPad + warp * kDzRows * kDzPitch;  // this warp's dz rows
   const bool live = c < C;
   const int t_out = T / kPool;
   const int tiles_per_row = (t_out + kTile - 1) / kTile;
   const int n_tiles = B * tiles_per_row;
-  float wr[kK], dw[kK];
+  float wr[kK];
 #pragma unroll
-  for (int k = 0; k < kK; ++k) wr[k] = live ? w[k * C + c] : 0.f, dw[k] = 0.f;
+  for (int k = 0; k < kK; ++k) wr[k] = live ? w[k * C + c] : 0.f;
   float bc = 0.f, sc = 1.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, db = 0.f;
   if (live) bc = bias[c], sc = sgn[c], c0 = cc[c], c1 = cc[C + c], c2 = cc[2 * C + c];
+  // dW of taps 16mt + gq (+ 8) and channels 32·warp + 8nt + 2tq (+ 1)
+  float dw[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dw[mt][nt][i] = 0.f;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int b = tile / tiles_per_row;
     const int p0 = (tile % tiles_per_row) * kTile;
     __syncthreads();
     stage(xs, x + (long long)b * T, (long long)p0 * kPool - kPadL, T);
     __syncthreads();
-    if (!live) continue;
     const int n_p = min(kTile, t_out - p0);
-    for (int p = 0; p < n_p; ++p) {
-      float a[kPool];
-      phases(xs, p, wr, bc, a);
-      float best = __int_as_float(0xff800000);
+    // Every lane of a warp takes part in its products; a lane past C or a
+    // position past the tile's end writes dz = 0.
+    for (int pc = 0; pc < n_p; pc += kChunk) {
+      for (int pl = 0; pl < kChunk; ++pl) {
+        const int p = pc + pl;
+        float dz[kPool] = {0.f, 0.f, 0.f, 0.f};
+        if (live && p < n_p) {
+          float a[kPool];
+          phases(xs, p, wr, bc, a);
+          float best = __int_as_float(0xff800000);
 #pragma unroll
-      for (int j = 0; j < kPool; ++j) best = fmaxf(best, __fmul_rn(a[j], sc));
-      const long long o = ((long long)b * t_out + p0 + p) * C + c;
-      const float gv = g[o];
-      bool taken = false;
+          for (int j = 0; j < kPool; ++j) best = fmaxf(best, __fmul_rn(a[j], sc));
+          const float gv = g[((long long)b * t_out + p0 + p) * C + c];
+          bool taken = false;
 #pragma unroll
-      for (int j = 0; j < kPool; ++j) {
-        const bool eq = !taken && __fmul_rn(a[j], sc) == best;
-        taken = taken || eq;
-        const float gj = eq ? gv : 0.f;
-        const float dz = a[j] > 0.f
-            ? __fadd_rn(__fadd_rn(__fmul_rn(c0, gj), c1), __fmul_rn(c2, a[j])) : 0.f;
-        db = __fadd_rn(db, dz);
+          for (int j = 0; j < kPool; ++j) {
+            const bool eq = !taken && __fmul_rn(a[j], sc) == best;
+            taken = taken || eq;
+            const float gj = eq ? gv : 0.f;
+            dz[j] = a[j] > 0.f
+                ? __fadd_rn(__fadd_rn(__fmul_rn(c0, gj), c1), __fmul_rn(c2, a[j])) : 0.f;
+            db = __fadd_rn(db, dz[j]);
+          }
+        }
 #pragma unroll
-        for (int k = 0; k < kK; ++k) dw[k] = tap(dw[k], xs[p * kPool + j + k], dz);
+        for (int j = 0; j < kPool; ++j) dzw[(kPool * pl + j) * kDzPitch + lane] = dz[j];
       }
+      __syncwarp();
+      // dW += X · dZ over the chunk's 32 full-rate positions: X[k][t] =
+      // xs[4pc + t + k], dZ[t][n] = dzw[t][n].
+      const float* xc = xs + kPool * pc;
+#pragma unroll
+      for (int ks = 0; ks < kDzRows / 8; ++ks) {
+        vm_tf32x3::FragA a[2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          vm_tf32x3::load_a(a[mt], xc + 8 * ks + 16 * mt, gq, gq + 8, tq, tq + 4);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          vm_tf32x3::FragB bf;
+          vm_tf32x3::load_b(bf, dzw + 8 * ks * kDzPitch, tq * kDzPitch, (tq + 4) * kDzPitch,
+                            8 * nt + gq);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) vm_tf32x3::mma3(dw[mt][nt], a[mt], bf);
+        }
+      }
+      __syncwarp();  // the warp's products have read its dz rows
     }
   }
-  if (live) {
-    float* row = part + (long long)blockIdx.x * kBwdVals * C;
+  float* row = part + (long long)blockIdx.x * kBwdVals * C;
 #pragma unroll
-    for (int k = 0; k < kK; ++k) row[k * C + c] = dw[k];
-    row[kK * C + c] = db;
-  }
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 16 * mt + gq + 8 * (i >> 1);
+        const int ch = 32 * warp + 8 * nt + 2 * tq + (i & 1);
+        if (ch < C) row[k * C + ch] = dw[mt][nt][i];
+      }
+  if (live) row[kK * C + c] = db;
+}
+
+int bwd_smem_bytes(int C) {
+  return (kWinPad + (C + 31) / 32 * kDzRows * kDzPitch) * (int)sizeof(float);
 }
 
 int check_shape(int B, int T, int C, int n_ctas) {
@@ -282,7 +350,8 @@ __device__ __forceinline__ float warp_fold_groups(float v) {
 // life; B4's output tile; the warps' fold rows; B5's x4 window; the window
 // as read (xe) and shifted by one sample (xo).
 // STAGE (B5 only, on no path): also writes the recomputed s·max_j(s·a_j)
-// in f32 and the routed phase, so a check can hold them to B4's.
+// in f32 and a byte of the routed phase and the four phases' relu masks,
+// so a check can hold them to B4's and feed them to the plain dW.
 // The per-channel vectors, (C,) f32 each: bias, sgn (B5: and c0, c1, c2).
 struct Vecs {
   const float* p[5];
@@ -491,7 +560,9 @@ block0_train_tc(const float* __restrict__ x, const float* __restrict__ w, long l
             if (STAGE && valid && c < cg) {
               const long long o = orow * C + c0g + c;
               static_cast<float*>(sel)[o] = v[e];
-              route[o] = (unsigned char)r;
+              // the routed phase in bits 0-1, phase j's a_j > 0 in bit 2 + j
+              route[o] = (unsigned char)(r | (a[0] > 0.f) << 2 | (a[1] > 0.f) << 3 |
+                                         (a[2] > 0.f) << 4 | (a[3] > 0.f) << 5);
             }
           }
         }
@@ -663,10 +734,15 @@ extern "C" int vm_block0_train_bwd(const void* x, const void* w, const void* bia
   if (int err = check_shape(B, T, C, n_ctas)) return err;
   cudaStream_t s = (cudaStream_t)stream;
   const int threads = ((C + 31) / 32) * 32;
+  const int smem = bwd_smem_bytes(C);
+  cudaError_t attr = cudaFuncSetAttribute(block0_train_bwd,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
   float* pf = (float*)part;
-  block0_train_bwd<<<n_ctas, threads, 0, s>>>((const float*)x, (const float*)w,
-                                              (const float*)bias, (const float*)sgn,
-                                              (const float*)g, (const float*)cc, pf, B, T, C);
+  block0_train_bwd<<<n_ctas, threads, smem, s>>>((const float*)x, (const float*)w,
+                                                 (const float*)bias, (const float*)sgn,
+                                                 (const float*)g, (const float*)cc, pf, B, T,
+                                                 C);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   vm_fold::fold_rows(pf, n_ctas, kBwdVals * C, (float*)out, s);
   return (int)cudaGetLastError();
@@ -695,7 +771,8 @@ extern "C" int vm_block0_train_tc_fwd(const void* x, const void* w, long long w_
 // C) f32; part (n_sg·n_cps, 33, C) f32 scratch; out (33, C) f32: dW rows
 // k = 0..31, db. sel and route: NULL, or (the stage entry, on no path) what
 // it recomputed, (B, T/4, C) f32 s·max_j(s·a_j) and uint8 the phase it
-// routed g to, so a check can hold sel to B4's a_sel bit for bit.
+// routed g to (bits 0-1) and a_j > 0 of phase j (bit 2 + j), so a check can
+// hold sel to B4's a_sel bit for bit and the plain dW can take B5's routes.
 extern "C" int vm_block0_train_tc_bwd(const void* x, const void* w, long long w_sk,
                                       long long w_sc, const void* bias, const void* sgn,
                                       const void* c0, const void* c1, const void* c2,

@@ -17,9 +17,12 @@
 //
 // The TPU kernel computes the DFT as a matmul against cos/sin bases, 302
 // GFLOP at config #4: right for a machine with a matrix unit and no FFT,
-// 29x the work here. TF32 on the tensor cores keeps about three digits, as
-// much error on the power as the 1e-3 the log-mel is held to, so the
-// tensor cores are no way out; this card's CUDA cores run an FFT.
+// 29x the work here. So where n_fft is a power of two this card's CUDA
+// cores run an FFT. For any other n_fft the DFT stays a matmul, and it runs
+// on the tensor cores in 3xTF32 (tf32x3.cuh): TF32 alone keeps about three
+// digits, as much error on the power as the 1e-3 the log-mel is held to;
+// the split into big and small tf32 parts and three products keeps almost
+// all of f32.
 //
 // log_mel_fft_kernel, for n_fft a power of two in [64, 1024] (config #4):
 // - one CTA owns one row and a tile of 64 frames; it reads the waveform
@@ -45,147 +48,284 @@
 // butterflies' as written, the bands in bin order; no bit-exactness with the
 // plain version (a DFT matmul) is claimed.
 //
-// log_mel_kernel, the DFT route, for any other n_fft <= 574 (the librosa
-// n_fft 400, for one): the DFT as a matmul in f32 FMAs on the CUDA cores.
-// One CTA owns one row and a tile of 64 frames:
-// - it stages the waveform span of its frames in shared memory, read once
-//   from device memory, so the frames are never materialised and any hop,
-//   any win <= n_fft and any T >= win are taken;
-// - the interleaved bases [C row | S row] (K padded with zero columns to
-//   288) stream through shared memory in slabs of 16 window rows, double
-//   buffered with cp.async; L2 holds the bases for every CTA;
-// - each of the 8 warps owns 8 frames, each lane 9 frequency columns
-//   (lane + 32j), so a thread keeps 8 x 9 re and 8 x 9 im sums in registers
-//   and every x value is a shared-memory broadcast;
-// - the (64 x 288) power tile then lands in shared memory over the spent
-//   slabs, and the mel product walks each filter's nonzero band of bins
-//   only, followed by log. Sum orders: window rows in order, each band in
-//   order.
+// log_mel_tc_kernel, the DFT route, for any other n_fft <= 574 (the librosa
+// n_fft 400, for one): frames (F x win) times bases (win x 2K) on the
+// tensor cores in 3xTF32, as wgmma m64n208k8 (host side ops/mel_dft_tc.py).
+// One CTA, one warpgroup, owns one row and a tile of 64 frames, the m64
+// rows (warp w: frames 16w + g and 16w + g + 8):
+// - it stages the waveform span of its frames in shared memory once, read
+//   once from device memory, as rows of hop samples at a pitch of hop
+//   rounded up to 4 mod 8, frame f starting at row f: the frames are never
+//   materialised, and any hop, any win <= n_fft and any T >= win are taken.
+//   A, the frames, goes from registers: each k8 step's fragment is read
+//   straight out of the span (a table of column offsets maps sample n of a
+//   frame to its row and column) and split into big and small on the load;
+//   the pitch puts a fragment's eight frames on eight different banks;
+// - B, the windowed bases, split on the host once, bin k's cos and sin in
+//   adjacent columns (K padded to the n8 tile: 402 -> 408 columns at n_fft
+//   400), packed as K-major core matrices a k8 step and 208 columns at a
+//   time, streams through a ring of three slabs in shared memory, one bulk
+//   copy a slab issued by one thread and awaited on the slab's mbarrier;
+//   L2 holds the bases for every CTA;
+// - each slab's three products are one wgmma group, issued while the
+//   previous slab's still run; waiting for that one frees its A registers
+//   and its slab, which is refilled two slabs ahead. No block barrier
+//   inside a pass;
+// - the columns go in passes of 208 (26 n8 tiles, 104 bins), a thread's 104
+//   accumulators; an n8 tile's accumulator pair (2tq, 2tq + 1) is re and im
+//   of one bin, so the power re^2 + im^2 forms in registers;
+// - after each pass the power tile lands in shared memory over the spent
+//   slabs, and each filter whose band reaches the pass's bins adds them, in
+//   bin order, to its per-(frame, filter) sum in shared memory (a lane's
+//   filter for four frames at once); after the last pass the log is taken
+//   and stored, each frame's M floats contiguous.
+// At n_fft 400, hop 160 a CTA takes ~104 KB of shared memory: two CTAs an
+// SM. Its work is 3 x 2·win·2K tensor-core products a frame, and the bases
+// (1.3 MB at n_fft 400) cross L2 once a CTA. Sum orders: the tensor cores'
+// within a k8 step, the steps in order, each band in bin order. No
+// bit-exactness with the plain version (an f32 DFT matmul) is claimed; the
+// split's error, ~2^-21 of each product, is far inside the 1e-3 on the
+// log-mel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the FFT route's CTA
 constexpr int kWarps = kThreads / 32;
-constexpr int kFramesPerWarp = 8;
-constexpr int kFrameTile = kWarps * kFramesPerWarp;  // 64 frames a CTA
-constexpr int kCols = 9;                              // columns a lane
-constexpr int kKPad = 32 * kCols;                     // 288 >= K
-constexpr int kSlabRows = 16;                         // window rows a slab
-constexpr int kSlabFloats = kSlabRows * 2 * kKPad;
-constexpr int kTileFloats = 2 * kSlabFloats;          // two slabs, or the power tile
-static_assert(kFrameTile * kKPad <= kTileFloats, "the power tile must fit over the slabs");
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// One bulk copy of `bytes` (a multiple of 16) from global to shared memory
+// by the copy engine, completing a transaction on `bar`, which expects them.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-// Rows [n0, n0 + rows) of the interleaved bases into a slab buffer.
-__device__ __forceinline__ void load_slab(float* dst, const float* __restrict__ cs, int n0,
-                                          int rows) {
-  const float* src = cs + (long long)n0 * 2 * kKPad;
-  const int n4 = rows * 2 * kKPad / 4;
-  for (int i = threadIdx.x; i < n4; i += kThreads) cp_async16(dst + 4 * i, src + 4 * i);
-  cp_async_commit();
+// ---------------------------------------------------------------------------
+// The DFT route: 3xTF32 on the tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 128;                      // one warpgroup
+constexpr int kTcFrames = 64;                        // its m64 rows (mel_dft_tc.FRAME_TILE)
+constexpr int kTcN = 208;                            // columns a pass: wgmma's n
+constexpr int kTcAcc = kTcN / 2;                     // accumulators a thread
+constexpr int kTcPassTiles = kTcN / 8;               // n8 tiles a pass, 4 bins each
+constexpr int kTcPassBins = 4 * kTcPassTiles;
+// A pass's power rows, 4 mod 8 apart: rows g = 0..7 on 8 bank groups.
+constexpr int kTcPowerPitch = kTcPassBins + (4 - kTcPassBins % 8 + 8) % 8;
+constexpr int kTcKSteps = 1;                         // k8 steps a slab
+constexpr int kTcStages = 3;                         // slabs: one multiplied, two loading
+constexpr int kTcTileFloats = kTcPassTiles * 64;     // a plane's k8 step: n8 tiles x 2 core
+                                                     // matrices
+constexpr int kTcSlabFloats = kTcKSteps * 2 * kTcTileFloats;  // big and small planes
+constexpr int kMaxBins = 288;                        // n_fft <= 574
+constexpr int kMaxPasses = (2 * kMaxBins / 8 + kTcPassTiles - 1) / kTcPassTiles;
+static_assert(kTcFrames * kTcPowerPitch <= kTcStages * kTcSlabFloats,
+              "a pass's power tile must fit over the slabs");
+
+// Load `it`, the CTA's it-th slab over all passes (pass it / n_slabs, slab
+// it % n_slabs: its kTcKSteps k8 steps of both planes, contiguous in frag,
+// ops/mel_dft_tc.fragments), into stage it % kTcStages: one thread, one bulk
+// copy.
+__device__ __forceinline__ void load_tc_slab(int it, int n_slabs, int n_passes, float* slabs,
+                                             const float* __restrict__ frag, uint64_t* full) {
+  if (it >= n_slabs * n_passes) return;
+  const int stage = it % kTcStages;
+  bulk_load(slabs + stage * kTcSlabFloats, frag + (long long)it * kTcSlabFloats,
+            kTcSlabFloats * 4, full + stage);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-log_mel_kernel(const float* __restrict__ x, const float* __restrict__ cs,
-               const float* __restrict__ fbt, const int32_t* __restrict__ bands,
-               float* __restrict__ out, int T, int n_frames, int n_tiles, int win, int hop,
-               int M, int K, float log_eps) {
-  extern __shared__ __align__(16) float smem[];
-  float* tile = smem;                 // two basis slabs, later the power tile
-  float* xs = smem + kTileFloats;     // the waveform span of the frame tile
+// One slab's products, issued while the previous slab's are still running:
+// wait for slab `it` (the CTA's it-th), load and split A (frames x its k8
+// steps) into `a`, issue the three products of each k8 step as one group,
+// then wait until only that group runs, so the previous group's A
+// (`a_prev`) and slab are free, and thread 0 refills that slab's stage with
+// slab it + kTcStages - 1 of this pass.
+__device__ __forceinline__ void tc_slab(int it, int st, int n_slabs, int n_passes,
+                                        float* slabs, const float* __restrict__ frag,
+                                        uint64_t* full, const float* xs, const int* off,
+                                        int r0, int r1, int tq,
+                                        vm_tf32x3::FragA (&a)[kTcKSteps],
+                                        vm_tf32x3::FragA (&a_prev)[kTcKSteps],
+                                        float (&acc)[kTcAcc]) {
+#pragma unroll
+  for (int j = 0; j < kTcKSteps; ++j) {
+    const int n0 = 8 * (st * kTcKSteps + j);
+    vm_tf32x3::load_a(a[j], xs, r0, r1, off[n0 + tq], off[n0 + tq + 4]);
+  }
+  mbar_wait(full + it % kTcStages, (it / kTcStages) & 1);  // slab it is in
+  const float* slab = slabs + (it % kTcStages) * kTcSlabFloats;
+  vm_tf32x3::fence_acc(acc);
+  vm_tf32x3::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < kTcKSteps; ++j) {
+    const float* big = slab + j * 2 * kTcTileFloats;
+    vm_tf32x3::wgmma3<kTcN>(acc, a[j], vm_tf32x3::desc_kmajor(big),
+                            vm_tf32x3::desc_kmajor(big + kTcTileFloats));
+  }
+  vm_tf32x3::wgmma_commit();
+  vm_tf32x3::wgmma_wait<1>();  // slab it - 1's products are done, for the warpgroup
+  vm_tf32x3::fence_acc(acc);
+#pragma unroll
+  for (int j = 0; j < kTcKSteps; ++j) vm_tf32x3::fence_a(a_prev[j]);
+  if (threadIdx.x == 0 && st + kTcStages - 1 < n_slabs)
+    load_tc_slab(it + kTcStages - 1, n_slabs, n_passes, slabs, frag, full);
+}
+
+__global__ void __launch_bounds__(kTcThreads)
+log_mel_tc_kernel(const float* __restrict__ x, const float* __restrict__ frag,
+                  const int32_t* __restrict__ offs, const float* __restrict__ weights,
+                  const int32_t* __restrict__ bands, float* __restrict__ out, int T,
+                  int n_frames, int n_tiles, int hop, int pitch, int n_rows, int ksteps,
+                  int n_passes, int M, int n_weights, float log_eps) {
+  extern __shared__ __align__(128) float smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // a barrier a stage: its slab is in
+  float* slabs = smem + 32;                             // the basis slabs, later a pass's power
+  float* mel = slabs + kTcStages * kTcSlabFloats;       // (frames, M) band sums
+  float* wts = mel + kTcFrames * M;                     // the filters' nonzero runs
+  int* bnd = reinterpret_cast<int*>(wts + n_weights);   // (3, M): first, end, run offset;
+                                                        // (2, passes): filters a pass reaches
+  int* off = bnd + 3 * M + 2 * n_passes;                // column offsets in the span
+  float* xs = reinterpret_cast<float*>(off + 8 * ksteps);  // n_rows rows of hop samples
 
   const int b = blockIdx.x / n_tiles;
-  const int f0 = (blockIdx.x % n_tiles) * kFrameTile;
+  const int f0 = (blockIdx.x % n_tiles) * kTcFrames;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_slabs = (win + kSlabRows - 1) / kSlabRows;
+  const int g = lane >> 2, tq = lane & 3;
 
-  load_slab(tile, cs, 0, min(kSlabRows, win));
-
-  // The span read once; samples past the row (frames past n_frames) are 0.
+  // The span read once, row by row; samples past the row (frames past
+  // n_frames) are 0.
   const float* row = x + (long long)b * T;
   const long long start = (long long)f0 * hop;
-  const int span = (kFrameTile - 1) * hop + win;
-  for (int i = threadIdx.x; i < span; i += kThreads) {
-    const long long p = start + i;
-    xs[i] = p < T ? row[p] : 0.f;
-  }
-
-  float re[kFramesPerWarp][kCols], im[kFramesPerWarp][kCols];
-#pragma unroll
-  for (int i = 0; i < kFramesPerWarp; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) re[i][j] = im[i][j] = 0.f;
-
-  const float* xw = xs + warp * kFramesPerWarp * hop;
-  for (int s = 0; s < n_slabs; ++s) {
-    const int n0 = s * kSlabRows;
-    if (s + 1 < n_slabs) {
-      load_slab(tile + ((s + 1) & 1) * kSlabFloats, cs, n0 + kSlabRows,
-                min(kSlabRows, win - n0 - kSlabRows));
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  for (int r = warp; r < n_rows; r += kTcThreads / 32)
+    for (int c = lane; c < hop; c += 32) {
+      const long long p = start + (long long)r * hop + c;
+      xs[r * pitch + c] = p < T ? row[p] : 0.f;
     }
-    __syncthreads();
-    const float* slab = tile + (s & 1) * kSlabFloats + lane;
-    const int rows = min(kSlabRows, win - n0);
-#pragma unroll 2
-    for (int r = 0; r < rows; ++r) {
-      float xv[kFramesPerWarp], cv[kCols], sv[kCols];
-#pragma unroll
-      for (int i = 0; i < kFramesPerWarp; ++i) xv[i] = xw[i * hop + n0 + r];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        cv[j] = slab[r * 2 * kKPad + 32 * j];
-        sv[j] = slab[r * 2 * kKPad + kKPad + 32 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < kFramesPerWarp; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          re[i][j] = fmaf(xv[i], cv[j], re[i][j]);
-          im[i][j] = fmaf(xv[i], sv[j], im[i][j]);
-        }
-    }
-    __syncthreads();  // the next iteration refills the buffer read here
+  for (int i = threadIdx.x; i < 8 * ksteps; i += kTcThreads) off[i] = offs[i];
+  for (int i = threadIdx.x; i < n_weights; i += kTcThreads) wts[i] = weights[i];
+  for (int i = threadIdx.x; i < 3 * M + 2 * n_passes; i += kTcThreads) bnd[i] = bands[i];
+  for (int i = threadIdx.x; i < kTcFrames * M; i += kTcThreads) mel[i] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) mbar_init(full + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  // Power over the spent slabs: re^2 + im^2, rounded op by op as the plain
-  // version computes it.
-  float* power = tile;
-#pragma unroll
-  for (int i = 0; i < kFramesPerWarp; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      power[(warp * kFramesPerWarp + i) * kKPad + lane + 32 * j] =
-          __fadd_rn(__fmul_rn(re[i][j], re[i][j]), __fmul_rn(im[i][j], im[i][j]));
   __syncthreads();
 
-  // Mel over each filter's band of nonzero bins, then log; the tile's rows
-  // are contiguous in the output, so consecutive threads store consecutively.
-  const int valid = min(kFrameTile, n_frames - f0);
-  float* dst = out + ((long long)b * n_frames + f0) * M;
-  for (int idx = threadIdx.x; idx < valid * M; idx += kThreads) {
-    const int f = idx / M, m = idx - f * M;
-    const int lo = bands[m], hi = bands[M + m];
-    const float* p = power + f * kKPad;
-    const float* w = fbt + (long long)m * K;
-    float acc = 0.f;
-    for (int k = lo; k < hi; ++k) acc = fmaf(p[k], __ldg(w + k), acc);
-    dst[idx] = logf(acc + log_eps);
+  // The span offsets of this thread's A rows, frames 16w + g and + 8.
+  const int r0 = (16 * warp + g) * pitch, r1 = r0 + 8 * pitch;
+  const int n_slabs = ksteps / kTcKSteps;
+  for (int pass = 0; pass < n_passes; ++pass) {
+    const int it0 = pass * n_slabs;  // the pass's first slab, counted over the passes
+    if (threadIdx.x == 0) {
+      vm_tf32x3::fence_proxy_async();  // the last pass's power reads, before the copies
+      for (int s = 0; s < kTcStages - 1 && s < n_slabs; ++s)
+        load_tc_slab(it0 + s, n_slabs, n_passes, slabs, frag, full);
+    }
+    float acc[kTcAcc];
+#pragma unroll
+    for (int i = 0; i < kTcAcc; ++i) acc[i] = 0.f;
+
+    // Two sets of A registers, one for the slab whose products run while
+    // the next slab's are issued.
+    vm_tf32x3::FragA a0[kTcKSteps] = {}, a1[kTcKSteps] = {};
+    for (int st = 0; st < n_slabs; st += 2) {
+      tc_slab(it0 + st, st, n_slabs, n_passes, slabs, frag, full, xs, off, r0, r1, tq, a0, a1,
+              acc);
+      if (st + 1 < n_slabs)
+        tc_slab(it0 + st + 1, st + 1, n_slabs, n_passes, slabs, frag, full, xs, off, r0, r1,
+                tq, a1, a0, acc);
+    }
+    vm_tf32x3::wgmma_wait<0>();
+    vm_tf32x3::fence_acc(acc);
+    __syncthreads();  // every warp is done with the slabs
+
+    // The pass's power over the spent slabs, re^2 + im^2 rounded op by op
+    // as the plain version computes it: pass bin 4i + tq of frames 16w + g
+    // and + 8, from accumulators 4i .. 4i + 3.
+    float* power = slabs;
+    const int fr = 16 * warp + g;
+#pragma unroll
+    for (int i = 0; i < kTcPassTiles; ++i) {
+      power[fr * kTcPowerPitch + 4 * i + tq] = __fadd_rn(
+          __fmul_rn(acc[4 * i], acc[4 * i]), __fmul_rn(acc[4 * i + 1], acc[4 * i + 1]));
+      power[(fr + 8) * kTcPowerPitch + 4 * i + tq] = __fadd_rn(
+          __fmul_rn(acc[4 * i + 2], acc[4 * i + 2]), __fmul_rn(acc[4 * i + 3], acc[4 * i + 3]));
+    }
+    __syncthreads();
+
+    // Each filter's share of the pass's bins, in bin order, onto its sum:
+    // over the passes, one walk of its band in order. Only the filters
+    // [ma, mb) whose bands reach the pass's bins, a lane's filter for four
+    // of its warp's frames at once (frames w + 4i).
+    const int lo_p = kTcPassBins * pass, hi_p = lo_p + kTcPassBins;
+    const int ma = bnd[3 * M + pass], mb = bnd[3 * M + n_passes + pass];
+    for (int m0 = ma; m0 < mb; m0 += 32) {
+      const int m = m0 + lane;
+      const bool live = m < mb;
+      const int lo = live ? max(bnd[m], lo_p) : 0, hi = live ? min(bnd[M + m], hi_p) : 0;
+      const float* w = wts + (live ? bnd[2 * M + m] - bnd[m] : 0);
+      for (int f = warp; f < kTcFrames; f += 4 * (kTcThreads / 32)) {
+        constexpr int kStep = kTcThreads / 32;
+        const float* p = power + f * kTcPowerPitch - lo_p;
+        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+        if (live) {
+          s0 = mel[f * M + m], s1 = mel[(f + kStep) * M + m];
+          s2 = mel[(f + 2 * kStep) * M + m], s3 = mel[(f + 3 * kStep) * M + m];
+        }
+        for (int k = lo; k < hi; ++k) {
+          const float wk = w[k];
+          s0 = fmaf(p[k], wk, s0);
+          s1 = fmaf(p[k + kStep * kTcPowerPitch], wk, s1);
+          s2 = fmaf(p[k + 2 * kStep * kTcPowerPitch], wk, s2);
+          s3 = fmaf(p[k + 3 * kStep * kTcPowerPitch], wk, s3);
+        }
+        if (live) {
+          mel[f * M + m] = s0, mel[(f + kStep) * M + m] = s1;
+          mel[(f + 2 * kStep) * M + m] = s2, mel[(f + 3 * kStep) * M + m] = s3;
+        }
+      }
+    }
+    __syncthreads();  // the next pass's slabs overwrite the power
   }
+
+  // The log; the tile's rows are contiguous in the output, so consecutive
+  // threads store consecutively. (The last pass's barrier orders the sums.)
+  const int valid = min(kTcFrames, n_frames - f0);
+  float* dst = out + ((long long)b * n_frames + f0) * M;
+  for (int idx = threadIdx.x; idx < valid * M; idx += kTcThreads)
+    dst[idx] = logf(mel[idx] + log_eps);
 }
 
 // ---------------------------------------------------------------------------
@@ -436,24 +576,42 @@ int launch_fft(const void* x, const void* tables, const void* weights, const voi
 
 }  // namespace
 
-// x (B, T) f32; cs (win, 2, 288) f32, [C row | S row] with zero columns past
-// K; fbt (M, K) f32, the filterbank transposed; bands (2, M) int32, each
-// filter's first and one-past-last nonzero bin; out (B, n_frames, M) f32.
-// K > 288, or a hop and win whose waveform span does not fit a CTA's shared
-// memory next to the slabs, returns cudaErrorInvalidValue and launches nothing.
-extern "C" int vm_log_mel(const void* x, const void* cs, const void* fbt, const void* bands,
-                          void* out, int B, int T, int n_frames, int win, int hop, int M,
-                          int K, float log_eps, void* stream) {
+// x (B, T) f32; frag (n_passes, ksteps / kTcKSteps, kTcSlabFloats) f32:
+// the bases' big and small tf32 planes, each pass's 208 columns as K-major
+// core matrices (ops/mel_dft_tc.fragments); offs (8·ksteps,) int32: sample
+// n of a frame at (n / hop)·pitch + n % hop in the span
+// (ops/mel_dft_tc.column_offsets); weights: the filters' nonzero runs
+// concatenated; bands (3·M + 2·n_passes) int32: each filter's first and
+// one-past-last nonzero bin and the offset of its run, then for each pass
+// the first and one-past-last filter whose band reaches its bins
+// (ops/mel_dft_tc.band_weights); out (B, n_frames, M) f32. ksteps
+// no multiple of kTcKSteps, more passes than 288 bins take, or a hop and
+// window whose CTA does not fit shared memory (the rule of
+// ops/mel_dft_tc.smem_bytes) returns cudaErrorInvalidValue and launches
+// nothing.
+extern "C" int vm_log_mel_tc(const void* x, const void* frag, const void* offs,
+                             const void* weights, const void* bands, void* out, int B, int T,
+                             int n_frames, int ksteps, int hop, int M, int n_passes,
+                             int n_weights, float log_eps, void* stream) {
   if (B == 0 || n_frames <= 0) return 0;
-  if (K > kKPad) return (int)cudaErrorInvalidValue;
-  const int n_tiles = (n_frames + kFrameTile - 1) / kFrameTile;
-  const size_t smem = (size_t)(kTileFloats + (kFrameTile - 1) * hop + win) * sizeof(float);
+  if (ksteps < 1 || ksteps % kTcKSteps || hop < 1 || M < 1 || n_passes < 1 ||
+      n_passes > kMaxPasses || n_weights < 0)
+    return (int)cudaErrorInvalidValue;
+  const int pitch = hop + (4 - hop % 8 + 8) % 8;
+  const int n_rows = kTcFrames + (8 * ksteps - 1) / hop;
+  const size_t smem = 4 * (32 + (size_t)kTcStages * kTcSlabFloats + (size_t)kTcFrames * M +
+                           (size_t)n_weights + 3 * (size_t)M + 2 * (size_t)n_passes +
+                           8 * (size_t)ksteps +
+                           (size_t)n_rows * pitch);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      log_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      log_mel_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  log_mel_kernel<<<(unsigned)B * n_tiles, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)cs, (const float*)fbt, (const int32_t*)bands,
-      (float*)out, T, n_frames, n_tiles, win, hop, M, K, log_eps);
+  const int n_tiles = (n_frames + kTcFrames - 1) / kTcFrames;
+  log_mel_tc_kernel<<<(unsigned)B * n_tiles, kTcThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)frag, (const int32_t*)offs, (const float*)weights,
+      (const int32_t*)bands, (float*)out, T, n_frames, n_tiles, hop, pitch, n_rows, ksteps,
+      n_passes, M, n_weights, log_eps);
   return (int)cudaGetLastError();
 }
 

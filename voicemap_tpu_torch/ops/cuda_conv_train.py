@@ -32,10 +32,14 @@ pool 4, C ≤ 256), and a failed build or launch raises. Each kernel has two
 routes, chosen by ``gemm_dtype``: a bf16 GEMM (the train step in bf16) runs
 on the tensor cores (``mma.sync``; host side ``ops/block0_train_tc``), whose
 f32 sums agree with the plain version to an order bound, counted on
-``launches``; a float32 GEMM runs on the CUDA cores, bit for bit the plain
-version, counted on ``f32_launches``. ``conv_block0_train_bwd_stage`` is B5's
+``launches``; a float32 GEMM, counted on ``f32_launches``, runs the conv on
+the CUDA cores, bit for bit the plain version (B4's ``a_sel`` and counts,
+B5's recomputed phases, routes, dz and db), and B5's weight gradient on the
+tensor cores in 3xTF32 (``csrc/tf32x3.cuh``, plain model ``ops/tf32x3``),
+held to an f32 sum-order tolerance. ``conv_block0_train_bwd_stage`` is B5's
 tensor-core kernel also writing what it recomputed (on no path: a check
-holds it to B4's ``a_sel``).
+holds it to B4's ``a_sel``), and ``conv_block0_train_bwd_routed_reference``
+the plain dW and db on the routes and relu masks it reports.
 """
 
 from __future__ import annotations
@@ -78,25 +82,44 @@ def conv_block0_train_reference(x, w, b, sgn, pool: int = KERNEL_POOL,
     return (a_sel, a.sum((0, 2)), (a * a).sum((0, 2)), (a > 0).float().sum((0, 2)))
 
 
-def conv_block0_train_bwd_reference(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL,
-                                    gemm_dtype=torch.bfloat16):
-    """Plain PyTorch version of B5 → ``(dw (k, 1, C) f32, db (C,) f32)``."""
+def bwd_dz(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL, gemm_dtype=torch.bfloat16,
+           route=None, relu=None):
+    """B5's ``dz (B, C, T)`` f32 before its rounding to ``gemm_dtype``, and
+    the padded ``x`` rounded to it, ``(B, T + k − 1)``: the cotangent routed
+    to the first phase whose ``s·a_j`` is the max and dz kept where ``a > 0``,
+    or, where given, routed to ``route (B, T/pool, C)`` and kept where bit j
+    of ``relu (B, T/pool, C)`` is set (the stage entry's reports)."""
     a, xp = _activation(x, w, b, gemm_dtype)
     B, c, T = a.shape
-    k = w.shape[0]
     ar = a.view(B, c, T // pool, pool)
-    sa = ar * sgn.float()[None, :, None, None]
-    eq = sa == sa.amax(-1, keepdim=True)
-    first = eq & (eq.cumsum(-1) == 1)
+    if route is None:
+        sa = ar * sgn.float()[None, :, None, None]
+        eq = sa == sa.amax(-1, keepdim=True)
+        first, active = eq & (eq.cumsum(-1) == 1), ar > 0
+    else:
+        phase = torch.arange(pool, device=a.device)
+        first = route.transpose(1, 2).long()[..., None] == phase  # (B, C, T/pool, pool)
+        active = (relu.transpose(1, 2).long()[..., None] >> phase) & 1 == 1
     gv = g.to(gemm_dtype).float().transpose(1, 2)[..., None]  # (B, C, T/pool, 1)
     gj = torch.where(first, gv, 0.0)
     col = lambda v: v.float()[None, :, None, None]  # noqa: E731
     dz = col(c0) * gj + col(c1) + col(c2) * ar
-    dz = torch.where(ar > 0, dz, 0.0).view(B, c, T)
+    return torch.where(active, dz, 0.0).reshape(B, c, T), xp
+
+
+def _dw_db(dz, xp, k: int, gemm_dtype):
+    T = dz.shape[2]
     db = dz.sum((0, 2))
     dzr = dz.to(gemm_dtype).float()
     dw = torch.stack([torch.einsum("bt,bct->c", xp[:, j:j + T], dzr) for j in range(k)])
     return dw[:, None, :], db
+
+
+def conv_block0_train_bwd_reference(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL,
+                                    gemm_dtype=torch.bfloat16):
+    """Plain PyTorch version of B5 → ``(dw (k, 1, C) f32, db (C,) f32)``."""
+    dz, xp = bwd_dz(x, w, b, sgn, g, c0, c1, c2, pool, gemm_dtype)
+    return _dw_db(dz, xp, w.shape[0], gemm_dtype)
 
 
 def _check(name, x, w, pool, gemm_dtype, *params):
@@ -245,10 +268,20 @@ def conv_block0_train_bwd(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL,
     return out
 
 
+def relu_bits(a: torch.Tensor, pool: int = KERNEL_POOL) -> torch.Tensor:
+    """``a (B, C, T)`` → ``(B, T/pool, C)`` uint8, bit j set where phase j's
+    ``a_j > 0``, as the stage entry reports it."""
+    B, c, T = a.shape
+    weights = (2 ** torch.arange(pool, device=a.device))[None, None, None, :]
+    bits = ((a.view(B, c, T // pool, pool) > 0).long() * weights).sum(-1)
+    return bits.to(torch.uint8).transpose(1, 2).contiguous()
+
+
 def conv_block0_train_bwd_stage_reference(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL):
     """Plain version of the stage entry: B5's ``(dw, db)`` (bf16 GEMM) and
-    what it recomputes, ``s·max_j(s·a_j)`` ``(B, T/pool, C)`` f32 and the
-    phase the cotangent is routed to, uint8."""
+    what it recomputes, ``s·max_j(s·a_j)`` ``(B, T/pool, C)`` f32, the phase
+    the cotangent is routed to and the relu mask of each phase (``relu_bits``),
+    uint8."""
     dw, db = conv_block0_train_bwd_reference(x, w, b, sgn, g, c0, c1, c2, pool)
     a, _ = _activation(x, w, b, torch.bfloat16)
     B, c, T = a.shape
@@ -257,21 +290,35 @@ def conv_block0_train_bwd_stage_reference(x, w, b, sgn, g, c0, c1, c2, pool: int
     eq = sa == best[..., None]
     route = (eq & (eq.cumsum(-1) == 1)).float().argmax(-1)
     sel = (best * sgn.float()[None, :, None]).transpose(1, 2).contiguous()
-    return dw, db, sel, route.to(torch.uint8).transpose(1, 2).contiguous()
+    return (dw, db, sel, route.to(torch.uint8).transpose(1, 2).contiguous(),
+            relu_bits(a, pool))
+
+
+def conv_block0_train_bwd_routed_reference(x, w, b, sgn, g, c0, c1, c2, route, relu,
+                                           pool: int = KERNEL_POOL, gemm_dtype=torch.bfloat16):
+    """The plain ``(dw, db)`` of B5 on given routes and relu masks: the plain
+    activation, but the cotangent routed to ``route (B, T/pool, C)`` and dz
+    kept where ``relu (B, T/pool, C)``'s bit j says a_j > 0 (as the stage
+    entry reports them), so that what remains against the kernel is its sum
+    order and not its routing or relu flips."""
+    dz, xp = bwd_dz(x, w, b, sgn, g, c0, c1, c2, pool, gemm_dtype, route, relu)
+    return _dw_db(dz, xp, w.shape[0], gemm_dtype)
 
 
 def conv_block0_train_bwd_stage(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL):
     """B5's tensor-core kernel, also writing what it recomputed:
-    ``(dw, db, sel (B, T/pool, C) f32, route (B, T/pool, C) uint8)``. On no
-    path; ``chip_smoke.py`` holds ``sel`` to B4's f32 ``a_sel`` bit for bit."""
+    ``(dw, db, sel (B, T/pool, C) f32, route (B, T/pool, C) uint8, relu
+    (B, T/pool, C) uint8)``, relu bit j set where phase j's a_j > 0. On no
+    path; ``chip_smoke.py`` holds ``sel`` to B4's f32 ``a_sel`` bit for bit
+    and feeds ``route`` and ``relu`` to the plain dW."""
     if x.device.type == "cpu":
         return conv_block0_train_bwd_stage_reference(x, w, b, sgn, g, c0, c1, c2, pool)
     if x.device.type != "cuda":
         raise ValueError(f"conv_block0_train_bwd_stage: no kernel for device {x.device}")
-    out, _ = _bwd_launch("conv_block0_train_bwd_stage", x, w, b, sgn, g, c0, c1, c2, pool,
-                         torch.bfloat16, stage=True)
+    (dw, db, sel, byte), _ = _bwd_launch("conv_block0_train_bwd_stage", x, w, b, sgn, g, c0,
+                                         c1, c2, pool, torch.bfloat16, stage=True)
     conv_block0_train_bwd_stage.launches += 1
-    return out
+    return dw, db, sel, byte & 3, byte >> 2
 
 
 # kernel launches; the CPU path does not count: the tensor-core kernels (a

@@ -7,8 +7,10 @@ kernels are in ``csrc/log_mel.cu``:
 - the FFT route (``log_mel_fft_kernel``), for n_fft a power of two in
   [64, 1024] (config #4's 512): a real FFT in f32 on the CUDA cores, its
   tables and a plain model of its schedule in ``ops/mel_fft``;
-- the DFT route (``log_mel_kernel``), for any other n_fft ≤ 574: the DFT
-  as a matmul in f32 FMAs, as the TPU kernel computes it.
+- the DFT route (``log_mel_tc_kernel``), for any other n_fft ≤ 574: the
+  DFT as a matmul, as the TPU kernel computes it, on the tensor cores
+  (``wgmma``) in 3xTF32 (``csrc/tf32x3.cuh``), its packed bases, span
+  layout and a plain model of its arithmetic in ``ops/mel_dft_tc``.
 
 ``log_mel_route`` picks one by the config's shape, never on a failure, and
 raises for a shape neither takes. ``log_mel_reference`` is the plain PyTorch
@@ -38,29 +40,21 @@ import numpy as np
 import torch
 
 from ..config import MelConfig
-from . import mel_fft, melspec
+from . import mel_dft_tc, mel_fft, melspec
 
-KERNEL_MAX_FREQS = 288  # the DFT kernel's padded frequency columns: n_fft ≤ 574
-DFT_TILE_FLOATS = 2 * 16 * 2 * KERNEL_MAX_FREQS  # its two basis slabs
+KERNEL_MAX_FREQS = mel_dft_tc.MAX_BINS  # the DFT kernel's bins: n_fft ≤ 574
 
 
 @functools.lru_cache(maxsize=None)
 def _constants(cfg: MelConfig, sample_rate: int, device: torch.device) -> dict:
-    """The bases, filterbank and the kernel's packed forms on ``device``,
-    built once per (config, rate, device) from the numpy copies."""
+    """The plain version's bases and filterbank on ``device``, built once per
+    (config, rate, device) from the numpy copies, and the filterbank's
+    nonzero entries (``band_bins``)."""
     C, S = melspec.dft_bases(cfg)
     fb = melspec.mel_filterbank(sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
-    win, K = C.shape
-    cs = np.zeros((win, 2, KERNEL_MAX_FREQS), np.float32)
-    if K <= KERNEL_MAX_FREQS:
-        cs[:, 0, :K], cs[:, 1, :K] = C, S
-    nz = fb != 0
-    lo = np.where(nz.any(0), nz.argmax(0), 0)
-    hi = np.where(nz.any(0), K - nz[::-1].argmax(0), 0)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    return {"C": put(C), "S": put(S), "fb": put(fb), "cs": put(cs), "fbt": put(fb.T),
-            "bands": put(np.stack([lo, hi]).astype(np.int32)),
-            "band_bins": int((hi - lo).sum())}
+    return {"C": put(C), "S": put(S), "fb": put(fb),
+            "band_bins": int(mel_dft_tc.band_weights(cfg, sample_rate)["weights"].size)}
 
 
 def _waveform(x: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
@@ -100,7 +94,8 @@ def log_mel_route(cfg: MelConfig, sample_rate: int) -> str:
         need = mel_fft.smem_bytes(cfg, mel_fft.fft_tables(cfg, sample_rate)["weights"].size)
         route = "fft"
     elif n_fft & (n_fft - 1) and n_fft // 2 + 1 <= KERNEL_MAX_FREQS:
-        need = 4 * (DFT_TILE_FLOATS + (mel_fft.FRAME_TILE - 1) * hop + win)
+        need = mel_dft_tc.smem_bytes(
+            cfg, mel_dft_tc.band_weights(cfg, sample_rate)["weights"].size)
         route = "dft"
     else:
         raise ValueError(f"log_mel: no kernel takes n_fft {n_fft}: the FFT kernel takes a "
@@ -116,6 +111,17 @@ def log_mel_route(cfg: MelConfig, sample_rate: int) -> str:
 def _fft_constants(cfg: MelConfig, sample_rate: int, device: torch.device) -> dict:
     t = mel_fft.fft_tables(cfg, sample_rate)
     return {k: torch.from_numpy(v).to(device) for k, v in t.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_constants(cfg: MelConfig, sample_rate: int, device: torch.device) -> dict:
+    """The DFT kernel's packed bases, column offsets and band weights on
+    ``device``."""
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    bw = mel_dft_tc.band_weights(cfg, sample_rate)
+    return {"frag": put(mel_dft_tc.tables(cfg)),
+            "offs": put(mel_dft_tc.column_offsets(cfg.win_length, cfg.hop_length)),
+            "weights": put(bw["weights"]), "bands": put(bw["bands"])}
 
 
 def log_mel(x: torch.Tensor, cfg: MelConfig, sample_rate: int) -> torch.Tensor:
@@ -147,11 +153,12 @@ def log_mel(x: torch.Tensor, cfg: MelConfig, sample_rate: int) -> torch.Tensor:
                                      c["weights"].numel(), cfg.n_fft.bit_length() - 2,
                                      ctypes.c_float(cfg.log_eps), stream)
         else:
-            c = _constants(cfg, sample_rate, x.device)
-            err = lib.vm_log_mel(x.data_ptr(), c["cs"].data_ptr(), c["fbt"].data_ptr(),
-                                 c["bands"].data_ptr(), out.data_ptr(), B, T, F, win, hop,
-                                 cfg.n_mels, cfg.n_fft // 2 + 1, ctypes.c_float(cfg.log_eps),
-                                 stream)
+            d = _dft_constants(cfg, sample_rate, x.device)
+            err = lib.vm_log_mel_tc(x.data_ptr(), d["frag"].data_ptr(), d["offs"].data_ptr(),
+                                    d["weights"].data_ptr(), d["bands"].data_ptr(),
+                                    out.data_ptr(), B, T, F, mel_dft_tc.rows(win) // 8, hop,
+                                    cfg.n_mels, mel_dft_tc.passes(cfg.n_fft),
+                                    d["weights"].numel(), ctypes.c_float(cfg.log_eps), stream)
     check(err, f"log_mel ({route} route) at n_fft {cfg.n_fft}, hop {hop}, win {win}")
     log_mel.launches += 1
     if route == "dft":
@@ -173,7 +180,8 @@ def log_mel_work(B: int, T: int, cfg: MelConfig, sample_rate: int) -> dict:
     one), the power (``3K``), the mel product over the filterbank's nonzero
     bands (``2·Σ band``) and the log (``M``). ``dft_ops``: what the DFT
     route's DFT-as-matmul algorithm does, the ``2·win·2K`` products a frame
-    and the same mel bands.
+    and the same mel bands; the DFT kernel runs those products three times,
+    in 3xTF32 (``dft_tf32x3_ops``).
     """
     F = melspec.num_frames(T, cfg)
     K = cfg.n_fft // 2 + 1
@@ -182,4 +190,5 @@ def log_mel_work(B: int, T: int, cfg: MelConfig, sample_rate: int) -> dict:
     fft_ops = cfg.win_length + 2.5 * cfg.n_fft * math.log2(cfg.n_fft) + 3.0 * K + cfg.n_mels
     return {"bytes": 4.0 * B * T + 4.0 * B * F * cfg.n_mels,
             "ops": B * F * (fft_ops + mel_ops),
-            "dft_ops": B * F * (2.0 * cfg.win_length * 2 * K + mel_ops)}
+            "dft_ops": B * F * (2.0 * cfg.win_length * 2 * K + mel_ops),
+            "dft_tf32x3_ops": B * F * 3 * 2.0 * cfg.win_length * 2 * K}

@@ -3,8 +3,10 @@
 Port of ``voicemap_tpu/train/checkpoints.py`` (Orbax there). A checkpoint
 holds the model's ``state_dict`` (parameters and BatchNorm buffers), the
 optimizer's state, the step, the learning rate and the plateau schedule's
-state. ``latest/<step>.pt`` keeps the newest ``max_to_keep``; ``best/``
-keeps the one with the highest n-shot accuracy, whose value persists in
+state (``restore_latest`` loads it on request; ``fit`` does not ask, and
+builds a fresh schedule from the restored lr, as the reference does).
+``latest/<step>.pt`` keeps the newest ``max_to_keep``; ``best/`` keeps the
+one with the highest n-shot accuracy, whose value persists in
 ``best_metric.json`` so that a resumed run cannot overwrite it with a worse
 one. Batch sampling is a function of (seed, step), so restoring the step
 resumes the data stream. The state may be a classifier's or a siamese net's

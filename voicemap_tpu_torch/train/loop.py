@@ -95,12 +95,14 @@ def fit(cfg: ExperimentConfig, train_store: AudioStore, val_store: Optional[Audi
     if verbose:
         print(f"block 0: {'B4/B5' if loss_fn.fused_block0 else 'autograd'}, "
               f"blocks 1+: {loss_fn.blockn}")
-    plateau = PlateauScheduler(state.lr, t.plateau_factor, t.plateau_patience, t.min_lr)
     ckpt = None
     if t.checkpoint_dir:
         ckpt = CheckpointManager(t.checkpoint_dir)
-        if ckpt.restore_latest(state, plateau) is not None and verbose:
+        if ckpt.restore_latest(state) is not None and verbose:
             print(f"resumed from step {state.step}")
+    # As the reference's fit: a fresh schedule from the (restored) lr, with
+    # no best and no bad count; the checkpoint's plateau state is not read.
+    plateau = PlateauScheduler(state.lr, t.plateau_factor, t.plateau_patience, t.min_lr)
 
     log = JSONLWriter(t.log_path)
     gen = torch.Generator(device=store.audio.device)

@@ -1,8 +1,10 @@
 """Time B2, B8, B3 and B6 at config #1's and config #4's shapes on the GPU,
 through their wrappers; or, with ``--b7``, B7's two passes at the train
-step's blocks 1-3; or, with ``--b45``, B4 and B5 at the train step's block 0.
+step's blocks 1-3; with ``--b45``, B4 and B5 at the train step's block 0;
+with ``--b5f32``, their f32 route there; with ``--b6dft``, B6's DFT route.
 
-    python3 -m voicemap_tpu_torch.utils.block_timing [--batch 2048] [--b7 | --b45]
+    python3 -m voicemap_tpu_torch.utils.block_timing [--batch 2048]
+        [--b7 | --b45 | --b5f32 | --b6dft]
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line:
 the mean ms of back-to-back launches (CUDA events) of ``conv_block0``
@@ -16,7 +18,11 @@ small batches times the host) at each of config #1's blocks 1-3 conv outputs (C,
 (256, 3000), (384, 1500), (512, 750) and their sums. ``--b45``: the mean ms
 of ``conv_block0_train`` and ``conv_block0_train_bwd`` (bf16 GEMM and
 selection, the f32 cotangent as the train step hands it; queued and back to
-back) at config #1's block 0 (T = 12000, C = 128) at B = 32 and 2048. A checkout whose B7
+back) at config #1's block 0 (T = 12000, C = 128) at B = 32 and 2048.
+``--b5f32``: the same for ``gemm_dtype=float32`` (B5's f32 route, and B4's,
+whose recompute B5 repeats). ``--b6dft``: the mean ms of ``log_mel`` at
+n_fft 400, win 400, hop 160, 64 mels (the DFT route) on (2048, 48000),
+queued and back to back. A checkout whose B7
 takes the relu activation channel first (before the bias and relu were
 folded into it) gets that activation, and the bias-and-relu pass its train
 op ran before B7 is timed beside it. It uses only the wrappers' public signatures, so the same
@@ -29,6 +35,7 @@ compared in one call, in turns (A, B, B, A), share a card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import inspect
 import json
 import os
@@ -56,6 +63,7 @@ BN_EPS = 1e-3
 HOLD_CYCLES_PER_CALL = 400_000  # utils/profiling.py's
 TRAIN_BLOCKS = ((256, 3000), (384, 1500), (512, 750))  # B7: blocks 1-3's (C, T), pool 2
 B45_BATCHES = (32, 2048)  # B4/B5: the train step's batch and the large one
+MEL_DFT = dict(n_fft=400, win_length=400, hop_length=160)  # B6's DFT route: librosa's
 
 
 def blockn_args(g: torch.Generator, B: int, T: int, cin: int, cout: int) -> tuple:
@@ -132,9 +140,11 @@ def time_b7(g: torch.Generator, batch: int) -> dict:
     return out
 
 
-def time_b45(g: torch.Generator) -> dict:
-    """B4 and B5 through their wrappers at config #1's block 0, bf16."""
+def time_b45(g: torch.Generator, gemm=torch.bfloat16) -> dict:
+    """B4 and B5 through their wrappers at config #1's block 0, in ``gemm``
+    (bf16: the tensor-core route, f32: the f32 route)."""
     T, c = BLOCK0
+    f32 = gemm == torch.float32
     rows = []
     for batch in B45_BATCHES:
         x = torch.randn(batch, T, 1, generator=g, device="cuda") * 0.3
@@ -143,16 +153,28 @@ def time_b45(g: torch.Generator) -> dict:
         sgn = torch.where(torch.arange(c, device="cuda") % 3 == 1, -1.0, 1.0)
         gp = torch.randn(batch, T // 4, c, generator=g, device="cuda")
         cs = [torch.randn(c, generator=g, device="cuda") * s for s in (1.0, 0.1, 0.05)]
-        iters = 50 if batch <= 256 else 10
+        iters = (10 if f32 else 50) if batch <= 256 else (3 if f32 else 10)
         row = {"batch": batch}
-        for name, fn, args in (("b4", conv_block0_train, (x, w, b, sgn)),
-                               ("b5", conv_block0_train_bwd, (x, w, b, sgn, gp, *cs))):
+        fwd = (x, w, b, sgn, 4, gemm, gemm) if f32 else (x, w, b, sgn)
+        bwd = (x, w, b, sgn, gp, *cs, 4, gemm) if f32 else (x, w, b, sgn, gp, *cs)
+        for name, fn, args in (("b4", conv_block0_train, fwd), ("b5", conv_block0_train_bwd, bwd)):
             row[f"{name}_ms"] = queued_ms(fn, *args, iters=iters)
             row[f"{name}_back_to_back_ms"] = time_fn(fn, *args, iters=iters)["mean_s"] * 1e3
         rows.append(row)
         del x, gp
         torch.cuda.empty_cache()
-    return {"b45": rows}
+    return {"b45_f32" if f32 else "b45": rows}
+
+
+def time_b6dft(g: torch.Generator, batch: int) -> dict:
+    """B6's DFT route through its wrapper: n_fft 400 on (batch, 48000)."""
+    mel = dataclasses.replace(melspec_2d().mel, **MEL_DFT)
+    x = torch.randn(batch, MEL_T, generator=g, device="cuda")
+    sr = melspec_2d().data.sample_rate
+    return {"b6_dft": {"batch": batch, **MEL_DFT,
+                       "ms": queued_ms(log_mel, x, mel, sr, iters=10),
+                       "back_to_back_ms": time_fn(log_mel, x, mel, sr,
+                                                  iters=10)["mean_s"] * 1e3}}
 
 
 def main(argv=None) -> int:
@@ -160,6 +182,8 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=2048)
     parser.add_argument("--b7", action="store_true", help="time B7 alone")
     parser.add_argument("--b45", action="store_true", help="time B4 and B5 alone")
+    parser.add_argument("--b5f32", action="store_true", help="time B4 and B5's f32 route")
+    parser.add_argument("--b6dft", action="store_true", help="time B6's DFT route")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("block_timing: no CUDA device", file=sys.stderr)
@@ -175,6 +199,12 @@ def main(argv=None) -> int:
         return 0
     if args.b45:
         print(json.dumps({"package": package, **time_b45(g)}), flush=True)
+        return 0
+    if args.b5f32:
+        print(json.dumps({"package": package, **time_b45(g, torch.float32)}), flush=True)
+        return 0
+    if args.b6dft:
+        print(json.dumps({"package": package, **time_b6dft(g, args.batch)}), flush=True)
         return 0
     T, c = BLOCK0
     x = torch.randn(args.batch, T, 1, generator=g, device="cuda") * 0.3
