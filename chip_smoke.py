@@ -33,9 +33,12 @@ Each phase prints one JSON line; nothing here imports JAX.
    recomputed selection (its stage entry) equal to B4's a_sel bit for bit;
    B5 at the inputs of seed 0's train step, its dW and db to 1e-4 against
    the plain ones on the routes and relu masks B5 took, the flips counted;
-   their f32 route (the conv on the CUDA cores, B5's dW in 3xTF32 on the
-   tensor cores) at (2, 4100, 72) and at (48, 12000, 128), more tiles than
-   CTAs: a_sel and #(a > 0) exactly, the statistics, dW and db to 1e-4;
+   their f32 route (the conv and B5's dW in 3xTF32 on the tensor cores) at
+   (2, 4100, 72), at (48, 12000, 128) (more items than CTAs), on rows of
+   very different scale and on the ties grid: the same rules at the 3xTF32
+   unit (a_sel in f32 and bf16 out, #(a > 0), B5's routes and relu masks,
+   the flips counted), the statistics to 1e-4, dW and db to 1e-4 on B5's
+   own routes and masks, B5's selection equal to B4's f32 a_sel bit for bit;
    B7's pool and routing passes (on a raw conv output and its bias,
    channels last, the cotangent in f32) at the three config #1 block shapes
    of the train step and at ROUTING_EDGES (C = 67 with odd T/pool, pool 4
@@ -126,7 +129,9 @@ Each phase prints one JSON line; nothing here imports JAX.
     and one contrastive step through the kernels and through their plain
     versions, held together;
 17. siamese timing — B9 at both shapes beside its bound, its plain version,
-    the broadcast form and ``torch.cdist`` (the library call for w >= 0);
+    the broadcast form and ``torch.cdist`` (the library call for w >= 0),
+    B9 back to back and queued, and the host microseconds of a call of its
+    wrapper and of ``cdist``;
     the 500-task head scoring; the siamese train step at batch 64 pairs
     under the auto policy, with peak memory, and its layout conversions
     under the profiler.
@@ -179,7 +184,7 @@ from voicemap_tpu_torch.ops.cuda_melspec import log_mel, log_mel_reference, log_
 from voicemap_tpu_torch.ops.cuda_conv_train import (
     bwd_dz, conv_block0_train, conv_block0_train_bwd, conv_block0_train_bwd_reference,
     conv_block0_train_bwd_routed_reference, conv_block0_train_bwd_stage,
-    conv_block0_train_bwd_stage_reference, conv_block0_train_reference,
+    conv_block0_train_bwd_stage_reference, conv_block0_train_reference, relu_bits,
 )
 from voicemap_tpu_torch.ops.cuda_preprocess import (
     decimate_store, gather_whiten, gather_whiten_reference,
@@ -242,11 +247,14 @@ TRAIN_TIMING_BATCHES = (32, 2048)
 B45_EDGES = ((3, 1000, 128, "plain"), (2, 1000, 72, "plain"), (2, 1000, 16, "plain"),
              (2, 1000, 256, "plain"), (1, 12000, 128, "plain"), (3, 1000, 128, "scaled"),
              (2, 1000, 72, "ties"))
-# The f32 route at an edge: C = 72, T/4 = 1025; and at more tiles than
-# cuda_conv_train.MAX_CTAS (48 rows of 24 tiles: 1152), so that CTAs walk
-# several tiles and B5's dW accumulators carry across them before the fold.
+# The f32 route at an edge: C = 72, T/4 = 1025; at more items than its
+# grid's CTAs (48 rows of 47 items of 64 positions against 396), so that
+# CTAs walk several items and B5's dW accumulators carry across them before
+# the fold; and, as B45_EDGES has for bf16, rows × 1, 1e3, 1e-3 and the
+# coarse grid where phases tie exactly (B, T, C, rows).
 B45_F32_EDGE = (2, 4100, 72)
 B45_F32_WIDE = (48, 12000, 128)
+B45_F32_ROWS = ((3, 1000, 128, "scaled"), (2, 1000, 72, "ties"))
 # The train step whose inputs B5's dW is held at on its own routes: the
 # step of utils/step_attrib.py (compare_plain_step) at this seed.
 B5_STEP_SEED = 0
@@ -326,6 +334,12 @@ TRAIN_REL_TOL = 1e-4  # stats, dW, db: of max |value|, for the other sum order
 # bounds of each other (route_flips); the flips are counted. Σa, Σa², dW
 # and db to TRAIN_REL_TOL. B5's recomputed selection equal to B4's f32 a_sel
 # bit for bit: both run the same products in the same order.
+# The f32 route (3xTF32 on the tensor cores) against plain versions that
+# round each product and sum in tap order: the same rules with the unit
+# block0_train_tc.tf32x3_unit() (the split's error and three products' f32
+# sums a tap) in place of 2^-24; dW and db to TRAIN_REL_TOL against the
+# plain dW and db on B5's own routes and relu masks (its stage entry's),
+# each flip held to the bound above, the gap to the plain routes reported.
 B45_MIN_COSINE = 0.9999
 STEP_LOSS_RTOL = 1e-3
 STEP_MIN_COSINE = 0.999
@@ -1308,29 +1322,98 @@ def b45_edge_inputs(seed: int, B: int, T: int, c: int, rows: str) -> tuple:
     return (x.to(DEVICE), *params)
 
 
-def check_block0_train_f32(x: torch.Tensor, params: tuple) -> tuple[list, dict]:
-    """B4 and B5's f32 route (the conv on the CUDA cores, B5's dW in 3xTF32
-    on the tensor cores) against their plain versions: a_sel and the count
-    equal, stats, dW and db to TRAIN_REL_TOL."""
+def relu_mask_flips(relu: torch.Tensor, p_relu: torch.Tensor, z: torch.Tensor,
+                    bound: torch.Tensor) -> int:
+    """B5's relu masks (``relu_bits``) against the plain version's: a phase
+    may differ only where its pre-activation lies within its bound of 0.
+    Returns the count of such phases; raises ``AssertionError`` else."""
+    B, c, T = z.shape
+    moved = torch.stack([((relu ^ p_relu) >> j) & 1 for j in range(4)], -1).bool()
+    near = (z.abs() <= bound).view(B, c, T // 4, 4).transpose(1, 2)
+    if bool((moved & ~near).any()):
+        raise AssertionError("B5's relu masks differ from the plain version's where no "
+                             "pre-activation lies within its bound of 0")
+    return int(moved.sum())
+
+
+def check_block0_train_f32(x: torch.Tensor, params: tuple, rows: str = "plain") -> tuple[list, dict]:
+    """B4 and B5's f32 route (the conv and B5's dW in 3xTF32 on the tensor
+    cores) against their plain versions, each to its stated tolerance
+    (above B45_MIN_COSINE): a_sel in f32 within its order bound at the
+    3xTF32 unit, in bf16 within it before its rounding; #(a > 0), B5's
+    routes and relu masks flipping only within it, the flips counted;
+    stats to TRAIN_REL_TOL, dW and db to it on B5's own routes and masks;
+    B5's recomputed selection equal to B4's f32 a_sel bit for bit."""
     B, T = x.shape[0], x.shape[1]
     w, b, sgn, cot, c0, c1, c2 = params
-    dt = torch.float32
+    f32, bf = torch.float32, torch.bfloat16
     c = w.shape[2]
-    got = conv_block0_train(x, w, b, sgn, 4, dt, dt)
-    want = conv_block0_train_reference(x, w, b, sgn, 4, dt, dt)
-    checks = [check_exact("conv_block0_train", got[0], want[0], (B, T // 4, c))]
-    checks += [check_rel("conv_block0_train", g_, w_, TRAIN_REL_TOL)
-               for g_, w_ in zip(got[1:3], want[1:3])]
-    if not torch.equal(got[3], want[3]):
-        raise AssertionError("conv_block0_train: #(a > 0) differs from the plain version")
-    dw, db = conv_block0_train_bwd(x, w, b, sgn, cot, c0, c1, c2, 4, dt)
-    want_dw, want_db = conv_block0_train_bwd_reference(x, w, b, sgn, cot, c0, c1, c2, 4, dt)
-    checks += [check_rel("conv_block0_train_bwd", dw, want_dw, TRAIN_REL_TOL),
-               check_rel("conv_block0_train_bwd", db, want_db, TRAIN_REL_TOL)]
-    for ch in checks:
-        ch.update(route="float32 GEMM", B=B)
-    errors = {"conv_block0_train_f32": max(ch["max_abs_err"] for ch in checks[:3]),
-              "conv_block0_train_bwd_f32": max(ch["max_abs_err"] for ch in checks[3:])}
+    shape = (B, T // 4, c)
+    got = conv_block0_train(x, w, b, sgn, 4, f32, f32)
+    gotb = conv_block0_train(x, w, b, sgn, 4, f32, bf)
+    want = conv_block0_train_reference(x, w, b, sgn, 4, f32, f32)
+    torch.cuda.synchronize()
+    for out, dt in ((got[0], f32), (gotb[0], bf)):
+        if tuple(out.shape) != shape or out.dtype != dt:
+            raise AssertionError(f"conv_block0_train {shape}: {tuple(out.shape)} {out.dtype}")
+    if not all(torch.equal(u, v) for u, v in zip(got[1:], gotb[1:])):
+        raise AssertionError("conv_block0_train: the statistics differ between two launches")
+    tiny = torch.full((), 1e-30, dtype=torch.float64, device=x.device)
+    bnd = block0_train_tc.sel_bound(x, w, b, want[0], f32)
+    diff = (got[0] - want[0]).abs()
+    ratio = float((diff / torch.maximum(bnd, tiny)).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"conv_block0_train {shape} f32 GEMM, f32 a_sel: {ratio} of its "
+                             f"order bound")
+    tolb = (1 + B2_BF16_REL) * bnd + B2_BF16_REL * want[0].abs().double()
+    ratio_b = float(((gotb[0].float() - want[0]).abs() / torch.maximum(tolb, tiny)).max())
+    if not ratio_b <= 1.0:
+        raise AssertionError(f"conv_block0_train {shape} f32 GEMM, bf16 a_sel: {ratio_b} of its "
+                             f"bound")
+    z, zb = block0_train_tc.preactivation(x, w, b, f32)
+    relu = block0_train_tc.relu_flips(got[3], want[3], z, zb)
+    stats = [check_rel("conv_block0_train", g_, w_, TRAIN_REL_TOL)
+             for g_, w_ in zip(got[1:3], want[1:3])]
+    dw, db = conv_block0_train_bwd(x, w, b, sgn, cot, c0, c1, c2, 4, f32)
+    sdw, sdb, ssel, route, relu_b = conv_block0_train_bwd_stage(x, w, b, sgn, cot, c0, c1, c2,
+                                                                4, f32)
+    if not (torch.equal(ssel, got[0]) and torch.equal(sdw, dw) and torch.equal(sdb, db)):
+        raise AssertionError(f"conv_block0_train_bwd_stage {shape} f32 GEMM: B5's recomputed "
+                             f"selection is not B4's a_sel bit for bit, or its dW, db not B5's")
+    routes = block0_train_tc.route_flips(route, z, zb, sgn)
+    p_relu = relu_bits(z.clamp(min=0.0))
+    relus = relu_mask_flips(relu_b, p_relu, z, zb)
+    del z, zb
+    own_dw, own_db = conv_block0_train_bwd_routed_reference(x, w, b, sgn, cot, c0, c1, c2,
+                                                            route, relu_b, 4, f32)
+    want_dw, want_db = conv_block0_train_bwd_reference(x, w, b, sgn, cot, c0, c1, c2, 4, f32)
+    grads = [check_rel("conv_block0_train_bwd", dw, own_dw, TRAIN_REL_TOL),
+             check_rel("conv_block0_train_bwd", db, own_db, TRAIN_REL_TOL)]
+    for ch, got_, want_ in zip(grads, (dw, db), (want_dw, want_db)):
+        ch.update(reference="plain dW, db on B5's own routes and relu masks",
+                  rel_err_vs_plain_routes=rel_err(got_, want_))
+    base = {"route": "float32 GEMM", "B": B, "rows": rows}
+    unit = block0_train_tc.tf32x3_unit()
+    checks = [{**base, "kernel": "conv_block0_train", "shape": list(shape), "dtype": "float32",
+               "max_abs_err": float(diff.max()), "err_over_bound": ratio,
+               "tolerance": f"|err| <= u*(4*K*(S+|bias|) + 4*|ref|), u = {unit} "
+                            f"(3xTF32), K = 32, S = sum|x*w| of the larger phase"},
+              {**base, "kernel": "conv_block0_train", "shape": list(shape), "dtype": "bfloat16",
+               "max_abs_err": float((gotb[0].float() - want[0]).abs().max()),
+               "err_over_bound": ratio_b,
+               "tolerance": "|out - ref_f32| <= (1 + 2^-8)*bound + 2^-8*|ref_f32|"},
+              {**base, "kernel": "conv_block0_train", "shape": [c], "dtype": "count",
+               "max_abs_err": float((got[3] - want[3]).abs().max()), "flips": relu,
+               "tolerance": "#(a > 0) differs only by pre-activations within their bound "
+                            "of 0"},
+              *({**base, **ch} for ch in stats + grads),
+              {**base, "kernel": "conv_block0_train_bwd_stage", "shape": list(shape),
+               "max_abs_err": 0.0, "route_flips": routes, "relu_flips": relus,
+               "tolerance": "selection equal to B4's f32 a_sel bit for bit; routes and relu "
+                            "masks differ only within their bounds"}]
+    errors = {"conv_block0_train_f32": max(float(diff.max()), stats[0]["max_abs_err"],
+                                           stats[1]["max_abs_err"]),
+              "conv_block0_train_bwd_f32": max(ch["max_abs_err"] for ch in grads)}
     return checks, errors
 
 
@@ -1490,14 +1573,9 @@ def b5_step_case(args: tuple, kw: dict) -> dict:
                                                                        c2)
     z, zb = block0_train_tc.preactivation(x, w, b)
     routes = block0_train_tc.route_flips(route, z, zb, sgn)
-    B, c, T = z.shape
-    moved = torch.stack([((relu ^ p_relu) >> j) & 1 for j in range(4)], -1).bool()
-    near = (z.abs() <= zb).view(B, c, T // 4, 4).transpose(1, 2)
-    if bool((moved & ~near).any()):
-        raise AssertionError("B5's relu masks differ from the plain version's where no "
-                             "pre-activation lies within its bound of 0")
-    relus = int(moved.sum())
-    del z, zb, near, moved
+    relus = relu_mask_flips(relu, p_relu, z, zb)
+    B = z.shape[0]
+    del z, zb
     exact = dw_float64(x, w, b, sgn, g, c0, c1, c2, route, relu)
     grads = [check_rel("conv_block0_train_bwd", dw, own_dw, TRAIN_REL_TOL),
              check_rel("conv_block0_train_bwd", db, own_db, TRAIN_REL_TOL)]
@@ -1539,7 +1617,8 @@ def check_routing(seed: int, B: int, c: int, T: int, pool: int, dt,
 def check_train_kernels(store, idx, offsets) -> dict:
     """B4/B5 on the tensor cores at the train step's shape and at
     B45_EDGES, B5 at the train step's own inputs on its own routes
-    (check_b5_step), their f32 route at B45_F32_EDGE and B45_F32_WIDE; B7 at
+    (check_b5_step), their f32 route at B45_F32_EDGE, B45_F32_WIDE and
+    B45_F32_ROWS; B7 at
     the three block shapes
     of the train step and at ROUTING_EDGES, bf16 and f32; the launch
     counters read around the phase (B4's and B5's f32 route runs only
@@ -1555,9 +1634,10 @@ def check_train_kernels(store, idx, offsets) -> dict:
     checks += step_cases
     errors["conv_block0_train_bwd"] = max(errors["conv_block0_train_bwd"],
                                           err["conv_block0_train_bwd"])
-    for i, shape in enumerate((B45_F32_EDGE, B45_F32_WIDE)):
-        xe, *params = b45_edge_inputs(11 + i, *shape, "plain")
-        ch, err = check_block0_train_f32(xe, tuple(params))
+    f32_cases = [(*B45_F32_EDGE, "plain"), (*B45_F32_WIDE, "plain"), *B45_F32_ROWS]
+    for i, (B, T, c, rows) in enumerate(f32_cases):
+        xe, *params = b45_edge_inputs(11 + i, B, T, c, rows)
+        ch, err = check_block0_train_f32(xe, tuple(params), rows)
         checks += ch
         for k, v in err.items():
             errors[k] = max(errors.get(k, 0.0), v)
@@ -1780,19 +1860,18 @@ def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -
         pooled = bt * (T // 4) * c
         # Bytes: x, w, a_sel (bf16; f32 route f32), the statistics; x, w, g in
         # f32, dW and db. Operations: the conv (B5: and the dW product) at the
-        # bf16 tensor-core rate; the f32 route's conv at the f32 CUDA-core
-        # rate, and B5's dW product, three TF32 products a product (3xTF32),
-        # at the TF32 tensor-core rate.
+        # bf16 tensor-core rate; on the f32 route three TF32 products a
+        # product (3xTF32) at the TF32 tensor-core rate.
         row = {"batch": bt, "bound": {
             "conv_block0_train": bound(bt * T * 4 + 32 * c * 4 + pooled * 2 + 3 * c * 4,
                                        conv_ops, BF16_OPS_PER_S),
             "conv_block0_train_bwd": bound(bt * T * 4 + 32 * c * 4 + pooled * 4 + 33 * c * 4,
                                            2 * conv_ops, BF16_OPS_PER_S),
             "conv_block0_train_f32": bound(bt * T * 4 + 32 * c * 4 + pooled * 4 + 3 * c * 4,
-                                           conv_ops, F32_OPS_PER_S),
+                                           3 * conv_ops, TF32_OPS_PER_S),
             "conv_block0_train_bwd_f32": bound(bt * T * 4 + 32 * c * 4 + pooled * 4
-                                               + 33 * c * 4, conv_ops, F32_OPS_PER_S,
-                                               (3 * conv_ops, TF32_OPS_PER_S))}}
+                                               + 33 * c * 4, 3 * 2 * conv_ops,
+                                               TF32_OPS_PER_S)}}
         # queued: the device's time alone (at B=32 a call's host work outlasts
         # it, and back to back the span times the host)
         for name, fn, args in (("conv_block0_train", conv_block0_train, fwd),
@@ -2442,10 +2521,25 @@ def run_siamese_train_slice(host, seed: int) -> dict:
     return {"launches": train, "cfg": cfg, "store": store}
 
 
+def host_us(fn, *args, iters: int = 200) -> float:
+    """Host microseconds a call of ``fn(*args)``: the wall time to enqueue
+    ``iters`` calls, after one, before waiting for the device."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e6
+
+
 def run_siamese_timing(sliced: dict, trained: dict, seed: int, card: str) -> dict:
     """B9 at B9_TIMING and B9_NSHOT beside its bound, its plain version, the
-    broadcast form and ``torch.cdist``; the 500-task head scoring; the
-    siamese train step at SIAMESE_BATCH pairs under the auto policy."""
+    broadcast form and ``torch.cdist`` (back to back, and B9 also queued,
+    the device's time alone; the host microseconds of a call of B9's
+    wrapper and of ``cdist``); the 500-task head scoring; the siamese train
+    step at SIAMESE_BATCH pairs under the auto policy."""
     t0 = time.perf_counter()
     rows = {}
     for name, shape in (("timing", B9_TIMING), ("nshot", B9_NSHOT)):
@@ -2460,6 +2554,10 @@ def run_siamese_timing(sliced: dict, trained: dict, seed: int, card: str) -> dic
             "shape": list(shape), "bytes": work["bytes"], "ops": work["ops"],
             **bound(work["bytes"], work["ops"], F32_INSTR_PER_S),
             "ms": time_fn(weighted_l1, q, s, w, b, iters=50)["mean_s"] * 1e3,
+            "queued_ms": time_fn(weighted_l1, q, s, w, b, iters=50,
+                                 queued=True)["mean_s"] * 1e3,
+            "host_us": host_us(weighted_l1, q, s, w, b),
+            "library_host_us": host_us(torch.cdist, qw, sw, 1.0),
             "plain_ms": time_fn(weighted_l1_reference, q, s, w, b, iters=3,
                                 warmup=1)["mean_s"] * 1e3,
             "broadcast_ms": time_fn(broadcast, iters=10, warmup=2)["mean_s"] * 1e3,

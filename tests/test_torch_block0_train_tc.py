@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from voicemap_tpu.ops.pallas_conv_train import pallas_bwd_core, pallas_fwd_core
-from voicemap_tpu_torch.ops import block0_tc, block0_train_tc as tc
+from voicemap_tpu_torch.ops import block0_tc, block0_train_tc as tc, tf32x3
 from voicemap_tpu_torch.ops.cuda_conv_train import (
     _activation, conv_block0_train_bwd_reference, conv_block0_train_bwd_routed_reference,
     conv_block0_train_bwd_stage, conv_block0_train_reference,
@@ -126,20 +126,22 @@ def test_product_over_every_unit_is_the_plain_weight_gradient(B, T, c, ties):
 @pytest.mark.parametrize("B,T,c", [(1, 12000, 128), (3, 1000, 72), (32, 12000, 128),
                                    (2048, 12000, 128), (1, 1000, 256), (5, 1000, 16),
                                    (2, 1000, 200)])
-@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("kind", tc.KINDS)
 def test_schedule_covers_every_item_and_group_once(B, T, c, kind):
     tile, n_cps = tc.grid(B, T, c, kind)
     assert (tile, n_cps) == tc.grid(B, T, c, kind)  # a fixed function of the shape
     t_out = T // 4
     items = B * -(-t_out // tile)
     assert 1 <= n_cps <= items
-    n_sg = tc.channel_groups(c)
-    assert n_cps * n_sg <= tc.H100_SMS * tc.CTAS_PER_SM
-    got = [it for cta in tc.schedule(B, T, c, tile, n_cps) for it in cta]
+    n_sg = tc.channel_groups(c, kind)
+    assert n_sg == -(-c // (32 if kind.endswith("_f32") else 128))
+    assert n_cps * n_sg <= tc.H100_SMS * tc.ctas_per_sm(kind)
+    got = [it for cta in tc.schedule(B, T, c, tile, n_cps, kind) for it in cta]
     want = [(b, p0, sg) for b in range(B) for p0 in range(0, t_out, tile) for sg in range(n_sg)]
     assert sorted(got) == sorted(want)
     # a CTA keeps one channel group for its life
-    assert all(len({sg for _, _, sg in cta}) == 1 for cta in tc.schedule(B, T, c, tile, n_cps))
+    assert all(len({sg for _, _, sg in cta}) == 1
+               for cta in tc.schedule(B, T, c, tile, n_cps, kind))
 
 
 @pytest.mark.parametrize("cg", [16, 32, 72, 100, 128])
@@ -153,23 +155,35 @@ def test_warps_cover_every_position_and_slice_of_an_item_once(cg, tile, n_p):
     assert all(len({sl for w_, sl, _ in cover if w_ == w}) <= 1 for w in range(4))
 
 
-@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("kind", tc.KINDS)
 def test_batch_one_still_gives_every_sm_an_item(kind):
     tile = tc.pick_tile(1, 12000, 128, kind)
-    assert tile == 16 and -(-3000 // tile) >= tc.H100_SMS
+    groups = tc.channel_groups(128, kind)
+    assert groups * -(-3000 // tile) >= tc.H100_SMS
+    # the widest tile that does: 16 on one bf16 group; on four f32 slices
+    # the widest there is
+    assert tile == (tc.TILES[kind][0] if kind.endswith("_f32") else 16)
     assert tc.pick_tile(2048, 12000, 128, kind) == tc.TILES[kind][0]
-    assert tc.pick_tile(1, 1000, 256, kind) == 16  # 2 groups × 16 tiles: as wide as it gets
+    assert tc.pick_tile(1, 1000, 256, kind) == 16  # 250 positions: as wide as it gets
 
 
 def test_shared_memory_fits_up_to_the_kernels_widest_channels():
     for c in (16, 72, 128, 200, 256):
-        for kind in ("fwd", "bwd"):
+        for kind in tc.KINDS:
             for tile in tc.TILES[kind]:
                 for ob in (2, 4):
                     assert tc.smem_bytes(c, tile, kind, ob) <= tc.SMEM_LIMIT
     # small enough for the resident CTAs the launch bounds ask for
     for kind in ("fwd", "bwd"):
         assert tc.smem_bytes(128, 64, kind) * tc.CTAS_PER_SM <= 228 * 1024
+    # the f32 route at its widest tile, with the 1 KB an SM keeps for each
+    # CTA; one 32-channel slice a CTA, whatever C
+    for kind in ("fwd_f32", "bwd_f32"):
+        need = tc.smem_bytes(128, tc.TILES[kind][0], kind, 4) + 1024
+        assert need * tc.CTAS_PER_SM_F32 <= tc.SMEM_PER_SM
+        assert tc.smem_bytes(16, 32, kind) == tc.smem_bytes(256, 32, kind)
+    # B5's fold rows fit in the place of its dz rows
+    assert tc.WARPS * tc.VALS["bwd"] * tc.SLICE <= tc.WARPS * tc.DZ_ROWS * tc.DZ_PITCH
 
 
 @pytest.mark.parametrize("B,T,c", [(1, 1000, 16), (2, 1000, 72), (1, 640, 256)])
@@ -263,3 +277,169 @@ def test_kernel_products_against_the_tpu_kernels_in_interpret_mode():
     want_sel = torch.from_numpy(np.array(want_sel, np.float32)).to(torch.bfloat16)
     diff = (sel.view(torch.int16).int() - want_sel.view(torch.int16).int()).abs()
     assert int(diff.max()) <= 1
+
+
+# ---------------------------------------------------------------------------
+# The f32 route (block0_train_tc32): 3xTF32 on the tensor cores
+# ---------------------------------------------------------------------------
+
+def test_f32_conv_fragments_are_the_toeplitz_view_of_the_window():
+    """Register reg of lane (g, tq), m-tile mt, k8 step s holds window
+    sample 4g + 2mt + 8s + tq (+ 1 for row g + 8, the next phase; + 4 for
+    taps + 4): the element (position g, phase 2mt (+1), tap 8s + tq (+4))
+    of the conv's Toeplitz view; the dW product's X holds (tap 16mt + g
+    (+8), position tq (+4) of phase ks) at ks + 16mt + g + 4tq (+8, +16)."""
+    for lane in range(32):
+        g, tq = divmod(lane, 4)
+        for mt in range(2):
+            for s in range(4):
+                for reg in range(4):
+                    phase, tap = 2 * mt + (reg & 1), 8 * s + tq + 4 * (reg >> 1)
+                    assert tc.conv_fragment_sample(g, tq, mt, s, reg) == 4 * g + phase + tap
+                    pos, ks = tq + 4 * (reg >> 1), s
+                    tap = 16 * mt + g + 8 * (reg & 1)
+                    assert tc.dw_fragment_sample_f32(g, tq, mt, ks, reg) == 4 * pos + ks + tap
+    # the dz rows are phase-major: row 8j + p; a k8 step reads one phase
+    assert [tc.dz_row(j, p) for j in range(4) for p in range(8)] == list(range(tc.DZ_ROWS))
+
+
+def test_f32_weight_tiles_are_wgmmas_kmajor_b_of_each_step_and_plane():
+    """Every (channel, tap, plane) has its own word of the 8 tiles, and a
+    tile read back in wgmma's K-major layout is that k8 step's (8 taps, 32
+    channels) block of the split weights."""
+    words = [tc.w_tile_word(n, k, p) for n in range(32) for k in range(32) for p in (0, 1)]
+    assert sorted(words) == list(range(8 * tc.W_TILE_F32))
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy(rng.standard_normal((32, 32)).astype(np.float32))
+    big, small = tf32x3.split(w)
+    packed = tc.pack_weights_f32(w)
+    for s in range(4):
+        for p, plane in enumerate((big, small)):
+            tile = packed[(2 * s + p) * tc.W_TILE_F32:(2 * s + p + 1) * tc.W_TILE_F32]
+            assert torch.equal(tc.kmajor_tile(tile), plane[8 * s:8 * s + 8])
+
+
+@pytest.mark.parametrize("grp", [0, 3])
+def test_f32_unit_sums_from_the_fragments_are_the_3xtf32_conv(grp):
+    """A unit's conv sums built as a warp's share of the wgmma forms them (A
+    fragment by fragment from the window, B read back from the packed
+    tiles) equal the split planes' three products of the Toeplitz rows and
+    the weights (both summed in float64), and lie within the split's
+    3·2^-22 of Σ|x·w| of the exact conv."""
+    rng = np.random.default_rng(grp)
+    tile = 32
+    win = torch.from_numpy(rng.standard_normal(4 * tile + 32).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((32, 32)) * 32 ** -0.5).astype(np.float32))
+    got = tc.conv_products_f32(win, w, grp)
+    u = 32 * grp
+    rows = torch.stack([win[u + 4 * p + j:u + 4 * p + j + 32] for p in range(8)
+                        for j in range(4)])  # (32 = position·4 + phase, 32 taps)
+    ab, as_ = (t.double() for t in tf32x3.split(rows))
+    wb, ws = (t.double() for t in tf32x3.split(w))
+    want = (as_ @ wb + ab @ ws + ab @ wb).view(8, 4, 32)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    exact = (rows.double() @ w.double()).view(8, 4, 32)
+    scale = (rows.double().abs() @ w.double().abs()).view(8, 4, 32)
+    assert bool(((got - exact).abs() <= tc.TF32X3_DROPPED * scale).all())
+
+
+@pytest.mark.parametrize("grp", [0, 2])
+def test_f32_unit_dw_from_the_fragments_is_the_units_weight_gradient(grp):
+    """B5's f32 dW product of one unit, dz written to its phase-major rows
+    and read back as B fragments, X from the window: within 3·2^-22 of Σ|·|
+    of the unit's exact X·dZ."""
+    rng = np.random.default_rng(10 + grp)
+    tile = 32
+    win = torch.from_numpy(rng.standard_normal(4 * tile + 32).astype(np.float32))
+    dz = torch.from_numpy(rng.standard_normal((8, 4, 32)).astype(np.float32))
+    got = tc.unit_dw_f32(win, dz, grp)
+    want = torch.zeros(32, 32, dtype=torch.float64)
+    scale = torch.zeros(32, 32, dtype=torch.float64)
+    for p in range(8):
+        for j in range(4):
+            t = 4 * (8 * grp + p) + j
+            term = win[t:t + 32, None].double() * dz[p, j][None, :].double()
+            want += term
+            scale += term.abs()
+    assert bool(((got - want).abs() <= tc.TF32X3_DROPPED * scale).all())
+    assert float((got - want).abs().max()) > 0  # the split does drop something
+
+
+def test_tf32x3_unit_is_derived_from_the_split_and_the_sums():
+    """u = (3·(8 + 1)·2u/8 + 2u + 3·2^-22/32) / 4 with u = 2^-24: the three
+    mma of a k8 step, the plain version's rounded product and add, and the
+    split, a tap, over the form's 4."""
+    u = 2.0 ** -24
+    assert tc.tf32x3_unit() == pytest.approx((6.75 * u + 2 * u + 3 * 2.0 ** -22 / 32) / 4,
+                                             rel=1e-15)
+    assert tc.tf32x3_unit() > tc.F32_UNIT_ROUNDOFF  # looser than the bf16 route's
+
+
+def _kernel_model_a_sel(x, w, b, sgn):
+    """B4's f32 a_sel as the kernel forms it, modelled: each k8 step's three
+    exact products of the split planes added to an f32 accumulator in 3xTF32's
+    order (small·big, big·small, big·big), steps in order; + bias, relu, the
+    select. The tensor cores' own additions are taken as rounded to nearest."""
+    B, T = x.shape
+    xp = torch.nn.functional.pad(x, (15, 16))
+    rows = xp.unfold(1, 32, 1)[:, :T]  # (B, T, 32): row t is x[t − 15 ..]
+    wq = w[:, 0, :]
+    xb, xs = tf32x3.split(rows)
+    wb, ws = tf32x3.split(wq)
+    acc = torch.zeros((B, T, wq.shape[1]), dtype=torch.float32)
+    for s in range(4):
+        k = slice(8 * s, 8 * s + 8)
+        for pa, pb in ((xs, wb), (xb, ws), (xb, wb)):
+            acc = (acc.double() + pa[..., k].double() @ pb[k].double()).float()
+    a = torch.relu(acc + b).view(B, T // 4, 4, -1)
+    return torch.where(sgn > 0, a.amax(2), a.amin(2))
+
+
+def test_f32_sel_bound_holds_where_the_split_loses_the_most():
+    """The bound at tf32x3_unit on the case where the kernel's value and the
+    plain version's differ the most as a share of S: x constant at 1 + 2^-11
+    − 2^-23, whose split drops the most (big = 1, small rounds up by 2^-23),
+    w alternating that value and −(1 + 2^-10) (exact in tf32), times powers
+    of two, so that every tap's split error has one sign while the sums
+    nearly cancel. There the model of the kernel lies farther from the plain
+    a_sel than 2^-24·S, and within the bound; and on random rows, scaled
+    rows and the ties grid as well."""
+    c = 12
+    B, T = 2, 256
+    x = torch.full((B, T), 1.0 + 2.0 ** -11 - 2.0 ** -23)
+    x[1] *= -3.0
+    wpat = torch.tensor([1.0 + 2.0 ** -11 - 2.0 ** -23, -(1.0 + 2.0 ** -10)] * 16)
+    w = (wpat[:, None] * torch.tensor([0.5, 1.0, 2.0] * 4)[None, :])[:, None, :]
+    b = torch.full((c,), 0.01)
+    sgn = torch.where(torch.arange(c) % 3 == 1, -1.0, 1.0)
+    cases = [(x, w, b, sgn)]
+    for seed, ties in ((1, False), (2, True)):
+        xr, wr, br, sr = inputs(seed, 2, 512, 24, ties)[:4]
+        cases.append((xr, wr, br, sr))
+        cases.append((xr * torch.tensor([[1e3], [1e-3]]), wr, br, sr))
+    worst = 0.0
+    for xi, wi, bi, si in cases:
+        ref = conv_block0_train_reference(xi, wi, bi, si, gemm_dtype=torch.float32,
+                                          sel_dtype=torch.float32)[0]
+        got = _kernel_model_a_sel(xi, wi, bi, si)
+        bound = tc.sel_bound(xi, wi, bi, ref, torch.float32)
+        diff = (got.double() - ref.double()).abs()
+        assert bool((diff <= bound).all())
+        worst = max(worst, float((diff / bound.clamp(min=1e-300)).max()))
+    # the adversarial case: off by more than 2^-24 of S, but inside the bound
+    ref = conv_block0_train_reference(x, w, b, sgn, gemm_dtype=torch.float32,
+                                      sel_dtype=torch.float32)[0]
+    got = _kernel_model_a_sel(x, w, b, sgn)
+    s_max = (x.abs().max() * w.abs().sum(0).max()).item()
+    assert float((got - ref).abs().max()) > 2.0 ** -24 * s_max
+    assert 0 < worst <= 1.0
+
+
+def test_f32_preactivation_bound_is_the_f32_operands_at_the_3xtf32_unit():
+    x, w, b = inputs(4, 1, 400, 8)[:3]
+    z, bound = tc.preactivation(x, w, b, torch.float32)
+    a = _activation(x, w, b, torch.float32)[0]
+    assert torch.equal(torch.relu(z), a)  # the plain version's own sum, f32 operands
+    zb, bound_b = tc.preactivation(x, w, b)
+    assert not torch.equal(z, zb)  # bf16 operands differ
+    assert bool((bound > bound_b * (tc.tf32x3_unit() / tc.F32_UNIT_ROUNDOFF) * 0.5).all())

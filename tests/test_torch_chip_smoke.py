@@ -26,8 +26,8 @@ from voicemap_tpu_torch.config import (
     DataConfig, EncoderConfig, ExperimentConfig, MelConfig, SiameseConfig, TrainConfig,
 )
 from voicemap_tpu_torch.ops import (
-    cuda_conv, cuda_conv_train, cuda_distance, cuda_melspec, cuda_preprocess, cuda_quant_block,
-    cuda_routing,
+    block0_train_tc, cuda_conv, cuda_conv_train, cuda_distance, cuda_melspec, cuda_preprocess,
+    cuda_quant_block, cuda_routing,
 )
 from voicemap_tpu_torch.train import steps
 
@@ -257,13 +257,23 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert len(stage) == len(sel32) and all(c["route_flips"] >= 0 for c in stage)
     assert all(c["flips"] >= 0 for c in b45 if c.get("dtype") == "count")
     assert all(c["rel_err"] <= cs.TRAIN_REL_TOL for c in b45 if "rel_err" in c)
+    # the f32 route (3xTF32) at its edge, more items than CTAs, scaled rows
+    # and ties: the same rules at the 3xTF32 unit, dW and db on B5's own
+    # routes and masks, B5's selection B4's bit for bit
     f32_route = [c for c in train_checks if c.get("route") == "float32 GEMM"]
-    assert [c["kernel"] for c in f32_route] == (["conv_block0_train"] * 3 + [
-        "conv_block0_train_bwd"] * 2) * 2
-    assert [c["B"] for c in f32_route] == [2] * 10
-    assert f32_route[0]["max_abs_err"] == f32_route[5]["max_abs_err"] == 0.0
+    assert [c["kernel"] for c in f32_route] == (["conv_block0_train"] * 5 + [
+        "conv_block0_train_bwd"] * 2 + ["conv_block0_train_bwd_stage"]) * 4
+    assert [(c["B"], c["rows"]) for c in f32_route[::8]] == [
+        (2, "plain"), (2, "plain"), (3, "scaled"), (2, "ties")]
+    assert all(c["err_over_bound"] <= 1.0 for c in f32_route if "err_over_bound" in c)
+    assert all(c["rel_err"] <= cs.TRAIN_REL_TOL for c in f32_route if "rel_err" in c)
+    assert all(c["route_flips"] >= 0 and c["relu_flips"] >= 0 for c in f32_route[7::8])
+    assert f32_route[0]["tolerance"].startswith(
+        f"|err| <= u*(4*K*(S+|bias|) + 4*|ref|), u = {block0_train_tc.tf32x3_unit()}")
     launches = by_phase["train_kernels"]["launches"]
-    assert launches["conv_block0_train_f32"] == launches["conv_block0_train_bwd_f32"] == 2
+    # B4 twice a case (f32 and bf16 a_sel); B5 once, and here its stage
+    # entry's plain version counts once more
+    assert launches["conv_block0_train_f32"] == launches["conv_block0_train_bwd_f32"] == 8
     # B5 at the train step's own inputs, against the plain dW and db on its
     # own routes and relu masks, the flips counted
     step = [c for c in train_checks if c.get("case") == "b5_step"]
@@ -371,8 +381,10 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     stiming = by_phase["siamese_timing"]
     assert stiming["weighted_l1"]["timing"]["shape"] == [1, 40, 36, 16]
     assert stiming["weighted_l1"]["nshot"]["bound_by"] == "bytes"
-    assert {"ms", "plain_ms", "broadcast_ms", "library_ms", "bound_ms"} <= set(
-        stiming["weighted_l1"]["timing"])
+    for form in ("timing", "nshot"):
+        assert {"ms", "queued_ms", "host_us", "library_host_us", "plain_ms", "broadcast_ms",
+                "library_ms", "bound_ms"} <= set(stiming["weighted_l1"][form])
+        assert stiming["weighted_l1"][form]["host_us"] > 0
     assert stiming["train_step"]["rows"] == 16 and stiming["train_step"]["blockn"] == "fused"
     timing = by_phase["timing"]
     assert [(r["block"], r["T"], r["cin"], r["cout"]) for r in timing["conv_blockn"]] == [
@@ -418,7 +430,7 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert by_name["conv_block0_train_bwd"]["library_ms"] is not None
     # B4's and B5's f32 route runs on no path: the train-kernels phase's count
     for name in ("conv_block0_train_f32", "conv_block0_train_bwd_f32"):
-        assert by_name[name]["launches_by_path"] == {"train_kernels": 2}
+        assert by_name[name]["launches_by_path"] == {"train_kernels": 8}
     assert by_name["conv_block0_train_bwd_f32"]["library_ms"] is not None
     assert by_name["conv_block0_train"]["launches_by_path"] == {"train": steps_run,
                                                                 "siamese_train": steps_run}

@@ -3,7 +3,9 @@ on the CPU.
 
 B9's plain version against the Pallas kernel in interpret mode and against
 the JAX package's ``head_scores``, at 1e-5 (another f32 summation order over
-64 terms); its pinned order against a numpy loop, bit for bit;
+64 terms, and the operands scaled by |w| before the difference); its pinned
+order (sign(w)·|q·|w| − s·|w||, in d order) against a numpy loop, bit for
+bit, with zero weights and after w changes in place;
 ``merge_features`` for the five metrics at 1e-6; the two routes to the
 weighted-L1 scores (per-task ``head_scores`` and ``pairwise_weighted_l1``)
 against each other; the wrapper's checks and its launch count on CPU tensors.
@@ -59,19 +61,60 @@ def test_batched_form_matches_jax_head_scores(T, P):
     np.testing.assert_allclose(got[:, 0].numpy(), np.asarray(want), rtol=TOL, atol=TOL)
 
 
+def _numpy_order(q, s, w, b):
+    """The kernel's order in numpy f32: q and s scaled by |w_d| (one rounding
+    each), the magnitude of their difference (one rounding) added with the
+    sign of w_d (one rounding), in d order from 0, then + b."""
+    acc = np.zeros((q.shape[0], q.shape[1], s.shape[1]), np.float32)
+    for d in range(q.shape[2]):
+        wa = np.abs(w[d])
+        term = np.abs(q[:, :, None, d] * wa - s[:, None, :, d] * wa)
+        acc = acc - term if w[d] < 0 else acc + term
+    return acc + np.float32(b)
+
+
 @pytest.mark.parametrize("shape", [(1, 33, 41, 64), (3, 7, 130, 17), (2, 1, 3, 5)])
 def test_plain_version_sums_in_d_order_bit_for_bit(shape):
-    """The order the kernel pins: a rounded |q − s|·w a step, added in d
-    order from 0, then + b; a numpy f32 loop in that order gives the same bits."""
+    """The order the kernel pins: a term sign(w)·|q·|w| − s·|w||, each
+    product, the difference and the sum rounded, added in d order from 0,
+    then + b; a numpy f32 loop in that order gives the same bits."""
     T, nq, ns, D = shape
     q, s, w = _inputs(D, T, nq, ns, D)
+    assert (w < 0).any() and (w > 0).any()
     b = np.float32(0.8125)
-    acc = np.zeros((T, nq, ns), np.float32)
-    for d in range(D):
-        acc = acc + np.abs(q[:, :, None, d] - s[:, None, :, d]) * w[d]
     got = weighted_l1_reference(torch.from_numpy(q), torch.from_numpy(s),
                                 torch.from_numpy(w), float(b))
-    np.testing.assert_array_equal(got.numpy(), acc + b)
+    np.testing.assert_array_equal(got.numpy(), _numpy_order(q, s, w, b))
+
+
+def test_plain_version_takes_zero_and_signed_zero_weights_as_no_term():
+    """A zero weight (either sign) scales both operands to zero: its term is
+    +0 and moves no sum; the other dims keep their order, bit for bit."""
+    q, s, w = _inputs(11, 2, 3, 4, 9)
+    w[[1, 4]] = 0.0
+    w[6] = -0.0
+    got = weighted_l1_reference(torch.from_numpy(q), torch.from_numpy(s),
+                                torch.from_numpy(w), 0.25)
+    np.testing.assert_array_equal(got.numpy(), _numpy_order(q, s, w, 0.25))
+    keep = np.ones(9, bool)
+    keep[[1, 4, 6]] = False
+    want = weighted_l1_reference(torch.from_numpy(q[..., keep]), torch.from_numpy(s[..., keep]),
+                                 torch.from_numpy(w[keep]), 0.25)
+    assert torch.equal(got, want)
+
+
+def test_plain_version_reads_w_as_it_is_at_the_call():
+    """Nothing of w is kept between calls: an in-place change to w (a
+    weight's sign flipped, as an optimizer step may) changes the next
+    scores as the new order says."""
+    q, s, w = _inputs(12, 1, 4, 5, 16)
+    wt = torch.from_numpy(w.copy())
+    first = weighted_l1_reference(torch.from_numpy(q), torch.from_numpy(s), wt, 0.0)
+    wt[3] = -wt[3]
+    wt[7] *= 2.0
+    second = weighted_l1_reference(torch.from_numpy(q), torch.from_numpy(s), wt, 0.0)
+    assert not torch.equal(first, second)
+    np.testing.assert_array_equal(second.numpy(), _numpy_order(q, s, wt.numpy(), 0.0))
 
 
 @pytest.mark.parametrize("metric", jdist.SIAMESE_METRICS)
@@ -144,3 +187,19 @@ def test_work_at_the_timing_shape_is_bound_by_operations():
     assert work["ops"] / f32_instructions_per_s > work["bytes"] / bytes_per_s
     nshot = weighted_l1_work(500, 1, 5, 64)
     assert nshot["ops"] / f32_instructions_per_s < nshot["bytes"] / bytes_per_s
+
+
+def test_the_wrapper_casts_and_copies_only_what_needs_it():
+    """f32 contiguous operands go to the kernel as they are; any other dtype
+    or layout is cast or copied once; a scalar f32 b on the operands' device
+    is read in place, anything else becomes one."""
+    t = torch.zeros(2, 3, 4)
+    assert cuda_distance._f32_contiguous(t) is t
+    strided = torch.arange(12.0).reshape(4, 3).t()
+    got = cuda_distance._f32_contiguous(strided)
+    assert got.is_contiguous() and torch.equal(got, strided)
+    half = torch.ones(5, dtype=torch.bfloat16)
+    assert cuda_distance._f32_contiguous(half).dtype == torch.float32
+    assert cuda_distance._is_f32(torch.tensor(0.5)) and not cuda_distance._is_f32(0.5)
+    assert not cuda_distance._is_f32(torch.tensor(0.5, dtype=torch.float64))
+    assert cuda_distance._bias(0.5, "cpu").dtype == torch.float32

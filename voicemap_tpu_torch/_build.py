@@ -49,17 +49,15 @@ SIGNATURES = {
     "vm_quant_block_stage": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, aff, out, B, T, Cin, Cout, k, out_kind, stream
     "vm_conv_blockn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, w, bias, sgn, sel, part, stats, B, T, C, n_ctas, sel_bf16, stream
-    "vm_block0_train_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, w, bias, sgn, g, cc, part, out, B, T, C, n_ctas, stream
-    "vm_block0_train_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w, w_stride_k, w_stride_c, bias, sgn, sel, part, stats, B, T, C, tile,
-    # n_cps, sel_bf16, stream
-    "vm_block0_train_tc_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # n_cps, sel_bf16, gemm_f32, stream
+    "vm_block0_train_tc_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _P),
     # x, w, w_stride_k, w_stride_c, bias, sgn, c0, c1, c2, g, part, out,
-    # sel (NULL unless staged), route (likewise), B, T, C, tile, n_cps, stream
+    # sel (NULL unless staged), route (likewise), B, T, C, tile, n_cps,
+    # gemm_f32, stream
     "vm_block0_train_tc_bwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _P),
+                               _I, _I, _I, _P),
     # z, bias, sgn, sel, part, stats, B, C, T, pool, vec, strips, span, a_bf16,
     # sel_bf16, stream
     "vm_pool_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),

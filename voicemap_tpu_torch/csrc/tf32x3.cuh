@@ -1,7 +1,8 @@
 // 3xTF32: an f32 matrix product on the tensor cores that keeps almost all of
 // f32's precision. Shared by B6's DFT route (log_mel.cu :: log_mel_tc_kernel,
-// on wgmma with A from registers) and B5's f32 route (conv_block0_train.cu
-// :: block0_train_bwd, on mma.sync.m16n8k8).
+// on wgmma with A from registers) and B4's and B5's f32 route
+// (conv_block0_train.cu :: block0_train_tc32: the conv on wgmma, A from
+// registers; B5's weight gradient on mma.sync.m16n8k8).
 //
 // TF32 alone keeps 10 mantissa bits, about three digits. Split each operand
 // a = big + small, big = tf32(a) (cvt.rna: round to nearest on the f32 bit
@@ -9,9 +10,11 @@
 // f32); then a·b is taken as small_a·big_b + big_a·small_b + big_a·big_b,
 // each an exact f32 product of two tf32 values, accumulated in f32, the
 // small terms first. What it drops, small_a·small_b and the roundings of
-// the two smalls, is about 2^-21 of |a·b|: the error of an f32 sum of a few
-// products (CUTLASS's OpMultiplyAddFastF32 does the same). ops/tf32x3.py is
-// the plain model of the split and of the sum.
+// the two smalls, is each at most 2^-22 of |a·b| (|small| <= 2^-11·|a|, its
+// rounding <= 2^-11·|small|), so at most 3·2^-22, about 2^-21: the error of
+// an f32 sum of a few products (CUTLASS's OpMultiplyAddFastF32 does the
+// same). ops/tf32x3.py is the plain model of the split and of the sum;
+// ops/block0_train_tc.tf32x3_unit carries this account into an order bound.
 //
 // Fragments of m16n8k8 (g = lane / 4, tq = lane % 4):
 //   A (16 x 8, row major): a0 (g, tq), a1 (g + 8, tq), a2 (g, tq + 4),
@@ -63,13 +66,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The three-product step: acc += A_small·B_big + A_big·B_small + A_big·B_big.
-__device__ __forceinline__ void mma3(float (&acc)[4], const FragA& a, const FragB& b) {
-  mma_tf32(acc, a.small, b.big[0], b.big[1]);
-  mma_tf32(acc, a.big, b.small[0], b.small[1]);
-  mma_tf32(acc, a.big, b.big[0], b.big[1]);
-}
-
 // A's fragment, split on the load: rows g and g + 8 at row offsets r0 and
 // r1, columns tq and tq + 4 at column offsets c0 and c1.
 __device__ __forceinline__ void load_a(FragA& a, const float* base, int r0, int r1, int c0,
@@ -87,10 +83,30 @@ __device__ __forceinline__ void load_b(FragB& b, const float* base, int k0, int 
   split(base[k1 + n], b.big[1], b.small[1]);
 }
 
+// The same fragments from a view split once beforehand: each element a
+// (big, small) pair, one 64-bit load.
+__device__ __forceinline__ uint2 split2(float x) {
+  uint2 r;
+  split(x, r.x, r.y);
+  return r;
+}
+__device__ __forceinline__ void load_a(FragA& a, const uint2* base, int r0, int r1, int c0,
+                                       int c1) {
+  const uint2 v[4] = {base[r0 + c0], base[r1 + c0], base[r0 + c1], base[r1 + c1]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a.big[i] = v[i].x, a.small[i] = v[i].y;
+}
+__device__ __forceinline__ void load_b(FragB& b, const uint2* base, int k0, int k1, int n) {
+  const uint2 v0 = base[k0 + n], v1 = base[k1 + n];
+  b.big[0] = v0.x, b.small[0] = v0.y;
+  b.big[1] = v1.x, b.small[1] = v1.y;
+}
+
 // ---------------------------------------------------------------------------
-// The warpgroup form (wgmma), A from registers: B6's DFT route
+// The warpgroup form (wgmma), A from registers: B6's DFT route (N = 208) and
+// B4's and B5's f32 conv (N = 32)
 // ---------------------------------------------------------------------------
-// m64nNk8 (N = 208): the warpgroup's 64 rows (warp w: rows 16w + g
+// m64nNk8: the warpgroup's 64 rows (warp w: rows 16w + g
 // and 16w + g + 8, A in mma.m16n8k8's layout within the warp) times N
 // columns of B, read from shared memory through a descriptor. Accumulator
 // d[4i + j] of n8 tile i: (row g, column 8i + 2tq + (j & 1)), rows + 8 for
@@ -166,6 +182,19 @@ __device__ __forceinline__ void wgmma_n<208>(float (&d)[104], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 #undef VM_TF32_ACC208
+template <>
+__device__ __forceinline__ void wgmma_n<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : VM_TF32_D8(0), VM_TF32_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 #undef VM_TF32_D8
 #undef VM_TF32_D4
 

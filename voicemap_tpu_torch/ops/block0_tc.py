@@ -155,26 +155,28 @@ def smem_bytes(c: int, tile: int, out_bytes: int) -> int:
 
 
 def order_bound(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, mul: torch.Tensor,
-                add: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+                add: torch.Tensor, ref: torch.Tensor, gemm_dtype=torch.bfloat16,
+                unit: float = F32_UNIT_ROUNDOFF) -> torch.Tensor:
     """The per-output bound of the f32 pooled value against the plain
     version ``ref`` (f32, ``(B, T // 4, C)``), in float64:
-    ``u·(4·K·|mul|·(S + |bias|) + 4·(|ref| + |add|))``, u = 2⁻²⁴, S the
-    largest over the four phases of ``Σ|x·w|`` over the K = 32 taps of the
-    bf16-rounded operands. Both sides multiply the same bf16 values, exact
-    in f32; only the order of the f32 sums differs, each order within
-    (K − 1)·u·S of the exact sum, and the tensor cores' additions need not
-    round to nearest (up to 2u each); the second term covers the epilogue's
-    own roundings."""
+    ``u·(4·K·|mul|·(S + |bias|) + 4·(|ref| + |add|))``, u = ``unit``
+    (2⁻²⁴), S the largest over the four phases of ``Σ|x·w|`` over the K =
+    32 taps of the operands rounded to ``gemm_dtype``. Both sides multiply
+    the same bf16 values, exact in f32; only the order of the f32 sums
+    differs, each order within (K − 1)·u·S of the exact sum, and the tensor
+    cores' additions need not round to nearest (up to 2u each); the second
+    term covers the epilogue's own roundings. (B4's f32 route passes f32
+    and a unit that also covers its products: ``block0_train_tc.tf32x3_unit``.)"""
     if x.dim() == 3:
         x = x[..., 0]
     B, T = x.shape
-    xa = F.pad(x.to(torch.bfloat16).double().abs(), (PAD_L, TAPS - 1 - PAD_L))
-    wa = w[:, 0, :].to(torch.bfloat16).double().abs()  # (32, C)
+    xa = F.pad(x.to(gemm_dtype).double().abs(), (PAD_L, TAPS - 1 - PAD_L))
+    wa = w[:, 0, :].to(gemm_dtype).double().abs()  # (32, C)
     s = torch.zeros((B, wa.shape[1], T), dtype=torch.float64, device=x.device)
     for k in range(TAPS):
         s += xa[:, None, k:k + T] * wa[k][:, None]
     s = F.max_pool1d(s, POOL, POOL).transpose(1, 2)  # (B, T // 4, C)
-    u = F32_UNIT_ROUNDOFF
+    u = unit
     return u * (TERM_ULPS * TAPS * mul.double().abs() * (s + bias.double().abs())
                 + EPILOGUE_ULPS * (ref.double().abs() + add.double().abs()))
 

@@ -1,10 +1,13 @@
-"""Host side of B4's and B5's tensor-core route (``csrc/conv_block0_train.cu
-:: block0_train_tc``, on B2's main loop ``csrc/block0_mma.cuh``).
+"""Host side of B4's and B5's tensor-core routes (``csrc/conv_block0_train.cu
+:: block0_train_tc``, bf16 on B2's main loop ``csrc/block0_mma.cuh``, and
+``block0_train_tc32``, f32 in 3xTF32 on ``csrc/tf32x3.cuh``).
 
 Both kernels compute block 0's conv as B2's ``mma.sync`` direct form
-(``ops/block0_tc``); B5 adds the weight gradient as a second product. What
-the wrapper hands them and what they compute from the launch's shape, each
-piece pinned by a CPU test (``tests/test_torch_block0_train_tc.py``):
+(``ops/block0_tc``); B5 adds the weight gradient as a second product. The
+two GEMM dtypes share the plan and differ in the kind a function takes:
+``fwd``/``bwd`` for bf16, ``fwd_f32``/``bwd_f32`` for f32. What the wrapper
+hands them and what they compute from the launch's shape, each piece pinned
+by a CPU test (``tests/test_torch_block0_train_tc.py``):
 
 - ``grid`` and ``schedule``: a fixed grid for each shape. A CTA keeps one
   group of up to GROUP_CHANNELS channels for its life and walks (row, tile)
@@ -22,12 +25,22 @@ piece pinned by a CPU test (``tests/test_torch_block0_train_tc.py``):
   (a position's phases in one thread) transposed by ``movmatrix``;
   ``unit_dw`` builds the unit's product fragment by fragment as the lanes
   do, ``dw_product`` sums every unit's product;
+- the f32 route's operands: ``conv_fragment_sample`` and
+  ``dw_fragment_sample_f32`` (the window samples of the conv's and the dW
+  product's A fragments, the Toeplitz view), ``w_tile_word``,
+  ``pack_weights_f32`` and ``kmajor_tile`` (the slice's split weights as
+  the conv's ``wgmma`` reads them, B), ``dz_row`` (B5's dz rows,
+  phase-major), ``conv_products_f32`` and ``unit_dw_f32`` (a unit's conv
+  sums and dW from those operands in 3xTF32, as ``ops/tf32x3`` models the
+  split);
 - ``sel_bound``, ``relu_flips`` and ``route_flips``: the tolerance of the
   kernels against their plain versions. The tensor cores' f32 summation
   order cannot be pinned, so ``a_sel`` agrees to B2's order bound (K = 32,
   the bias, no affine), and #(a > 0) and B5's routing may differ only where
   a pre-activation lies within its bound of 0, or two phases' ``s·a_j``
-  within their bounds of each other.
+  within their bounds of each other. The f32 route's bound takes its own
+  unit, ``tf32x3_unit``: the split's error and three products' f32 sums a
+  tap, against a plain version that rounds each product and sum.
 """
 
 from __future__ import annotations
@@ -35,25 +48,59 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import block0_tc
+from . import block0_tc, tf32x3
 
 TAPS, POOL, PAD_L = block0_tc.TAPS, block0_tc.POOL, block0_tc.PAD_L
 SLICE, GROUP = block0_tc.SLICE, block0_tc.GROUP
 GROUP_CHANNELS = 4 * SLICE  # channels of a CTA
 WARPS = 4
+KINDS = ("fwd", "bwd", "fwd_f32", "bwd_f32")  # B4, B5; bf16 GEMM, then f32
+# Channels of a CTA: four slices on the bf16 route, one on the f32 route,
+# whose four warps share the slice's weights as wgmma's B.
+GROUP_CHANNELS_F32 = SLICE
 # Pooled positions of an item, widest first. B5 stops at 32: on the H100 it
 # ran faster with 32 than with 64, B4 slower.
 TILES = {"fwd": block0_tc.TILES, "bwd": block0_tc.TILES[1:]}
+TILES.update(fwd_f32=TILES["fwd"], bwd_f32=TILES["bwd"])
 H100_SMS = block0_tc.H100_SMS
 SMEM_LIMIT = block0_tc.SMEM_LIMIT
-CTAS_PER_SM = 4  # a persistent grid's CTAs on each SM, as the kernels' launch bounds say
+SMEM_PER_SM = 228 * 1024  # the H100's shared memory an SM, 1 KB of it reserved a CTA
+# A persistent grid's CTAs on each SM, as the kernels' launch bounds say: 4
+# for bf16; 3 for f32, whose split weights, window and dz rows take twice
+# the bytes.
+CTAS_PER_SM = 4
+CTAS_PER_SM_F32 = 3
 VALS = {"fwd": 3, "bwd": TAPS + 1}  # rows of a CTA's partial sums
 VECS = {"fwd": 2, "bwd": 5}  # per-channel rows: bias, sgn (, c0, c1, c2)
 F32_UNIT_ROUNDOFF = block0_tc.F32_UNIT_ROUNDOFF
+# The f32 route's layout (csrc/conv_block0_train.cu): the slice's split
+# weights as 8 tiles (4 k8 steps x big, small) of W_TILE_F32 words in
+# wgmma's K-major layout (w_tile_word); B5's dz rows, DZ_ROWS full-rate
+# positions of DZ_PITCH f32 channels a warp.
+W_TILE_F32 = SLICE * 8
+DZ_ROWS = POOL * GROUP
+DZ_PITCH = 40
+MMA_K = 8  # the products one m16n8k8 adds to its accumulator
+# What 3xTF32 drops of each |x·w| (csrc/tf32x3.cuh): small·small and the
+# roundings of the two smalls, each at most 2^-22.
+TF32X3_DROPPED = 3 * 2.0 ** -22
 
 
-def channel_groups(c: int) -> int:
-    return -(-c // GROUP_CHANNELS)
+def base_kind(kind: str) -> str:
+    """``fwd`` or ``bwd``: B4 or B5, whatever the GEMM dtype."""
+    return kind.split("_")[0]
+
+
+def ctas_per_sm(kind: str) -> int:
+    return CTAS_PER_SM_F32 if kind.endswith("_f32") else CTAS_PER_SM
+
+
+def group_channels(kind: str) -> int:
+    return GROUP_CHANNELS_F32 if kind.endswith("_f32") else GROUP_CHANNELS
+
+
+def channel_groups(c: int, kind: str = "fwd") -> int:
+    return -(-c // group_channels(kind))
 
 
 def warp_plan(cg: int) -> list:
@@ -70,24 +117,25 @@ def pick_tile(B: int, T: int, c: int, kind: str, sms: int = H100_SMS) -> int:
     (over the channel groups) still give every SM one."""
     t_out = T // POOL
     for tile in TILES[kind]:
-        if channel_groups(c) * B * -(-t_out // tile) >= sms:
+        if channel_groups(c, kind) * B * -(-t_out // tile) >= sms:
             return tile
     return TILES[kind][-1]
 
 
 def grid(B: int, T: int, c: int, kind: str, sms: int = H100_SMS) -> tuple[int, int]:
     """``(tile, n_cps)``: the item's tile and the CTAs of each channel group,
-    ``min(items, sms·CTAS_PER_SM // groups)``; the grid is ``n_cps·groups``
-    CTAs, each writing one partial row."""
+    ``min(items, sms·ctas_per_sm(kind) // groups)``; the grid is
+    ``n_cps·groups`` CTAs, each writing one partial row."""
     tile = pick_tile(B, T, c, kind, sms)
     items = B * -(-(T // POOL) // tile)
-    return tile, min(items, max(1, sms * CTAS_PER_SM // channel_groups(c)))
+    return tile, min(items, max(1, sms * ctas_per_sm(kind) // channel_groups(c, kind)))
 
 
-def schedule(B: int, T: int, c: int, tile: int, n_cps: int) -> list[list[tuple[int, int, int]]]:
+def schedule(B: int, T: int, c: int, tile: int, n_cps: int,
+             kind: str = "fwd") -> list[list[tuple[int, int, int]]]:
     """The items ``(b, p0, group)`` of each CTA in the order it runs them:
     CTA ``k`` keeps group ``k % groups`` and takes items ``k // groups + i·n_cps``."""
-    n_sg = channel_groups(c)
+    n_sg = channel_groups(c, kind)
     n_tiles = -(-(T // POOL) // tile)
     out = []
     for cta in range(n_cps * n_sg):
@@ -114,12 +162,20 @@ def unit_cover(cg: int, tile: int, n_p: int) -> list[tuple[int, int, int]]:
 
 
 def smem_bytes(c: int, tile: int, kind: str, out_bytes: int = 2) -> int:
-    """Shared memory of one CTA: the group's packed weights and per-channel
-    rows, the warps' fold rows, the window as read and shifted by one sample
-    (bf16); B4 the output tile (rows padded by 16 bytes), B5 the window
-    staged as sample pairs 4 apart."""
+    """Shared memory of one CTA: the group's weights and per-channel rows
+    and the warps' fold rows. bf16: the weights packed as
+    ``block0_tc.pack_weights``, the window as read and shifted by one sample
+    (bf16), B4 the output tile (rows padded by 16 bytes), B5 the window
+    staged as sample pairs 4 apart. f32 (one 32-channel slice whatever C):
+    the weight tiles, the window split into (big, small) pairs, B5's fold
+    rows in the place of its dz rows (the larger); B4 writes from registers,
+    with no output tile."""
+    kb = base_kind(kind)
     cgp = min(block0_tc.c_pad(c), GROUP_CHANNELS)
     window = POOL * tile + TAPS
+    if kind.endswith("_f32"):
+        rows = WARPS * (DZ_ROWS * DZ_PITCH if kb == "bwd" else VALS[kb] * SLICE)
+        return 8 * W_TILE_F32 * 4 + VECS[kb] * SLICE * 4 + rows * 4 + 8 * window
     row = -(-min(c, GROUP_CHANNELS) * out_bytes // 16) * 16 + 16
     return (cgp * block0_tc.W_ROW * 2 + (tile * row if kind == "fwd" else 0)
             + VECS[kind] * cgp * 4 + WARPS * VALS[kind] * SLICE * 4
@@ -211,36 +267,197 @@ def dw_product(x: torch.Tensor, dz: torch.Tensor, tile: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The f32 route's operands (block0_train_tc32)
+# ---------------------------------------------------------------------------
+
+def conv_fragment_sample(g: int, tq: int, mt: int, s: int, reg: int) -> int:
+    """The window sample, from the unit's first (32·grp), of register
+    ``reg`` (0–3) of the conv's A fragment, m16 tile ``mt``, k8 step ``s``,
+    lane (g, tq): row g is phase 2mt of position g, row g + 8 phase 2mt + 1
+    (registers 1, 3); k is tap 8s + tq, + 4 for registers 2, 3:
+    ``4g + 2mt + 8s + tq``, + 1 for the row, + 4 for the tap."""
+    return 4 * g + 2 * mt + 8 * s + tq + (reg & 1) + 4 * (reg >> 1)
+
+
+def dw_fragment_sample_f32(g: int, tq: int, mt: int, ks: int, reg: int) -> int:
+    """The window sample, from the unit's first, of register ``reg`` of the
+    dW product's A fragment (X, the Toeplitz view: rows taps, k the dz rows
+    of phase ``ks``): row g is tap 16mt + g (+ 8 for registers 1, 3), k is
+    position tq (+ 4 for registers 2, 3) of the phase: ``ks + 16mt + g +
+    4tq``, + 8 for the row, + 16 for the position."""
+    return ks + 16 * mt + g + 4 * tq + 8 * (reg & 1) + 16 * (reg >> 1)
+
+
+def w_tile_word(n: int, k: int, plane: int) -> int:
+    """The word of weight (channel ``n``, tap ``k``) of the f32 route's
+    weight tiles: tile ``2·(k // 8) + plane`` (plane 0 big, 1 small) of
+    W_TILE_F32 words, in it wgmma's K-major layout without swizzle: n8
+    group ``n // 8`` every 64 words, taps 4–7 of the step 32 words after
+    0–3, the core matrix's row ``n % 8`` every 4 words."""
+    return ((2 * (k // 8) + plane) * W_TILE_F32 + (n // 8) * 64 + ((k // 4) % 2) * 32
+            + (n % 8) * 4 + k % 4)
+
+
+def kmajor_tile(tile: torch.Tensor) -> torch.Tensor:
+    """The ``(8 taps, 32 channels)`` matrix B that wgmma reads from one
+    tile of W_TILE_F32 words through ``csrc/tf32x3.cuh :: desc_kmajor``
+    (core matrices of 8 rows × 16 bytes, 128 bytes apart along K, n8
+    groups 256 bytes apart): element (k, n) at word (n // 8)·64 + (k // 4)
+    ·32 + (n % 8)·4 + k % 4."""
+    b = torch.empty((8, SLICE), dtype=tile.dtype)
+    for k in range(8):
+        for n in range(SLICE):
+            b[k, n] = tile[(n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4 + k % 4]
+    return b
+
+
+def pack_weights_f32(w: torch.Tensor) -> torch.Tensor:
+    """The slice's ``(32 taps, 32 channels)`` f32 weights as the kernel lays
+    them out: split (``ops/tf32x3``), each word at ``w_tile_word``;
+    ``(8·W_TILE_F32,)`` f32 (the bit patterns of the tf32 planes)."""
+    big, small = tf32x3.split(w)
+    out = torch.zeros(8 * W_TILE_F32, dtype=torch.float32)
+    for n in range(SLICE):
+        for k in range(TAPS):
+            out[w_tile_word(n, k, 0)] = big[k, n]
+            out[w_tile_word(n, k, 1)] = small[k, n]
+    return out
+
+
+def dz_row(j: int, p: int) -> int:
+    """B5's dz row of phase ``j`` of the unit's position ``p``: phase-major,
+    so a k8 step of the dW product is one phase, and a thread's two
+    channels of one row are one 64-bit store whose lanes miss each other's
+    banks."""
+    return GROUP * j + p
+
+
+def _lanes():
+    return [(lane // 4, lane % 4) for lane in range(32)]
+
+
+def _mma3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One 3xTF32 step of the model: the three exact products of the split
+    planes, summed in float64."""
+    ab, as_ = (t.double() for t in tf32x3.split(a.float()))
+    bb, bs = (t.double() for t in tf32x3.split(b.float()))
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def conv_products_f32(win: torch.Tensor, w: torch.Tensor, grp: int) -> torch.Tensor:
+    """A unit's conv sums ``(8 positions, 4 phases, 32 channels)`` as one
+    warp's share of the wgmma forms them: ``win`` the item's window (f32),
+    ``w (32, 32)`` the slice's weights (tap, channel). For each k8 step the
+    warp's 16 A rows are the registers ``conv_fragment_sample`` names, split
+    as ``ops/tf32x3`` models it, and B is read back from the packed tiles
+    (``pack_weights_f32`` through ``kmajor_tile``); the three products
+    summed in float64."""
+    u = POOL * GROUP * grp
+    packed = pack_weights_f32(w)
+    out = torch.zeros((GROUP, POOL, SLICE), dtype=torch.float64)
+    for mt in range(2):
+        acc = torch.zeros((16, SLICE), dtype=torch.float64)
+        for s in range(4):
+            a = torch.zeros((16, 8))
+            for g, tq in _lanes():
+                for reg in range(4):
+                    row, k = g + 8 * (reg & 1), tq + 4 * (reg >> 1)
+                    a[row, k] = win[u + conv_fragment_sample(g, tq, mt, s, reg)]
+            ab, as_ = (t.double() for t in tf32x3.split(a))
+            bb, bs = (kmajor_tile(packed[(2 * s + p) * W_TILE_F32:(2 * s + p + 1) * W_TILE_F32])
+                      .double() for p in (0, 1))
+            acc += as_ @ bb + ab @ bs + ab @ bb
+        for r in range(16):  # row g: phase 2mt, row g + 8: phase 2mt + 1
+            out[r % 8, 2 * mt + r // 8] = acc[r]
+    return out
+
+
+def unit_dw_f32(win: torch.Tensor, dz: torch.Tensor, grp: int) -> torch.Tensor:
+    """The ``(32 taps, 32 channels)`` dW product of one unit as the lanes
+    form it: ``dz (8 positions, 4 phases, 32 channels)`` written to the
+    rows ``dz_row`` names, X's A registers the window samples
+    ``dw_fragment_sample_f32`` names, dZ's B (row tq (+ 4) of the step,
+    channel g) from the rows; 3xTF32 as ``ops/tf32x3`` models it."""
+    u = POOL * GROUP * grp
+    rows = torch.zeros((DZ_ROWS, SLICE))
+    for p in range(GROUP):
+        for j in range(POOL):
+            rows[dz_row(j, p)] = dz[p, j]
+    out = torch.zeros((TAPS, SLICE), dtype=torch.float64)
+    for mt in range(2):
+        for nt in range(4):
+            for ks in range(POOL):
+                a = torch.zeros((16, 8))
+                b = torch.zeros((8, 8))
+                for g, tq in _lanes():
+                    for reg in range(4):
+                        row, k = g + 8 * (reg & 1), tq + 4 * (reg >> 1)
+                        a[row, k] = win[u + dw_fragment_sample_f32(g, tq, mt, ks, reg)]
+                    for reg in range(2):
+                        b[tq + 4 * reg, g] = rows[8 * ks + tq + 4 * reg, nt * 8 + g]
+                out[16 * mt:16 * mt + 16, nt * 8:nt * 8 + 8] += _mma3(a, b)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Tolerances against the plain versions
 # ---------------------------------------------------------------------------
 
+def tf32x3_unit(taps: int = TAPS) -> float:
+    """The u of ``sel_bound``'s form, ``u·(4·K·(S + |bias|) + 4·|ref|)``,
+    for the f32 route: how far each tap may move the kernel's sum from the
+    plain version's, as a share of S, over the form's 4 (TERM_ULPS). A tap:
+    - the kernel's f32 sums: a k8 step's three ``mma`` each add MMA_K
+      products and the accumulator, each addend off by up to one f32 ulp
+      of the largest (2u of S: the tensor cores need not round to nearest),
+      3·(MMA_K + 1)·2u / MMA_K;
+    - the plain version's: its product and its add, each rounded, 2u;
+    - the split (``csrc/tf32x3.cuh``'s account): TF32X3_DROPPED of each
+      |x·w|, at most TF32X3_DROPPED·S over the K taps.
+    u = 2⁻²⁴. The bf16 route's u (2⁻²⁴ itself) needs no split term: its
+    products are exact in f32."""
+    u = F32_UNIT_ROUNDOFF
+    kernel = 3 * (MMA_K + 1) * 2 * u / MMA_K
+    plain = 2 * u
+    return (kernel + plain + TF32X3_DROPPED / taps) / block0_tc.TERM_ULPS
+
+
+def _unit(gemm_dtype) -> float:
+    return tf32x3_unit() if gemm_dtype == torch.float32 else F32_UNIT_ROUNDOFF
+
+
 def sel_bound(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-              ref: torch.Tensor) -> torch.Tensor:
+              ref: torch.Tensor, gemm_dtype=torch.bfloat16) -> torch.Tensor:
     """The per-output bound of the f32 ``a_sel`` against the plain
     version's f32 ``ref`` ``(B, T // 4, C)``: ``block0_tc.order_bound``
     with the affine taken away (mul = 1, add = 0), ``u·(4·K·(S + |bias|) +
-    4·|ref|)``, S the largest over the four phases of Σ|x·w|. relu and the
-    select are 1-Lipschitz, so they move no value farther than its sum."""
+    4·|ref|)``, S the largest over the four phases of Σ|x·w| of the
+    operands in ``gemm_dtype``; u = 2⁻²⁴ for bf16, ``tf32x3_unit()`` for
+    f32. relu and the select are 1-Lipschitz, so they move no value farther
+    than its sum."""
     ones = torch.ones_like(bias, dtype=torch.float32)
-    return block0_tc.order_bound(x, w, bias.float(), ones, torch.zeros_like(ones), ref)
+    return block0_tc.order_bound(x, w, bias.float(), ones, torch.zeros_like(ones), ref,
+                                 gemm_dtype, _unit(gemm_dtype))
 
 
-def preactivation(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+def preactivation(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                  gemm_dtype=torch.bfloat16):
     """The plain version's pre-activation ``z = y + bias (B, C, T)`` f32
-    (taps in order, bf16 operands) and its bound ``u·(4·K·(S + |bias|) +
-    4·|z|)`` per full-rate value in float64."""
+    (taps in order, operands in ``gemm_dtype``) and its bound
+    ``u·(4·K·(S + |bias|) + 4·|z|)`` per full-rate value in float64, u as
+    ``sel_bound``'s."""
     if x.dim() == 3:
         x = x[..., 0]
     B, T = x.shape
-    xp = F.pad(x.to(torch.bfloat16).float(), (PAD_L, TAPS - 1 - PAD_L))
-    wq = w[:, 0, :].to(torch.bfloat16).float()
+    xp = F.pad(x.to(gemm_dtype).float(), (PAD_L, TAPS - 1 - PAD_L))
+    wq = w[:, 0, :].to(gemm_dtype).float()
     y = torch.zeros((B, wq.shape[1], T), dtype=torch.float32, device=x.device)
     s = torch.zeros((B, wq.shape[1], T), dtype=torch.float64, device=x.device)
     for k in range(TAPS):
         y += xp[:, None, k:k + T] * wq[k][:, None]
-        s += (xp[:, None, k:k + T] * wq[k][:, None]).double().abs()
+        s += (xp[:, None, k:k + T].double() * wq[k][:, None].double()).abs()
     z = y + bias.float()[:, None]
-    u = F32_UNIT_ROUNDOFF
+    u = _unit(gemm_dtype)
     bnd = u * (block0_tc.TERM_ULPS * TAPS * (s + bias.double().abs()[:, None])
                + block0_tc.EPILOGUE_ULPS * z.double().abs())
     return z, bnd

@@ -29,17 +29,19 @@ Layouts are the JAX package's: ``x (B, T, 1)`` f32, ``w (k, 1, C)``,
 back to the plain block otherwise). Dispatch is by the input's device: a CPU
 tensor takes the plain version, a CUDA tensor launches a kernel (k=32,
 pool 4, C ≤ 256), and a failed build or launch raises. Each kernel has two
-routes, chosen by ``gemm_dtype``: a bf16 GEMM (the train step in bf16) runs
-on the tensor cores (``mma.sync``; host side ``ops/block0_train_tc``), whose
-f32 sums agree with the plain version to an order bound, counted on
-``launches``; a float32 GEMM, counted on ``f32_launches``, runs the conv on
-the CUDA cores, bit for bit the plain version (B4's ``a_sel`` and counts,
-B5's recomputed phases, routes, dz and db), and B5's weight gradient on the
-tensor cores in 3xTF32 (``csrc/tf32x3.cuh``, plain model ``ops/tf32x3``),
-held to an f32 sum-order tolerance. ``conv_block0_train_bwd_stage`` is B5's
-tensor-core kernel also writing what it recomputed (on no path: a check
-holds it to B4's ``a_sel``), and ``conv_block0_train_bwd_routed_reference``
-the plain dW and db on the routes and relu masks it reports.
+routes on the tensor cores (host side ``ops/block0_train_tc``), chosen by
+``gemm_dtype``: a bf16 GEMM (the train step in bf16; ``mma.sync``), counted
+on ``launches``, and a float32 GEMM, counted on ``f32_launches``, whose
+products run in 3xTF32 (``csrc/tf32x3.cuh``, plain model ``ops/tf32x3``;
+the conv on ``wgmma``, B5's dW on ``mma.sync``), as the TPU kernel ran its
+f32 product at the 'highest' precision on its matrix unit. Both routes' f32 sums agree with the
+plain version (products and sums rounded apart, in tap order) to an order
+bound, their #(a > 0) and routing flip only within it, and their
+statistics, dW and db agree to an f32 sum-order tolerance.
+``conv_block0_train_bwd_stage`` is B5's kernel also writing what it
+recomputed (on no path: a check holds it to B4's f32 ``a_sel``), and
+``conv_block0_train_bwd_routed_reference`` the plain dW and db on the
+routes and relu masks it reports.
 """
 
 from __future__ import annotations
@@ -51,9 +53,7 @@ from . import block0_train_tc
 
 KERNEL_TAPS = 32
 KERNEL_POOL = 4
-MAX_CHANNELS = 256  # the f32 route: one thread per channel
-TILE = 128  # pooled outputs per tile of the f32 route, as in its kernel
-MAX_CTAS = 1056  # fixed: every shape maps its tiles to CTAs the same way each run
+MAX_CHANNELS = 256  # the widest block 0 the kernels take (two bf16 channel groups)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -145,10 +145,6 @@ def _check(name, x, w, pool, gemm_dtype, *params):
     return x.contiguous()
 
 
-def _f32_ctas(B, T):
-    return min(B * -(-(T // KERNEL_POOL) // TILE), MAX_CTAS)
-
-
 def _tc_grid(name, x, c, kind, out_bytes=2):
     """The tensor-core route's ``(tile, n_cps, CTAs)``; raises for a width
     whose CTA does not fit shared memory."""
@@ -159,7 +155,7 @@ def _tc_grid(name, x, c, kind, out_bytes=2):
     if need > block0_train_tc.SMEM_LIMIT:
         raise ValueError(f"{name}: C = {c} needs {need} bytes of shared memory a CTA, over "
                          f"{block0_train_tc.SMEM_LIMIT}")
-    return tile, n_cps, n_cps * block0_train_tc.channel_groups(c)
+    return tile, n_cps, n_cps * block0_train_tc.channel_groups(c, kind)
 
 
 def conv_block0_train(x, w, b, sgn, pool: int = KERNEL_POOL, gemm_dtype=torch.bfloat16,
@@ -174,36 +170,27 @@ def conv_block0_train(x, w, b, sgn, pool: int = KERNEL_POOL, gemm_dtype=torch.bf
         raise ValueError("conv_block0_train: sel_dtype must be float32 or bfloat16")
     B, T = x2.shape
     c = w.shape[2]
-    tensor_cores = gemm_dtype == torch.bfloat16
+    f32 = gemm_dtype == torch.float32
     sel_bf16 = int(sel_dtype == torch.bfloat16)
-    if tensor_cores:
-        tile, n_cps, n_ctas = _tc_grid("conv_block0_train", x2, c, "fwd", 2 if sel_bf16 else 4)
-    else:
-        n_ctas = _f32_ctas(B, T)
+    tile, n_cps, n_ctas = _tc_grid("conv_block0_train", x2, c, "fwd_f32" if f32 else "fwd",
+                                   2 if sel_bf16 else 4)
     sel = torch.empty((B, T // pool, c), dtype=sel_dtype, device=x.device)
     part = torch.empty((n_ctas, 3, c), dtype=torch.float32, device=x.device)
     stats = torch.empty((3, c), dtype=torch.float32, device=x.device)
     from .._build import check, library
 
     bias, sg = b.float().contiguous(), sgn.float().contiguous()
+    wf = w.float()  # read in place, by its strides; the kernel packs it
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if tensor_cores:
-            wf = w.float()  # read in place, by its strides; the kernel packs it
-            err = library().vm_block0_train_tc_fwd(
-                x2.data_ptr(), wf.data_ptr(), wf.stride(0), wf.stride(2), bias.data_ptr(),
-                sg.data_ptr(), sel.data_ptr(), part.data_ptr(), stats.data_ptr(), B, T, c, tile,
-                n_cps, sel_bf16, stream)
-        else:
-            wk = w[:, 0, :].float().contiguous()
-            err = library().vm_block0_train_fwd(
-                x2.data_ptr(), wk.data_ptr(), bias.data_ptr(), sg.data_ptr(), sel.data_ptr(),
-                part.data_ptr(), stats.data_ptr(), B, T, c, n_ctas, sel_bf16, stream)
-    check(err, "conv_block0_train (" + ("tensor cores" if tensor_cores else "float32 GEMM") + ")")
-    if tensor_cores:
-        conv_block0_train.launches += 1
-    else:
+        err = library().vm_block0_train_tc_fwd(
+            x2.data_ptr(), wf.data_ptr(), wf.stride(0), wf.stride(2), bias.data_ptr(),
+            sg.data_ptr(), sel.data_ptr(), part.data_ptr(), stats.data_ptr(), B, T, c, tile,
+            n_cps, sel_bf16, int(f32), torch.cuda.current_stream().cuda_stream)
+    check(err, "conv_block0_train (" + ("float32 GEMM" if f32 else "bfloat16 GEMM") + ")")
+    if f32:
         conv_block0_train.f32_launches += 1
+    else:
+        conv_block0_train.launches += 1
     return sel, stats[0], stats[1], stats[2]
 
 
@@ -213,43 +200,31 @@ def _bwd_launch(name, x, w, b, sgn, g, c0, c1, c2, pool, gemm_dtype, stage: bool
     c = w.shape[2]
     if g.shape != (B, T // pool, c):
         raise ValueError(f"{name}: g must be {(B, T // pool, c)}, got {tuple(g.shape)}")
-    tensor_cores = gemm_dtype == torch.bfloat16
-    if stage and not tensor_cores:
-        raise ValueError(f"{name}: the stage entry is the tensor-core kernel's (bfloat16 GEMM)")
+    f32 = gemm_dtype == torch.float32
     gf = g.float().contiguous()  # the kernels read g in f32 and round it themselves
-    if gf.data_ptr() % 16:  # an offset view: the tensor-core kernel reads pairs of floats
+    if gf.data_ptr() % 16:  # an offset view: the kernels read pairs of floats
         gf = gf.clone()
-    if tensor_cores:
-        tile, n_cps, n_ctas = _tc_grid(name, x2, c, "bwd")
-    else:
-        n_ctas = _f32_ctas(B, T)
+    tile, n_cps, n_ctas = _tc_grid(name, x2, c, "bwd_f32" if f32 else "bwd")
     part = torch.empty((n_ctas, KERNEL_TAPS + 1, c), dtype=torch.float32, device=x.device)
     out = torch.empty((KERNEL_TAPS + 1, c), dtype=torch.float32, device=x.device)
     staged = ()
+    if stage:
+        staged = (torch.empty((B, T // pool, c), dtype=torch.float32, device=x.device),
+                  torch.empty((B, T // pool, c), dtype=torch.uint8, device=x.device))
+    sel_ptr, route_ptr = (t.data_ptr() for t in staged) if stage else (None, None)
     from .._build import check, library
 
     bias, sg = b.float().contiguous(), sgn.float().contiguous()
     cs = [v.float().contiguous() for v in (c0, c1, c2)]
+    wf = w.float()  # read in place, by its strides; the kernel packs it
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if tensor_cores:
-            wf = w.float()  # read in place, by its strides; the kernel packs it
-            if stage:
-                staged = (torch.empty((B, T // pool, c), dtype=torch.float32, device=x.device),
-                          torch.empty((B, T // pool, c), dtype=torch.uint8, device=x.device))
-            sel_ptr, route_ptr = (t.data_ptr() for t in staged) if stage else (None, None)
-            err = library().vm_block0_train_tc_bwd(
-                x2.data_ptr(), wf.data_ptr(), wf.stride(0), wf.stride(2), bias.data_ptr(),
-                sg.data_ptr(), *(v.data_ptr() for v in cs), gf.data_ptr(), part.data_ptr(),
-                out.data_ptr(), sel_ptr, route_ptr, B, T, c, tile, n_cps, stream)
-        else:
-            wk = w[:, 0, :].float().contiguous()
-            cc = torch.stack(cs).contiguous()
-            err = library().vm_block0_train_bwd(
-                x2.data_ptr(), wk.data_ptr(), bias.data_ptr(), sg.data_ptr(), gf.data_ptr(),
-                cc.data_ptr(), part.data_ptr(), out.data_ptr(), B, T, c, n_ctas, stream)
-    check(err, f"{name} (" + ("tensor cores" if tensor_cores else "float32 GEMM") + ")")
-    return (out[:KERNEL_TAPS, None, :], out[KERNEL_TAPS], *staged), tensor_cores
+        err = library().vm_block0_train_tc_bwd(
+            x2.data_ptr(), wf.data_ptr(), wf.stride(0), wf.stride(2), bias.data_ptr(),
+            sg.data_ptr(), *(v.data_ptr() for v in cs), gf.data_ptr(), part.data_ptr(),
+            out.data_ptr(), sel_ptr, route_ptr, B, T, c, tile, n_cps, int(f32),
+            torch.cuda.current_stream().cuda_stream)
+    check(err, f"{name} (" + ("float32 GEMM" if f32 else "bfloat16 GEMM") + ")")
+    return (out[:KERNEL_TAPS, None, :], out[KERNEL_TAPS], *staged), f32
 
 
 def conv_block0_train_bwd(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL,
@@ -259,12 +234,12 @@ def conv_block0_train_bwd(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL,
         return conv_block0_train_bwd_reference(x, w, b, sgn, g, c0, c1, c2, pool, gemm_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"conv_block0_train_bwd: no kernel for device {x.device}")
-    out, tensor_cores = _bwd_launch("conv_block0_train_bwd", x, w, b, sgn, g, c0, c1, c2, pool,
-                                    gemm_dtype, stage=False)
-    if tensor_cores:
-        conv_block0_train_bwd.launches += 1
-    else:
+    out, f32 = _bwd_launch("conv_block0_train_bwd", x, w, b, sgn, g, c0, c1, c2, pool,
+                           gemm_dtype, stage=False)
+    if f32:
         conv_block0_train_bwd.f32_launches += 1
+    else:
+        conv_block0_train_bwd.launches += 1
     return out
 
 
@@ -277,13 +252,14 @@ def relu_bits(a: torch.Tensor, pool: int = KERNEL_POOL) -> torch.Tensor:
     return bits.to(torch.uint8).transpose(1, 2).contiguous()
 
 
-def conv_block0_train_bwd_stage_reference(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL):
-    """Plain version of the stage entry: B5's ``(dw, db)`` (bf16 GEMM) and
-    what it recomputes, ``s·max_j(s·a_j)`` ``(B, T/pool, C)`` f32, the phase
-    the cotangent is routed to and the relu mask of each phase (``relu_bits``),
+def conv_block0_train_bwd_stage_reference(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL,
+                                          gemm_dtype=torch.bfloat16):
+    """Plain version of the stage entry: B5's ``(dw, db)`` and what it
+    recomputes, ``s·max_j(s·a_j)`` ``(B, T/pool, C)`` f32, the phase the
+    cotangent is routed to and the relu mask of each phase (``relu_bits``),
     uint8."""
-    dw, db = conv_block0_train_bwd_reference(x, w, b, sgn, g, c0, c1, c2, pool)
-    a, _ = _activation(x, w, b, torch.bfloat16)
+    dw, db = conv_block0_train_bwd_reference(x, w, b, sgn, g, c0, c1, c2, pool, gemm_dtype)
+    a, _ = _activation(x, w, b, gemm_dtype)
     B, c, T = a.shape
     sa = a.view(B, c, T // pool, pool) * sgn.float()[None, :, None, None]
     best = sa.amax(-1)
@@ -305,24 +281,27 @@ def conv_block0_train_bwd_routed_reference(x, w, b, sgn, g, c0, c1, c2, route, r
     return _dw_db(dz, xp, w.shape[0], gemm_dtype)
 
 
-def conv_block0_train_bwd_stage(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL):
-    """B5's tensor-core kernel, also writing what it recomputed:
-    ``(dw, db, sel (B, T/pool, C) f32, route (B, T/pool, C) uint8, relu
-    (B, T/pool, C) uint8)``, relu bit j set where phase j's a_j > 0. On no
-    path; ``chip_smoke.py`` holds ``sel`` to B4's f32 ``a_sel`` bit for bit
-    and feeds ``route`` and ``relu`` to the plain dW."""
+def conv_block0_train_bwd_stage(x, w, b, sgn, g, c0, c1, c2, pool: int = KERNEL_POOL,
+                                gemm_dtype=torch.bfloat16):
+    """B5's kernel (of ``gemm_dtype``'s route), also writing what it
+    recomputed: ``(dw, db, sel (B, T/pool, C) f32, route (B, T/pool, C)
+    uint8, relu (B, T/pool, C) uint8)``, relu bit j set where phase j's
+    a_j > 0. On no path; ``chip_smoke.py`` holds ``sel`` to B4's f32
+    ``a_sel`` on the same route bit for bit and feeds ``route`` and ``relu``
+    to the plain dW."""
     if x.device.type == "cpu":
-        return conv_block0_train_bwd_stage_reference(x, w, b, sgn, g, c0, c1, c2, pool)
+        return conv_block0_train_bwd_stage_reference(x, w, b, sgn, g, c0, c1, c2, pool,
+                                                     gemm_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"conv_block0_train_bwd_stage: no kernel for device {x.device}")
     (dw, db, sel, byte), _ = _bwd_launch("conv_block0_train_bwd_stage", x, w, b, sgn, g, c0,
-                                         c1, c2, pool, torch.bfloat16, stage=True)
+                                         c1, c2, pool, gemm_dtype, stage=True)
     conv_block0_train_bwd_stage.launches += 1
     return dw, db, sel, byte & 3, byte >> 2
 
 
-# kernel launches; the CPU path does not count: the tensor-core kernels (a
-# bf16 GEMM) and the f32 CUDA-core kernels
+# kernel launches; the CPU path does not count: a bf16 GEMM's kernels and
+# an f32 GEMM's
 conv_block0_train.launches = 0
 conv_block0_train.f32_launches = 0
 conv_block0_train_bwd.launches = 0

@@ -1,10 +1,11 @@
 """Time B2, B8, B3 and B6 at config #1's and config #4's shapes on the GPU,
 through their wrappers; or, with ``--b7``, B7's two passes at the train
 step's blocks 1-3; with ``--b45``, B4 and B5 at the train step's block 0;
-with ``--b5f32``, their f32 route there; with ``--b6dft``, B6's DFT route.
+with ``--b5f32``, their f32 route there; with ``--b6dft``, B6's DFT route;
+with ``--b9``, B9 at config #2's scoring shapes.
 
     python3 -m voicemap_tpu_torch.utils.block_timing [--batch 2048]
-        [--b7 | --b45 | --b5f32 | --b6dft]
+        [--b7 | --b45 | --b5f32 | --b6dft | --b9]
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line:
 the mean ms of back-to-back launches (CUDA events) of ``conv_block0``
@@ -22,7 +23,11 @@ back) at config #1's block 0 (T = 12000, C = 128) at B = 32 and 2048.
 ``--b5f32``: the same for ``gemm_dtype=float32`` (B5's f32 route, and B4's,
 whose recompute B5 repeats). ``--b6dft``: the mean ms of ``log_mel`` at
 n_fft 400, win 400, hop 160, 64 mels (the DFT route) on (2048, 48000),
-queued and back to back. A checkout whose B7
+queued and back to back. ``--b9``: ``weighted_l1`` at (T, nq, ns, D) = (1,
+4096, 4096, 64) (the tiled form) and (500, 1, 5, 64) (the n-shot form of 500
+1-shot 5-way tasks): queued and back-to-back ms and the host microseconds
+of a call (the wall time to enqueue 200), beside ``torch.cdist``'s. A
+checkout whose B7
 takes the relu activation channel first (before the bias and relu were
 folded into it) gets that activation, and the bias-and-relu pass its train
 op ran before B7 is timed beside it. It uses only the wrappers' public signatures, so the same
@@ -41,6 +46,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -51,6 +57,7 @@ from voicemap_tpu_torch.ops.cuda_conv import conv_block0, conv_blockn  # noqa: E
 from voicemap_tpu_torch.ops.cuda_conv_train import (  # noqa: E402
     conv_block0_train, conv_block0_train_bwd,
 )
+from voicemap_tpu_torch.ops.cuda_distance import weighted_l1  # noqa: E402
 from voicemap_tpu_torch.ops.cuda_melspec import log_mel  # noqa: E402
 from voicemap_tpu_torch.ops.cuda_quant_block import quant_block  # noqa: E402
 from voicemap_tpu_torch.ops.cuda_routing import pool_fwd, route_bwd  # noqa: E402
@@ -64,6 +71,7 @@ HOLD_CYCLES_PER_CALL = 400_000  # utils/profiling.py's
 TRAIN_BLOCKS = ((256, 3000), (384, 1500), (512, 750))  # B7: blocks 1-3's (C, T), pool 2
 B45_BATCHES = (32, 2048)  # B4/B5: the train step's batch and the large one
 MEL_DFT = dict(n_fft=400, win_length=400, hop_length=160)  # B6's DFT route: librosa's
+B9_SHAPES = {"tile": (1, 4096, 4096, 64), "nshot": (500, 1, 5, 64)}  # (T, nq, ns, D)
 
 
 def blockn_args(g: torch.Generator, B: int, T: int, cin: int, cout: int) -> tuple:
@@ -177,6 +185,39 @@ def time_b6dft(g: torch.Generator, batch: int) -> dict:
                                                   iters=10)["mean_s"] * 1e3}}
 
 
+def host_us(fn, *args, iters: int = 200) -> float:
+    """Host microseconds a call: the wall time to enqueue ``iters`` calls."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e6
+
+
+def time_b9(g: torch.Generator) -> dict:
+    """B9 through its wrapper at B9_SHAPES, w of both signs and b != 0,
+    beside ``torch.cdist`` on the operands scaled by |w|."""
+    rows = {}
+    for name, (T, nq, ns, D) in B9_SHAPES.items():
+        q = torch.randn(T, nq, D, generator=g, device="cuda")
+        s = torch.randn(T, ns, D, generator=g, device="cuda")
+        w = torch.randn(D, generator=g, device="cuda")
+        b = torch.tensor(0.375, device="cuda")
+        qw, sw = q * w.abs(), s * w.abs()
+        with torch.inference_mode():
+            rows[name] = {"shape": [T, nq, ns, D],
+                          "ms": queued_ms(weighted_l1, q, s, w, b, iters=50),
+                          "back_to_back_ms": time_fn(weighted_l1, q, s, w, b,
+                                                     iters=50)["mean_s"] * 1e3,
+                          "host_us": host_us(weighted_l1, q, s, w, b),
+                          "cdist_ms": queued_ms(torch.cdist, qw, sw, 1.0, iters=50),
+                          "cdist_host_us": host_us(torch.cdist, qw, sw, 1.0)}
+    return {"b9": rows}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch", type=int, default=2048)
@@ -184,6 +225,7 @@ def main(argv=None) -> int:
     parser.add_argument("--b45", action="store_true", help="time B4 and B5 alone")
     parser.add_argument("--b5f32", action="store_true", help="time B4 and B5's f32 route")
     parser.add_argument("--b6dft", action="store_true", help="time B6's DFT route")
+    parser.add_argument("--b9", action="store_true", help="time B9")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("block_timing: no CUDA device", file=sys.stderr)
@@ -205,6 +247,9 @@ def main(argv=None) -> int:
         return 0
     if args.b6dft:
         print(json.dumps({"package": package, **time_b6dft(g, args.batch)}), flush=True)
+        return 0
+    if args.b9:
+        print(json.dumps({"package": package, **time_b9(g)}), flush=True)
         return 0
     T, c = BLOCK0
     x = torch.randn(args.batch, T, 1, generator=g, device="cuda") * 0.3
