@@ -23,7 +23,11 @@ Each phase prints one JSON line; nothing here imports JAX.
    block shape, T no tile multiple, k = 5, Cin = 40, Couts 24, 72, 100 and 75,
    rows scaled by 1, 1e3 and 1e-3, BN scales of both signs); B10's mma and
    pool stages exactly against their plain versions and its full stage equal
-   to B3, at the three shapes;
+   to B3, at the three shapes; B3 (bit for bit) and B8 (as above) at config
+   #3's seven dilated and pool-1 block shapes, at B = 1 at each and at
+   DILATED_EDGES (d = 16 at T = 375 and below the reach, pool 1 with odd T,
+   Couts 72, 100 and 75, f32 out at pool 1, rows of very different scale),
+   the record's ``dilated_checks``;
    train kernels — B4 and B5 on the tensor cores at the train step's
    (32, 12000, 128) and at B45_EDGES (T/4 no tile multiple, C = 72, 16 and
    256, B = 1, rows of very different scale, exact ties): a_sel within its
@@ -43,8 +47,9 @@ Each phase prints one JSON line; nothing here imports JAX.
    channels last, the cotangent in f32) at the three config #1 block shapes
    of the train step and at ROUTING_EDGES (C = 67 with odd T/pool, pool 4
    in f32, B = 1, rows of very different scale, forced ties, pool 3, 257
-   channel vectors), a_sel and dz bit for bit, each against its plain
-   version; the launch counters read around the phase;
+   channel vectors, and pool 1 at config #3's train shapes), a_sel and dz
+   bit for bit, each against its plain version; the launch counters read
+   around the phase;
 4. slice — config #1 at full width (filters 128, embedding 64, 3 s at 16 kHz,
    downsampling 4) built from a flax-layout tree through ``from_flax``,
    serving 500 1-shot 5-way n-shot tasks over a seeded synthetic store in
@@ -84,6 +89,23 @@ Each phase prints one JSON line; nothing here imports JAX.
    profiler, with the device ms of cuDNN's NCHW↔NHWC conversions; the train
    step's ms and utt/s at B=32 and B=2048 under both blocks-1+ policies, in
    turns (jnp, fused, fused, jnp), and peak memory;
+9b. config #3 (``dilated_4khz``: eight blocks, pools 4, 1, 2, 1, 2, 1, 2,
+   1, dilations 1, 2, 1, 4, 1, 8, 1, 16) at full width from a flax-layout
+   tree: dilated_slice, the same 500 tasks in bf16 (B1 → B2 → B8 × 7),
+   launch counters around it, the table against the plain-version path;
+   dilated_int8_slice (``quantize_from_store``, B1 → B2 requant → B3 × 7),
+   against the plain int8 path and beside bf16; dilated_int8_fidelity,
+   bench.py's gate printed with ``int8_served`` and, as bench.py does,
+   bf16 served where it fails, not held; dilated_train_slice, ``fit`` for
+   40 steps at batch 32 (per step B1 1, B4 1, B5 1, B7 7 + 7; the
+   evaluation B1 only), losses falling, one step held against its
+   plain-version step in f32 and reported in bf16; dilated_timing, B8 and
+   B3 per block at B=2048 beside bounds, plain versions and library calls
+   (``F.conv1d`` with the dilation, ``torch._int_mm`` on the dilated patch
+   matrix), both embeds' utt/s, batch-1 latency, peak memory and stages,
+   the train step at B=32 and 2048 under both blocks-1+ policies, and
+   cuDNN's dilated convs per block (NHWC as the train step runs them, also
+   autotuned, beside NCT);
 10. mel kernels — config #4's: B1 at downsampling 1, frag 48000, over the
     bench store undecimated; B6's FFT kernel against its plain version (and
     against the rfft route) on 256 whitened 48000-sample fragments at
@@ -156,7 +178,7 @@ import torch
 
 from voicemap_tpu_torch import _build
 from voicemap_tpu_torch.config import (
-    EncoderConfig, MelConfig, SiameseConfig, classifier_baseline, melspec_2d,
+    EncoderConfig, MelConfig, SiameseConfig, classifier_baseline, dilated_4khz, melspec_2d,
     siamese_verification,
 )
 from voicemap_tpu_torch.data.store import synthetic_store
@@ -220,6 +242,21 @@ QBLOCKS = ((3000, 128, 256, False), (1500, 256, 384, False), (750, 384, 512, Tru
 B8_EDGES = ((3, 1001, 128, 256, 3), (1, 2, 128, 64, 3), (2, 3, 64, 72, 3),
             (1, 300, 128, 128, 5), (2, 257, 40, 24, 3), (2, 130, 384, 512, 3),
             (2, 301, 64, 100, 3), (3, 513, 128, 75, 3))
+# Config #3's (dilated_4khz) blocks 1-7: (T in, Cin, Cout, pool, dilation,
+# last), int8 (B3) and bf16 (B8, k = 3), at the bench store's 12000-sample
+# fragments (3 s at 16 kHz decimated by 4).
+DILATED_BLOCKS = ((3000, 128, 128, 1, 2, False), (3000, 128, 256, 2, 1, False),
+                  (1500, 256, 256, 1, 4, False), (1500, 256, 384, 2, 1, False),
+                  (750, 384, 384, 1, 8, False), (750, 384, 512, 2, 1, False),
+                  (375, 512, 512, 1, 16, True))
+# B3's and B8's edges at dilation (B, T, Cin, Cout, pool, dilation, out of
+# B3's last block or None): d = 16 at T = 375 with Cout 72; T below the
+# reach 2d (20 and 31 at d = 16); pool 1 with odd T and Couts 100 and 75;
+# pool 2 at a dilation with odd T; f32 out at pool 1 (the ring's 2 stages).
+DILATED_EDGES = ((2, 375, 512, 72, 1, 16, None), (3, 20, 64, 72, 1, 16, None),
+                 (2, 31, 64, 100, 1, 16, torch.bfloat16), (3, 1001, 128, 100, 1, 2, None),
+                 (2, 1001, 96, 75, 1, 4, torch.bfloat16), (2, 301, 128, 72, 2, 8, None),
+                 (2, 301, 64, 72, 1, 8, torch.float32))
 # B2's edges: (B, T, C): T % 4 != 0, C = 16 and 160 (no multiple of the
 # kernel's 32-channel slice); and more rows than a launch's grid.y takes.
 B2_EDGES = ((3, 1001, 16), (2, 4098, 160))
@@ -261,7 +298,9 @@ B5_STEP_SEED = 0
 # B7's edges (B, C, T, pool, dtype, rows): C = 67 (no multiple of 8: one
 # channel a thread) with odd T/pool, pool 4 in f32 on both widths, B = 1,
 # rows × 1, 1e3, 1e-3, forced ties, pool 3 (the any-pool path on vectors),
-# and C = 2056 (257 vectors: a second column chunk of CTAs).
+# and C = 2056 (257 vectors: a second column chunk of CTAs); then pool 1 at
+# config #3's train shapes of its dilated blocks 1, 3, 5 and 7 (B = 32), one
+# on rows of very different scale.
 ROUTING_EDGES = ((5, 67, 250, 2, torch.bfloat16, "plain"),
                  (3, 67, 1000, 4, torch.float32, "plain"),
                  (2, 384, 1000, 4, torch.float32, "plain"),
@@ -269,7 +308,11 @@ ROUTING_EDGES = ((5, 67, 250, 2, torch.bfloat16, "plain"),
                  (4, 256, 602, 2, torch.bfloat16, "scaled"),
                  (3, 128, 512, 2, torch.bfloat16, "ties"),
                  (2, 72, 96, 3, torch.bfloat16, "ties"),
-                 (2, 2056, 64, 2, torch.bfloat16, "plain"))
+                 (2, 2056, 64, 2, torch.bfloat16, "plain"),
+                 (32, 128, 3000, 1, torch.bfloat16, "plain"),
+                 (32, 256, 1500, 1, torch.bfloat16, "scaled"),
+                 (32, 384, 750, 1, torch.bfloat16, "plain"),
+                 (32, 512, 375, 1, torch.bfloat16, "plain"))
 # Config #4: 3 s at 16 kHz, downsampling 1, over the bench store undecimated.
 MEL_FRAG = 48000
 # B6's edges (B, T, geometry): n_mels 32; T = 47999 and 30001, ending
@@ -561,48 +604,55 @@ def block_params(blk) -> tuple:
             blk.bn.running_mean, blk.bn.running_var)
 
 
-def blockn_bound(x: torch.Tensor, params: tuple, ref: torch.Tensor) -> torch.Tensor:
-    """The per-output bound on B8 against its plain version (f32 output)."""
+def blockn_bound(x: torch.Tensor, params: tuple, ref: torch.Tensor, pool: int = 2,
+                 dilation: int = 1) -> torch.Tensor:
+    """The per-output bound on B8 against its plain version (f32 output); K
+    = k·Cin products at any dilation."""
     w = params[0]
     k, cin, cout = w.shape
     zeros, ones = torch.zeros(cout, device=x.device), torch.ones(cout, device=x.device)
-    s = conv_blockn_reference(x.abs(), w.abs(), zeros, ones, zeros, zeros, ones, 0.0,
-                              out_dtype=torch.float32)  # Σ|x·w|, the larger of the pair
+    s = conv_blockn_reference(x.abs(), w.abs(), zeros, ones, zeros, zeros, ones, 0.0, pool,
+                              out_dtype=torch.float32,
+                              dilation=dilation)  # Σ|x·w|, the larger of the pool's
     bias, mul, add = bn_affine(*params[1:], BN_EPS)
     return F32_UNIT_ROUNDOFF * (B8_TERM_ULPS * k * cin * mul.abs() * (s + bias.abs())
                                 + B8_EPILOGUE_ULPS * (ref.abs() + add.abs()))
 
 
-def check_blockn(x: torch.Tensor, params: tuple) -> dict:
+def check_blockn(x: torch.Tensor, params: tuple, pool: int = 2, dilation: int = 1) -> dict:
     """B8 against its plain version: f32 output within ``blockn_bound``,
     bf16 output by row cosine."""
     B, T, cin = x.shape
     k, _, cout = params[0].shape
-    shape = (B, T // 2, cout)
-    out = conv_blockn(x, *params, BN_EPS, out_dtype=torch.float32)
-    ref = conv_blockn_reference(x, *params, BN_EPS, out_dtype=torch.float32)
+    shape = (B, T // pool, cout)
+    kw = dict(dilation=dilation)
+    out = conv_blockn(x, *params, BN_EPS, pool, out_dtype=torch.float32, **kw)
+    ref = conv_blockn_reference(x, *params, BN_EPS, pool, out_dtype=torch.float32, **kw)
     torch.cuda.synchronize()
+    name = (B, T, cin, cout, k, pool, dilation)
     if tuple(out.shape) != shape or tuple(ref.shape) != shape:
-        raise AssertionError(f"conv_blockn {(B, T, cin, cout, k)}: {tuple(out.shape)}, "
-                             f"want {shape}")
+        raise AssertionError(f"conv_blockn {name}: {tuple(out.shape)}, want {shape}")
     diff = (out - ref).abs()
     ratio, err = 0.0, 0.0
     if diff.numel():
-        ratio = float((diff / blockn_bound(x, params, ref).clamp(min=1e-30)).max())
+        bnd = blockn_bound(x, params, ref, pool, dilation)
+        ratio = float((diff / bnd.clamp(min=1e-30)).max())
         err = float(diff.max())
+        del bnd
     if not ratio <= 1.0:
-        raise AssertionError(f"conv_blockn {(B, T, cin, cout, k)} f32: max abs err {err}, "
-                             f"{ratio} of its bound")
-    outb = conv_blockn(x, *params, BN_EPS)
-    refb = conv_blockn_reference(x, *params, BN_EPS)
+        raise AssertionError(f"conv_blockn {name} f32: max abs err {err}, {ratio} of its bound")
+    del out, ref, diff
+    outb = conv_blockn(x, *params, BN_EPS, pool, **kw)
+    refb = conv_blockn_reference(x, *params, BN_EPS, pool, **kw)
     torch.cuda.synchronize()
     cos, ulps = 1.0, 0
     if outb.numel():
         cos = min_cosine(outb.reshape(B, -1).float(), refb.reshape(B, -1).float())
         ulps = bf16_ulps(outb, refb)
     if not cos >= B8_BF16_MIN_COSINE:
-        raise AssertionError(f"conv_blockn {(B, T, cin, cout, k)} bf16: row cosine {cos}")
-    return {"kernel": "conv_blockn", "shape": [B, T, cin, cout, k], "out": list(shape),
+        raise AssertionError(f"conv_blockn {name} bf16: row cosine {cos}")
+    extra = {} if (pool, dilation) == (2, 1) else {"pool": pool, "dilation": dilation}
+    return {"kernel": "conv_blockn", "shape": [B, T, cin, cout, k], "out": list(shape), **extra,
             "max_abs_err": err, "err_over_bound": ratio,
             "bf16_min_row_cosine": cos, "bf16_max_ulps": ulps,
             "tolerance": f"f32: |err| <= u*({B8_TERM_ULPS}*K*|mul|*(S+|bias|) + "
@@ -633,6 +683,51 @@ def check_blockn_kernels() -> tuple[list, float]:
     x, params = blockn_inputs(7, len(ROW_SCALES), 300, 128, 256)
     checks.append({**check_blockn(scaled_rows(x), params), "row_scales": list(ROW_SCALES)})
     return checks, err
+
+
+def check_qblock(args: tuple, pool: int = 2, dilation: int = 1, out_dtype=None) -> dict:
+    """B3 against its plain version, equal: int8 out, or the last block's
+    ``out_dtype``."""
+    kw = dict(pool=pool, dilation=dilation)
+    if out_dtype is not None:
+        kw.update(last=True, out_dtype=out_dtype)
+    B, T = args[0].shape[:2]
+    shape = (B, T // pool, args[1].shape[2])
+    return {**check_exact("quant_block", quant_block(*args, **kw),
+                          quant_block_reference(*args, **kw), shape),
+            "pool": pool, "dilation": dilation}
+
+
+def check_dilated_kernels() -> tuple[list, dict]:
+    """B3 (bit for bit) and B8 (f32 out within ``blockn_bound``, bf16 out by
+    row cosine) at config #3's seven block shapes (CHECK_ROWS rows), at B = 1
+    at each of them, at DILATED_EDGES and on rows of very different scale;
+    the largest errors at the seven shapes."""
+    checks = []
+    for i, (T, cin, cout, pool, d, last) in enumerate(DILATED_BLOCKS):
+        args = qblock_inputs(300 + i, CHECK_ROWS, T, cin, cout)
+        checks.append(check_qblock(args, pool, d, torch.bfloat16 if last else None))
+        del args
+        x, params = blockn_inputs(300 + i, CHECK_ROWS, T, cin, cout)
+        checks.append(check_blockn(x, params, pool, d))
+        del x, params
+        torch.cuda.empty_cache()
+    errors = {k: max(c["max_abs_err"] for c in checks if c["kernel"] == k)
+              for k in ("quant_block", "conv_blockn")}
+    cases = [(1, T, cin, cout, pool, d, torch.bfloat16 if last else None)
+             for T, cin, cout, pool, d, last in DILATED_BLOCKS] + list(DILATED_EDGES)
+    for B, T, cin, cout, pool, d, dt in cases:
+        checks.append(check_qblock(qblock_inputs(B + T + d, B, T, cin, cout), pool, d, dt))
+        checks.append(check_blockn(*blockn_inputs(B + T + d, B, T, cin, cout), pool, d))
+    # rows of very different scale: a read across the batch-row boundary,
+    # 2h = 16 rows deep here, shows
+    x, *rest = qblock_inputs(19, 3, 300, 128, 128)
+    x[1] = torch.div(x[1], 64, rounding_mode="trunc")
+    x[2] = torch.div(x[2], 8, rounding_mode="trunc")
+    checks.append({**check_qblock((x, *rest), 1, 8), "row_divisors": [1, 64, 8]})
+    x, params = blockn_inputs(19, len(ROW_SCALES), 300, 128, 128)
+    checks.append({**check_blockn(scaled_rows(x), params, 1, 8), "row_scales": list(ROW_SCALES)})
+    return checks, errors
 
 
 def check_qblock_stages() -> list:
@@ -824,16 +919,23 @@ def check_kernels(store, idx, offsets, params) -> dict:
     checks.extend(check_qblock_stages())
     errors["quant_block_stage"] = max(c["max_abs_err"] for c in checks
                                       if c["kernel"] == "quant_block_stage")
+    dilated, dilated_errors = check_dilated_kernels()
+    for k, v in dilated_errors.items():
+        errors[k] = max(errors[k], v)
     launches = read_counts()
     emit({"phase": "kernels", "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                                        "matmul": torch.backends.cuda.matmul.allow_tf32},
-          "checks": checks, "launches": launches})
+          "checks": checks, "dilated_checks": dilated, "launches": launches})
     return {"errors": errors, "s0": s0, "launches": launches}
 
 
-def run_slice(seed: int) -> dict:
-    cfg = classifier_baseline()
-    host = synthetic_store(seed, **SLICE_STORE)
+def run_slice(seed: int, cfg=None, phase: str = "slice", host=None) -> dict:
+    """``cfg`` (config #1 by default) at full width from a flax-layout tree,
+    the 500 tasks over the seeded store in bf16 through ``fast_embed``, the
+    launch counters read around the run, the table held against the
+    plain-version path (B1's plain version, then the module's forward)."""
+    cfg = cfg or classifier_baseline()
+    host = host or synthetic_store(seed, **SLICE_STORE)
     n_speakers = host.speaker_counts.shape[0]
     model = SpeakerClassifier(cfg.encoder, n_speakers, device=DEVICE)
     model.load_state_dict(from_flax(random_flax_variables(cfg.encoder, n_speakers, seed),
@@ -873,7 +975,7 @@ def run_slice(seed: int) -> dict:
     min_cos = min_cosine(table, torch.cat(plain))
     if min_cos < TABLE_MIN_COSINE:
         raise AssertionError(f"table vs plain path: min cosine {min_cos} < {TABLE_MIN_COSINE}")
-    emit({"phase": "slice", "config": "classifier_baseline", "dtype": "bfloat16",
+    emit({"phase": phase, "config": cfg.name, "dtype": "bfloat16",
           "utterances": n_utts, "speakers": n_speakers, "tasks": 500, "n_shot": 1, "k_way": 5,
           "accuracy": acc, "table_shape": list(table.shape), "launches": launches,
           "min_cosine_vs_plain": min_cos, "cosine_tolerance": TABLE_MIN_COSINE,
@@ -902,6 +1004,7 @@ def quant_embed_plain(encoder, qvars: dict, x: torch.Tensor) -> torch.Tensor:
     """``quant_embed`` with every kernel replaced by its plain version."""
     cdt = encoder.compute_dtype
     blk = encoder.blocks[0]
+    pools, dilations = encoder.cfg.pool_sizes, encoder.cfg.dilations
     with torch.inference_mode():
         h = conv_block0_reference(
             x, blk.conv.weight.permute(2, 1, 0), blk.conv.bias, blk.bn.weight, blk.bn.bias,
@@ -910,11 +1013,16 @@ def quant_embed_plain(encoder, qvars: dict, x: torch.Tensor) -> torch.Tensor:
         n = len(qvars["blocks"])
         for i, q in enumerate(qvars["blocks"], start=1):
             h = quant_block_reference(h, q["w_q"], q["alpha"], q["beta"], q["gamma"],
-                                      last=i == n, out_dtype=cdt)
+                                      last=i == n, out_dtype=cdt, pool=max(pools[i], 1),
+                                      dilation=dilations[i])
         return encoder.pool_and_embed(h.transpose(1, 2))
 
 
-def run_int8_slice(sliced: dict, seed: int) -> dict:
+def run_int8_slice(sliced: dict, seed: int, phase: str = "int8_slice") -> dict:
+    """The model of ``run_slice`` calibrated with ``quantize_from_store`` and
+    served in int8 (B1 → B2 with requant → B3 for every block 1+), the same
+    500 tasks, the launch counters read around the run, the table held
+    against the plain-version int8 path and set beside the bf16 table."""
     model, cfg, store = sliced["model"], sliced["cfg"], sliced["store"]
     t0 = time.perf_counter()
     qvars = quantize_from_store(model, cfg, store, n_cal=256)
@@ -956,7 +1064,7 @@ def run_int8_slice(sliced: dict, seed: int) -> dict:
     acc_again = float((pred["int8"] == 0).float().mean())
     if abs(acc_again - acc) > 1e-6:
         raise AssertionError(f"redrawn tasks score {acc_again}, evaluate gave {acc}")
-    emit({"phase": "int8_slice", "config": "classifier_baseline", "utterances": n_utts,
+    emit({"phase": phase, "config": cfg.name, "utterances": n_utts,
           "tasks": 500, "n_shot": 1, "k_way": 5, "calibration_rows": min(256, n_utts),
           "accuracy_int8": acc, "accuracy_bf16": sliced["accuracy"],
           "same_decision_share": float((pred["int8"] == pred["bf16"]).float().mean()),
@@ -966,9 +1074,14 @@ def run_int8_slice(sliced: dict, seed: int) -> dict:
     return {"launches": launches, "qvars": qvars}
 
 
-def run_fidelity_gate(store, offsets, model, seed: int) -> dict:
+def run_fidelity_gate(store, offsets, model, seed: int, hold: bool = True,
+                      phase: str = "int8_fidelity_gate",
+                      config: str = "classifier_baseline") -> dict:
     """bench.py's int8 gate: calibrate on rows [0, n_cal), measure on the
-    disjoint rows [n_cal, 2·n_cal) at fresh decimated offsets."""
+    disjoint rows [n_cal, 2·n_cal) at fresh decimated offsets. With ``hold``
+    a min cosine below the gate fails the run; without, as ``bench.py``
+    does, the path falls back to bf16 serving and the run goes on
+    (``int8_served`` says which)."""
     n_cal = 256
     rng = np.random.default_rng(seed + 1)
     max_off = store.shape[1] - FRAG
@@ -981,12 +1094,14 @@ def run_fidelity_gate(store, offsets, model, seed: int) -> dict:
         ref = fast_embed(model.encoder, x_fid)
         out = quant_embed(model.encoder, qvars, x_fid)
     fidelity = min_cosine(out, ref)
-    emit({"phase": "int8_fidelity_gate", "calibration_rows": [0, n_cal],
+    served = fidelity >= INT8_FIDELITY_GATE
+    emit({"phase": phase, "config": config, "calibration_rows": [0, n_cal],
           "fidelity_rows": [n_cal, 2 * n_cal], "min_cosine": fidelity,
-          "gate": INT8_FIDELITY_GATE, "pass": fidelity >= INT8_FIDELITY_GATE})
-    if not fidelity >= INT8_FIDELITY_GATE:
+          "gate": INT8_FIDELITY_GATE, "pass": served, "held": hold, "int8_served": served,
+          "served_dtype": "int8" if served else "bfloat16"})
+    if hold and not served:
         raise AssertionError(f"int8 fidelity gate: min cosine {fidelity} < {INT8_FIDELITY_GATE}")
-    return {"qvars": qvars, "min_cosine": fidelity}
+    return {"qvars": qvars, "min_cosine": fidelity, "int8_served": served}
 
 
 def in_chunks(fn, *tensors, **kw):
@@ -998,28 +1113,36 @@ def in_chunks(fn, *tensors, **kw):
     return run
 
 
-def time_quant_blocks(seed: int) -> dict:
-    """Each B3 launch at config #1's block shapes and B=2048, beside its
-    bound, its plain version and the library's int8 GEMM alone."""
+def time_quant_blocks(seed: int, blocks=None) -> dict:
+    """Each B3 launch at ``blocks`` (config #1's by default; rows (T, Cin,
+    Cout, pool, dilation, last)) and B=BATCH, beside its bound, its plain
+    version and the library's int8 GEMM alone on the (dilated) patch
+    matrix."""
+    blocks = blocks or [(T, cin, cout, 2, 1, last) for T, cin, cout, last in QBLOCKS]
     rows = []
-    for i, (T, cin, cout, last) in enumerate(QBLOCKS):
+    for i, (T, cin, cout, pool, d, last) in enumerate(blocks):
         args = qblock_inputs(seed + i, BATCH, T, cin, cout)
         out_bytes = 2 if last else 1
-        moved = BATCH * T * cin + 3 * cin * cout + 12 * cout + BATCH * (T // 2) * cout * out_bytes
-        row = {"T": T, "cin": cin, "cout": cout, "out": "bfloat16" if last else "int8",
+        kw = dict(last=last, pool=pool, dilation=d)
+        moved = (BATCH * T * cin + 3 * cin * cout + 12 * cout
+                 + BATCH * (T // pool) * cout * out_bytes)
+        row = {"T": T, "cin": cin, "cout": cout, "pool": pool, "dilation": d,
+               "out": "bfloat16" if last else "int8",
                **bound(moved, 2.0 * BATCH * T * 3 * cin * cout, INT8_OPS_PER_S)}
-        row["ms"] = time_fn(quant_block, *args, last=last, iters=20)["mean_s"] * 1e3
+        row["ms"] = time_fn(quant_block, *args, **kw, iters=20)["mean_s"] * 1e3
         row["bound_share"] = row["bound_ms"] / row["ms"]
-        row["plain_ms"] = time_fn(in_chunks(quant_block_reference, *args, last=last),
+        row["plain_ms"] = time_fn(in_chunks(quant_block_reference, *args, **kw),
                                   iters=2, warmup=1)["mean_s"] * 1e3
         x, w = args[0], args[1]
         try:  # library yardstick: torch._int_mm on the im2col'd input, GEMM only
-            xp = torch.nn.functional.pad(x, (0, 0, 1, 1))
-            a = torch.cat([xp[:, j:j + T] for j in range(3)], dim=-1).reshape(BATCH * T, 3 * cin)
+            xp = torch.nn.functional.pad(x, (0, 0, d, d))
+            a = torch.cat([xp[:, j * d:j * d + T] for j in range(3)],
+                          dim=-1).reshape(BATCH * T, 3 * cin)
             del xp
             row["library_ms"] = time_fn(torch._int_mm, a, w.reshape(3 * cin, cout).contiguous(),
                                         iters=10)["mean_s"] * 1e3
-            row["library"] = "torch._int_mm on im2col (B*T, 3*Cin) x (3*Cin, Cout), GEMM only"
+            row["library"] = ("torch._int_mm on im2col (B*T, 3*Cin) x (3*Cin, Cout), taps d "
+                              "apart, GEMM only")
             del a
         except (RuntimeError, NotImplementedError) as e:
             row["library_ms"], row["library"] = None, f"torch._int_mm refused: {e}"
@@ -1043,11 +1166,12 @@ def embed_cudnn_blocks(encoder, x: torch.Tensor) -> torch.Tensor:
 
 
 def time_blockn(encoder, x: torch.Tensor) -> list:
-    """B8 at each of config #1's blocks 1-3 at B=BATCH, on the block's own
-    input (B2's output, then B8's), beside its bound, its plain version,
-    ``F.conv1d`` in bf16 at the block's shape (conv and bias only: the port
-    never calls it for B8's work) and the cuDNN block it replaced
-    (``ConvBlock.forward_nct`` on the same input, channel first)."""
+    """B8 at each of the encoder's blocks 1+ (config #1's three, config #3's
+    seven) at B=BATCH, on the block's own input (B2's output, then B8's),
+    beside its bound, its plain version, ``F.conv1d`` in bf16 at the block's
+    shape and dilation (conv and bias only: the port never calls it for B8's
+    work) and the cuDNN block it replaced (``ConvBlock.forward_nct`` on the
+    same input, channel first)."""
     cdt = encoder.compute_dtype
     blk0 = encoder.blocks[0]
     rows = []
@@ -1057,26 +1181,41 @@ def time_blockn(encoder, x: torch.Tensor) -> list:
             params = block_params(blk)
             B, T, cin = h.shape
             k, _, cout = params[0].shape
-            moved = h.numel() * 2 + k * cin * cout * 4 + 5 * cout * 4 + B * (T // 2) * cout * 2
+            pool, d = max(blk.pool_size, 1), blk.conv.dilation[0]
+            kw = dict(dilation=d)
+            moved = (h.numel() * 2 + k * cin * cout * 4 + 5 * cout * 4
+                     + B * (T // pool) * cout * 2)
             ops = 2.0 * B * T * k * cin * cout
-            row = {"block": i, "B": B, "T": T, "cin": cin, "cout": cout, "k": k,
-                   "ops": ops, "bytes": moved, **bound(moved, ops, BF16_OPS_PER_S),
-                   "ms": time_fn(conv_blockn, h, *params, blk.bn.eps, iters=20)["mean_s"] * 1e3,
-                   "plain_ms": time_fn(in_chunks(conv_blockn_reference, h, *params, blk.bn.eps),
+            row = {"block": i, "B": B, "T": T, "cin": cin, "cout": cout, "k": k, "pool": pool,
+                   "dilation": d, "ops": ops, "bytes": moved, **bound(moved, ops, BF16_OPS_PER_S),
+                   "ms": time_fn(conv_blockn, h, *params, blk.bn.eps, pool, **kw,
+                                 iters=20)["mean_s"] * 1e3,
+                   "plain_ms": time_fn(in_chunks(conv_blockn_reference, h, *params, blk.bn.eps,
+                                                 pool, **kw),
                                        iters=2, warmup=1)["mean_s"] * 1e3}
             row["bound_share"] = row["bound_ms"] / row["ms"]
             xc = h.transpose(1, 2).contiguous()  # (B, Cin, T), the layout F.conv1d takes
             wc, bc = blk.conv.weight.to(cdt), blk.conv.bias.to(cdt)
             row["library_ms"] = time_fn(torch.nn.functional.conv1d, xc, wc, bc,
-                                        padding=(k - 1) // 2, iters=20)["mean_s"] * 1e3
+                                        padding=d * (k - 1) // 2, dilation=d,
+                                        iters=20)["mean_s"] * 1e3
             row["library"] = "F.conv1d bf16 (cuDNN), conv and bias only: no relu, BN or pool"
             row["cudnn_block_ms"] = time_fn(blk.forward_nct, h.transpose(1, 2),
                                             iters=20)["mean_s"] * 1e3
             del xc
             rows.append(row)
-            h = conv_blockn(h, *params, blk.bn.eps)
+            h = conv_blockn(h, *params, blk.bn.eps, pool, **kw)
     torch.cuda.empty_cache()
     return rows
+
+
+def bench_device_store(store: torch.Tensor) -> tuple[DeviceStore, torch.Tensor]:
+    """The decimated bench store as a DeviceStore of BATCH one-row speakers,
+    and its row ids, for ``fetch_batch``'s random offsets."""
+    lengths = torch.full((BATCH,), store.shape[1], dtype=torch.int32, device=DEVICE)
+    rows = torch.arange(BATCH, dtype=torch.int32, device=DEVICE)
+    return DeviceStore(audio=store, lengths=lengths, labels=rows, speaker_utts=rows[:, None],
+                       speaker_counts=torch.ones_like(rows), downsampling=DS), rows
 
 
 def run_timing(store, idx, offsets, params, s0, model, cfg, qvars, seed, card) -> dict:
@@ -1141,11 +1280,7 @@ def run_timing(store, idx, offsets, params, s0, model, cfg, qvars, seed, card) -
         lib = [r["library_ms"] for r in rows_]
         library_ms[name] = None if None in lib else sum(lib)
 
-    lengths = torch.full((BATCH,), store.shape[1], dtype=torch.int32, device=DEVICE)
-    rows = torch.arange(BATCH, dtype=torch.int32, device=DEVICE)
-    bench = DeviceStore(audio=store, lengths=lengths, labels=rows,
-                        speaker_utts=rows[:, None], speaker_counts=torch.ones_like(rows),
-                        downsampling=DS)
+    bench, rows = bench_device_store(store)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
 
     def serve(indices):
@@ -1760,21 +1895,25 @@ def check_channels_last_path(copies: int) -> None:
                              f"another layout than channels last and copied it")
 
 
-def train_config(seed: int):
-    """Config #1 at full width as the train slice runs it: batch 32,
-    TRAIN_STEPS steps, one evaluation of 500 tasks at the end."""
-    base = classifier_baseline()
+def train_config(seed: int, base=None):
+    """``base`` (config #1 by default) at full width as the train slice runs
+    it: batch 32, TRAIN_STEPS steps, one evaluation of 500 tasks at the end."""
+    base = base or classifier_baseline()
     return base.replace(train=dataclasses.replace(
         base.train, batch_size=TRAIN_BATCH, num_steps=TRAIN_STEPS, evaluate_every=TRAIN_STEPS,
         num_eval_tasks=500, seed=seed))
 
 
-def run_train_slice(sliced: dict, seed: int) -> dict:
-    """``fit`` at full config #1 width, TRAIN_STEPS steps at batch 32, then
-    one n-shot evaluation; the train launches are the counts read around
-    ``fit`` less the evaluation's own."""
+def run_train_slice(sliced: dict, seed: int, base=None, phase: str = "train_slice") -> dict:
+    """``fit`` at full width of ``base`` (config #1 by default), TRAIN_STEPS
+    steps at batch 32, then one n-shot evaluation; the train launches are
+    the counts read around ``fit`` less the evaluation's own: per step B1,
+    B4 and B5 once, B7's two passes once a block 1+. Then one step against
+    its plain-version step: config #1's in bf16, held; any other config's
+    held in f32 compute and reported in bf16 (``held_bf16_f32_steps``)."""
     host = sliced["host"]
-    cfg = train_config(seed)
+    cfg = train_config(seed, base)
+    n_mid = len(cfg.encoder.filter_multipliers) - 1
     losses, accs = [], []
 
     def on_step(i, m):
@@ -1793,10 +1932,10 @@ def run_train_slice(sliced: dict, seed: int) -> dict:
     S = TRAIN_STEPS
     want = {name: 0 for name in KERNELS}
     want.update(gather_whiten=S, conv_block0_train=S, conv_block0_train_bwd=S,
-                pool_fwd=3 * S, route_bwd=3 * S)
+                pool_fwd=n_mid * S, route_bwd=n_mid * S)
     if train != want:
         raise AssertionError(f"train launches {train}, want {want} (per step: B1 1, B4 1, "
-                             f"B5 1, B7 3 + 3)")
+                             f"B5 1, B7 {n_mid} + {n_mid})")
     # As the reference's fit, the evaluation embeds through the model's own
     # forward: B1 for the fragments, then cuDNN; neither B2 nor B8.
     want_eval = {name: 0 for name in KERNELS}
@@ -1814,13 +1953,29 @@ def run_train_slice(sliced: dict, seed: int) -> dict:
     if not (bool(((acc >= 0) & (acc <= 1)).all()) and 0.0 <= val_acc <= 1.0):
         raise AssertionError(f"accuracy outside [0, 1]: {acc.tolist()}, val {val_acc}")
     store = device_store_for(cfg, host, DEVICE)
-    plain = compare_plain_step(cfg, host, store, seed)
-    emit({"phase": "train_slice", "config": "classifier_baseline", "dtype": "bfloat16",
+    held = ({"plain_step": compare_plain_step(cfg, host, store, seed)} if base is None else
+            {"plain_steps": held_bf16_f32_steps(cfg, host, store, seed)})
+    emit({"phase": phase, "config": cfg.name, "dtype": "bfloat16",
           "batch": TRAIN_BATCH, "steps": S, "speakers": len(host.label_names),
           "launches": train, "eval_launches": eval_counts,
           "loss_first5_mean": first, "loss_last5_mean": last, "losses": loss.tolist(),
-          "final_record": history[-1], "seconds": seconds, "plain_step": plain})
+          "final_record": history[-1], "seconds": seconds, **held})
     return {"launches": train, "cfg": cfg, "store": store, "host": host}
+
+
+def held_bf16_f32_steps(cfg, host, store, seed: int) -> dict:
+    """One classifier step of ``cfg`` through the kernels and through their
+    plain versions (``held_steps``), held in f32 compute and reported in
+    bf16, as config #2's steps are: in bf16 the kernels' f32 statistics,
+    summed in another order, flip a bf16 rounding of BatchNorm's affine now
+    and then and the later blocks carry it on; in f32 only the kernels' own
+    summation order is left."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dcfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder, compute_dtype=dtype))
+        model, run = classifier_step(dcfg, host, store, seed)
+        out[dtype] = held_steps(model, dcfg, run, hold=dtype == "float32")
+    return out
 
 
 def layout_profile(cfg, n_classes: int, dstore, batch: int, seed: int) -> dict:
@@ -1838,6 +1993,44 @@ def layout_profile(cfg, n_classes: int, dstore, batch: int, seed: int) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     prof = stage_profile.profile([("step", lambda _: step(state, dstore, gen))])
     return {"config": cfg.name, "batch": batch, "blockn": loss_fn.blockn, **prof}
+
+
+def train_step_turns(base, n_classes: int, dstore, seed: int) -> list:
+    """The train step of ``base`` at each batch of TRAIN_TIMING_BATCHES under
+    both blocks-1+ policies, in turns (jnp, fused, fused, jnp): a drift of the
+    card or the host over the run weighs on both policies alike."""
+    step_rows = []
+    for bt in TRAIN_TIMING_BATCHES:
+        for blockn in ("jnp", "fused", "fused", "jnp"):
+            cfg = base.replace(train=dataclasses.replace(
+                base.train, batch_size=bt, use_fused_blockn=blockn == "fused"))
+            model = init_model(cfg, n_classes, DEVICE, seed)
+            state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
+            step, loss_fn = steps.make_classifier_train_step(model, cfg)
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            r = time_fn(step, state, dstore, gen, iters=20 if bt <= 256 else 5, warmup=2)
+            step_rows.append({"batch": bt, "blockn": blockn, "fused_block0": loss_fn.fused_block0,
+                              "step_ms": r["mean_s"] * 1e3, "step_p50_ms": r["p50_s"] * 1e3,
+                              "utt_per_s": bt / r["mean_s"],
+                              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+            del model, state, step, loss_fn
+    return step_rows
+
+
+def train_step_summary(step_rows: list) -> list:
+    """Each (batch, policy)'s mean over its turns."""
+    summary = []
+    for bt in TRAIN_TIMING_BATCHES:
+        for blockn in ("jnp", "fused"):
+            turns = [r for r in step_rows if (r["batch"], r["blockn"]) == (bt, blockn)]
+            step_ms = sum(r["step_ms"] for r in turns) / len(turns)
+            summary.append({"batch": bt, "blockn": blockn, "step_ms": step_ms,
+                            "turns_ms": [r["step_ms"] for r in turns],
+                            "utt_per_s": bt / step_ms * 1e3,
+                            "peak_mem_gb": max(r["peak_mem_gb"] for r in turns)})
+    return summary
 
 
 def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -> dict:
@@ -1959,37 +2152,11 @@ def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -
 
     host, base = trained["host"], trained["cfg"]
     dstore = trained["store"]
-    # Each batch size in turns, jnp, fused, fused, jnp: a drift of the card or
-    # the host over the run weighs on both policies alike.
-    step_rows = []
-    for bt in TRAIN_TIMING_BATCHES:
-        for blockn in ("jnp", "fused", "fused", "jnp"):
-            cfg = base.replace(train=dataclasses.replace(
-                base.train, batch_size=bt, use_fused_blockn=blockn == "fused"))
-            model = init_model(cfg, len(host.label_names), DEVICE, seed)
-            state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
-            step, loss_fn = steps.make_classifier_train_step(model, cfg)
-            gen = torch.Generator(device=DEVICE).manual_seed(seed)
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            r = time_fn(step, state, dstore, gen, iters=20 if bt <= 256 else 5, warmup=2)
-            step_rows.append({"batch": bt, "blockn": blockn, "fused_block0": loss_fn.fused_block0,
-                              "step_ms": r["mean_s"] * 1e3, "step_p50_ms": r["p50_s"] * 1e3,
-                              "utt_per_s": bt / r["mean_s"],
-                              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-            del model, state, step, loss_fn
+    step_rows = train_step_turns(base, len(host.label_names), dstore, seed)
     torch.cuda.empty_cache()
     emit({"phase": "train_layout", "card": card,
           "fused_step": layout_profile(base, len(host.label_names), dstore, big, seed)})
-    summary = []
-    for bt in TRAIN_TIMING_BATCHES:
-        for blockn in ("jnp", "fused"):
-            turns = [r for r in step_rows if (r["batch"], r["blockn"]) == (bt, blockn)]
-            step_ms = sum(r["step_ms"] for r in turns) / len(turns)
-            summary.append({"batch": bt, "blockn": blockn, "step_ms": step_ms,
-                            "turns_ms": [r["step_ms"] for r in turns],
-                            "utt_per_s": bt / step_ms * 1e3,
-                            "peak_mem_gb": max(r["peak_mem_gb"] for r in turns)})
+    summary = train_step_summary(step_rows)
     emit({"phase": "train_timing", "card": card, "kernel_ms": ms, "plain_ms": plain_ms,
           "bound": bounds, "library_ms": library_ms,
           "library": {"conv_block0_train_bwd": "torch.nn.grad.conv1d_weight on a "
@@ -1999,6 +2166,124 @@ def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -
           "block0_batches": b45, "routing_blocks": blocks, "train_step_turns": step_rows,
           "train_step": summary})
     return {"ms": ms, "plain_ms": plain_ms, "bounds": bounds, "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
+# config #3 (dilated_4khz): the dilated and pool-1 blocks on B8 and B3
+# ---------------------------------------------------------------------------
+
+def time_cudnn_dilated_convs(encoder, batches=None) -> list:
+    """cuDNN's convs of each block 1+ as the train step runs them (the fused
+    op's NHWC ``conv2d`` on (B, C, 1, T) channels-last views, forward and
+    ``convolution_backward`` for dX and dW) beside ``F.conv1d`` in NCT at the
+    same dilation, forward and backward, in bf16, at each train batch; and
+    the NHWC pair again with cuDNN's autotuner on (``benchmark=True``: each
+    algorithm tried once, the fastest kept), which the port does not use."""
+    rows = []
+    t = FRAG // encoder.cfg.pool_sizes[0]
+    for bt in batches or TRAIN_TIMING_BATCHES:
+        tb = t
+        for i, blk in enumerate(encoder.blocks[1:], start=1):
+            cin, cout, k = blk.conv.in_channels, blk.conv.out_channels, blk.conv.kernel_size[0]
+            d, pad = blk.conv.dilation[0], blk.conv.dilation[0] * (k - 1) // 2
+            g = torch.Generator(device=DEVICE).manual_seed(60 + i)
+            x = torch.randn(bt, cin, tb, generator=g, device=DEVICE).to(torch.bfloat16)
+            w = (torch.randn(cout, cin, k, generator=g, device=DEVICE) * 0.05).to(torch.bfloat16)
+            dz = torch.randn(bt, cout, tb, generator=g, device=DEVICE).to(torch.bfloat16)
+            x4 = x.unsqueeze(2).contiguous(memory_format=torch.channels_last)
+            w4 = w.unsqueeze(2).contiguous(memory_format=torch.channels_last)
+            dz4 = dz.unsqueeze(2).contiguous(memory_format=torch.channels_last)
+            conv_bwd = torch.ops.aten.convolution_backward
+            iters = 20 if bt <= 256 else 5
+            rows.append({
+                "batch": bt, "block": i, "cin": cin, "cout": cout, "T": tb, "dilation": d,
+                "nhwc_fwd_ms": time_fn(torch.nn.functional.conv2d, x4, w4, None,
+                                       padding=(0, pad), dilation=(1, d),
+                                       iters=iters)["mean_s"] * 1e3,
+                "nhwc_bwd_ms": time_fn(conv_bwd, dz4, x4, w4, None, [1, 1], [0, pad], [1, d],
+                                       False, [0, 0], 1, [True, True, False],
+                                       iters=iters)["mean_s"] * 1e3,
+                "nct_fwd_ms": time_fn(torch.nn.functional.conv1d, x, w, None, padding=pad,
+                                      dilation=d, iters=iters)["mean_s"] * 1e3,
+                "nct_bwd_ms": time_fn(conv_bwd, dz, x, w, None, [1], [pad], [d], False, [0],
+                                      1, [True, True, False], iters=iters)["mean_s"] * 1e3})
+            with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False,
+                                            allow_tf32=False):
+                rows[-1].update(
+                    nhwc_fwd_autotuned_ms=time_fn(torch.nn.functional.conv2d, x4, w4, None,
+                                                  padding=(0, pad), dilation=(1, d),
+                                                  iters=iters)["mean_s"] * 1e3,
+                    nhwc_bwd_autotuned_ms=time_fn(conv_bwd, dz4, x4, w4, None, [1, 1], [0, pad],
+                                                  [1, d], False, [0, 0], 1,
+                                                  [True, True, False],
+                                                  iters=iters)["mean_s"] * 1e3)
+            del x, w, dz, x4, w4, dz4
+            if blk.pool_size > 1:
+                tb //= blk.pool_size
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_dilated_timing(store, sliced: dict, gate: dict, trained: dict, seed: int,
+                       card: str) -> dict:
+    """Config #3 at B=BATCH: B8 and B3 per block beside their bounds, plain
+    versions and library calls (``F.conv1d`` with the block's dilation; the
+    int8 GEMM on the dilated patch matrix); the bf16 and int8 embeds' utt/s,
+    batch-1 latency and peak memory; each path's stages; the train step at
+    each batch of TRAIN_TIMING_BATCHES under both blocks-1+ policies; cuDNN's
+    dilated convs per block, NHWC as the train step runs them beside NCT."""
+    model, cfg = sliced["model"], sliced["cfg"]
+    enc = model.encoder
+    bench, rows = bench_device_store(store)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = fetch_batch(bench, rows, cfg, gen)
+    b8 = time_blockn(enc, x)
+    e = cfg.encoder
+    blocks, t = [], FRAG // e.pool_sizes[0]
+    for i in range(1, len(e.filter_multipliers)):
+        pool = max(e.pool_sizes[i], 1)
+        blocks.append((t, e.filters * e.filter_multipliers[i - 1],
+                       e.filters * e.filter_multipliers[i], pool, e.dilations[i],
+                       i == len(e.filter_multipliers) - 1))
+        t //= pool
+    b3 = time_quant_blocks(seed, blocks)["blocks"]
+    qvars = gate["qvars"]
+    paths = {}
+    for path, stages_fn in (("bf16", lambda xf: stage_profile.stages_bf16(enc, xf)),
+                            ("int8", lambda xf: stage_profile.stages_int8(enc, qvars, xf))):
+        stage_ms, h = {}, x
+        with torch.inference_mode():
+            for name, fn in stages_fn(lambda: x)[1:]:
+                stage_ms[name] = time_fn(fn, h, iters=10)["mean_s"] * 1e3
+                h = fn(h)
+        del h
+        embed = fast_embed if path == "bf16" else (
+            lambda encoder, xb: quant_embed(encoder, qvars, xb))
+
+        def serve(indices, embed=embed):
+            with torch.inference_mode():
+                return embed(enc, fetch_batch(bench, indices, cfg, gen))
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tput = throughput(serve, rows, items_per_call=BATCH, iters=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        lat = time_fn(serve, rows[:1], iters=50, warmup=5)
+        paths[path] = {"utt_per_s_b2048": tput["items_per_sec"],
+                       "ms_b2048": tput["sec_per_call"] * 1e3, "peak_mem_gb": peak,
+                       "batch1_p50_ms_events": lat["p50_s"] * 1e3,
+                       "batch1_p95_ms_events": lat["p95_s"] * 1e3, "stage_ms": stage_ms}
+    del x
+    torch.cuda.empty_cache()
+    host, tcfg = trained["host"], trained["cfg"]
+    step_rows = train_step_turns(tcfg, len(host.label_names), trained["store"], seed)
+    convs = time_cudnn_dilated_convs(enc)
+    emit({"phase": "dilated_timing", "card": card, "config": cfg.name,
+          "conv_blockn": b8, "quant_block": b3, "paths": paths,
+          "int8_served": gate["int8_served"], "int8_min_cosine": gate["min_cosine"],
+          "train_step_turns": step_rows, "train_step": train_step_summary(step_rows),
+          "cudnn_convs": convs})
+    return {"conv_blockn": b8, "quant_block": b3}
 
 
 def mel_bench_store(seed: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -2637,7 +2922,15 @@ def main(argv=None) -> int:
                        sliced["cfg"], gate["qvars"], args.seed, card)
     attributed = run_attribution(args.seed, card, times["b3_library"])
     train_times = run_train_timing(store, idx, offsets, trained, args.seed, card)
-    del store
+    sliced3 = run_slice(args.seed, dilated_4khz(), "dilated_slice", sliced["host"])
+    sliced3_int8 = run_int8_slice(sliced3, args.seed, "dilated_int8_slice")
+    gate3 = run_fidelity_gate(store, offsets, sliced3["model"], args.seed, hold=False,
+                              phase="dilated_int8_fidelity", config="dilated_4khz")
+    trained3 = run_train_slice(sliced3, args.seed, dilated_4khz(), "dilated_train_slice")
+    run_dilated_timing(store, sliced3, gate3, trained3, args.seed, card)
+    sliced3_launches = {"bf16": sliced3["launches"], "int8": sliced3_int8["launches"],
+                        "train": trained3["launches"]}
+    del store, sliced3, sliced3_int8, trained3
     torch.cuda.empty_cache()
     raw, mel_idx, mel_offsets = mel_bench_store(args.seed)
     checked_mel = check_mel_kernels(raw, mel_idx, mel_offsets)
@@ -2661,8 +2954,9 @@ def main(argv=None) -> int:
     checked["errors"].update(checked_siamese["errors"])
 
     # Each entry's launches: the counts of the path runs above (phases slice,
-    # int8_slice, train_slice, attribution, mel_bf16_slice, mel_int8_slice,
-    # siamese_bf16_slice, siamese_int8_slice, verification, score_support and
+    # int8_slice, train_slice, attribution, dilated_slice, dilated_int8_slice,
+    # dilated_train_slice, mel_bf16_slice, mel_int8_slice, siamese_bf16_slice,
+    # siamese_int8_slice, verification, score_support and
     # siamese_train_slice), set to 0 just before each run and read just after;
     # for the kernels no path runs (B2's, B4's and B5's f32 GEMM, B6's DFT
     # route), the count of the check phase that ran them. On the mel paths the DFT route
@@ -2671,19 +2965,21 @@ def main(argv=None) -> int:
              "mel_kernels": checked_mel["launches"],
              "bf16": sliced["launches"], "int8": sliced_int8["launches"],
              "attribution": attributed["launches"],
-             "train": trained["launches"], "mel_bf16": mel["mel_bf16"],
+             "train": trained["launches"], "dilated_bf16": sliced3_launches["bf16"],
+             "dilated_int8": sliced3_launches["int8"], "dilated_train": sliced3_launches["train"],
+             "mel_bf16": mel["mel_bf16"],
              "mel_int8": mel["mel_int8"], "siamese_bf16": siamese["siamese_bf16"],
              "siamese_int8": siamese["siamese_int8"], "verification": siamese["verification"],
              "score_support": siamese["score_support"],
              "siamese_train": siamese_trained["launches"]}
-    train_paths = ("train", "siamese_train")
+    train_paths = ("train", "dilated_train", "siamese_train")
     entries = (("gather_whiten", "gather_whiten",
-                ("bf16", "int8", "train", "mel_bf16", "mel_int8", "siamese_bf16",
-                 "siamese_int8", "siamese_train")),
-               ("conv_block0", "conv_block0", ("bf16", "siamese_bf16")),
-               ("conv_block0_int8", "conv_block0", ("int8", "siamese_int8")),
+                ("bf16", "int8", "train", "dilated_bf16", "dilated_int8", "dilated_train",
+                 "mel_bf16", "mel_int8", "siamese_bf16", "siamese_int8", "siamese_train")),
+               ("conv_block0", "conv_block0", ("bf16", "dilated_bf16", "siamese_bf16")),
+               ("conv_block0_int8", "conv_block0", ("int8", "dilated_int8", "siamese_int8")),
                ("conv_block0_f32", "conv_block0_f32", ("kernels",)),
-               ("quant_block", "quant_block", ("int8", "siamese_int8")),
+               ("quant_block", "quant_block", ("int8", "dilated_int8", "siamese_int8")),
                ("conv_block0_train", "conv_block0_train", train_paths),
                ("conv_block0_train_bwd", "conv_block0_train_bwd", train_paths),
                ("conv_block0_train_f32", "conv_block0_train_f32", ("train_kernels",)),
@@ -2694,7 +2990,7 @@ def main(argv=None) -> int:
                ("log_mel_dft", "log_mel_dft", ("mel_kernels",)),
                ("weighted_l1", "weighted_l1",
                 ("siamese_bf16", "siamese_int8", "verification", "score_support")),
-               ("conv_blockn", "conv_blockn", ("bf16", "siamese_bf16")),
+               ("conv_blockn", "conv_blockn", ("bf16", "dilated_bf16", "siamese_bf16")),
                ("quant_block_stage", "quant_block_stage", ("attribution",)))
     print(card, flush=True)
     emit({"kernels": [

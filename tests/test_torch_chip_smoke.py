@@ -15,6 +15,7 @@ is the control flow, the shapes and the records of every phase, the
 card only the script itself, run there, shows.
 """
 
+import dataclasses
 import json
 from pathlib import Path
 
@@ -24,6 +25,7 @@ import torch
 import chip_smoke as cs
 from voicemap_tpu_torch.config import (
     DataConfig, EncoderConfig, ExperimentConfig, MelConfig, SiameseConfig, TrainConfig,
+    dilated_4khz,
 )
 from voicemap_tpu_torch.ops import (
     block0_train_tc, cuda_conv, cuda_conv_train, cuda_distance, cuda_melspec, cuda_preprocess,
@@ -39,6 +41,9 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
 def on_the_cpu(monkeypatch):
     small = ExperimentConfig(data=DataConfig(seconds=0.128, downsampling=4),
                              encoder=EncoderConfig(filters=32, embedding_dim=16))
+    small_dilated = ExperimentConfig(
+        name="dilated_4khz", data=DataConfig(seconds=0.128, downsampling=4),
+        encoder=dataclasses.replace(dilated_4khz().encoder, filters=32, embedding_dim=16))
     small_mel = ExperimentConfig(name="melspec_2d", mode="melspec2d",
                                  data=DataConfig(seconds=0.15, downsampling=1),
                                  encoder=EncoderConfig(filters=32, embedding_dim=16),
@@ -54,6 +59,9 @@ def on_the_cpu(monkeypatch):
                         ("QBLOCKS", ((100, 32, 64, False), (50, 64, 96, False),
                                      (25, 96, 128, True))),
                         ("classifier_baseline", lambda: small),
+                        ("dilated_4khz", lambda: small_dilated),
+                        ("DILATED_BLOCKS", ((100, 32, 32, 1, 2, False), (100, 32, 64, 2, 1, False),
+                                            (50, 64, 64, 1, 4, False), (25, 96, 96, 1, 16, True))),
                         ("melspec_2d", lambda: small_mel), ("MEL_FRAG", 2400),
                         ("MEL_EDGES", ((1, 2400, dict(n_mels=16)), (5, 2399, {}),
                                        (5, 2400, dict(hop_length=160, win_length=400)),
@@ -189,6 +197,8 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert phases == ["device", "build", "kernels", "train_kernels", "slice", "int8_slice",
                       "int8_fidelity_gate", "train_slice", "timing", "attribution",
                       "train_layout", "train_timing",
+                      "dilated_slice", "dilated_int8_slice", "dilated_int8_fidelity",
+                      "dilated_train_slice", "dilated_timing",
                       "mel_kernels", "mel_bf16_slice", "mel_int8_slice", "mel_int8_fidelity",
                       "mel_timing", "siamese_kernels", "siamese_bf16_slice",
                       "siamese_int8_slice", "verification", "score_support",
@@ -413,6 +423,7 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
             "bytes", "operations")
     by_name = {k["name"]: k for k in kernels}
     assert by_name["pool_fwd"]["launches_by_path"] == {"train": 3 * steps_run,
+                                                       "dilated_train": 7 * steps_run,
                                                        "siamese_train": 3 * steps_run}
     assert by_name["gather_whiten"]["launches_by_path"]["train"] == steps_run
     assert by_name["gather_whiten"]["launches_by_path"]["siamese_train"] == 2 * steps_run
@@ -421,8 +432,10 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert by_name["weighted_l1"]["launches"] == 4
     assert by_name["weighted_l1"]["max_abs_err"] == 0.0
     assert by_name["weighted_l1"]["library_ms"] is not None
-    assert by_name["quant_block"]["launches_by_path"] == {"int8": 6, "siamese_int8": 6}
-    assert by_name["conv_blockn"]["launches_by_path"] == {"bf16": 6, "siamese_bf16": 6}
+    assert by_name["quant_block"]["launches_by_path"] == {"int8": 6, "dilated_int8": 14,
+                                                          "siamese_int8": 6}
+    assert by_name["conv_blockn"]["launches_by_path"] == {"bf16": 6, "dilated_bf16": 14,
+                                                          "siamese_bf16": 6}
     assert by_name["conv_blockn"]["library_ms"] is not None
     assert by_name["conv_blockn"]["source"] == "voicemap_tpu_torch/csrc/conv_blockn.cu"
     assert list(by_name["quant_block_stage"]["launches_by_path"]) == ["attribution"]
@@ -433,6 +446,7 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
         assert by_name[name]["launches_by_path"] == {"train_kernels": 8}
     assert by_name["conv_block0_train_bwd_f32"]["library_ms"] is not None
     assert by_name["conv_block0_train"]["launches_by_path"] == {"train": steps_run,
+                                                                "dilated_train": steps_run,
                                                                 "siamese_train": steps_run}
     assert by_name["log_mel"]["launches_by_path"] == {"mel_bf16": 2, "mel_int8": 2}
     assert by_name["log_mel_dft"]["launches_by_path"] == {"mel_kernels": 6}
@@ -440,4 +454,81 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert by_name["conv_block0"]["library_ms"] is not None
     assert by_name["log_mel"]["library_ms"] is not None
     assert by_name["gather_whiten"]["launches_by_path"]["mel_int8"] == 2
+    assert by_name["gather_whiten"]["launches_by_path"]["dilated_train"] == steps_run
+    assert by_name["conv_block0_int8"]["launches_by_path"]["dilated_int8"] == 2
     assert records[-1] == {"ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 1}}
+
+
+def test_the_config_3_phases_run_on_the_cpu(on_the_cpu, capsys):
+    """Config #3 (``dilated_4khz``): B3 and B8 at its block shapes and
+    DILATED_EDGES in the kernels phase, B7 at pool 1; the bf16 slice (B1, B2,
+    B8 × 7), the int8 slice (B1, B2, B3 × 7), the fidelity line, the train
+    slice (B7 7 + 7 a step) with its held f32 step, and the timing."""
+    assert cs.main([]) == 0
+    records = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    by_phase = {r["phase"]: r for r in records if "phase" in r}
+    nothing = {name: 0 for name in cs.KERNELS}
+    assert by_phase["dilated_slice"]["config"] == "dilated_4khz"
+    assert by_phase["dilated_slice"]["launches"] == {**nothing, "gather_whiten": 2,
+                                                     "conv_block0": 2, "conv_blockn": 14}
+    assert by_phase["dilated_slice"]["min_cosine_vs_plain"] >= cs.TABLE_MIN_COSINE
+    assert by_phase["dilated_int8_slice"]["launches"] == {**nothing, "gather_whiten": 2,
+                                                          "conv_block0": 2, "quant_block": 14}
+    assert by_phase["dilated_int8_slice"]["min_cosine_vs_plain_int8_path"] >= \
+        cs.TABLE_MIN_COSINE
+    gate = by_phase["dilated_int8_fidelity"]
+    assert gate["held"] is False and gate["int8_served"] == (gate["min_cosine"] >= cs.INT8_FIDELITY_GATE)
+    assert gate["served_dtype"] == ("int8" if gate["int8_served"] else "bfloat16")
+    assert by_phase["int8_fidelity_gate"]["held"] is True
+    train = by_phase["dilated_train_slice"]
+    steps_run = 12
+    assert train["launches"] == {**nothing, "gather_whiten": steps_run,
+                                 "conv_block0_train": steps_run,
+                                 "conv_block0_train_bwd": steps_run,
+                                 "pool_fwd": 7 * steps_run, "route_bwd": 7 * steps_run}
+    assert train["eval_launches"] == {**nothing, "gather_whiten": 2}
+    assert train["loss_last5_mean"] < train["loss_first5_mean"]
+    assert train["plain_steps"]["float32"]["held"]
+    assert not train["plain_steps"]["bfloat16"]["held"]
+    assert train["plain_steps"]["float32"]["min_grad_cosine"] >= cs.STEP_MIN_COSINE
+    dilated = by_phase["kernels"]["dilated_checks"]
+    b3 = [c for c in dilated if c["kernel"] == "quant_block"]
+    b8 = [c for c in dilated if c["kernel"] == "conv_blockn"]
+    n_main = len(cs.DILATED_BLOCKS)
+    n_all = 2 * n_main + len(cs.DILATED_EDGES) + 1
+    assert len(b3) == len(b8) == n_all
+    assert all(c["max_abs_err"] == 0.0 for c in b3)
+    assert all(c["err_over_bound"] <= 1.0 and c["bf16_min_row_cosine"] >= cs.B8_BF16_MIN_COSINE
+               for c in b8)
+    assert [(c["pool"], c["dilation"]) for c in b3[:n_main]] == [
+        (p, d) for _, _, _, p, d, _ in cs.DILATED_BLOCKS]
+    assert [c["shape"] for c in b3[2 * n_main:-1]] == [
+        [B, T // p, cout] for B, T, _, cout, p, _, _ in cs.DILATED_EDGES]
+    assert [c["out"] for c in b8[2 * n_main:-1]] == [
+        [B, T // p, cout] for B, T, _, cout, p, _, _ in cs.DILATED_EDGES]
+    assert b3[-1]["row_divisors"] == [1, 64, 8] and b8[-1]["row_scales"] == list(cs.ROW_SCALES)
+    b7 = [c for c in by_phase["train_kernels"]["checks"] if c["kernel"] == "route_bwd"][::2]
+    assert [(c["B"], c["pool"]) for c in b7[-4:]] == [(32, 1)] * 4
+    timing = by_phase["dilated_timing"]
+    assert [(r["block"], r["pool"], r["dilation"]) for r in timing["conv_blockn"]] == [
+        (i, p, d) for i, (p, d) in enumerate(zip((1, 2, 1, 2, 1, 2, 1),
+                                                 (2, 1, 4, 1, 8, 1, 16)), start=1)]
+    assert [(r["pool"], r["dilation"], r["out"]) for r in timing["quant_block"]] == [
+        (p, d, "bfloat16" if d == 16 else "int8")
+        for p, d in zip((1, 2, 1, 2, 1, 2, 1), (2, 1, 4, 1, 8, 1, 16))]
+    for rows in (timing["conv_blockn"], timing["quant_block"]):
+        assert all({"ms", "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(r)
+                   for r in rows)
+    assert set(timing["paths"]) == {"bf16", "int8"}
+    for path, first in (("bf16", "conv_block0"), ("int8", "conv_block0_int8")):
+        rec = timing["paths"][path]
+        assert {"utt_per_s_b2048", "batch1_p50_ms_events", "peak_mem_gb"} <= set(rec)
+        assert list(rec["stage_ms"])[0] == first and len(rec["stage_ms"]) == 9
+    assert [(r["batch"], r["blockn"]) for r in timing["train_step"]] == [
+        (b, p) for b in (4, 8) for p in ("jnp", "fused")]
+    assert [(r["batch"], r["block"]) for r in timing["cudnn_convs"]] == [
+        (b, i) for b in (4, 8) for i in range(1, 8)]
+    assert all({"nhwc_fwd_ms", "nhwc_bwd_ms", "nct_fwd_ms", "nct_bwd_ms",
+                "nhwc_fwd_autotuned_ms", "nhwc_bwd_autotuned_ms"} <= set(r)
+               for r in timing["cudnn_convs"])

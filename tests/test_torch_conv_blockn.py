@@ -241,11 +241,12 @@ def test_bf16_fast_embed_is_b2_then_b8_plain_versions_bit_for_bit():
 @pytest.mark.parametrize("dtype,config,b8_blocks", [
     ("bfloat16", "classifier", 3),
     ("float32", "classifier", 0),
-    ("bfloat16", "dilated", 3),  # blocks 2, 4 and 6: pool 2, dilation 1
+    ("bfloat16", "dilated", 7),  # blocks 1-7: dilations 2-16 at pool 1, pool 2 between
 ])
 def test_fast_embed_routes_blocks_by_the_config(monkeypatch, dtype, config, b8_blocks):
-    """B8 takes exactly the bf16 blocks of k odd, pool 2 and dilation 1; the
-    rest keep the module's forward. Each route against the JAX package's
+    """B8 takes exactly the bf16 blocks of k odd, pool 1 or 2 and a reach its
+    input box holds, config #3's dilated and pool-1 blocks among them; f32
+    keeps the module's forward. Each route against the JAX package's
     fast_embed: 1e-4 at f32, row cosine ≥ 0.999 at bf16 (the two round in
     other places)."""
     cfg = None

@@ -150,12 +150,13 @@ def test_quant_embed_refuses_what_it_does_not_port():
     # a mel artifact serves the mel encoder only (tests/test_torch_quant_mel.py)
     with pytest.raises(ValueError, match="MelSpecEncoder"):
         tq.quant_embed(model, dict(qvars, kind="mel"), torch.from_numpy(x))
-    dil = EncoderConfig(filters=8, embedding_dim=16, compute_dtype="float32",
-                        filter_multipliers=(1, 2, 2, 3), pool_sizes=(4, 1, 2, 1),
-                        dilations=(1, 2, 1, 4))
-    dmodel = ConvEncoder(dil, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tq.quant_embed(dmodel, tq.quantize_encoder(dmodel, torch.from_numpy(x)),
+    # B3 is a k=3 kernel: a k=5 block 1+ stays unported (config #3's dilated
+    # and pool-1 blocks serve: tests/test_torch_dilated_serving.py)
+    wide = EncoderConfig(filters=8, embedding_dim=16, compute_dtype="float32",
+                         kernel_sizes=(32, 3, 5, 3))
+    wmodel = ConvEncoder(wide, device="cpu")
+    with pytest.raises(NotImplementedError, match="k=5"):
+        tq.quant_embed(wmodel, tq.quantize_encoder(wmodel, torch.from_numpy(x)),
                        torch.from_numpy(x))
 
 

@@ -43,12 +43,12 @@ SIGNATURES = {
     "vm_conv_block0": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, wp, aff, inv_s0 (NULL unless int8 out), out, B, T, C, out_kind, tile, stream
     "vm_conv_block0_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, w, aff, out, B, T, Cin, Cout, out_kind, stream
-    "vm_quant_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, aff, out, B, T, Cin, Cout, dilation, pool, out_kind, stream
+    "vm_quant_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, w, aff, out, B, T, Cin, Cout, stage, stream
     "vm_quant_block_stage": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, w, aff, out, B, T, Cin, Cout, k, out_kind, stream
-    "vm_conv_blockn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, aff, out, B, T, Cin, Cout, k, dilation, pool, out_kind, stream
+    "vm_conv_blockn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, w, w_stride_k, w_stride_c, bias, sgn, sel, part, stats, B, T, C, tile,
     # n_cps, sel_bf16, gemm_f32, stream
     "vm_block0_train_tc_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -1,12 +1,17 @@
 // B3: the int8 mid block of the encoder's serving path (blocks 1+): SAME conv
-// (k=3) in s8 x s8 -> s32, max-pool 2, and the folded epilogue, in one pass.
+// (k=3, dilation d) in s8 x s8 -> s32, max-pool 2 (or none: pool 1), and the
+// folded epilogue, in one pass.
 //
 // Replaces voicemap_tpu/ops/pallas_quant_block.py :: _kernel, _kernel_xk3 and
 // _kernel_xk (wrapper pallas_quant_block); the three TPU variants are three
 // ways of laying the same GEMM out on the MXU, and one Hopper kernel covers
-// them. For row b, time t and output channel co:
-//   acc[t] = sum_{j, ci} x[t + j - 1, ci] * w[j, ci, co]   (x = 0 outside [0, T))
+// them. The TPU kernels take dilation 1 and pool 2 only; the JAX package
+// serves its dilated and pool-1 blocks (config #3's) through XLA's int8 conv
+// (voicemap_tpu/models/quant_infer.py :: _quant_block, rhs_dilation), which
+// this kernel computes too. For row b, time t and output channel co:
+//   acc[t] = sum_{j, ci} x[t + (j - 1) * d, ci] * w[j, ci, co]   (x = 0 outside [0, T))
 //   sel[u] = alpha[co] > 0 ? max(acc[2u], acc[2u + 1]) : min(acc[2u], acc[2u + 1])
+//            at pool 2; acc[u] at pool 1
 //   z[u]   = relu(float(sel[u]) + beta[co]) * alpha[co] + gamma[co]
 //   out[u] = clamp(round_half_even(z[u]), -127, 127) as int8, or z[u] rounded
 //            to bf16 (or kept in f32) for the last block.
@@ -17,7 +22,8 @@
 // nonincreasing for alpha < 0. The int32 sums are exact in any order; the
 // epilogue is rounded op by op (__fadd_rn, __fmul_rn), so nvcc cannot
 // contract it into an FMA, and the output equals the plain version exactly.
-// An odd T drops the last step from the pool; the conv still reads it.
+// An odd T at pool 2 drops the last step from the pool; the conv still reads
+// it.
 //
 // What bounds it on the H100: operations. At config #1 and B=2048, block 1
 // (128 -> 256, T 3000) is 1.21 TOP against 1.57 GB, block 2 (256 -> 384,
@@ -54,6 +60,7 @@
 // adds) have no separate form here: the taps are already inside K = 3 * Cin,
 // the layout of _kernel_xk. Unlike the TPU prefixes, each writes a defined
 // output, so it can be held against a plain version:
+// (B10 runs at dilation 1 and pool 2, the prefixes' own shapes.)
 //   kStageMma:  the tile loads and the products over K; writes acc[2u] as int32;
 //   kStagePool: + the pair select by the sign of alpha; writes sel[u] int32;
 //   kStageFull: + the epilogue and requantization: B3 itself, which every
@@ -77,8 +84,8 @@ template <int OUT, int STAGE>
 constexpr int kOutBytes = STAGE != kStageFull ? 4 : OUT == kInt8 ? 1 : OUT == kBF16 ? 2 : 4;
 
 // x: (B, T, Cin) int8 through mx; w: (Cout, 3 * Kp) int8 through mw; aff:
-// (3, Cout) f32 rows alpha, beta, gamma; out: (B, T / 2, Cout), int32 for the
-// mma and pool stages.
+// (3, Cout) f32 rows alpha, beta, gamma; out: (B, T / pool, Cout), int32 for
+// the mma and pool stages.
 template <int MW, int OUT, int STAGE>
 __global__ void __launch_bounds__(sm90conv::kThreads, 1)
 quant_block_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
@@ -124,12 +131,12 @@ quant_block_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant
 
 template <int MW, int OUT, int STAGE>
 cudaError_t launch_tiles(const void* x, const void* w, const void* aff, void* out, int B, int T,
-                         int Cin, int Cout, int sms, cudaStream_t s) {
+                         int Cin, int Cout, int d, int pool, int sms, cudaStream_t s) {
   constexpr int ob = kOutBytes<OUT, STAGE>;
   sm90conv::Problem p;
   CUtensorMap mx, mw;
   cudaError_t err =
-      sm90conv::make_problem<MW, ob>(&p, &mx, &mw, x, w, B, T, Cin, Cout, kTaps, 1);
+      sm90conv::make_problem<MW, ob>(&p, &mx, &mw, x, w, B, T, Cin, Cout, kTaps, d, pool, 1);
   if (err != cudaSuccess) return err;
   return sm90conv::launch<MW, ob>(quant_block_kernel<MW, OUT, STAGE>, mx, mw, p, sms, s,
                                   (const float*)aff, out);
@@ -137,33 +144,34 @@ cudaError_t launch_tiles(const void* x, const void* w, const void* aff, void* ou
 
 template <int OUT, int STAGE>
 cudaError_t launch(const void* x, const void* w, const void* aff, void* out, int B, int T,
-                   int Cin, int Cout, cudaStream_t s) {
+                   int Cin, int Cout, int d, int pool, cudaStream_t s) {
   const int sms = sm90conv::sm_count();
   if (sms == 0) return cudaErrorNoDevice;
-  if (sm90conv::wide_tiles(B, T, Cout, sms))
-    return launch_tiles<2, OUT, STAGE>(x, w, aff, out, B, T, Cin, Cout, sms, s);
-  return launch_tiles<1, OUT, STAGE>(x, w, aff, out, B, T, Cin, Cout, sms, s);
+  if (sm90conv::wide_tiles<kOutBytes<OUT, STAGE>>(B, T, Cout, kTaps, d, pool, sms))
+    return launch_tiles<2, OUT, STAGE>(x, w, aff, out, B, T, Cin, Cout, d, pool, sms, s);
+  return launch_tiles<1, OUT, STAGE>(x, w, aff, out, B, T, Cin, Cout, d, pool, sms, s);
 }
 
 }  // namespace
 
 // out_kind: 0 int8 (requantized), 1 bf16, 2 f32 (dequantized, last block).
 // w is (Cout, 3 * Kp) int8, tap j's K run at [j * Kp, j * Kp + Cin) and
-// zeros up to Kp = Cin rounded up to 128. Cin must be a multiple of 32; x and
-// w 16-byte aligned. Returns cudaErrorInvalidValue, launching nothing, for
-// anything else.
+// zeros up to Kp = Cin rounded up to 128. Cin must be a multiple of 32, the
+// reach 2d at most kMaxReach = 128, pool 1 or 2; x and w 16-byte aligned.
+// Returns cudaErrorInvalidValue, launching nothing, for anything else.
 extern "C" int vm_quant_block(const void* x, const void* w, const void* aff,
-                              void* out, int B, int T, int Cin, int Cout,
+                              void* out, int B, int T, int Cin, int Cout, int d, int pool,
                               int out_kind, void* stream) {
-  if (Cin <= 0 || Cin % 32 != 0 || out_kind < 0 || out_kind > 2)
+  if (Cin <= 0 || Cin % 32 != 0 || out_kind < 0 || out_kind > 2 || d < 1 ||
+      2 * d > sm90conv::kMaxReach || (pool != 1 && pool != 2))
     return (int)cudaErrorInvalidValue;
-  if (B == 0 || T < 2 || Cout == 0) return 0;
+  if (B == 0 || T < pool || Cout == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (out_kind == kInt8)
-    return (int)launch<kInt8, kStageFull>(x, w, aff, out, B, T, Cin, Cout, s);
+    return (int)launch<kInt8, kStageFull>(x, w, aff, out, B, T, Cin, Cout, d, pool, s);
   if (out_kind == kBF16)
-    return (int)launch<kBF16, kStageFull>(x, w, aff, out, B, T, Cin, Cout, s);
-  return (int)launch<kF32, kStageFull>(x, w, aff, out, B, T, Cin, Cout, s);
+    return (int)launch<kBF16, kStageFull>(x, w, aff, out, B, T, Cin, Cout, d, pool, s);
+  return (int)launch<kF32, kStageFull>(x, w, aff, out, B, T, Cin, Cout, d, pool, s);
 }
 
 // B10. stage: 0 mma (out int32, acc[2u]), 1 pool (out int32, sel[u]), 2 full
@@ -176,8 +184,8 @@ extern "C" int vm_quant_block_stage(const void* x, const void* w, const void* af
   if (B == 0 || T < 2 || Cout == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (stage == kStageMma)
-    return (int)launch<kInt8, kStageMma>(x, w, aff, out, B, T, Cin, Cout, s);
+    return (int)launch<kInt8, kStageMma>(x, w, aff, out, B, T, Cin, Cout, 1, 2, s);
   if (stage == kStagePool)
-    return (int)launch<kInt8, kStagePool>(x, w, aff, out, B, T, Cin, Cout, s);
-  return (int)launch<kInt8, kStageFull>(x, w, aff, out, B, T, Cin, Cout, s);
+    return (int)launch<kInt8, kStagePool>(x, w, aff, out, B, T, Cin, Cout, 1, 2, s);
+  return (int)launch<kInt8, kStageFull>(x, w, aff, out, B, T, Cin, Cout, 1, 2, s);
 }

@@ -2,17 +2,19 @@
 
 Port of ``voicemap_tpu/models/fast_infer.py :: fast_embed``. Block 0 runs
 through ``ops/cuda_conv.conv_block0`` (B2). In bf16, every later block that
-B8 takes (k odd, pool 2, dilation 1) runs through ``ops/cuda_conv.conv_blockn``
+B8 takes (k odd, pool 1 or 2, the reach d·(k − 1) within
+``ops/conv_sm90.MAX_REACH``) runs through ``ops/cuda_conv.conv_blockn``
 (B8), so no full-rate activation reaches device memory and the chain stays
-channels last: config #1's
+channels last from B2 to the head: config #1's
 
-    B2 (B, T/4, 128) → B8 → B8 → B8 (B, 375, 512) → global max and Dense.
+    B2 (B, T/4, 128) → B8 → B8 → B8 (B, 375, 512) → global max and Dense,
 
-Blocks B8 does not take (config #3's dilated and pool-1 ones) and f32 or f16
-compute keep ``ConvBlock.forward_nct`` (``F.conv1d``), as the JAX package's
-blocks 1+ keep XLA's conv; the config decides the route, never a failure.
-The JAX package keeps its B8 off this path because of a TPU timing; that
-policy was re-decided on the H100. Same parameters, same inference
+and config #3's (``dilated_4khz``) seven dilated and pool-1 blocks, B2 → B8
+× 7 → (B, 375, 512). f32 or f16 compute, and a block B8 does not take, keep
+``ConvBlock.forward_nct`` (``F.conv1d``), as the JAX package's blocks 1+
+keep XLA's conv; the config decides the route, never a failure. The JAX
+package keeps its B8 off this path because of a TPU timing, and never has
+it take a dilated block; that policy was re-decided on the H100. Same parameters, same inference
 semantics as ``ConvEncoder.forward``; at bf16 the two round in different
 places (the kernels round each block once, at its output).
 
@@ -24,14 +26,17 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.cuda_conv import BLOCKN_POOL, conv_block0, conv_blockn
+from ..ops import conv_sm90
+from ..ops.cuda_conv import conv_block0, conv_blockn
 from .encoder import ConvBlock, ConvEncoder
 
 
 def takes_blockn(blk: ConvBlock) -> bool:
-    """Whether B8 computes this block: bf16, k odd, pool 2, dilation 1."""
-    return (blk.compute_dtype == torch.bfloat16 and blk.conv.kernel_size[0] % 2 == 1
-            and blk.pool_size == BLOCKN_POOL and blk.conv.dilation[0] == 1)
+    """Whether B8 computes this block: bf16, k odd, pool 1 or 2, a reach the
+    kernel's input box holds (``conv_sm90.takes``)."""
+    return (blk.compute_dtype == torch.bfloat16
+            and conv_sm90.takes(blk.conv.kernel_size[0], blk.conv.dilation[0],
+                                max(blk.pool_size, 1)))
 
 
 def blockn(blk: ConvBlock, h: torch.Tensor) -> torch.Tensor:
@@ -42,7 +47,8 @@ def blockn(blk: ConvBlock, h: torch.Tensor) -> torch.Tensor:
     cdt = blk.compute_dtype
     return conv_blockn(h.contiguous(), blk.conv.weight.permute(2, 1, 0), blk.conv.bias,
                        blk.bn.weight, blk.bn.bias, blk.bn.running_mean, blk.bn.running_var,
-                       blk.bn.eps, out_dtype=cdt, gemm_dtype=cdt)
+                       blk.bn.eps, max(blk.pool_size, 1), out_dtype=cdt, gemm_dtype=cdt,
+                       dilation=blk.conv.dilation[0])
 
 
 def fast_embed(encoder: ConvEncoder, x: torch.Tensor) -> torch.Tensor:

@@ -18,11 +18,14 @@ package's, symmetric per-channel PTQ folded for an int8 GEMM:
   the Dense, which run in ``compute_dtype``.
 
 ``quant_embed`` runs one route: B2 with ``requant_scale``, then the B3 kernel
-(``ops/cuda_quant_block``) for every block 1+. The JAX package's TPU routing
-(``routing``, ``PALLAS_QBLOCK_*``, ``keep_pad`` and the zero-tail contract)
-works around Mosaic's layout rules and is not ported; the kernels take any T.
-Not ported yet: dilated or pool-1 blocks 1+ (config #3), which raise
-``NotImplementedError``.
+(``ops/cuda_quant_block``) for every block 1+, at its dilation and pool 1 or
+2: config #1's three blocks and config #3's (``dilated_4khz``) seven, where
+the JAX package sends the dilated and pool-1 blocks to XLA's int8 conv
+(``_quant_block``). The JAX package's TPU routing (``routing``,
+``PALLAS_QBLOCK_*``, ``keep_pad`` and the zero-tail contract) works around
+Mosaic's layout rules and is not ported; the kernels take any T. Not
+ported: blocks 1+ of a kernel size other than 3, a pool above 2 or a reach
+past the kernel's input box, which raise ``NotImplementedError``.
 
 Config #4 (``quant_embed_mel``, ``kind="mel"``): the parameter-free frontend
 (B6, then standardization) stays f32; the standardized image is quantized
@@ -53,8 +56,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import conv_sm90
 from ..ops.cuda_conv import bn_affine, conv_block0
-from ..ops.cuda_quant_block import quant_block
+from ..ops.cuda_quant_block import KERNEL_TAPS, quant_block
 from .convert import qvars_from_numpy
 from .encoder import ConvBlock, ConvEncoder
 from .spectrogram import MelSpecEncoder, run_stages, standardize
@@ -220,11 +224,12 @@ def quant_embed(encoder: ConvEncoder, qvars: Dict, x: torch.Tensor) -> torch.Ten
     if cfg.dilations[0] != 1:
         raise ValueError("quant_embed: the block-0 kernel takes dilation 1 only")
     for i in range(1, n):
-        if (cfg.kernel_sizes[i], cfg.pool_sizes[i], cfg.dilations[i]) != (3, 2, 1):
+        k, pool, d = cfg.kernel_sizes[i], max(cfg.pool_sizes[i], 1), cfg.dilations[i]
+        if k != KERNEL_TAPS or not conv_sm90.takes(k, d, pool):
             raise NotImplementedError(
-                f"quant_embed: block {i} has k={cfg.kernel_sizes[i]}, pool="
-                f"{cfg.pool_sizes[i]}, dilation={cfg.dilations[i]}; the int8 kernel "
-                "takes k=3, pool 2, dilation 1 (dilated stacks are not ported)")
+                f"quant_embed: block {i} has k={k}, pool={cfg.pool_sizes[i]}, dilation={d}; "
+                f"the int8 kernel takes k={KERNEL_TAPS}, pool 1 or 2 and a reach 2d up to "
+                f"{conv_sm90.MAX_REACH}")
     cdt = encoder.compute_dtype
     blk = encoder.blocks[0]
     with torch.inference_mode():
@@ -234,7 +239,8 @@ def quant_embed(encoder: ConvEncoder, qvars: Dict, x: torch.Tensor) -> torch.Ten
             pool=blk.pool_size, gemm_dtype=cdt, requant_scale=qvars["s0"])
         for i, qblk in enumerate(qvars["blocks"], start=1):
             h_q = quant_block(h_q, qblk["w_q"], qblk["alpha"], qblk["beta"], qblk["gamma"],
-                              last=i == n - 1, out_dtype=cdt)
+                              last=i == n - 1, out_dtype=cdt, pool=max(cfg.pool_sizes[i], 1),
+                              dilation=cfg.dilations[i])
         return encoder.pool_and_embed(h_q.transpose(1, 2))
 
 

@@ -11,15 +11,17 @@ CUDA-core kernel, bit for bit the plain version. ``conv_block0_reference``
 is the plain PyTorch version of both.
 
 B8 ports ``pallas_conv_blockn`` and ``pallas_conv_blockn_streamed`` of the
-same file: a bf16 block 1+, SAME conv (k odd, channels last) + bias → relu →
-BN affine → max-pool 2 → ``(B, T//2, Cout)``. The kernel is
-``csrc/conv_blockn.cu``; ``conv_blockn_reference`` is its plain version,
-the pooled GEMM of ``models/fused_encoder.fused_block_apply`` at pool 2 and
-dilation 1 with this module's epilogue. Unlike the TPU wrappers it takes an
-odd T and floors, as the unfused block does: the conv still reads the last
-row and the pool drops its output. The tensor cores' f32 summation order
-cannot be pinned, so B8 agrees with its plain version to a bound, not bit
-for bit.
+same file: a bf16 block 1+, SAME conv (k odd, dilation d, channels last) +
+bias → relu → BN affine → max-pool 2 (or none: pool 1) → ``(B, T//pool,
+Cout)``. The TPU kernels take dilation 1 and pool 2; the JAX package sends
+config #3's dilated and pool-1 blocks to XLA (``_xla_block``), and B8 takes
+them too. The kernel is ``csrc/conv_blockn.cu``; ``conv_blockn_reference``
+is its plain version, the pooled GEMM of
+``models/fused_encoder.fused_block_apply`` with this module's epilogue.
+Unlike the TPU wrappers it takes an odd T and floors, as the unfused block
+does: the conv still reads the last row and the pool drops its output. The
+tensor cores' f32 summation order cannot be pinned, so B8 agrees with its
+plain version to a bound, not bit for bit.
 
 Semantics shared by both kernels and their plain versions, each pinned by a
 test:
@@ -32,12 +34,13 @@ test:
   ``clamp(round_half_even(pooled * (1 / s0)), ±127)`` from the f32 pooled
   value, with ``1 / s0`` computed in f32 first, as the Pallas wrapper does;
 - SAME padding of the even k=32 puts 15 zeros left and 16 right; of an odd
-  k, (k−1)/2 each side;
+  k at dilation d, d·(k−1)/2 each side;
 - ``T % pool`` tail samples are dropped from the pooled output (floor).
 
 Dispatch is by the input's device: a CPU tensor takes the plain version, a
-CUDA tensor launches a kernel (B2: k=32, pool=4; B8: k odd, pool 2, bf16
-in), and a failed build or launch raises.
+CUDA tensor launches a kernel (B2: k=32, pool=4; B8: k odd, pool 1 or 2,
+the reach d·(k−1) within ``conv_sm90.MAX_REACH``, bf16 in), and a failed
+build or launch raises.
 """
 
 from __future__ import annotations
@@ -195,24 +198,25 @@ conv_block0.f32_launches = 0
 
 
 # ---------------------------------------------------------------------------
-# B8: blocks 1+ in bf16 (k odd, pool 2, dilation 1), channels last
+# B8: blocks 1+ in bf16 (k odd, dilation d, pool 1 or 2), channels last
 # ---------------------------------------------------------------------------
 
-BLOCKN_POOL = 2
+BLOCKN_POOL = 2  # config #1's pool, the default
 BLOCKN_CIN_MULTIPLE = 8  # TMA's row stride of the input: a multiple of 16 bytes
 _BLOCKN_OUT = {torch.bfloat16: 1, torch.float32: 2}
 
 
-def stacked_weights_chan(w: torch.Tensor, pool: int = BLOCKN_POOL) -> torch.Tensor:
-    """w (k, Cin, C') → W4 (win·Cin, pool·C') in f32, win = k − 1 + pool,
-    ``W4[m·Cin + ci, j·C' + c'] = w[m − j, ci, c']`` (zero where m − j is no
-    tap): the phase-stacked weights of the pooled GEMM."""
+def stacked_weights_chan(w: torch.Tensor, pool: int = BLOCKN_POOL,
+                         dilation: int = 1) -> torch.Tensor:
+    """w (k, Cin, C') → W4 (win·Cin, pool·C') in f32, win = d·(k − 1) +
+    pool, ``W4[m·Cin + ci, j·C' + c'] = w[(m − j) / d, ci, c']`` (zero where
+    (m − j) / d is no tap): the phase-stacked weights of the pooled GEMM."""
     k, cin, cout = w.shape
-    win = k - 1 + pool
-    w4 = torch.zeros((win, cin, pool, cout), dtype=torch.float32, device=w.device)
+    reach = dilation * (k - 1)
+    w4 = torch.zeros((reach + pool, cin, pool, cout), dtype=torch.float32, device=w.device)
     for j in range(pool):
-        w4[j:j + k, :, j, :] = w.float()
-    return w4.reshape(win * cin, pool * cout)
+        w4[j:j + reach + 1:dilation, :, j, :] = w.float()
+    return w4.reshape((reach + pool) * cin, pool * cout)
 
 
 def conv_blockn_reference(
@@ -227,17 +231,19 @@ def conv_blockn_reference(
     pool: int = BLOCKN_POOL,
     out_dtype: torch.dtype = torch.bfloat16,
     gemm_dtype: torch.dtype = torch.bfloat16,
+    dilation: int = 1,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the B8 kernel → ``(B, T // 2, Cout)``.
+    """Plain PyTorch version of the B8 kernel → ``(B, T // pool, Cout)``.
 
-    The pooled GEMM: each output position's window of k + 1 input rows
-    (SAME-padded, rounded to ``gemm_dtype``) times ``stacked_weights_chan``,
-    summed in f32, gives the conv at times 2u and 2u + 1 side by side; then
-    ``relu(y + bias) * mul + add`` in f32, the max of the two phases, and one
-    rounding to ``out_dtype``. An odd T floors.
+    The pooled GEMM: each output position's window of d·(k − 1) + pool input
+    rows (SAME-padded, rounded to ``gemm_dtype``) times
+    ``stacked_weights_chan``, summed in f32, gives the conv at times
+    pool·u … pool·u + pool − 1 side by side; then ``relu(y + bias) * mul +
+    add`` in f32, the max of the phases, and one rounding to ``out_dtype``.
+    An odd T floors at pool 2.
     """
-    if pool != BLOCKN_POOL:
-        raise ValueError(f"conv_blockn: pool {BLOCKN_POOL} only, got {pool}")
+    if pool not in conv_sm90.POOLS:
+        raise ValueError(f"conv_blockn: pool 1 or 2, got {pool}")
     k, _, cout = w.shape
     if k % 2 == 0:
         raise ValueError(f"conv_blockn: k must be odd, got {k}")
@@ -245,20 +251,21 @@ def conv_blockn_reference(
     t_out = T // pool
     if t_out == 0:
         return torch.zeros((B, 0, cout), dtype=out_dtype, device=x.device)
-    win = k - 1 + pool
-    h = (k - 1) // 2
-    xp = F.pad(x.to(gemm_dtype).float(), (0, 0, h, h + pool - 1))  # (B, T + k, Cin)
+    h = dilation * (k - 1) // 2
+    win = 2 * h + pool
+    xp = F.pad(x.to(gemm_dtype).float(), (0, 0, h, h + pool - 1))  # (B, T + win - 1, Cin)
     frames = xp.unfold(1, win, pool)[:, :t_out]  # (B, t_out, Cin, win)
     frames = frames.transpose(2, 3).reshape(B, t_out, win * cin)
-    y = frames @ stacked_weights_chan(w.to(gemm_dtype), pool)  # (B, t_out, pool·Cout)
+    y = frames @ stacked_weights_chan(w.to(gemm_dtype), pool, dilation)  # (B, t_out, pool·Cout)
     bias, mul, add = (v.repeat(pool) for v in
                       bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps))
     y = torch.relu(y + bias) * mul + add
-    return torch.maximum(y[..., :cout], y[..., cout:]).to(out_dtype)
+    return y.unflatten(-1, (pool, cout)).amax(dim=-2).to(out_dtype)
 
 
 def check_blockn_launch(x: torch.Tensor, w: torch.Tensor, vecs: tuple, pool: int,
-                        out_dtype: torch.dtype, gemm_dtype: torch.dtype) -> None:
+                        out_dtype: torch.dtype, gemm_dtype: torch.dtype,
+                        dilation: int = 1) -> None:
     """Raise ``ValueError`` for what the B8 kernel does not take: ``vecs``
     are the bias and the four BatchNorm tensors."""
     if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
@@ -267,18 +274,19 @@ def check_blockn_launch(x: torch.Tensor, w: torch.Tensor, vecs: tuple, pool: int
     if w.dim() != 3 or w.shape[1] != cin:
         raise ValueError(f"conv_blockn: w must be (k, {cin}, Cout)")
     k, _, cout = w.shape
-    if k % 2 == 0 or pool != BLOCKN_POOL:
-        raise ValueError(f"conv_blockn: the kernel takes k odd and pool {BLOCKN_POOL}; "
-                         f"got k={k}, pool={pool}")
+    if k % 2 == 0 or pool not in conv_sm90.POOLS or dilation < 1:
+        raise ValueError(f"conv_blockn: the kernel takes k odd, pool 1 or 2 and dilation >= 1; "
+                         f"got k={k}, pool={pool}, dilation={dilation}")
     if gemm_dtype != torch.bfloat16 or out_dtype not in _BLOCKN_OUT:
         raise ValueError("conv_blockn: the kernel multiplies in bfloat16 and writes "
                          "bfloat16 or float32")
     if cin % BLOCKN_CIN_MULTIPLE:
         raise ValueError(f"conv_blockn: the kernel takes Cin a multiple of "
                          f"{BLOCKN_CIN_MULTIPLE}, got {cin}")
-    if conv_sm90.stages(k, 2) < 1:
-        raise ValueError(f"conv_blockn: k={k} is too wide for one stage of the kernel's "
-                         f"shared memory")
+    if not conv_sm90.takes(k, dilation, pool):
+        raise ValueError(f"conv_blockn: k={k} at dilation {dilation} (reach "
+                         f"{dilation * (k - 1)}) is wider than the kernel takes: k <= "
+                         f"{conv_sm90.MAX_K}, reach <= {conv_sm90.MAX_REACH}")
     if any(p.device != x.device for p in (w, *vecs)):
         raise ValueError(f"conv_blockn: every parameter must lie on {x.device}")
     if any(p.shape != (cout,) for p in vecs):
@@ -299,19 +307,21 @@ def conv_blockn(
     pool: int = BLOCKN_POOL,
     out_dtype: torch.dtype = torch.bfloat16,
     gemm_dtype: torch.dtype = torch.bfloat16,
+    dilation: int = 1,
 ) -> torch.Tensor:
-    """Fused conv(SAME, k odd)+relu+BN(inference)+maxpool(2) of a block 1+,
-    channels last: ``(B, T, Cin)`` → ``(B, T // 2, Cout)``."""
+    """Fused conv(SAME, k odd, dilation d)+relu+BN(inference)+maxpool(pool)
+    of a block 1+, channels last: ``(B, T, Cin)`` → ``(B, T // pool,
+    Cout)``, pool 1 or 2."""
     if x.device.type == "cpu":
         return conv_blockn_reference(x, w, b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps,
-                                     pool, out_dtype, gemm_dtype)
+                                     pool, out_dtype, gemm_dtype, dilation)
     if x.device.type != "cuda":
         raise ValueError(f"conv_blockn: no kernel for device {x.device}")
     check_blockn_launch(x, w, (b, bn_scale, bn_bias, bn_mean, bn_var), pool, out_dtype,
-                        gemm_dtype)
+                        gemm_dtype, dilation)
     B, T, cin = x.shape
     k, _, cout = w.shape
-    out = torch.empty((B, T // BLOCKN_POOL, cout), dtype=out_dtype, device=x.device)
+    out = torch.empty((B, T // pool, cout), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
     # (Cout, k·Kp) K-major, each tap's Cin padded with zeros to 128 bytes
@@ -323,7 +333,8 @@ def conv_blockn(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vm_conv_blockn(x.data_ptr(), wp.data_ptr(), aff.data_ptr(), out.data_ptr(),
-                                 B, T, cin, cout, k, _BLOCKN_OUT[out_dtype], stream)
+                                 B, T, cin, cout, k, dilation, pool, _BLOCKN_OUT[out_dtype],
+                                 stream)
     check(err, "conv_blockn")
     conv_blockn.launches += 1
     return out

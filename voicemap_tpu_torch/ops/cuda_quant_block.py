@@ -2,9 +2,12 @@
 
 Port of ``voicemap_tpu/ops/pallas_quant_block.py :: pallas_quant_block`` and
 of the block it stands for, ``voicemap_tpu/models/quant_infer.py ::
-_quant_block``: SAME conv (k=3) in s8×s8→s32, the folded epilogue
-``relu(acc + beta) * alpha + gamma``, requantization to int8 (or the
-dequantized output of the last block), and max-pool 2. The kernel is
+_quant_block``: SAME conv (k=3, dilation d) in s8×s8→s32, the folded
+epilogue ``relu(acc + beta) * alpha + gamma``, requantization to int8 (or
+the dequantized output of the last block), and max-pool 2 (or none: pool 1).
+The TPU kernel takes dilation 1 and pool 2; the JAX package serves config
+#3's dilated and pool-1 blocks through ``_quant_block`` on XLA's int8 conv
+(``rhs_dilation``), and this kernel takes those too. The kernel is
 ``csrc/quant_block.cu``; ``quant_block_reference`` is its plain PyTorch
 version, a port of ``_quant_block``.
 
@@ -13,11 +16,12 @@ Semantics shared by both, each pinned by a test:
 - input ``(B, T, Cin)`` int8, channels last, as B2 and B3 write it; weights
   ``(3, Cin, Cout)`` int8, the JAX package's layout; ``alpha``, ``beta``,
   ``gamma`` ``(Cout,)`` f32;
-- ``acc`` is the exact int32 sum, with zero rows at t = −1 and t = T;
+- ``acc`` is the exact int32 sum over taps t − d, t, t + d, with zero rows
+  outside [0, T);
 - ``z = relu(float(acc) + beta) * alpha + gamma`` in f32, op by op;
 - mid blocks: ``clamp(round_half_even(z), ±127)`` int8; the last block:
   ``z`` rounded to ``out_dtype``;
-- max-pool 2 with floor: an odd T drops its last step.
+- max-pool 2 with floor (an odd T drops its last step), or pool 1.
 
 The kernel pools the raw accumulator first (max where ``alpha > 0``, min
 elsewhere) and runs the epilogue at pool rate; by monotonicity this equals
@@ -49,7 +53,7 @@ import torch.nn.functional as F
 from . import conv_sm90
 
 KERNEL_TAPS = 3
-KERNEL_POOL = 2
+KERNEL_POOL = 2  # config #1's pool, the default; the kernel takes 1 or 2
 CIN_MULTIPLE = 32  # one wgmma k-step of 32 bytes stays within one tap
 # The kernel streams its weights, so shared memory no longer bounds Cin; the
 # int32 sum does: |acc| <= 3 * Cin * 128^2 must stay below 2^31.
@@ -74,29 +78,33 @@ def quant_block_reference(
     *,
     last: bool = False,
     out_dtype: torch.dtype = torch.bfloat16,
+    pool: int = KERNEL_POOL,
+    dilation: int = 1,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the B3 kernel → ``(B, T // 2, Cout)``: int8,
-    or ``out_dtype`` for the last block."""
-    acc = accumulate(x_q, w_q)
+    """Plain PyTorch version of the B3 kernel → ``(B, T // pool, Cout)``:
+    int8, or ``out_dtype`` for the last block."""
+    acc = accumulate(x_q, w_q, dilation)
     z = torch.relu(acc.float() + beta.float()) * alpha.float() + gamma.float()
     y = z.to(out_dtype) if last else torch.round(z).clamp(-127, 127).to(torch.int8)
-    return pairs(y).amax(dim=2)
+    return pairs(y, pool).amax(dim=2)
 
 
-def accumulate(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
-    """The exact int32 conv sums ``(B, T, Cout)``, zero rows at t = −1 and T,
-    accumulated in float64."""
+def accumulate(x_q: torch.Tensor, w_q: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+    """The exact int32 conv sums ``(B, T, Cout)`` of dilation d, zero rows
+    outside [0, T), accumulated in float64."""
     B, T, cin = x_q.shape
     k, _, cout = w_q.shape
-    xp = F.pad(x_q.double(), (0, 0, 1, 1))  # SAME: one zero row each side
-    cols = torch.cat([xp[:, j:j + T] for j in range(k)], dim=-1)  # (B, T, 3·Cin)
+    h = dilation * (k - 1) // 2
+    xp = F.pad(x_q.double(), (0, 0, h, h))  # SAME: h zero rows each side
+    cols = torch.cat([xp[:, j * dilation:j * dilation + T] for j in range(k)],
+                     dim=-1)  # (B, T, 3·Cin)
     return (cols @ w_q.reshape(k * cin, cout).double()).to(torch.int32)
 
 
-def pairs(y: torch.Tensor) -> torch.Tensor:
-    """``(B, T, C)`` → ``(B, T // 2, 2, C)``: the pooling pairs, floor."""
+def pairs(y: torch.Tensor, pool: int = KERNEL_POOL) -> torch.Tensor:
+    """``(B, T, C)`` → ``(B, T // pool, pool, C)``: the pooling windows, floor."""
     B, T, c = y.shape
-    return y[:, :(T // 2) * 2].reshape(B, T // 2, 2, c)
+    return y[:, :(T // pool) * pool].reshape(B, T // pool, pool, c)
 
 
 def quant_block_stage_reference(x_q: torch.Tensor, w_q: torch.Tensor, alpha: torch.Tensor,
@@ -125,16 +133,20 @@ def quant_block(
     *,
     last: bool = False,
     out_dtype: torch.dtype = torch.bfloat16,
+    pool: int = KERNEL_POOL,
+    dilation: int = 1,
 ) -> torch.Tensor:
-    """int8 conv(k=3, SAME) + epilogue + requantize + max-pool 2 →
-    ``(B, T // 2, Cout)``: int8, or ``out_dtype`` for the last block."""
+    """int8 conv(k=3, SAME, dilation d) + epilogue + requantize + max-pool
+    (pool 1 or 2) → ``(B, T // pool, Cout)``: int8, or ``out_dtype`` for the
+    last block."""
     if x_q.device.type == "cpu":
         return quant_block_reference(x_q, w_q, alpha, beta, gamma, last=last,
-                                     out_dtype=out_dtype)
+                                     out_dtype=out_dtype, pool=pool, dilation=dilation)
     out_dtype = out_dtype if last else torch.int8
     if last and out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("quant_block: the last block dequantizes to bfloat16 or float32")
-    out, wp, aff = _prepare("quant_block", x_q, w_q, alpha, beta, gamma, out_dtype)
+    out, wp, aff = _prepare("quant_block", x_q, w_q, alpha, beta, gamma, out_dtype, pool,
+                            dilation)
     if out.numel() == 0:
         return out
     from .._build import check, library
@@ -143,7 +155,7 @@ def quant_block(
     with torch.cuda.device(x_q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vm_quant_block(x_q.data_ptr(), wp.data_ptr(), aff.data_ptr(),
-                                 out.data_ptr(), *x_q.shape, out.shape[2],
+                                 out.data_ptr(), *x_q.shape, out.shape[2], dilation, pool,
                                  _OUT_KIND[out_dtype], stream)
     check(err, "quant_block")
     quant_block.launches += 1
@@ -153,7 +165,8 @@ def quant_block(
 quant_block.launches = 0  # kernel launches; the CPU path does not count
 
 
-def check_quant_launch(name: str, x_q, w_q, vecs: tuple) -> None:
+def check_quant_launch(name: str, x_q, w_q, vecs: tuple, pool: int = KERNEL_POOL,
+                       dilation: int = 1) -> None:
     """Raise ``ValueError`` for what B3's kernel does not take: ``vecs`` are
     alpha, beta and gamma."""
     if x_q.dim() != 3 or x_q.dtype != torch.int8 or not x_q.is_contiguous():
@@ -164,6 +177,10 @@ def check_quant_launch(name: str, x_q, w_q, vecs: tuple) -> None:
     k, _, cout = w_q.shape
     if k != KERNEL_TAPS:
         raise ValueError(f"{name}: the kernel takes k={KERNEL_TAPS}, got k={k}")
+    if pool not in conv_sm90.POOLS or not 1 <= dilation <= conv_sm90.MAX_REACH // (k - 1):
+        raise ValueError(f"{name}: the kernel takes pool 1 or 2 and dilation 1 to "
+                         f"{conv_sm90.MAX_REACH // (k - 1)}; got pool {pool}, "
+                         f"dilation {dilation}")
     if cin % CIN_MULTIPLE or cin > MAX_CIN:
         raise ValueError(
             f"{name}: the kernel takes Cin a multiple of {CIN_MULTIPLE} up to "
@@ -176,16 +193,17 @@ def check_quant_launch(name: str, x_q, w_q, vecs: tuple) -> None:
         raise ValueError(f"{name}: x_q must be 16-byte aligned")
 
 
-def _prepare(name: str, x_q, w_q, alpha, beta, gamma, out_dtype) -> tuple:
+def _prepare(name: str, x_q, w_q, alpha, beta, gamma, out_dtype, pool: int = KERNEL_POOL,
+             dilation: int = 1) -> tuple:
     """Check a launch of B3's kernel on a CUDA tensor; the output, the packed
     weights and the epilogue rows ``(3, Cout)``."""
     if x_q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x_q.device}")
     vecs = (alpha, beta, gamma)
-    check_quant_launch(name, x_q, w_q, vecs)
+    check_quant_launch(name, x_q, w_q, vecs, pool, dilation)
     B, T, _ = x_q.shape
     cout = w_q.shape[2]
-    out = torch.empty((B, T // KERNEL_POOL, cout), dtype=out_dtype, device=x_q.device)
+    out = torch.empty((B, T // pool, cout), dtype=out_dtype, device=x_q.device)
     aff = torch.stack([v.float() for v in vecs]).contiguous()  # (3, Cout)
     return out, pack_weights(w_q), aff
 

@@ -1,11 +1,12 @@
 """Time B2, B8, B3 and B6 at config #1's and config #4's shapes on the GPU,
-through their wrappers; or, with ``--b7``, B7's two passes at the train
+through their wrappers; or, with ``--dilated``, B8 and B3 at config #3's
+seven dilated and pool-1 blocks; with ``--b7``, B7's two passes at the train
 step's blocks 1-3; with ``--b45``, B4 and B5 at the train step's block 0;
 with ``--b5f32``, their f32 route there; with ``--b6dft``, B6's DFT route;
 with ``--b9``, B9 at config #2's scoring shapes.
 
     python3 -m voicemap_tpu_torch.utils.block_timing [--batch 2048]
-        [--b7 | --b45 | --b5f32 | --b6dft | --b9]
+        [--dilated | --b7 | --b45 | --b5f32 | --b6dft | --b9]
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line:
 the mean ms of back-to-back launches (CUDA events) of ``conv_block0``
@@ -13,7 +14,13 @@ the mean ms of back-to-back launches (CUDA events) of ``conv_block0``
 scale), of ``conv_blockn`` (bf16 in and out) and ``quant_block`` (int8 in,
 int8 out, bf16 at block 3) for each of blocks 1-3 and their sums, and of
 ``log_mel`` at config #4's geometry (T = 48000, hop 128, win 384, n_fft
-512, 64 mels). ``--b7``: the mean ms of ``pool_fwd`` and ``route_bwd``
+512, 64 mels). ``--dilated``: the mean ms of ``conv_blockn`` and
+``quant_block`` at config #3's blocks 1-7 ((T, Cin, Cout, pool, dilation) =
+(3000, 128, 128, 1, 2), (3000, 128, 256, 2, 1), (1500, 256, 256, 1, 4),
+(1500, 256, 384, 2, 1), (750, 384, 384, 1, 8), (750, 384, 512, 2, 1),
+(375, 512, 512, 1, 16); int8 out, bf16 at block 7) and their sums; a
+checkout whose wrappers take no dilation prints that it does not take
+them. ``--b7``: the mean ms of ``pool_fwd`` and ``route_bwd``
 (bf16, pool 2; queued, the device's time alone, and back to back, which at
 small batches times the host) at each of config #1's blocks 1-3 conv outputs (C, T) =
 (256, 3000), (384, 1500), (512, 750) and their sums. ``--b45``: the mean ms
@@ -64,6 +71,11 @@ from voicemap_tpu_torch.ops.cuda_routing import pool_fwd, route_bwd  # noqa: E40
 from voicemap_tpu_torch.utils.profiling import time_fn  # noqa: E402
 
 BLOCKS = ((3000, 128, 256, False), (1500, 256, 384, False), (750, 384, 512, True))
+# config #3's blocks 1-7: T, Cin, Cout, pool, dilation, last
+DILATED_BLOCKS = ((3000, 128, 128, 1, 2, False), (3000, 128, 256, 2, 1, False),
+                  (1500, 256, 256, 1, 4, False), (1500, 256, 384, 2, 1, False),
+                  (750, 384, 384, 1, 8, False), (750, 384, 512, 2, 1, False),
+                  (375, 512, 512, 1, 16, True))
 BLOCK0 = (12000, 128)  # config #1's block 0: T, C
 MEL_T = 48000  # config #4: 3 s at 16 kHz
 BN_EPS = 1e-3
@@ -185,6 +197,26 @@ def time_b6dft(g: torch.Generator, batch: int) -> dict:
                                                   iters=10)["mean_s"] * 1e3}}
 
 
+def time_dilated(g: torch.Generator, batch: int) -> dict:
+    """B8 and B3 through their wrappers at DILATED_BLOCKS."""
+    if "dilation" not in inspect.signature(conv_blockn).parameters:
+        return {"dilated": "this checkout's B8 and B3 take no dilation"}
+    rows = []
+    for i, (T, cin, cout, pool, d, last) in enumerate(DILATED_BLOCKS, start=1):
+        a = blockn_args(g, batch, T, cin, cout)
+        b8 = time_fn(conv_blockn, *a, BN_EPS, pool, dilation=d, iters=20)["mean_s"] * 1e3
+        del a
+        q = quant_args(g, batch, T, cin, cout)
+        b3 = time_fn(quant_block, *q, last=last, pool=pool, dilation=d,
+                     iters=20)["mean_s"] * 1e3
+        del q
+        torch.cuda.empty_cache()
+        rows.append({"block": i, "T": T, "cin": cin, "cout": cout, "pool": pool, "dilation": d,
+                     "b8_ms": b8, "b3_ms": b3})
+    return {"batch": batch, "dilated_blocks": rows, "b8_ms": sum(r["b8_ms"] for r in rows),
+            "b3_ms": sum(r["b3_ms"] for r in rows)}
+
+
 def host_us(fn, *args, iters: int = 200) -> float:
     """Host microseconds a call: the wall time to enqueue ``iters`` calls."""
     fn(*args)
@@ -221,6 +253,8 @@ def time_b9(g: torch.Generator) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch", type=int, default=2048)
+    parser.add_argument("--dilated", action="store_true",
+                        help="time B8 and B3 at config #3's blocks")
     parser.add_argument("--b7", action="store_true", help="time B7 alone")
     parser.add_argument("--b45", action="store_true", help="time B4 and B5 alone")
     parser.add_argument("--b5f32", action="store_true", help="time B4 and B5's f32 route")
@@ -236,6 +270,9 @@ def main(argv=None) -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     package = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(conv_blockn.__code__.co_filename))))
+    if args.dilated:
+        print(json.dumps({"package": package, **time_dilated(g, args.batch)}), flush=True)
+        return 0
     if args.b7:
         print(json.dumps({"package": package, **time_b7(g, args.batch)}), flush=True)
         return 0

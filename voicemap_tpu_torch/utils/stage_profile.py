@@ -1,6 +1,7 @@
 """Where an embed batch's device time goes, stage by stage, on one GPU.
 
     python3 -m voicemap_tpu_torch.utils.stage_profile [--batch 2048] [--seed 0]
+        [--config classifier_baseline|dilated_4khz|melspec_2d ...]
 
 Each config at full width with seeded random weights, over the store shape
 that ``chip_smoke.py`` and ``bench.py`` measure (rows of 3.5 s int16 at
@@ -10,6 +11,9 @@ path (calibrated on the first 256 rows):
 - config #1: 12000-sample fragments of the store decimated by 4; bf16 is
   ``fast_embed`` (B1, B2, B8 × 3 for blocks 1–3, head), int8 ``quant_embed``
   (B1, B2 with requant, B3 × 3, head);
+- config #3 (``dilated_4khz``): the same fragments; bf16 B1, B2, B8 × 7 for
+  the dilated and pool-1 blocks 1–7, head; int8 B1, B2 with requant, B3 ×
+  7, head;
 - config #4: 48000-sample fragments at downsampling 1; bf16 is the
   ``MelSpecEncoder`` forward (B1, B6, standardize, cuDNN 2D blocks 0–3,
   head), int8 ``quant_embed_mel`` (B1, B6, standardize, quantize, int8
@@ -23,7 +27,8 @@ For each path:
    the device's idle share (1 − union of kernel intervals / the window).
 
 Prints the card line, then one JSON line per path, with its peak memory.
-Needs a CUDA device.
+``--config`` picks the configs (default: config #1 and config #4). Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import sys
 import numpy as np
 import torch
 
-from ..config import classifier_baseline, melspec_2d
+from ..config import classifier_baseline, dilated_4khz, melspec_2d
 from ..models.classifier import SpeakerClassifier
 from ..models.fast_infer import blockn
 from ..models.quant_infer import mel_int8_stages, quantize_encoder, quantize_mel_encoder
@@ -49,6 +54,8 @@ from ..ops.cuda_quant_block import quant_block
 
 STORE_T, DS, FRAG = 56000, 4, 12000
 MEL_FRAG = 48000  # config #4: 3 s at downsampling 1
+CONFIGS = {"classifier_baseline": classifier_baseline, "dilated_4khz": dilated_4khz,
+           "melspec_2d": melspec_2d}
 
 
 def stages_bf16(encoder, x_fn):
@@ -71,6 +78,7 @@ def stages_int8(encoder, qvars, x_fn):
     """quant_embed, split at its stages."""
     blk0 = encoder.blocks[0]
     cdt = encoder.compute_dtype
+    pools, dilations = encoder.cfg.pool_sizes, encoder.cfg.dilations
     out = [("gather_whiten", lambda _: x_fn()),
            ("conv_block0_int8", lambda x: conv_block0(
                x, blk0.conv.weight.permute(2, 1, 0), blk0.conv.bias, blk0.bn.weight,
@@ -78,8 +86,9 @@ def stages_int8(encoder, qvars, x_fn):
                gemm_dtype=cdt, requant_scale=qvars["s0"]))]
     n = len(qvars["blocks"])
     for i, q in enumerate(qvars["blocks"], start=1):
-        out.append((f"quant_block_{i}", lambda h, q=q, last=i == n: quant_block(
-            h, q["w_q"], q["alpha"], q["beta"], q["gamma"], last=last, out_dtype=cdt)))
+        out.append((f"quant_block_{i}", lambda h, q=q, last=i == n, i=i: quant_block(
+            h, q["w_q"], q["alpha"], q["beta"], q["gamma"], last=last, out_dtype=cdt,
+            pool=max(pools[i], 1), dilation=dilations[i])))
     out.append(("global_max_dense", lambda h: encoder.pool_and_embed(h.transpose(1, 2))))
     return out
 
@@ -171,6 +180,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch", type=int, default=2048)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--config", nargs="+", choices=sorted(CONFIGS),
+                        default=["classifier_baseline", "melspec_2d"])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("stage_profile: no CUDA device; nothing was run", file=sys.stderr)
@@ -181,13 +192,15 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    for config in (1, 4):
+    for name in args.config:
+        cfg = CONFIGS[name]()
+        mel = cfg.mode == "melspec2d"
         torch.manual_seed(args.seed)
         rng = np.random.default_rng(args.seed)
         raw = torch.from_numpy(
             rng.integers(-20000, 20000, size=(args.batch, STORE_T), dtype=np.int16)).cuda()
         idx = torch.arange(args.batch, dtype=torch.int32, device="cuda")
-        store, frag = (decimate_store(raw, DS), FRAG) if config == 1 else (raw, MEL_FRAG)
+        store, frag = (raw, MEL_FRAG) if mel else (decimate_store(raw, DS), FRAG)
         offsets = torch.from_numpy(
             rng.integers(0, store.shape[1] - frag + 1, args.batch).astype(np.int32)).cuda()
 
@@ -195,14 +208,12 @@ def main(argv=None) -> int:
             return gather_whiten(store, idx, offsets, frag)[..., None]
 
         with torch.inference_mode():
-            if config == 1:
-                cfg = classifier_baseline()
+            if not mel:
                 enc = SpeakerClassifier(cfg.encoder, 40).encoder
                 qvars = quantize_encoder(enc, x_fn()[:256])
                 paths = (("bf16", stages_bf16(enc, x_fn)),
                          ("int8", stages_int8(enc, qvars, x_fn)))
             else:
-                cfg = melspec_2d()
                 enc = MelSpecClassifier(cfg.encoder, cfg.mel, 40, cfg.data.sample_rate).encoder
                 qvars = quantize_mel_encoder(enc, x_fn()[:256])
                 paths = (("bf16", stages_mel_bf16(enc, x_fn)),
