@@ -156,7 +156,34 @@ Each phase prints one JSON line; nothing here imports JAX.
     wrapper and of ``cdist``;
     the 500-task head scoring; the siamese train step at batch 64 pairs
     under the auto policy, with peak memory, and its layout conversions
-    under the profiler.
+    under the profiler;
+18. mel train slice — ``fit`` on config #4 (``melspec_2d``) at full width
+    (filters 128, embedding 64, dropout 0.05, 3 s at 16 kHz, downsampling 1),
+    batch 64, 40 steps on the same store, the evaluation's launches counted
+    apart: per step B1 1, B6 1 (cuDNN's 2D convs; no gradient reaches B6),
+    the evaluation B1 and B6 only; losses finite and falling; then one step
+    from fixed weights and a fixed batch through the kernels and through
+    their plain versions, held in f32 and reported in bf16;
+19. mel train timing — config #4's train step at B=64 and 2048: ms, utt/s,
+    peak memory, the device's idle share under the profiler;
+20. corpus slice — the port's ``generate_corpus`` writes a FLAC corpus in
+    LibriSpeech's layout (two subsets of 20 speakers × 5 utterances of
+    3.1-4.0 s) into a temporary directory, timed; ``fit(cfg)`` with no
+    store trains config #1 at full width from it, batch 32, 40 steps,
+    through the device pipeline (per step B1 1, B4 1, B5 1, B7 3 + 3) and
+    the streaming pipeline (B4 1, B5 1, B7 3 + 3, B1 0), each evaluated on
+    the validation subset at ``stochastic=False`` (B1 only, counted apart),
+    losses finite and falling; config #2 (``weighted_l1``, BCE) 10 streaming
+    steps of 64 pairs (B4 1, B5 1, B7 3 + 3; its evaluation B1 and B9); the
+    host's FLAC decode rate (``read_batch``, the decode cache cold and warm)
+    and the streaming step against the device-pipeline step at B=32 and
+    2048 (utt/s, peak memory, idle share);
+21. streaming embed — on that corpus, ``embed_all_streaming`` against
+    ``embed_all`` on the device store of the same dataset, row for row (min
+    cosine ≥ 0.999), the launch counters read around the streamed run:
+    config #1 bf16 (B2 → B8 × 3), int8 with qvars from
+    ``quantize_from_frags`` on the first 256 offset-0 fragments (B2 requant
+    → B3 × 3), config #4 (B6); no B1 on the streamed runs.
 
 It ends with the per-kernel summary line, then
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the exit code
@@ -168,9 +195,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -181,13 +211,18 @@ from voicemap_tpu_torch.config import (
     EncoderConfig, MelConfig, SiameseConfig, classifier_baseline, dilated_4khz, melspec_2d,
     siamese_verification,
 )
+from voicemap_tpu_torch.data import flac_ext
+from voicemap_tpu_torch.data.dataset import dataset_from_config
+from voicemap_tpu_torch.data.pipeline import DecodeCache, StreamingPipeline, iter_embed_batches
 from voicemap_tpu_torch.data.store import synthetic_store
+from voicemap_tpu_torch.data.synthetic import SyntheticSpec, generate_corpus
 from voicemap_tpu_torch.eval import nshot, verification
 from voicemap_tpu_torch.models.classifier import SpeakerClassifier
 from voicemap_tpu_torch.models.convert import from_flax
 from voicemap_tpu_torch.models.fast_infer import fast_embed, takes_blockn
 from voicemap_tpu_torch.models.quant_infer import (
-    quant_embed, quant_embed_mel, quantize_encoder, quantize_from_store, quantize_mel_encoder,
+    quant_embed, quant_embed_mel, quantize_encoder, quantize_from_frags, quantize_from_store,
+    quantize_mel_encoder,
 )
 from voicemap_tpu_torch.models.siamese import SiameseNet
 from voicemap_tpu_torch.models.spectrogram import MelSpecClassifier
@@ -343,6 +378,18 @@ B9_EDGES = ((1, 33, 41, 64), (1, 1, 1, 64), (3, 7, 130, 17), (1, 5, 7, MAX_D),
             (4, 1, 3, MAX_D))
 SIAMESE_PAIRS = 1000
 SIAMESE_BATCH = 64
+# Config #4's train slice: batch 64 (its TrainConfig's), and the batches
+# its step is timed at.
+MEL_TRAIN_BATCH = 64
+MEL_TRAIN_TIMING_BATCHES = (64, 2048)
+# The corpus on disk that corpus_slice and streaming_embed read: FLAC in
+# LibriSpeech's layout, one training and one validation subset of 20
+# speakers × 5 utterances of 3.1-4.0 s each (the pure-Python FLAC encoder
+# takes ~0.06 s of host time a second of audio: ~45 s for the 200 files).
+CORPUS_SUBSETS = ("train-clean-100", "dev-clean")
+CORPUS_SPEC = dict(n_speakers=20, utterances_per_speaker=5, min_seconds=3.1, max_seconds=4.0,
+                   container="flac", seed=1234)
+CORPUS_SIAMESE_STEPS = 10
 
 B1_RTOL, B1_ATOL = 1e-5, 1e-6
 # B2's f32-GEMM kernel (CUDA cores) sums its taps in the plain version's
@@ -1812,12 +1859,14 @@ def evaluation_launches():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The train path with every train kernel replaced by its plain version."""
+    """The train path with every train kernel (B4, B5, B7) and B6, which
+    config #4's forward runs, replaced by its plain version."""
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in PLAIN]
     for mod, name, plain in PLAIN:
         setattr(mod, name, plain)
     try:
-        yield
+        with plain_log_mel():
+            yield
     finally:
         for mod, name, real in saved:
             setattr(mod, name, real)
@@ -2886,6 +2935,311 @@ def run_siamese_timing(sliced: dict, trained: dict, seed: int, card: str) -> dic
             "library_ms": {"weighted_l1": row["library_ms"]}}
 
 
+def losses_falling(name: str, losses: list, falling: bool = True) -> tuple[float, float]:
+    """Every loss finite and (``falling``) the last five's mean below the
+    first five's → the two means."""
+    loss = torch.stack(losses).float().cpu()
+    if not bool(torch.isfinite(loss).all()):
+        raise AssertionError(f"{name}: non-finite train loss: {loss.tolist()}")
+    first, last = float(loss[:5].mean()), float(loss[-5:].mean())
+    if falling and not last < first:
+        raise AssertionError(f"{name}: train loss did not fall: first 5 {first}, last 5 {last}")
+    return first, last
+
+
+def counted_fit(cfg, *args, **kw) -> tuple:
+    """``fit`` with the launch counters read around it, the evaluation's
+    counted apart → ``(history, losses, train launches, evaluation
+    launches, seconds)``."""
+    losses = []
+    reset_counts()
+    with evaluation_launches() as eval_counts:
+        t0 = time.perf_counter()
+        _, history = fit(cfg, *args, device=DEVICE, verbose=False,
+                         on_step=lambda i, m: losses.append(m["loss"]), **kw)
+        total = read_counts()
+        seconds = time.perf_counter() - t0
+    return history, losses, {k: total[k] - eval_counts[k] for k in total}, eval_counts, seconds
+
+
+def expect_launches(name: str, got: dict, **want) -> None:
+    full = {k: 0 for k in KERNELS}
+    full.update(want)
+    if got != full:
+        raise AssertionError(f"{name} launches {got}, want {full}")
+
+
+def mel_train_config(seed: int, batch: int = None):
+    """Config #4 at full width (filters 128, embedding 64, dropout 0.05,
+    3 s at 16 kHz, downsampling 1) as mel_train_slice trains it."""
+    base = melspec_2d()
+    return base.replace(train=dataclasses.replace(
+        base.train, batch_size=batch or MEL_TRAIN_BATCH, num_steps=TRAIN_STEPS,
+        evaluate_every=TRAIN_STEPS, num_eval_tasks=500, seed=seed))
+
+
+def run_mel_train_slice(host, seed: int) -> dict:
+    """``fit`` on config #4 at full width, batch MEL_TRAIN_BATCH, TRAIN_STEPS
+    steps, then one n-shot evaluation counted apart: per step B1 1 and B6 1
+    (the 2D convs are cuDNN's; no gradient reaches B6), the evaluation B1
+    and B6 only. Losses finite and falling. Then one step from fixed weights
+    and a fixed batch (dropout masks from one seed) through the kernels and
+    through their plain versions, held in f32 compute and reported in bf16."""
+    cfg = mel_train_config(seed)
+    history, losses, train, eval_counts, seconds = counted_fit(cfg, host)
+    S = TRAIN_STEPS
+    expect_launches("mel train", train, gather_whiten=S, log_mel=S)
+    chunks = -(-len(host.labels) // 256)
+    expect_launches("mel evaluation", eval_counts, gather_whiten=chunks, log_mel=chunks)
+    first, last = losses_falling("mel train", losses)
+    val_acc = history[-1]["val_1-shot_acc"]
+    if not 0.0 <= val_acc <= 1.0:
+        raise AssertionError(f"mel accuracy {val_acc} outside [0, 1]")
+    store = device_store_for(cfg, host, DEVICE)
+    n = len(host.label_names)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    idx = sampling.sample_classifier_batch(gen, store.labels.shape[0], MEL_TRAIN_BATCH, DEVICE)
+    x, y = fetch_batch(store, idx, cfg, gen), store.labels[idx]
+    held = {}
+    for dtype in ("float32", "bfloat16"):
+        dcfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder, compute_dtype=dtype))
+        model = mel_model(dcfg, n, seed)
+        loss_fn = steps.classifier_loss_fn(model, dcfg)
+
+        def run(state, f=loss_fn):
+            drop = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+            return steps.train_on_batch(state, x, y, drop, f)[1]
+
+        held[dtype] = held_steps(model, dcfg, run, hold=dtype == "float32")
+    emit({"phase": "mel_train_slice", "config": "melspec_2d", "dtype": "bfloat16",
+          "batch": MEL_TRAIN_BATCH, "steps": S, "speakers": n, "dropout": cfg.encoder.dropout,
+          "launches": train, "eval_launches": eval_counts, "loss_first5_mean": first,
+          "loss_last5_mean": last, "losses": torch.stack(losses).float().tolist(),
+          "final_record": history[-1], "seconds": seconds, "plain_steps": held})
+    return {"launches": train, "store": store, "n_classes": n}
+
+
+def step_profile(step_fn) -> dict:
+    """Steps under the profiler: the device's idle share, window, events and
+    its ms a step by kernel (the top 15)."""
+    prof = stage_profile.profile([("step", lambda _: step_fn())], batches=3)
+    return {k: prof[k] for k in ("window_ms_per_batch", "idle_share", "device_events_per_batch",
+                                 "device_ms_by_op_per_batch", "error") if k in prof}
+
+
+def run_mel_train_timing(trained: dict, seed: int, card: str) -> None:
+    """Config #4's train step (B1, B6, cuDNN's 2D convs, autograd) at each
+    batch of MEL_TRAIN_TIMING_BATCHES: ms, utt/s and peak memory, and the
+    device's idle share under the profiler."""
+    t0 = time.perf_counter()
+    rows = []
+    for bt in MEL_TRAIN_TIMING_BATCHES:
+        cfg = mel_train_config(seed, bt)
+        model = init_model(cfg, trained["n_classes"], DEVICE, seed)
+        state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
+        step, _ = steps.make_classifier_train_step(model, cfg)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = time_fn(step, state, trained["store"], gen, iters=10 if bt <= 256 else 3, warmup=2)
+        rows.append({"batch": bt, "step_ms": r["mean_s"] * 1e3, "step_p50_ms": r["p50_s"] * 1e3,
+                     "utt_per_s": bt / r["mean_s"],
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     **step_profile(lambda: step(state, trained["store"], gen))})
+        del model, state, step
+    emit({"phase": "mel_train_timing", "card": card, "config": "melspec_2d", "steps": rows,
+          "seconds": time.perf_counter() - t0})
+
+
+def corpus_config(base, root: str, seed: int, batch: int, steps_: int = None):
+    """``base`` reading the corpus at ``root``: CORPUS_SUBSETS[0] for
+    training, CORPUS_SUBSETS[1] for validation; ``steps_`` steps at ``batch``
+    (TRAIN_STEPS by default) and one evaluation of 500 tasks at the end."""
+    steps_ = steps_ or TRAIN_STEPS
+    return base.replace(
+        data=dataclasses.replace(base.data, data_root=root, subsets=CORPUS_SUBSETS[:1],
+                                 val_subsets=CORPUS_SUBSETS[1:]),
+        train=dataclasses.replace(base.train, batch_size=batch, num_steps=steps_,
+                                  evaluate_every=steps_, num_eval_tasks=500, seed=seed))
+
+
+def decode_rates(ds) -> dict:
+    """Host FLAC decode rate of ``ds``'s files in files/s: ``read_batch``
+    over all of them (the C++ threads), and ``DecodeCache.get_many`` cold
+    (every file decoded) and warm (every file cached)."""
+    paths = [ds.path_of(int(i)) for i in ds.index.id]
+    ids = np.asarray(ds.index.id)
+    t0 = time.perf_counter()
+    flac_ext.read_batch(paths)
+    t_batch = time.perf_counter() - t0
+    cache = DecodeCache(ds)
+    t0 = time.perf_counter()
+    cache.get_many(ids)
+    t_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cache.get_many(ids)
+    t_warm = time.perf_counter() - t0
+    return {"files": len(paths), "read_batch_files_per_s": len(paths) / t_batch,
+            "cache_cold_files_per_s": len(paths) / t_cold,
+            "cache_warm_files_per_s": len(paths) / max(t_warm, 1e-9),
+            "host_cpus": os.cpu_count()}
+
+
+def pipeline_step_rows(cfg, ds, dstore, n_classes: int, seed: int) -> list:
+    """Config #1's train step through the device pipeline (B1 from the store
+    on the card), the streaming pipeline (host-cut batches, pinned, no B1)
+    and the streaming step on three batches taken from the pipeline before
+    it was closed (the step alone, with no producer thread beside it) at each
+    batch of TRAIN_TIMING_BATCHES: utt/s over back-to-back steps, peak
+    memory, and the device's idle share under the profiler."""
+    rows = []
+    for bt in TRAIN_TIMING_BATCHES:
+        bcfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=bt))
+        for name in ("device", "streaming", "streaming_prefetched"):
+            model = init_model(bcfg, n_classes, DEVICE, seed)
+            state = init_state(model, bcfg.train.clipnorm, bcfg.train.learning_rate)
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            stream = None
+            if name == "device":
+                step, _ = steps.make_classifier_train_step(model, bcfg)
+                fn = lambda: step(state, dstore, gen)  # noqa: E731
+            else:
+                step, _ = steps.make_streaming_classifier_step(model, bcfg)
+                stream = StreamingPipeline(ds, bcfg, seed=seed)
+                if name == "streaming":
+                    fn = lambda: step(state, *next(stream), gen)  # noqa: E731
+                else:
+                    batches = itertools.cycle([next(stream) for _ in range(3)])
+                    stream.close()
+                    fn = lambda: step(state, *next(batches), gen)  # noqa: E731
+            try:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                r = throughput(fn, items_per_call=bt, iters=20 if bt <= 256 else 4, warmup=2)
+                rows.append({"batch": bt, "pipeline": name, "utt_per_s": r["items_per_sec"],
+                             "step_ms": r["sec_per_call"] * 1e3,
+                             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                             **step_profile(fn)})
+            finally:
+                if stream is not None:
+                    stream.close()
+            del model, state, step
+    return rows
+
+
+def run_corpus_slice(root: str, seed: int, card: str) -> dict:
+    """The port's ``generate_corpus`` writes a FLAC corpus (CORPUS_SPEC,
+    two subsets) and ``fit(cfg)`` trains config #1 at full width from it with
+    no store given, batch 32, TRAIN_STEPS steps, once through the device
+    pipeline (per step B1 1, B4 1, B5 1, B7 3 + 3) and once through the
+    streaming pipeline (B4 1, B5 1, B7 3 + 3, no B1), each evaluated on the
+    validation subset at ``stochastic=False`` (counted apart: B1 only);
+    config #2 (``weighted_l1``, BCE) trains CORPUS_SIAMESE_STEPS steps of 64
+    pairs through the streaming pipeline (B4 1, B5 1, B7 3 + 3; its
+    evaluation B1 and B9). Losses finite, and falling in config #1's runs.
+    Then the host's FLAC decode rate and the streaming step against the
+    device-pipeline step at each batch of TRAIN_TIMING_BATCHES."""
+    t0 = time.perf_counter()
+    generate_corpus(root, CORPUS_SUBSETS, SyntheticSpec(**CORPUS_SPEC))
+    write_seconds = time.perf_counter() - t0
+    cfg = corpus_config(classifier_baseline(), root, seed, TRAIN_BATCH)
+    t0 = time.perf_counter()
+    ds = dataset_from_config(cfg.data)
+    val = dataset_from_config(dataclasses.replace(cfg.data, subsets=CORPUS_SUBSETS[1:],
+                                                  stochastic=False))
+    index_seconds = time.perf_counter() - t0
+    S = TRAIN_STEPS
+    val_chunks = -(-len(val) // 256)
+    runs, launches = {}, {}
+    for pipeline in ("device", "streaming"):
+        history, losses, train, eval_counts, seconds = counted_fit(cfg, pipeline=pipeline)
+        expect_launches(f"corpus {pipeline}", train, gather_whiten=S if pipeline == "device" else 0,
+                        conv_block0_train=S, conv_block0_train_bwd=S, pool_fwd=3 * S,
+                        route_bwd=3 * S)
+        expect_launches(f"corpus {pipeline} evaluation", eval_counts, gather_whiten=val_chunks)
+        first, last = losses_falling(f"corpus {pipeline}", losses)
+        runs[pipeline] = {"launches": train, "eval_launches": eval_counts,
+                          "loss_first5_mean": first, "loss_last5_mean": last,
+                          "losses": torch.stack(losses).float().tolist(),
+                          "final_record": history[-1], "seconds": seconds}
+        launches[f"corpus_{pipeline}"] = train
+    scfg = corpus_config(siamese_config(), root, seed, SIAMESE_BATCH, CORPUS_SIAMESE_STEPS)
+    history, losses, train, eval_counts, seconds = counted_fit(scfg, pipeline="streaming")
+    n = CORPUS_SIAMESE_STEPS
+    expect_launches("corpus siamese streaming", train, conv_block0_train=n,
+                    conv_block0_train_bwd=n, pool_fwd=3 * n, route_bwd=3 * n)
+    expect_launches("corpus siamese evaluation", eval_counts, gather_whiten=val_chunks,
+                    weighted_l1=1)
+    first, last = losses_falling("corpus siamese streaming", losses, falling=False)
+    runs["siamese_streaming"] = {"launches": train, "eval_launches": eval_counts,
+                                 "loss_first5_mean": first, "loss_last5_mean": last,
+                                 "losses": torch.stack(losses).float().tolist(),
+                                 "final_record": history[-1], "seconds": seconds}
+    launches["corpus_siamese"] = train
+    t0 = time.perf_counter()
+    rates = decode_rates(ds)
+    dstore = device_store_for(cfg, ds.to_store(30.0), DEVICE)
+    step_rows = pipeline_step_rows(cfg, ds, dstore, ds.num_classes(), seed)
+    emit({"phase": "corpus_slice", "card": card, "config": "classifier_baseline",
+          "corpus": {**CORPUS_SPEC, "subsets": list(CORPUS_SUBSETS), "files": len(ds) + len(val),
+                     "write_seconds": write_seconds, "index_seconds": index_seconds},
+          "batch": TRAIN_BATCH, "steps": S, "runs": runs, "decode": rates,
+          "train_steps": step_rows, "timing_seconds": time.perf_counter() - t0})
+    return launches
+
+
+def run_streaming_embed(root: str, seed: int) -> dict:
+    """On the corpus of corpus_slice (its training subset), the streamed
+    table (``embed_all_streaming``: host-cut offset-0 fragments, no B1)
+    against ``embed_all`` on the device store of the same dataset, row for
+    row (min cosine ≥ TABLE_MIN_COSINE), with the launch counters read around
+    the streamed run: config #1 in bf16 (``fast``: B2 → B8 × 3), in int8
+    (qvars from ``quantize_from_frags`` on the first 256 offset-0
+    fragments: B2 requant → B3 × 3), and config #4 in bf16 (B6)."""
+    out = {}
+    for path, base in (("streaming_bf16", classifier_baseline()),
+                       ("streaming_int8", classifier_baseline()),
+                       ("streaming_mel", melspec_2d())):
+        cfg = corpus_config(base, root, seed, TRAIN_BATCH)
+        ds = dataset_from_config(cfg.data)
+        n = ds.num_classes()
+        if cfg.mode == "melspec2d":
+            model = mel_model(cfg, n, seed)
+        else:
+            model = SpeakerClassifier(cfg.encoder, n, device=DEVICE)
+            model.load_state_dict(from_flax(random_flax_variables(cfg.encoder, n, seed),
+                                            cfg.encoder))
+        fast, qvars, calib = path == "streaming_bf16", None, None
+        if path == "streaming_int8":
+            batches = iter_embed_batches(ds, cfg, 256)
+            frags, calib = next(batches)
+            batches.close()
+            qvars = quantize_from_frags(model, cfg, frags[:calib])
+        chunks = -(-len(ds) // 256)
+        reset_counts()
+        t0 = time.perf_counter()
+        table = nshot.embed_all_streaming(model, cfg, ds, fast=fast, qvars=qvars)
+        launches = read_counts()
+        seconds = time.perf_counter() - t0
+        want = ({"log_mel": chunks} if cfg.mode == "melspec2d" else
+                {"conv_block0": chunks, "conv_blockn": 3 * chunks} if fast else
+                {"conv_block0": chunks, "quant_block": 3 * chunks})
+        expect_launches(path, launches, **want)
+        store = device_store_for(cfg, ds.to_store(), DEVICE)
+        device_table = nshot.embed_all(model, store, cfg, fast=fast, qvars=qvars)
+        d = cfg.encoder.embedding_dim
+        check_table(path, table, len(ds), d, 0.0)
+        cos = min_cosine(table, device_table)
+        if cos < TABLE_MIN_COSINE:
+            raise AssertionError(f"{path}: streamed table against the device store's: "
+                                 f"min cosine {cos}")
+        out[path] = {"config": cfg.name, "utterances": len(ds), "launches": launches,
+                     "calibration_rows": calib, "min_cosine_vs_device_store": cos,
+                     "seconds": seconds}
+    emit({"phase": "streaming_embed", "cosine_tolerance": TABLE_MIN_COSINE, **out})
+    return {path: r["launches"] for path, r in out.items()}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2944,6 +3298,14 @@ def main(argv=None) -> int:
     siamese = run_siamese_slices(sliced["host"], args.seed)
     siamese_trained = run_siamese_train_slice(sliced["host"], args.seed)
     siamese_times = run_siamese_timing(siamese, siamese_trained, args.seed, card)
+    mel_trained = run_mel_train_slice(sliced["host"], args.seed)
+    run_mel_train_timing(mel_trained, args.seed, card)
+    mel_train_launches = mel_trained["launches"]
+    del mel_trained
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="voicemap_corpus_") as root:
+        corpus = run_corpus_slice(root, args.seed, card)
+        streamed = run_streaming_embed(root, args.seed)
     for key in ("ms", "plain_ms", "bounds", "library_ms"):
         times[key].update(attributed[key])
         times[key].update(train_times[key])
@@ -2956,8 +3318,9 @@ def main(argv=None) -> int:
     # Each entry's launches: the counts of the path runs above (phases slice,
     # int8_slice, train_slice, attribution, dilated_slice, dilated_int8_slice,
     # dilated_train_slice, mel_bf16_slice, mel_int8_slice, siamese_bf16_slice,
-    # siamese_int8_slice, verification, score_support and
-    # siamese_train_slice), set to 0 just before each run and read just after;
+    # siamese_int8_slice, verification, score_support, siamese_train_slice,
+    # mel_train_slice, corpus_slice's three fits and streaming_embed's three
+    # tables), set to 0 just before each run and read just after;
     # for the kernels no path runs (B2's, B4's and B5's f32 GEMM, B6's DFT
     # route), the count of the check phase that ran them. On the mel paths the DFT route
     # launched nothing, so B6's count there is the FFT kernel's.
@@ -2971,26 +3334,34 @@ def main(argv=None) -> int:
              "mel_int8": mel["mel_int8"], "siamese_bf16": siamese["siamese_bf16"],
              "siamese_int8": siamese["siamese_int8"], "verification": siamese["verification"],
              "score_support": siamese["score_support"],
-             "siamese_train": siamese_trained["launches"]}
-    train_paths = ("train", "dilated_train", "siamese_train")
+             "siamese_train": siamese_trained["launches"],
+             "mel_train": mel_train_launches, **corpus, **streamed}
+    train_paths = ("train", "dilated_train", "siamese_train", "corpus_device",
+                   "corpus_streaming", "corpus_siamese")
     entries = (("gather_whiten", "gather_whiten",
                 ("bf16", "int8", "train", "dilated_bf16", "dilated_int8", "dilated_train",
-                 "mel_bf16", "mel_int8", "siamese_bf16", "siamese_int8", "siamese_train")),
-               ("conv_block0", "conv_block0", ("bf16", "dilated_bf16", "siamese_bf16")),
-               ("conv_block0_int8", "conv_block0", ("int8", "dilated_int8", "siamese_int8")),
+                 "mel_bf16", "mel_int8", "siamese_bf16", "siamese_int8", "siamese_train",
+                 "mel_train", "corpus_device")),
+               ("conv_block0", "conv_block0", ("bf16", "dilated_bf16", "siamese_bf16",
+                                               "streaming_bf16")),
+               ("conv_block0_int8", "conv_block0", ("int8", "dilated_int8", "siamese_int8",
+                                                    "streaming_int8")),
                ("conv_block0_f32", "conv_block0_f32", ("kernels",)),
-               ("quant_block", "quant_block", ("int8", "dilated_int8", "siamese_int8")),
+               ("quant_block", "quant_block", ("int8", "dilated_int8", "siamese_int8",
+                                               "streaming_int8")),
                ("conv_block0_train", "conv_block0_train", train_paths),
                ("conv_block0_train_bwd", "conv_block0_train_bwd", train_paths),
                ("conv_block0_train_f32", "conv_block0_train_f32", ("train_kernels",)),
                ("conv_block0_train_bwd_f32", "conv_block0_train_bwd_f32", ("train_kernels",)),
                ("pool_fwd", "pool_fwd", train_paths),
                ("route_bwd", "route_bwd", train_paths),
-               ("log_mel", "log_mel", ("mel_bf16", "mel_int8")),
+               ("log_mel", "log_mel", ("mel_bf16", "mel_int8", "mel_train",
+                                       "streaming_mel")),
                ("log_mel_dft", "log_mel_dft", ("mel_kernels",)),
                ("weighted_l1", "weighted_l1",
                 ("siamese_bf16", "siamese_int8", "verification", "score_support")),
-               ("conv_blockn", "conv_blockn", ("bf16", "dilated_bf16", "siamese_bf16")),
+               ("conv_blockn", "conv_blockn", ("bf16", "dilated_bf16", "siamese_bf16",
+                                               "streaming_bf16")),
                ("quant_block_stage", "quant_block_stage", ("attribution",)))
     print(card, flush=True)
     emit({"kernels": [

@@ -47,7 +47,9 @@ def on_the_cpu(monkeypatch):
     small_mel = ExperimentConfig(name="melspec_2d", mode="melspec2d",
                                  data=DataConfig(seconds=0.15, downsampling=1),
                                  encoder=EncoderConfig(filters=32, embedding_dim=16),
-                                 mel=MelConfig(hop_length=128, win_length=384, n_mels=32))
+                                 mel=MelConfig(hop_length=128, win_length=384, n_mels=32),
+                                 # 12 steps at this width learn at 3e-3, not at 1e-3
+                                 train=TrainConfig(learning_rate=3e-3))
     small_siamese = ExperimentConfig(name="siamese_verification", mode="siamese",
                                      data=DataConfig(seconds=0.128, downsampling=4),
                                      encoder=EncoderConfig(filters=32, embedding_dim=16,
@@ -86,6 +88,11 @@ def on_the_cpu(monkeypatch):
                         ("siamese_config", lambda: small_siamese),
                         ("B9_TIMING", (1, 40, 36, 16)), ("B9_NSHOT", (50, 1, 5, 16)),
                         ("SIAMESE_PAIRS", 40), ("SIAMESE_BATCH", 8),
+                        ("MEL_TRAIN_BATCH", 16), ("MEL_TRAIN_TIMING_BATCHES", (4, 16)),
+                        ("CORPUS_SPEC", dict(n_speakers=6, utterances_per_speaker=3,
+                                             min_seconds=0.2, max_seconds=0.3,
+                                             container="flac", seed=1234)),
+                        ("CORPUS_SIAMESE_STEPS", 3),
                         ("card_line", lambda: "CPU rehearsal, 0 W")):
         monkeypatch.setattr(cs, name, value)
     # The policies as they resolve on the card: B4/B5, and the fused
@@ -202,7 +209,8 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
                       "mel_kernels", "mel_bf16_slice", "mel_int8_slice", "mel_int8_fidelity",
                       "mel_timing", "siamese_kernels", "siamese_bf16_slice",
                       "siamese_int8_slice", "verification", "score_support",
-                      "siamese_train_slice", "siamese_timing"]
+                      "siamese_train_slice", "siamese_timing", "mel_train_slice",
+                      "mel_train_timing", "corpus_slice", "streaming_embed"]
     by_phase = {r["phase"]: r for r in records if "phase" in r}
     nothing = {name: 0 for name in cs.KERNELS}
     # bf16: B1 and B2 once an embed chunk, B8 three times (blocks 1-3)
@@ -424,7 +432,10 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     by_name = {k["name"]: k for k in kernels}
     assert by_name["pool_fwd"]["launches_by_path"] == {"train": 3 * steps_run,
                                                        "dilated_train": 7 * steps_run,
-                                                       "siamese_train": 3 * steps_run}
+                                                       "siamese_train": 3 * steps_run,
+                                                       "corpus_device": 3 * steps_run,
+                                                       "corpus_streaming": 3 * steps_run,
+                                                       "corpus_siamese": 9}
     assert by_name["gather_whiten"]["launches_by_path"]["train"] == steps_run
     assert by_name["gather_whiten"]["launches_by_path"]["siamese_train"] == 2 * steps_run
     assert by_name["weighted_l1"]["launches_by_path"] == {
@@ -433,9 +444,9 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert by_name["weighted_l1"]["max_abs_err"] == 0.0
     assert by_name["weighted_l1"]["library_ms"] is not None
     assert by_name["quant_block"]["launches_by_path"] == {"int8": 6, "dilated_int8": 14,
-                                                          "siamese_int8": 6}
+                                                          "siamese_int8": 6, "streaming_int8": 3}
     assert by_name["conv_blockn"]["launches_by_path"] == {"bf16": 6, "dilated_bf16": 14,
-                                                          "siamese_bf16": 6}
+                                                          "siamese_bf16": 6, "streaming_bf16": 3}
     assert by_name["conv_blockn"]["library_ms"] is not None
     assert by_name["conv_blockn"]["source"] == "voicemap_tpu_torch/csrc/conv_blockn.cu"
     assert list(by_name["quant_block_stage"]["launches_by_path"]) == ["attribution"]
@@ -447,8 +458,13 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert by_name["conv_block0_train_bwd_f32"]["library_ms"] is not None
     assert by_name["conv_block0_train"]["launches_by_path"] == {"train": steps_run,
                                                                 "dilated_train": steps_run,
-                                                                "siamese_train": steps_run}
-    assert by_name["log_mel"]["launches_by_path"] == {"mel_bf16": 2, "mel_int8": 2}
+                                                                "siamese_train": steps_run,
+                                                                "corpus_device": steps_run,
+                                                                "corpus_streaming": steps_run,
+                                                                "corpus_siamese": 3}
+    assert by_name["log_mel"]["launches_by_path"] == {"mel_bf16": 2, "mel_int8": 2,
+                                                      "mel_train": steps_run,
+                                                      "streaming_mel": 1}
     assert by_name["log_mel_dft"]["launches_by_path"] == {"mel_kernels": 6}
     assert by_name["conv_block0_f32"]["launches_by_path"] == {"kernels": 3}
     assert by_name["conv_block0"]["library_ms"] is not None
@@ -532,3 +548,55 @@ def test_the_config_3_phases_run_on_the_cpu(on_the_cpu, capsys):
     assert all({"nhwc_fwd_ms", "nhwc_bwd_ms", "nct_fwd_ms", "nct_bwd_ms",
                 "nhwc_fwd_autotuned_ms", "nhwc_bwd_autotuned_ms"} <= set(r)
                for r in timing["cudnn_convs"])
+
+
+def test_the_config_4_training_and_corpus_phases_run_on_the_cpu(on_the_cpu, capsys):
+    """Config #4's train slice (B1 1 and B6 1 a step, the evaluation B1 and
+    B6, the step held in f32 and reported in bf16) and its timing; the
+    corpus written to disk and ``fit(cfg)`` from it with no store through
+    both pipelines (B1 on the device pipeline only) and config #2's
+    streaming run; the streamed tables (no B1) against the device store's."""
+    assert cs.main([]) == 0
+    records = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    by_phase = {r["phase"]: r for r in records if "phase" in r}
+    nothing = {name: 0 for name in cs.KERNELS}
+    steps_run = 12
+    mel = by_phase["mel_train_slice"]
+    assert mel["launches"] == {**nothing, "gather_whiten": steps_run, "log_mel": steps_run}
+    assert mel["eval_launches"] == {**nothing, "gather_whiten": 2, "log_mel": 2}
+    assert mel["batch"] == 16 and mel["loss_last5_mean"] < mel["loss_first5_mean"]
+    assert mel["plain_steps"]["float32"]["held"] and not mel["plain_steps"]["bfloat16"]["held"]
+    assert mel["plain_steps"]["float32"]["min_grad_cosine"] >= cs.STEP_MIN_COSINE
+    assert "val_1-shot_acc" in mel["final_record"]
+    timing = by_phase["mel_train_timing"]
+    assert [r["batch"] for r in timing["steps"]] == [4, 16]
+    assert all({"step_ms", "utt_per_s", "peak_mem_gb", "idle_share"} <= set(r)
+               for r in timing["steps"])
+    corpus = by_phase["corpus_slice"]
+    assert corpus["corpus"]["files"] == 36 and corpus["corpus"]["write_seconds"] > 0
+    per_step = {"conv_block0_train": steps_run, "conv_block0_train_bwd": steps_run,
+                "pool_fwd": 3 * steps_run, "route_bwd": 3 * steps_run}
+    runs = corpus["runs"]
+    assert runs["device"]["launches"] == {**nothing, **per_step, "gather_whiten": steps_run}
+    assert runs["streaming"]["launches"] == {**nothing, **per_step}
+    for name in ("device", "streaming"):
+        assert runs[name]["eval_launches"] == {**nothing, "gather_whiten": 1}
+        assert runs[name]["loss_last5_mean"] < runs[name]["loss_first5_mean"]
+    assert runs["siamese_streaming"]["launches"] == {
+        **nothing, "conv_block0_train": 3, "conv_block0_train_bwd": 3, "pool_fwd": 9,
+        "route_bwd": 9}
+    assert runs["siamese_streaming"]["eval_launches"] == {**nothing, "gather_whiten": 1,
+                                                          "weighted_l1": 1}
+    assert corpus["decode"]["files"] == 18 and corpus["decode"]["read_batch_files_per_s"] > 0
+    assert [(r["batch"], r["pipeline"]) for r in corpus["train_steps"]] == [
+        (b, p) for b in (4, 8) for p in ("device", "streaming", "streaming_prefetched")]
+    streamed = by_phase["streaming_embed"]
+    assert streamed["streaming_bf16"]["launches"] == {**nothing, "conv_block0": 1,
+                                                      "conv_blockn": 3}
+    assert streamed["streaming_int8"]["launches"] == {**nothing, "conv_block0": 1,
+                                                      "quant_block": 3}
+    assert streamed["streaming_int8"]["calibration_rows"] == 18
+    assert streamed["streaming_mel"]["launches"] == {**nothing, "log_mel": 1}
+    for path in ("streaming_bf16", "streaming_int8", "streaming_mel"):
+        assert streamed[path]["min_cosine_vs_device_store"] >= cs.TABLE_MIN_COSINE

@@ -89,6 +89,26 @@ def test_the_b8_and_b10_modules_are_covered():
     assert {"vm_conv_blockn", "vm_quant_block_stage"} <= set(_build.SIGNATURES)
 
 
+def test_the_data_layer_and_streaming_modules_are_covered():
+    """The import tests reach every module of the pandas-free data layer and
+    the streaming path, none of them imports jax, flax, pandas or
+    voicemap_tpu, and the FLAC decoder's source is the port's own."""
+    from voicemap_tpu_torch.data import flac_ext
+
+    modules = set(_modules())
+    new = ("data.audio", "data.flac_enc", "data.flac_ext", "data.synthetic", "data.index",
+           "data.dataset", "data.preprocessing", "data.pipeline", "ops.preprocess",
+           "train.steps", "train.loop", "eval.nshot", "models.quant_infer",
+           "models.spectrogram")
+    banned = re.compile(r"^\s*(import|from)\s+(jax|flax|pandas|voicemap_tpu)\b", re.M)
+    for name in new:
+        assert f"voicemap_tpu_torch.{name}" in modules, name
+        path = PACKAGE.joinpath(*name.split(".")).with_suffix(".py")
+        assert not banned.search(path.read_text()), name
+    assert flac_ext.SOURCE.is_relative_to(PACKAGE) and flac_ext.SOURCE.exists()
+    assert flac_ext.BUILD_DIR == REPO / "build" / "flac"
+
+
 def test_no_jax_flax_pandas_import_in_the_port():
     banned = re.compile(r"^\s*(import|from)\s+(jax|flax|pandas|voicemap_tpu)\b", re.M)
     offenders = [str(p.relative_to(REPO)) for p in SOURCES if banned.search(p.read_text())]

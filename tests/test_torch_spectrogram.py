@@ -138,18 +138,33 @@ def test_encoder_and_classifier_match_flax(dtype):
 
 
 def test_a_block_refuses_train_mode():
+    """A block trains (batch statistics, dropout), but in train mode with
+    dropout it refuses to run without the generator that draws the masks."""
     model = tspec.MelSpecEncoder(encoder_cfg("float32"), MEL, device="cpu").train()
-    with pytest.raises(NotImplementedError):
-        model(torch.from_numpy(waveform(7)))
+    x = torch.from_numpy(waveform(7))
+    with pytest.raises(ValueError, match="Generator"):
+        model(x)
+    emb = model(x, torch.Generator().manual_seed(0))
+    assert emb.shape == (B, 16) and torch.isfinite(emb).all() and emb.requires_grad
+    emb.sum().backward()
+    assert all(p.grad is not None for p in model.parameters())
 
 
 def test_fit_still_refuses_melspec2d():
-    """Training of config #4 is not ported: ``fit`` says so before any work."""
-    from voicemap_tpu_torch.config import melspec_2d
+    """``fit`` trains config #4 now; what it still refuses, before any work,
+    is data-parallel training (``dp="on"``), which is not ported."""
+    from voicemap_tpu_torch.config import TrainConfig, melspec_2d
     from voicemap_tpu_torch.train.loop import fit
 
-    with pytest.raises(NotImplementedError, match="melspec2d"):
-        fit(melspec_2d(), synthetic_store(0, 2, 2, 0.1, 0.2), device="cpu")
+    store = synthetic_store(0, 3, 2, 0.35, 0.4)
+    with pytest.raises(NotImplementedError, match="dp='on'"):
+        fit(melspec_2d(), store, device="cpu", dp="on")
+    cfg = melspec_2d(data=DataConfig(seconds=0.32, downsampling=1),
+                     encoder=encoder_cfg("float32"), mel=MEL,
+                     train=TrainConfig(batch_size=4, num_steps=1, num_eval_tasks=4, k_way=3))
+    with pytest.warns(UserWarning, match="TRAINING store"):
+        state, history = fit(cfg, store, device="cpu", verbose=False)
+    assert isinstance(state.model, tspec.MelSpecClassifier) and len(history) == 1
 
 
 def test_from_flax_to_flax_round_trip_of_the_mel_tree():

@@ -25,7 +25,15 @@ kernel. The siamese net embeds as the classifier does, through its encoder.
 ``melspec2d`` (config #4) embeds through the model's own forward (B1, then
 the B6 log-mel kernel and cuDNN's 2D convs) or, with mel ``qvars``, through
 ``quant_embed`` → ``quant_embed_mel``; ``fast`` does not apply to it, as in
-the JAX package. Streaming comes with its own slice.
+the JAX package.
+
+``embed_all_streaming`` builds the same table from the corpus on disk
+(``data/pipeline.iter_embed_batches``: offset-0 fragments cut on the host,
+in store-row order), for a corpus too large for a store on the card: each
+batch goes to the card through pinned memory and is preprocessed there in
+plain torch ops (``train/steps.preprocess_fragments``, no B1), then embedded
+as ``embed_all`` embeds it (``fast``: B2 → B8; ``qvars``: B2 requant → B3,
+or the mel int8 path; config #4: B6 in the model's forward).
 """
 
 from __future__ import annotations
@@ -62,11 +70,39 @@ def embed_all(model: Model, store: DeviceStore, cfg: ExperimentConfig,
             idx = torch.arange(start, min(start + batch_size, N), device=dev,
                                dtype=torch.int32)
             x = fetch_batch(store, idx, cfg, stochastic=False)
-            if qvars is not None:
-                chunks.append(quant_embed(model.encoder, qvars, x))
-            else:
-                fast_path = fast and cfg.mode != "melspec2d"
-                chunks.append(fast_embed(model.encoder, x) if fast_path else model.embed(x))
+            chunks.append(_embed(model, cfg, x, fast, qvars))
+    return torch.cat(chunks, dim=0)
+
+
+def _embed(model: Model, cfg: ExperimentConfig, x: torch.Tensor, fast: bool,
+           qvars) -> torch.Tensor:
+    """Preprocessed fragments ``(B, T, 1)`` → embeddings by the chosen route."""
+    if qvars is not None:
+        return quant_embed(model.encoder, qvars, x)
+    if fast and cfg.mode != "melspec2d":
+        return fast_embed(model.encoder, x)
+    return model.embed(x)
+
+
+def embed_all_streaming(model: Model, cfg: ExperimentConfig, dataset,
+                        batch_size: int = 256, fast: bool = False,
+                        qvars=None) -> torch.Tensor:
+    """Embed every utterance of ``dataset`` (``data/dataset.SpeakerDataset``)
+    streamed from disk → ``(N, D)`` float32 table on the model's device, rows
+    in dataset-id order (aligned with ``embed_all`` on the dataset's store);
+    with ``qvars``, through the int8 serving path. A producer thread decodes
+    ahead of the card."""
+    from ..data.pipeline import iter_embed_batches
+    from ..train.steps import host_to_device, preprocess_fragments
+
+    if qvars is not None:
+        check_qvars_mode(cfg, qvars)
+    device = next(model.parameters()).device
+    chunks = []
+    with torch.inference_mode():
+        for frags, count in iter_embed_batches(dataset, cfg, batch_size):
+            x = preprocess_fragments(host_to_device(frags[:count], device), cfg)
+            chunks.append(_embed(model, cfg, x, fast, qvars))
     return torch.cat(chunks, dim=0)
 
 

@@ -39,17 +39,29 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch
 
 def spatial_dropout(y: torch.Tensor, rate: float, generator, channel_dim: int = 1
                     ) -> torch.Tensor:
-    """SpatialDropout1D: keep each (row, channel) with probability 1 − rate,
-    over all of time, and scale what is kept by 1 / (1 − rate)."""
+    """Spatial dropout: keep each (row, channel) with probability 1 − rate,
+    over every other axis (time; or both image axes of an NCHW tensor, as
+    flax's ``Dropout(broadcast_dims=(1, 2))`` on NHWC), and scale what is
+    kept by 1 / (1 − rate) in ``y``'s dtype."""
     if rate <= 0.0:
         return y
     if generator is None:
         raise ValueError("a torch.Generator is required when dropout > 0")
     keep = 1.0 - rate
-    shape = [y.shape[0], 1, 1]
+    shape = [y.shape[0]] + [1] * (y.ndim - 1)
     shape[channel_dim] = y.shape[channel_dim]
     mask = torch.empty(shape, device=generator.device).bernoulli_(keep, generator=generator)
     return torch.where(mask.to(y.device).bool(), y / keep, 0.0).to(y.dtype)
+
+
+@torch.no_grad()
+def update_running_stats(bn: nn.Module, momentum: float, mu: torch.Tensor,
+                         var: torch.Tensor) -> None:
+    """flax's BatchNorm update of ``bn``'s running buffers, in place:
+    ``m·old + (1 − m)·batch`` with ``m = momentum`` the fraction kept and
+    ``var`` the biased batch variance."""
+    for buf, new in ((bn.running_mean, mu), (bn.running_var, var)):
+        buf.copy_(momentum * buf + (1.0 - momentum) * new.detach())
 
 
 class ConvBlock(nn.Module):
@@ -83,12 +95,9 @@ class ConvBlock(nn.Module):
             y = F.max_pool1d(y, self.pool_size, self.pool_size)  # floor
         return y
 
-    @torch.no_grad()
     def update_running_stats(self, mu: torch.Tensor, var: torch.Tensor) -> None:
         """flax's update, in place: ``m·old + (1 − m)·batch``."""
-        m = self.bn_momentum
-        for buf, new in ((self.bn.running_mean, mu), (self.bn.running_var, var)):
-            buf.copy_(m * buf + (1.0 - m) * new.detach())
+        update_running_stats(self.bn, self.bn_momentum, mu, var)
 
     def forward_nct(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         """``(B, Cin, T)`` → ``(B, C, T // pool)`` in the compute dtype; in

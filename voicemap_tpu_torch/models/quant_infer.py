@@ -176,6 +176,21 @@ def quantize_from_store(model, cfg, store, n_cal: int = 256) -> Dict:
     return quantize_encoder(encoder, x_cal)
 
 
+def quantize_from_frags(model, cfg, frags) -> Dict:
+    """Calibrate and quantize off host-cut int16 fragments ``(B, frag)`` (the
+    streaming serving path's calibration batch, for example the first rows
+    of ``data/pipeline.iter_embed_batches``), preprocessed as the streaming
+    path does (``train/steps.preprocess_fragments``). ``model`` and ``cfg``
+    as for :func:`quantize_from_store`."""
+    from ..train.steps import host_to_device, preprocess_fragments
+
+    encoder = getattr(model, "encoder", model)
+    x_cal = preprocess_fragments(host_to_device(frags, next(encoder.parameters()).device), cfg)
+    if cfg.mode == "melspec2d":
+        return quantize_mel_encoder(encoder, x_cal)
+    return quantize_encoder(encoder, x_cal)
+
+
 def save_qvars(path: str, qvars: Dict) -> None:
     """Write a qvars dict to one ``.npz`` serving artifact (the JAX
     package's keys: ``s0``, ``n_blocks``, ``kind``, ``block{i}_{name}``)."""

@@ -1,4 +1,4 @@
-"""Log-mel frontend + 2D-CNN embedder (config #4), eval mode.
+"""Log-mel frontend + 2D-CNN embedder (config #4).
 
 Port of ``voicemap_tpu/models/spectrogram.py``:
 
@@ -16,13 +16,27 @@ config's epsilon (1e-3) and is cast back before the pool; the pool floors as
 flax's VALID does. The convs are cuDNN's (``F.conv2d``), as the JAX package
 left them to XLA. Inside, activations are NCHW.
 
+In train mode (``model.train()``) a block follows flax's ``Conv2DBlock``
+with ``train=True``: conv (compute dtype) → relu → BatchNorm in f32 on the
+batch statistics over (B, F, M), with flax's fast variance ``max(E[a²] −
+E[a]², 0)`` (biased) → cast to the compute dtype → spatial dropout, one
+keep/drop draw a (row, channel) from the caller's generator, broadcast over
+both image axes and survivors scaled by ``1/(1 − rate)`` → max-pool 2×2. The
+running statistics are updated in place as flax does, ``m·old + (1 −
+m)·batch`` with ``m = bn_momentum`` (0.99) the fraction kept and the biased
+variance; torch's train-mode ``BatchNorm2d`` (which keeps ``1 − momentum``
+and stores the unbiased variance) is never called. The frontend has no
+parameters, so no gradient reaches B6: it runs in the forward on an input
+that needs none.
+
 ``MelFrontend`` returns ``(B, F, M, 1)``, the JAX layout. ``MelSpecClassifier``
 has ``SpeakerClassifier``'s surface (``forward``, ``logits``, ``embed``).
-Training of config #4 is not ported: a block in train mode raises. Modules
-are built on the card unless the caller asks for another device.
+Modules are built on the card unless the caller asks for another device.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn as nn
@@ -30,7 +44,7 @@ import torch.nn.functional as F
 
 from ..config import EncoderConfig, MelConfig
 from ..ops import cuda_melspec
-from .encoder import DTYPES
+from .encoder import DTYPES, spatial_dropout, update_running_stats
 
 STANDARDIZE_EPS = 1e-5
 
@@ -67,12 +81,13 @@ class MelFrontend(nn.Module):
 
 
 class Conv2DBlock(nn.Module):
-    """Conv2D(3×3, SAME) → relu → BatchNorm (f32) → max-pool, on NCHW."""
+    """Conv2D(3×3, SAME) → relu → BatchNorm (f32) → spatial dropout (train
+    mode) → max-pool, on NCHW."""
 
     def __init__(self, in_channels: int, features: int, pool: int = 2,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32, bn_epsilon: float = 1e-3,
-                 device="cuda"):
+                 device="cuda", dropout: float = 0.0, bn_momentum: float = 0.99):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, features, 3, padding=1, device=device,
                               dtype=param_dtype)
@@ -80,15 +95,30 @@ class Conv2DBlock(nn.Module):
         self.bn = nn.BatchNorm2d(features, eps=bn_epsilon, device=device, dtype=torch.float32)
         self.pool = pool
         self.compute_dtype = compute_dtype
+        self.dropout = dropout
+        self.bn_momentum = bn_momentum
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, Cin, F, M)`` → ``(B, C, F // pool, M // pool)`` in the compute dtype."""
-        if self.training:
-            raise NotImplementedError("training of the log-mel 2D encoder is not ported")
+    def batch_norm_train(self, a: torch.Tensor) -> torch.Tensor:
+        """flax's train-mode BatchNorm of ``a`` (f32, NCHW) on its batch
+        statistics; updates the running statistics in place."""
+        mu = a.mean((0, 2, 3))
+        var = torch.clamp((a * a).mean((0, 2, 3)) - mu * mu, min=0.0)
+        mul = torch.rsqrt(var + self.bn.eps) * self.bn.weight
+        y = (a - mu[:, None, None]) * mul[:, None, None] + self.bn.bias[:, None, None]
+        update_running_stats(self.bn, self.bn_momentum, mu, var)
+        return y
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """``(B, Cin, F, M)`` → ``(B, C, F // pool, M // pool)`` in the compute
+        dtype; in train mode ``generator`` draws the dropout mask."""
         cdt = self.compute_dtype
         y = F.conv2d(x.to(cdt), self.conv.weight.to(cdt), self.conv.bias.to(cdt), padding=1)
-        y = self.bn(torch.relu(y).float()).to(cdt)
+        a = torch.relu(y).float()
+        if self.training:
+            y = spatial_dropout(self.batch_norm_train(a).to(cdt), self.dropout, generator)
+        else:
+            y = self.bn(a).to(cdt)
         if self.pool > 1:
             y = F.max_pool2d(y, self.pool, self.pool)  # floor, as VALID
         return y
@@ -107,7 +137,8 @@ class MelSpecEncoder(nn.Module):
         base = max(cfg.filters // 4, 8)
         blocks, cin = [], 1
         for mult in cfg.filter_multipliers:
-            blocks.append(Conv2DBlock(cin, base * mult, 2, cdt, pdt, cfg.bn_epsilon, device))
+            blocks.append(Conv2DBlock(cin, base * mult, 2, cdt, pdt, cfg.bn_epsilon, device,
+                                      cfg.dropout, cfg.bn_momentum))
             cin = base * mult
         self.blocks = nn.ModuleList(blocks)
         self.embed = nn.Linear(cin, cfg.embedding_dim, device=device, dtype=pdt)
@@ -120,18 +151,19 @@ class MelSpecEncoder(nn.Module):
         h = h.amax(dim=(2, 3))
         return F.linear(h.to(cdt), self.embed.weight.to(cdt), self.embed.bias.to(cdt)).float()
 
-    def stages(self) -> list:
+    def stages(self, generator=None) -> list:
         """The forward as ``(name, fn)`` stages; ``utils/stage_profile`` times
-        each of them."""
+        each of them. In train mode ``generator`` draws the dropout masks."""
         cdt = self.compute_dtype
         return ([("log_mel", self.frontend.log_mel),
                  ("standardize",  # → (B, 1, F, M) in the compute dtype
                   lambda m: standardize(m)[..., None].to(cdt).permute(0, 3, 1, 2))]
-                + [(f"block_{i}", blk) for i, blk in enumerate(self.blocks)]
+                + [(f"block_{i}", functools.partial(blk, generator=generator))
+                   for i, blk in enumerate(self.blocks)]
                 + [("global_max_dense", self.pool_and_embed)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return run_stages(self.stages(), x)
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return run_stages(self.stages(generator), x)
 
 
 class MelSpecClassifier(nn.Module):
@@ -146,9 +178,10 @@ class MelSpecClassifier(nn.Module):
                               dtype=DTYPES[cfg.param_dtype])
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, T, 1)`` → ``(B, num_classes)`` float32 logits."""
-        return self.logits(self.encoder(x))
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """``(B, T, 1)`` → ``(B, num_classes)`` float32 logits; in train mode
+        ``generator`` draws the dropout masks."""
+        return self.logits(self.encoder(x, generator))
 
     def logits(self, emb: torch.Tensor) -> torch.Tensor:
         """The head on ``(B, D)`` f32 embeddings, in the compute dtype → f32."""

@@ -1,6 +1,10 @@
 """Fragment gather, stride decimation, whitening and offset sampling.
 
-Port of ``voicemap_tpu/ops/preprocess.py``; the same semantics:
+Port of ``voicemap_tpu/ops/preprocess.py`` (``whiten``, ``stride_decimate``,
+``extract_fragments``, ``preprocess_batch``, ``gather_fragments``,
+``sample_offsets``), in plain torch ops, as the JAX package writes them in
+``jnp``; the store path's fused version is the B1 kernel
+(``ops/cuda_preprocess``). The same semantics:
 
 - int16 -> float32 as x / 32768;
 - stride decimation ``x[:, ::d]``, with no anti-alias filter;
@@ -37,6 +41,33 @@ def stride_decimate(batch: torch.Tensor, downsampling: int) -> torch.Tensor:
     if downsampling == 1:
         return batch
     return batch[:, ::downsampling]
+
+
+def extract_fragments(audio: torch.Tensor, offsets: torch.Tensor,
+                      fragment_length: int) -> torch.Tensor:
+    """``out[b] = audio[b, offsets[b] : offsets[b] + fragment_length]`` of
+    rows already gathered ``(B, T_store)``; the caller keeps every window
+    inside the row."""
+    pos = offsets.long()[:, None] + torch.arange(fragment_length, device=audio.device)
+    return torch.gather(audio, 1, pos)
+
+
+def preprocess_batch(audio_rows: torch.Tensor, offsets: torch.Tensor, fragment_length: int,
+                     downsampling: int, whiten_rms: Optional[float] = DEFAULT_WHITEN_RMS,
+                     whiten_eps: float = 1e-8) -> torch.Tensor:
+    """Fragment gather, decimation and whitening → ``(B, T_model, 1)`` f32.
+
+    ``audio_rows`` is int16 (÷ 32768 here) or float.
+    """
+    frags = extract_fragments(audio_rows, offsets, fragment_length)
+    if frags.dtype == torch.int16:
+        frags = frags.float() * INT16_SCALE
+    else:
+        frags = frags.float()
+    frags = stride_decimate(frags, downsampling)
+    if whiten_rms is not None:
+        frags = whiten(frags, whiten_rms, whiten_eps)
+    return frags[..., None]
 
 
 def gather_fragments(store: torch.Tensor, indices: torch.Tensor,

@@ -14,7 +14,17 @@ through B1 apart (two launches, as the JAX step fetches them), encodes
 ``[x1; x2]`` as one batch and trains on the BCE of the head's logits or on
 the contrastive loss of the embeddings' distance. ``train_on_batch`` and
 ``train_on_pairs`` are the steps after sampling, for a batch the caller
-gives. The streaming steps are not ported yet.
+gives. The log-mel classifier (config #4) trains through its own forward
+under autograd (B1 for the batch, then B6 with no gradient, cuDNN's 2D convs),
+as the JAX package trains it through flax apply.
+
+The streaming steps (``make_streaming_classifier_step``,
+``make_streaming_siamese_step``) take host-cut int16 fragments from
+``data/pipeline.StreamingPipeline``: the batch goes to the card through
+pinned memory, ``preprocess_fragments`` converts, decimates and whitens it in
+plain torch ops (the JAX package computes these outside any kernel), and
+``train_on_batch`` / ``train_on_pairs`` train on it, so the card runs B4,
+B5 and B7 and no B1. ``make_embed_fn`` embeds store rows at offset 0.
 
 The port has one preprocessing path, the fused one: the store is decimated
 once when it is shipped, and every batch goes through the B1 gather+whiten
@@ -35,6 +45,7 @@ from ..data.store import AudioStore
 from ..models import fused_train
 from ..models.classifier import SpeakerClassifier
 from ..models.siamese import SiameseNet
+from ..models.spectrogram import MelSpecClassifier
 from ..ops import preprocess, sampling
 from ..ops.cuda_preprocess import decimate_store, gather_whiten
 from . import losses
@@ -155,10 +166,21 @@ def resolve_blockn(cfg: ExperimentConfig, device) -> str:
     return "fused" if worst <= limit else "jnp"
 
 
-def classifier_loss_fn(model: SpeakerClassifier, cfg: ExperimentConfig) -> Callable:
+def classifier_loss_fn(model: SpeakerClassifier | MelSpecClassifier,
+                       cfg: ExperimentConfig) -> Callable:
     """``loss_fn(x, y, generator) → (loss, accuracy)`` through the train
     forward with the policies this config resolves to (set as the function's
-    ``fused_block0`` and ``blockn`` attributes)."""
+    ``fused_block0`` and ``blockn`` attributes). A :class:`MelSpecClassifier`
+    trains through its own forward (``blockn`` ``"conv2d"``)."""
+    if isinstance(model, MelSpecClassifier):
+        def mel_loss_fn(x: torch.Tensor, y: torch.Tensor,
+                        generator: Optional[torch.Generator]):
+            model.train()
+            logits = model(x, generator)
+            return losses.softmax_ce(logits, y), losses.categorical_accuracy(logits, y)
+
+        mel_loss_fn.fused_block0, mel_loss_fn.blockn = False, "conv2d"
+        return mel_loss_fn
     fused0 = resolve_fused_block0(cfg, model)
     blockn = resolve_blockn(cfg, _device_of(model))
 
@@ -260,3 +282,65 @@ def make_siamese_train_step(model: SiameseNet, cfg: ExperimentConfig):
         return train_on_pairs(state, x1, x2, batch.labels, generator, loss_fn)
 
     return step, loss_fn
+
+
+def host_to_device(a, device) -> torch.Tensor:
+    """A host batch (numpy or a CPU tensor) on ``device``; to the card through
+    pinned memory, without waiting for the copy."""
+    t = torch.as_tensor(a)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def preprocess_fragments(frags_i16: torch.Tensor, cfg: ExperimentConfig) -> torch.Tensor:
+    """``(B, frag)`` int16 host-cut fragments → ``(B, T_model, 1)`` f32:
+    ÷ 32768, stride decimation, whitening (the streaming path; plain torch
+    ops, at whatever phase the host cut the fragment)."""
+    d = cfg.data
+    x = frags_i16.float() * preprocess.INT16_SCALE
+    x = preprocess.stride_decimate(x, d.downsampling)
+    if d.whiten_rms is not None:
+        x = preprocess.whiten(x, d.whiten_rms, d.whiten_eps)
+    return x[..., None]
+
+
+def make_streaming_classifier_step(model: SpeakerClassifier | MelSpecClassifier,
+                                   cfg: ExperimentConfig):
+    """``(step, loss_fn)``; ``step(state, frags, y, generator) → (state,
+    metrics)`` trains on host-streamed fragments ``(B, frag)`` int16 and
+    labels ``(B,)`` (``data/pipeline.StreamingPipeline``)."""
+    loss_fn = classifier_loss_fn(model, cfg)
+    device = _device_of(model)
+
+    def step(state: TrainState, frags, y, generator: Optional[torch.Generator]):
+        x = preprocess_fragments(host_to_device(frags, device), cfg)
+        return train_on_batch(state, x, host_to_device(y, device), generator, loss_fn)
+
+    return step, loss_fn
+
+
+def make_streaming_siamese_step(model: SiameseNet, cfg: ExperimentConfig):
+    """``(step, loss_fn)``; ``step(state, f1, f2, y, generator) → (state,
+    metrics)`` trains on host-streamed pair fragments."""
+    loss_fn = siamese_loss_fn(model, cfg)
+    device = _device_of(model)
+
+    def step(state: TrainState, f1, f2, y, generator: Optional[torch.Generator]):
+        x1 = preprocess_fragments(host_to_device(f1, device), cfg)
+        x2 = preprocess_fragments(host_to_device(f2, device), cfg)
+        return train_on_pairs(state, x1, x2, host_to_device(y, device), generator, loss_fn)
+
+    return step, loss_fn
+
+
+def make_embed_fn(model, cfg: ExperimentConfig) -> Callable:
+    """``embed(store, indices) → (B, D)`` f32 embeddings of store rows at
+    offset 0 (B1, then the model's own forward in eval mode)."""
+
+    def embed(store: DeviceStore, indices: torch.Tensor) -> torch.Tensor:
+        model.eval()
+        with torch.inference_mode():
+            return model.embed(fetch_batch(store, indices, cfg, stochastic=False))
+
+    return embed
