@@ -183,7 +183,23 @@ Each phase prints one JSON line; nothing here imports JAX.
     cosine ≥ 0.999), the launch counters read around the streamed run:
     config #1 bf16 (B2 → B8 × 3), int8 with qvars from
     ``quantize_from_frags`` on the first 256 offset-0 fragments (B2 requant
-    → B3 × 3), config #4 (B6); no B1 on the streamed runs.
+    → B3 × 3), config #4 (B6); no B1 on the streamed runs;
+22. protocol slice — the five experiment CLIs (``voicemap_tpu_torch/
+    experiments``) in-process at their full config #1 and #2 widths on a WAV
+    corpus the port's ``generate_corpus`` writes (train-clean-100 of 20
+    speakers × 10 utterances, dev-clean and test-clean of 12 × 8, 3.1-4.0 s),
+    each command's launches counted and held: ``train_classifier`` at batch
+    32 to a soak checkpoint, then resumed in its directory (``resumed from
+    step``); ``evaluate --protocol`` on it in bf16 (B1, the model's forward)
+    and ``--int8`` (B1 → B2 requant → B3 × 3), the manifest's six records
+    each on the replayed JAX key stream, in form; ``--int8-gate``, the int8
+    decision gate's verdict and checks, reported, not held; ``--k-sweep
+    --fast --verification`` (B1 → B2 → B8 × 3), the points past 12 speakers
+    skipped; ``train_siamese`` (``weighted_l1``) and its protocol, scored by
+    the head (B9); ``embed --int8 --save-qvars`` and ``embed --qvars``,
+    equal tables; ``visualize_embeddings``' ``.npz``; the replay's host ms
+    at the manifest's settings and one batch-1 request through the
+    checkpoint (``single_request_latency``).
 
 It ends with the per-kernel summary line, then
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the exit code
@@ -195,6 +211,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import os
@@ -217,6 +234,12 @@ from voicemap_tpu_torch.data.pipeline import DecodeCache, StreamingPipeline, ite
 from voicemap_tpu_torch.data.store import synthetic_store
 from voicemap_tpu_torch.data.synthetic import SyntheticSpec, generate_corpus
 from voicemap_tpu_torch.eval import nshot, verification
+from voicemap_tpu_torch.eval.protocol import load_manifest
+from voicemap_tpu_torch.experiments import (
+    embed as embed_cli, evaluate as evaluate_cli, restore_model,
+    train_classifier as train_classifier_cli, train_siamese as train_siamese_cli,
+    visualize_embeddings as visualize_cli,
+)
 from voicemap_tpu_torch.models.classifier import SpeakerClassifier
 from voicemap_tpu_torch.models.convert import from_flax
 from voicemap_tpu_torch.models.fast_infer import fast_embed, takes_blockn
@@ -231,6 +254,7 @@ from voicemap_tpu_torch.ops import (
     melspec, sampling,
 )
 from voicemap_tpu_torch.ops import distance as dist_ops
+from voicemap_tpu_torch.ops import jax_random
 from voicemap_tpu_torch.ops.cuda_conv import (
     bn_affine, conv_block0, conv_block0_reference, conv_blockn, conv_blockn_reference,
 )
@@ -258,7 +282,7 @@ from voicemap_tpu_torch.train.loop import fit, init_model
 from voicemap_tpu_torch.train.state import init_state
 from voicemap_tpu_torch.train.steps import DeviceStore, device_store_for, fetch_batch
 from voicemap_tpu_torch.utils import qblock_attrib, stage_profile
-from voicemap_tpu_torch.utils.profiling import throughput, time_fn
+from voicemap_tpu_torch.utils.profiling import single_request_latency, throughput, time_fn
 
 DEVICE = "cuda"  # every tensor of the run lives here
 # The store that bench.py measures: 2048 rows of 3.5 s raw int16, decimated
@@ -390,6 +414,26 @@ CORPUS_SUBSETS = ("train-clean-100", "dev-clean")
 CORPUS_SPEC = dict(n_speakers=20, utterances_per_speaker=5, min_seconds=3.1, max_seconds=4.0,
                    container="flac", seed=1234)
 CORPUS_SIAMESE_STEPS = 10
+# protocol_slice: the experiment CLIs in-process on a WAV corpus in
+# LibriSpeech's layout: train-clean-100 of 20 speakers × 10 utterances for
+# training, dev-clean and test-clean of 12 × 8 (3.1-4.0 s) for the frozen
+# protocol (its 5-shot entries need 6 utterances a speaker, its 10-way entry
+# 10 speakers). The soak checkpoint trains SOAK_STEPS[0] steps at batch
+# TRAIN_BATCH, then resumes to SOAK_STEPS[1] (cut from the CLI's 2000),
+# evaluating every SOAK_EVERY; config #2 trains SIAMESE_CLI_STEPS steps of
+# SIAMESE_BATCH pairs. CLI_WIDTH: no options, the CLIs' own full widths
+# (filters 128, embedding 64). The sweep runs k over SWEEP_K, past the 12
+# speakers, so that its last points are skipped.
+PROTOCOL_TRAIN_SPEC = dict(n_speakers=20, utterances_per_speaker=10, min_seconds=3.1,
+                           max_seconds=4.0, container="wav", seed=1234)
+PROTOCOL_EVAL_SPEC = dict(n_speakers=12, utterances_per_speaker=8, min_seconds=3.1,
+                          max_seconds=4.0, container="wav", seed=4321)
+SOAK_STEPS = (300, 400)
+SOAK_EVERY = 100
+SIAMESE_CLI_STEPS = 40
+CLI_WIDTH: tuple = ()
+SWEEP_K = (2, 14)
+SWEEP_PAIRS = 1000
 
 B1_RTOL, B1_ATOL = 1e-5, 1e-6
 # B2's f32-GEMM kernel (CUDA cores) sums its taps in the plain version's
@@ -3240,6 +3284,255 @@ def run_streaming_embed(root: str, seed: int) -> dict:
     return {path: r["launches"] for path, r in out.items()}
 
 
+def run_cli(name: str, module, argv: list, exit_codes=(0,)) -> dict:
+    """``module.main(argv)`` in-process with the launch counters set to 0
+    before it and read after it, its standard output kept →
+    ``{"name", "argv", "result", "stdout", "exit", "launches", "seconds"}``.
+    A ``SystemExit`` passes only with a code in ``exit_codes`` (the int8
+    gate's documented 2 on fail)."""
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    code, result = 0, None
+    with contextlib.redirect_stdout(buf):
+        try:
+            result = module.main(argv)
+        except SystemExit as e:
+            if e.code not in exit_codes:
+                raise
+            code = e.code
+    launches = read_counts()
+    return {"name": name, "argv": argv, "result": result, "stdout": buf.getvalue(),
+            "exit": code, "launches": launches, "seconds": time.perf_counter() - t0}
+
+
+def printed_records(run: dict) -> list:
+    return [json.loads(line) for line in run["stdout"].splitlines() if line.startswith("{")]
+
+
+def check_records(name: str, records: list, int8: bool) -> None:
+    """The protocol's records in form: 4 accuracy and 2 verification records
+    of the manifest, finite, accuracy, EER and AUC in [0, 1], not comparable
+    (the corpus is synthetic), on the replayed key stream."""
+    want = [e["name"] for e in load_manifest()["entries"]] + [
+        e["name"] for e in load_manifest()["verification"]["entries"]]
+    if [r["entry"] for r in records] != want:
+        raise AssertionError(f"{name}: records {[r['entry'] for r in records]}, want {want}")
+    for r in records:
+        values = [r[k] for k in ("accuracy", "stderr", "eer", "auc", "eer_stderr", "auc_stderr")
+                  if k in r]
+        if not all(np.isfinite(v) for v in values):
+            raise AssertionError(f"{name}: non-finite record {r}")
+        if not all(0.0 <= r[k] <= 1.0 for k in ("accuracy", "eer", "auc") if k in r):
+            raise AssertionError(f"{name}: a metric outside [0, 1]: {r}")
+        if (r["int8"] is not int8 or r["key_stream"] != jax_random.KEY_STREAM
+                or r["corpus_verified"] or r.get("comparable_to_reference", r.get("comparable"))):
+            raise AssertionError(f"{name}: record fields {r}")
+
+
+def train_launches(steps_run: int, evals: int, val_chunks: int, rows_a_step: int = 1,
+                   head_scores: int = 0) -> dict:
+    """A train CLI's launches: per step B1 ``rows_a_step`` (2 for pairs), B4 1,
+    B5 1, B7 3 + 3; per evaluation B1 once a chunk of the validation store
+    and B9 ``head_scores``."""
+    return dict(gather_whiten=rows_a_step * steps_run + evals * val_chunks,
+                conv_block0_train=steps_run, conv_block0_train_bwd=steps_run,
+                pool_fwd=3 * steps_run, route_bwd=3 * steps_run,
+                weighted_l1=evals * head_scores)
+
+
+def evaluations(start: int, stop: int, every: int) -> int:
+    return sum(1 for i in range(start, stop) if (i + 1) % every == 0 or i + 1 == stop)
+
+
+def replay_ms(root: str) -> dict:
+    """Host ms of the key-stream replay at the manifest's settings on the
+    dev-clean store's index (min and mean of 5): 500 tasks of each accuracy
+    entry, and 2,000 pairs."""
+    ds = dataset_from_config(dataclasses.replace(classifier_baseline().data, data_root=root,
+                                                 subsets=("dev-clean",), stochastic=False))
+    host = ds.to_store(4.0)
+    m = load_manifest()
+    out = {}
+
+    def timed(fn):
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return {"min_ms": min(ts), "mean_ms": sum(ts) / len(ts)}
+
+    for e in m["entries"]:
+        out[f"tasks_{e['num_tasks']}_{e['n_shot']}shot_{e['k_way']}way"] = timed(
+            lambda e=e: jax_random.nshot_tasks(jax_random.PRNGKey(m["task_seed"]),
+                                               host.speaker_utts, host.speaker_counts,
+                                               e["num_tasks"], e["n_shot"], e["k_way"]))
+    n_pairs = m["verification"]["entries"][0]["num_pairs"]
+    out[f"pairs_{n_pairs}"] = timed(lambda: jax_random.verification_pairs(
+        jax_random.PRNGKey(m["verification"]["pair_seed"]), host.speaker_utts,
+        host.speaker_counts, n_pairs, m["verification"]["same_label"]))
+    return out
+
+
+def batch1_request(root: str, ckpt: str) -> dict:
+    """``single_request_latency`` of one utterance through the soak
+    checkpoint's bf16 serving path (B1 → B2 → B8 × 3): the call to the
+    embedding in host memory, host clock and CUDA events."""
+    cfg = classifier_baseline()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, data_root=root, subsets=("dev-clean",),
+                                               stochastic=False))
+    ds = dataset_from_config(cfg.data)
+    model, step = restore_model(cfg, ds.num_classes(), ckpt, "best", DEVICE)
+    store = device_store_for(cfg, ds.to_store(4.0), DEVICE)
+    idx = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+
+    def request():
+        with torch.inference_mode():
+            return fast_embed(model.encoder, fetch_batch(store, idx, cfg, stochastic=False))
+
+    r = single_request_latency(request, samples=20, warmup=3)
+    return {"step": step, **{k[:-2] + "_ms": v * 1e3 for k, v in r.items()}}
+
+
+def run_protocol_slice(root: str, seed: int, card: str) -> dict:
+    """The five experiment CLIs in-process, on the card, at full config #1
+    and #2 width, on a WAV corpus the port's ``generate_corpus`` writes
+    (PROTOCOL_TRAIN_SPEC, PROTOCOL_EVAL_SPEC), each with the launch counters
+    read around it:
+
+    1. ``train_classifier`` SOAK_STEPS[0] steps at batch TRAIN_BATCH with
+       ``--val-subsets dev-clean`` and a checkpoint directory, then again to
+       SOAK_STEPS[1] in it, which prints ``resumed from step``;
+    2. ``evaluate --protocol --allow-corpus-mismatch`` on the best checkpoint
+       (B1, the model's forward), then with ``--int8`` (B1 → B2 requant →
+       B3 × 3): the manifest's 6 records each, in form;
+    3. ``evaluate --protocol --int8-gate``: the int8 decision gate's verdict
+       and its checks, reported (exit 2 on fail is the verdict, not held);
+    4. ``evaluate --k-sweep`` over SWEEP_K ``--fast --verification``
+       SWEEP_PAIRS (B1 → B2 → B8 × 3), the points past 12 speakers skipped;
+    5. ``train_siamese`` (``weighted_l1``) SIAMESE_CLI_STEPS steps, then
+       ``evaluate --mode siamese --protocol``, scored by the head (B9);
+    6. ``embed --int8 --save-qvars``, then ``embed --qvars``: equal tables;
+       ``visualize_embeddings``: its ``.npz``;
+    7. the replay's host ms at the manifest's settings and one batch-1
+       request through the checkpoint (not counted on a path).
+    Returns each command's launches by path name."""
+    t0 = time.perf_counter()
+    generate_corpus(root, ("train-clean-100",), SyntheticSpec(**PROTOCOL_TRAIN_SPEC))
+    # A second call for the held-out subsets (its own speakers and seed);
+    # it rewrites SPEAKERS.TXT, which only the sex labels read.
+    generate_corpus(root, ("dev-clean", "test-clean"), SyntheticSpec(**PROTOCOL_EVAL_SPEC))
+    write_seconds = time.perf_counter() - t0
+    base = ["--device", DEVICE, "--data-root", root, *CLI_WIDTH]
+    ckpt, sckpt = os.path.join(root, "ckpt"), os.path.join(root, "siamese_ckpt")
+    n_eval = PROTOCOL_EVAL_SPEC["n_speakers"] * PROTOCOL_EVAL_SPEC["utterances_per_speaker"]
+    chunks = -(-n_eval // 256)  # of one held-out subset's store
+    runs = []
+    train_argv = base + ["--subsets", "train-clean-100", "--val-subsets", "dev-clean",
+                         "--batch-size", str(TRAIN_BATCH), "--evaluate-every", str(SOAK_EVERY),
+                         "--seed", str(seed), "--checkpoint-dir", ckpt,
+                         "--log-path", os.path.join(root, "classifier.jsonl")]
+    start = 0
+    for i, stop in enumerate(SOAK_STEPS):
+        run = run_cli(f"train_classifier_{i}", train_classifier_cli,
+                      train_argv + ["--num-steps", str(stop)])
+        expect_launches(run["name"], run["launches"], **train_launches(
+            stop - start, evaluations(start, stop, SOAK_EVERY), chunks))
+        if ("resumed from step" in run["stdout"]) != (i > 0):
+            raise AssertionError(f"{run['name']}: resume line: {run['stdout'][-2000:]}")
+        losses = [r["loss"] for r in run["result"]]
+        if not all(np.isfinite(losses)) or not all(0 <= r["val_1-shot_acc"] <= 1
+                                                   for r in run["result"]):
+            raise AssertionError(f"{run['name']}: records {run['result']}")
+        runs.append(run)
+        start = stop
+    proto = base + ["--checkpoint-dir", ckpt, "--protocol", "--allow-corpus-mismatch"]
+    bf16 = run_cli("evaluate_protocol", evaluate_cli, proto)
+    int8 = run_cli("evaluate_protocol_int8", evaluate_cli, proto + ["--int8"])
+    gate = run_cli("evaluate_int8_gate", evaluate_cli, proto + ["--int8-gate"],
+                   exit_codes=(0, 2))
+    check_records("protocol bf16", bf16["result"], False)
+    check_records("protocol int8", int8["result"], True)
+    expect_launches("protocol bf16", bf16["launches"], gather_whiten=2 * chunks)
+    int8_launches = dict(gather_whiten=4 * chunks, conv_block0=2 * chunks,
+                         quant_block=6 * chunks)
+    expect_launches("protocol int8", int8["launches"], **int8_launches)
+    expect_launches("int8 gate", gate["launches"], **{**int8_launches,
+                                                     "gather_whiten": 6 * chunks})
+    verdict = printed_records(gate)[-1]
+    if verdict["int8_accuracy_gate"] != ("pass" if gate["exit"] == 0 else "fail"):
+        raise AssertionError(f"int8 gate: exit {gate['exit']}, verdict {verdict}")
+    if len(verdict["checks"]) != 8:
+        raise AssertionError(f"int8 gate: {len(verdict['checks'])} checks, want 8")
+    sweep = run_cli("evaluate_sweep", evaluate_cli, base + [
+        "--checkpoint-dir", ckpt, "--k-sweep", *map(str, SWEEP_K), "--fast",
+        "--verification", str(SWEEP_PAIRS), "--sweep-out", os.path.join(root, "sweep")])
+    expect_launches("sweep", sweep["launches"], gather_whiten=2 * chunks,
+                    conv_block0=2 * chunks, conv_blockn=6 * chunks)
+    points = sweep["result"]["sweep"]
+    n_speakers = PROTOCOL_EVAL_SPEC["n_speakers"]
+    if [p["k_way"] for p in points if "skipped" in p] != [
+            k for _ in (1, 5) for k in range(SWEEP_K[0], SWEEP_K[1] + 1) if k > n_speakers]:
+        raise AssertionError(f"sweep: skipped points {points}")
+    if not all(0 <= p["accuracy"] <= 1 for p in points if "accuracy" in p):
+        raise AssertionError(f"sweep: points {points}")
+    siamese = run_cli("train_siamese", train_siamese_cli, base + [
+        "--subsets", "train-clean-100", "--val-subsets", "dev-clean",
+        "--distance-metric", "weighted_l1", "--batch-size", str(SIAMESE_BATCH),
+        "--num-steps", str(SIAMESE_CLI_STEPS), "--evaluate-every", str(SIAMESE_CLI_STEPS),
+        "--seed", str(seed), "--checkpoint-dir", sckpt,
+        "--log-path", os.path.join(root, "siamese.jsonl")])
+    expect_launches("siamese train", siamese["launches"], **train_launches(
+        SIAMESE_CLI_STEPS, 1, chunks, rows_a_step=2, head_scores=1))
+    siamese_proto = run_cli("evaluate_siamese_protocol", evaluate_cli, base + [
+        "--mode", "siamese", "--distance-metric", "weighted_l1", "--checkpoint-dir", sckpt,
+        "--protocol", "--allow-corpus-mismatch"])
+    check_records("siamese protocol", siamese_proto["result"], False)
+    expect_launches("siamese protocol", siamese_proto["launches"], gather_whiten=2 * chunks,
+                    weighted_l1=6)
+    emb = base + ["--checkpoint-dir", ckpt, "--subsets", "dev-clean"]
+    qvars = os.path.join(root, "qvars.npz")
+    embed_a = run_cli("embed_int8_save_qvars", embed_cli, emb + [
+        "--int8", "--save-qvars", qvars, "--out", os.path.join(root, "a.npz")])
+    embed_b = run_cli("embed_qvars", embed_cli, emb + [
+        "--qvars", qvars, "--out", os.path.join(root, "b.npz")])
+    expect_launches("embed int8", embed_a["launches"], gather_whiten=2 * chunks,
+                    conv_block0=chunks, quant_block=3 * chunks)
+    expect_launches("embed qvars", embed_b["launches"], gather_whiten=chunks,
+                    conv_block0=chunks, quant_block=3 * chunks)
+    table_a, table_b = embed_a["result"][0], embed_b["result"][0]
+    if not (np.isfinite(table_a).all() and np.array_equal(table_a, table_b)):
+        raise AssertionError("embed: the table served from the saved qvars differs")
+    vis = run_cli("visualize_embeddings", visualize_cli, base + [
+        "--checkpoint-dir", ckpt, "--out", os.path.join(root, "vis")])
+    expect_launches("visualize", vis["launches"], gather_whiten=chunks)
+    if not os.path.isfile(os.path.join(root, "vis.npz")):
+        raise AssertionError("visualize: no .npz")
+    commands = runs + [bf16, int8, gate, sweep, siamese, siamese_proto, embed_a, embed_b, vis]
+    emit({"phase": "protocol_slice", "card": card, "config": ["classifier_baseline",
+                                                              "siamese_verification"],
+          "corpus": {"train": PROTOCOL_TRAIN_SPEC, "eval": PROTOCOL_EVAL_SPEC,
+                     "write_seconds": write_seconds},
+          "soak_steps": list(SOAK_STEPS), "batch": TRAIN_BATCH,
+          "soak_records": runs[0]["result"] + runs[1]["result"],
+          "protocol_bf16": bf16["result"], "protocol_int8": int8["result"],
+          "int8_gate": verdict, "int8_gate_exit": gate["exit"],
+          "sweep": points, "sweep_verification": sweep["result"]["verification"],
+          "siamese_records": siamese["result"], "siamese_protocol": siamese_proto["result"],
+          "embed": {"shape": list(table_a.shape), "int8_tables_equal": True},
+          "replay_host_ms": replay_ms(root), "batch1_request_ms": batch1_request(root, ckpt),
+          "commands": [{k: c[k] for k in ("name", "argv", "exit", "seconds", "launches")}
+                       for c in commands]})
+    return {"cli_train": {k: runs[0]["launches"][k] + runs[1]["launches"][k] for k in KERNELS},
+            "cli_protocol_bf16": bf16["launches"], "cli_protocol_int8": int8["launches"],
+            "cli_int8_gate": gate["launches"], "cli_sweep": sweep["launches"],
+            "cli_siamese_train": siamese["launches"],
+            "cli_siamese_protocol": siamese_proto["launches"],
+            "cli_embed": {k: embed_a["launches"][k] + embed_b["launches"][k] for k in KERNELS},
+            "cli_visualize": vis["launches"]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3306,6 +3599,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="voicemap_corpus_") as root:
         corpus = run_corpus_slice(root, args.seed, card)
         streamed = run_streaming_embed(root, args.seed)
+    with tempfile.TemporaryDirectory(prefix="voicemap_protocol_") as root:
+        cli = run_protocol_slice(root, args.seed, card)
     for key in ("ms", "plain_ms", "bounds", "library_ms"):
         times[key].update(attributed[key])
         times[key].update(train_times[key])
@@ -3319,8 +3614,9 @@ def main(argv=None) -> int:
     # int8_slice, train_slice, attribution, dilated_slice, dilated_int8_slice,
     # dilated_train_slice, mel_bf16_slice, mel_int8_slice, siamese_bf16_slice,
     # siamese_int8_slice, verification, score_support, siamese_train_slice,
-    # mel_train_slice, corpus_slice's three fits and streaming_embed's three
-    # tables), set to 0 just before each run and read just after;
+    # mel_train_slice, corpus_slice's three fits, streaming_embed's three
+    # tables and protocol_slice's CLI commands), set to 0 just before each
+    # run and read just after;
     # for the kernels no path runs (B2's, B4's and B5's f32 GEMM, B6's DFT
     # route), the count of the check phase that ran them. On the mel paths the DFT route
     # launched nothing, so B6's count there is the FFT kernel's.
@@ -3335,20 +3631,22 @@ def main(argv=None) -> int:
              "siamese_int8": siamese["siamese_int8"], "verification": siamese["verification"],
              "score_support": siamese["score_support"],
              "siamese_train": siamese_trained["launches"],
-             "mel_train": mel_train_launches, **corpus, **streamed}
+             "mel_train": mel_train_launches, **corpus, **streamed, **cli}
     train_paths = ("train", "dilated_train", "siamese_train", "corpus_device",
-                   "corpus_streaming", "corpus_siamese")
+                   "corpus_streaming", "corpus_siamese", "cli_train", "cli_siamese_train")
+    cli_int8 = ("cli_protocol_int8", "cli_int8_gate", "cli_embed")
     entries = (("gather_whiten", "gather_whiten",
                 ("bf16", "int8", "train", "dilated_bf16", "dilated_int8", "dilated_train",
                  "mel_bf16", "mel_int8", "siamese_bf16", "siamese_int8", "siamese_train",
-                 "mel_train", "corpus_device")),
+                 "mel_train", "corpus_device", "cli_train", "cli_protocol_bf16", *cli_int8,
+                 "cli_sweep", "cli_siamese_train", "cli_siamese_protocol", "cli_visualize")),
                ("conv_block0", "conv_block0", ("bf16", "dilated_bf16", "siamese_bf16",
-                                               "streaming_bf16")),
+                                               "streaming_bf16", "cli_sweep")),
                ("conv_block0_int8", "conv_block0", ("int8", "dilated_int8", "siamese_int8",
-                                                    "streaming_int8")),
+                                                    "streaming_int8", *cli_int8)),
                ("conv_block0_f32", "conv_block0_f32", ("kernels",)),
                ("quant_block", "quant_block", ("int8", "dilated_int8", "siamese_int8",
-                                               "streaming_int8")),
+                                               "streaming_int8", *cli_int8)),
                ("conv_block0_train", "conv_block0_train", train_paths),
                ("conv_block0_train_bwd", "conv_block0_train_bwd", train_paths),
                ("conv_block0_train_f32", "conv_block0_train_f32", ("train_kernels",)),
@@ -3359,9 +3657,10 @@ def main(argv=None) -> int:
                                        "streaming_mel")),
                ("log_mel_dft", "log_mel_dft", ("mel_kernels",)),
                ("weighted_l1", "weighted_l1",
-                ("siamese_bf16", "siamese_int8", "verification", "score_support")),
+                ("siamese_bf16", "siamese_int8", "verification", "score_support",
+                 "cli_siamese_train", "cli_siamese_protocol")),
                ("conv_blockn", "conv_blockn", ("bf16", "dilated_bf16", "siamese_bf16",
-                                               "streaming_bf16")),
+                                               "streaming_bf16", "cli_sweep")),
                ("quant_block_stage", "quant_block_stage", ("attribution",)))
     print(card, flush=True)
     emit({"kernels": [

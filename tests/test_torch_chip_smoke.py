@@ -12,10 +12,13 @@ policies resolve as they do on the card (B4/B5 and the fused blocks-1+ op).
 What this shows
 is the control flow, the shapes and the records of every phase, the
 ``kernels`` line's keys and the last line; what the kernels compute on the
-card only the script itself, run there, shows.
+card only the script itself, run there, shows. The script runs once for the
+module (``rehearsal``), and each test reads its records.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 from pathlib import Path
 
@@ -37,8 +40,9 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
                "plain_ms", "bound_ms", "bound_by", "library_ms"}
 
 
-@pytest.fixture
 def on_the_cpu(monkeypatch):
+    """chip_smoke's constants, configs, kernels, timers and CUDA calls set
+    for a run on the CPU (see the module's docstring)."""
     small = ExperimentConfig(data=DataConfig(seconds=0.128, downsampling=4),
                              encoder=EncoderConfig(filters=32, embedding_dim=16))
     small_dilated = ExperimentConfig(
@@ -93,6 +97,15 @@ def on_the_cpu(monkeypatch):
                                              min_seconds=0.2, max_seconds=0.3,
                                              container="flac", seed=1234)),
                         ("CORPUS_SIAMESE_STEPS", 3),
+                        ("PROTOCOL_TRAIN_SPEC", dict(n_speakers=6, utterances_per_speaker=4,
+                                                     min_seconds=3.1, max_seconds=3.3,
+                                                     container="wav", seed=1234)),
+                        ("PROTOCOL_EVAL_SPEC", dict(n_speakers=12, utterances_per_speaker=7,
+                                                    min_seconds=3.1, max_seconds=3.3,
+                                                    container="wav", seed=4321)),
+                        ("SOAK_STEPS", (4, 6)), ("SOAK_EVERY", 2), ("SIAMESE_CLI_STEPS", 3),
+                        ("CLI_WIDTH", ("--filters", "32", "--embedding-dim", "16")),
+                        ("SWEEP_PAIRS", 40),
                         ("card_line", lambda: "CPU rehearsal, 0 W")):
         monkeypatch.setattr(cs, name, value)
     # The policies as they resolve on the card: B4/B5, and the fused
@@ -185,6 +198,10 @@ def on_the_cpu(monkeypatch):
     monkeypatch.setattr(cs, "time_fn", fake_time)
     monkeypatch.setattr(cs.stage_profile, "profile", fake_profile)
     monkeypatch.setattr(cs, "throughput", fake_tput)
+    monkeypatch.setattr(cs, "single_request_latency", lambda fn, *a, samples=20, warmup=3, **k: (
+        fn(*a, **k), {"p50_s": 1e-3, "p95_s": 1e-3, "min_s": 1e-3, "mean_s": 1e-3,
+                      "device_p50_s": 1e-3, "device_p95_s": 1e-3, "device_min_s": 1e-3,
+                      "device_mean_s": 1e-3})[1])
     monkeypatch.setattr(cs._build, "build", lambda: (Path("none.so"), 0.0, ""))
     monkeypatch.setattr(cs._build, "library", lambda: None)
     for name, value in (("is_available", lambda: True), ("synchronize", lambda *a: None),
@@ -195,11 +212,24 @@ def on_the_cpu(monkeypatch):
         monkeypatch.setattr(torch.cuda, name, value)
 
 
-def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
-    assert cs.main([]) == 0
-    lines = capsys.readouterr().out.strip().splitlines()
+@pytest.fixture(scope="module")
+def rehearsal():
+    """One ``chip_smoke.main([])`` on the CPU → ``(exit code, stdout lines,
+    JSON records)``; every test below reads it, under the same patches (the
+    cut constants), which are undone after the module's last test."""
+    buf = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        on_the_cpu(mp)
+        with contextlib.redirect_stdout(buf):
+            code = cs.main([])
+        lines = buf.getvalue().strip().splitlines()
+        yield code, lines, [json.loads(line) for line in lines if line.startswith("{")]
+
+
+def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
+    code, lines, records = rehearsal
+    assert code == 0
     assert lines[0] == lines[-3] == "CPU rehearsal, 0 W"
-    records = [json.loads(line) for line in lines if line.startswith("{")]
     phases = [r["phase"] for r in records if "phase" in r]
     assert phases == ["device", "build", "kernels", "train_kernels", "slice", "int8_slice",
                       "int8_fidelity_gate", "train_slice", "timing", "attribution",
@@ -210,7 +240,7 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
                       "mel_timing", "siamese_kernels", "siamese_bf16_slice",
                       "siamese_int8_slice", "verification", "score_support",
                       "siamese_train_slice", "siamese_timing", "mel_train_slice",
-                      "mel_train_timing", "corpus_slice", "streaming_embed"]
+                      "mel_train_timing", "corpus_slice", "streaming_embed", "protocol_slice"]
     by_phase = {r["phase"]: r for r in records if "phase" in r}
     nothing = {name: 0 for name in cs.KERNELS}
     # bf16: B1 and B2 once an embed chunk, B8 three times (blocks 1-3)
@@ -435,18 +465,22 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
                                                        "siamese_train": 3 * steps_run,
                                                        "corpus_device": 3 * steps_run,
                                                        "corpus_streaming": 3 * steps_run,
-                                                       "corpus_siamese": 9}
+                                                       "corpus_siamese": 9,
+                                                       "cli_train": 3 * 6, "cli_siamese_train": 9}
     assert by_name["gather_whiten"]["launches_by_path"]["train"] == steps_run
     assert by_name["gather_whiten"]["launches_by_path"]["siamese_train"] == 2 * steps_run
     assert by_name["weighted_l1"]["launches_by_path"] == {
-        "siamese_bf16": 1, "siamese_int8": 1, "verification": 1, "score_support": 1}
-    assert by_name["weighted_l1"]["launches"] == 4
+        "siamese_bf16": 1, "siamese_int8": 1, "verification": 1, "score_support": 1,
+        "cli_siamese_train": 1, "cli_siamese_protocol": 6}
+    assert by_name["weighted_l1"]["launches"] == 11
     assert by_name["weighted_l1"]["max_abs_err"] == 0.0
     assert by_name["weighted_l1"]["library_ms"] is not None
-    assert by_name["quant_block"]["launches_by_path"] == {"int8": 6, "dilated_int8": 14,
-                                                          "siamese_int8": 6, "streaming_int8": 3}
+    assert by_name["quant_block"]["launches_by_path"] == {
+        "int8": 6, "dilated_int8": 14, "siamese_int8": 6, "streaming_int8": 3,
+        "cli_protocol_int8": 6, "cli_int8_gate": 6, "cli_embed": 6}
     assert by_name["conv_blockn"]["launches_by_path"] == {"bf16": 6, "dilated_bf16": 14,
-                                                          "siamese_bf16": 6, "streaming_bf16": 3}
+                                                          "siamese_bf16": 6, "streaming_bf16": 3,
+                                                          "cli_sweep": 6}
     assert by_name["conv_blockn"]["library_ms"] is not None
     assert by_name["conv_blockn"]["source"] == "voicemap_tpu_torch/csrc/conv_blockn.cu"
     assert list(by_name["quant_block_stage"]["launches_by_path"]) == ["attribution"]
@@ -461,7 +495,9 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
                                                                 "siamese_train": steps_run,
                                                                 "corpus_device": steps_run,
                                                                 "corpus_streaming": steps_run,
-                                                                "corpus_siamese": 3}
+                                                                "corpus_siamese": 3,
+                                                                "cli_train": 6,
+                                                                "cli_siamese_train": 3}
     assert by_name["log_mel"]["launches_by_path"] == {"mel_bf16": 2, "mel_int8": 2,
                                                       "mel_train": steps_run,
                                                       "streaming_mel": 1}
@@ -475,14 +511,13 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(on_the_cpu, capsys):
     assert records[-1] == {"ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 1}}
 
 
-def test_the_config_3_phases_run_on_the_cpu(on_the_cpu, capsys):
+def test_the_config_3_phases_run_on_the_cpu(rehearsal):
     """Config #3 (``dilated_4khz``): B3 and B8 at its block shapes and
     DILATED_EDGES in the kernels phase, B7 at pool 1; the bf16 slice (B1, B2,
     B8 × 7), the int8 slice (B1, B2, B3 × 7), the fidelity line, the train
     slice (B7 7 + 7 a step) with its held f32 step, and the timing."""
-    assert cs.main([]) == 0
-    records = [json.loads(line) for line in capsys.readouterr().out.splitlines()
-               if line.startswith("{")]
+    code, _, records = rehearsal
+    assert code == 0
     by_phase = {r["phase"]: r for r in records if "phase" in r}
     nothing = {name: 0 for name in cs.KERNELS}
     assert by_phase["dilated_slice"]["config"] == "dilated_4khz"
@@ -550,15 +585,14 @@ def test_the_config_3_phases_run_on_the_cpu(on_the_cpu, capsys):
                for r in timing["cudnn_convs"])
 
 
-def test_the_config_4_training_and_corpus_phases_run_on_the_cpu(on_the_cpu, capsys):
+def test_the_config_4_training_and_corpus_phases_run_on_the_cpu(rehearsal):
     """Config #4's train slice (B1 1 and B6 1 a step, the evaluation B1 and
     B6, the step held in f32 and reported in bf16) and its timing; the
     corpus written to disk and ``fit(cfg)`` from it with no store through
     both pipelines (B1 on the device pipeline only) and config #2's
     streaming run; the streamed tables (no B1) against the device store's."""
-    assert cs.main([]) == 0
-    records = [json.loads(line) for line in capsys.readouterr().out.splitlines()
-               if line.startswith("{")]
+    code, _, records = rehearsal
+    assert code == 0
     by_phase = {r["phase"]: r for r in records if "phase" in r}
     nothing = {name: 0 for name in cs.KERNELS}
     steps_run = 12
@@ -600,3 +634,77 @@ def test_the_config_4_training_and_corpus_phases_run_on_the_cpu(on_the_cpu, caps
     assert streamed["streaming_mel"]["launches"] == {**nothing, "log_mel": 1}
     for path in ("streaming_bf16", "streaming_int8", "streaming_mel"):
         assert streamed[path]["min_cosine_vs_device_store"] >= cs.TABLE_MIN_COSINE
+
+
+def test_the_protocol_slice_runs_on_the_cpu(rehearsal):
+    """protocol_slice: the five CLIs in-process on a WAV corpus (train-clean-100
+    6 × 4, dev-clean and test-clean 12 × 7 here), each command's argv and
+    launches: the soak checkpoint trained, then resumed (per step B1 1, B4 1,
+    B5 1, B7 3 + 3, per evaluation B1 a chunk); the protocol in bf16 (B1 a
+    chunk) and int8 (B1 for calibration and table, B2, B3 × 3), the gate
+    (both), the sweep with --fast (B1, B2, B8 × 3, twice: the verification
+    embeds its own table), config #2 (B9 at each evaluation, six in its
+    protocol), the two embeds and the PCA; the records in form; the paths in
+    the kernels line."""
+    _, _, records = rehearsal
+    by_phase = {r["phase"]: r for r in records if "phase" in r}
+    nothing = {name: 0 for name in cs.KERNELS}
+    rec = by_phase["protocol_slice"]
+    assert rec["card"] == "CPU rehearsal, 0 W" and rec["soak_steps"] == [4, 6]
+    commands = {c["name"]: c for c in rec["commands"]}
+    assert list(commands) == ["train_classifier_0", "train_classifier_1", "evaluate_protocol",
+                              "evaluate_protocol_int8", "evaluate_int8_gate", "evaluate_sweep",
+                              "train_siamese", "evaluate_siamese_protocol",
+                              "embed_int8_save_qvars", "embed_qvars", "visualize_embeddings"]
+    for c in commands.values():
+        assert c["argv"][:2] == ["--device", "cpu"] and c["seconds"] > 0
+        assert c["argv"][4:8] == ["--filters", "32", "--embedding-dim", "16"]
+    train = commands["train_classifier_0"]["argv"]
+    assert train[train.index("--batch-size") + 1] == "8"
+    assert train[train.index("--val-subsets") + 1] == "dev-clean"
+    assert commands["train_classifier_1"]["argv"][-2:] == ["--num-steps", "6"]
+    assert commands["evaluate_int8_gate"]["argv"][-3:] == [
+        "--protocol", "--allow-corpus-mismatch", "--int8-gate"]
+    per_step = {"conv_block0_train": 1, "conv_block0_train_bwd": 1, "pool_fwd": 3,
+                "route_bwd": 3}
+    assert commands["train_classifier_0"]["launches"] == {
+        **nothing, **{k: 4 * v for k, v in per_step.items()}, "gather_whiten": 4 + 2}
+    assert commands["train_classifier_1"]["launches"] == {
+        **nothing, **{k: 2 * v for k, v in per_step.items()}, "gather_whiten": 2 + 1}
+    assert commands["evaluate_protocol"]["launches"] == {**nothing, "gather_whiten": 2}
+    int8 = {**nothing, "gather_whiten": 4, "conv_block0": 2, "quant_block": 6}
+    assert commands["evaluate_protocol_int8"]["launches"] == int8
+    assert commands["evaluate_int8_gate"]["launches"] == {**int8, "gather_whiten": 6}
+    assert commands["evaluate_sweep"]["launches"] == {
+        **nothing, "gather_whiten": 2, "conv_block0": 2, "conv_blockn": 6}
+    assert commands["train_siamese"]["launches"] == {
+        **nothing, **{k: 3 * v for k, v in per_step.items()}, "gather_whiten": 2 * 3 + 1,
+        "weighted_l1": 1}
+    assert commands["evaluate_siamese_protocol"]["launches"] == {
+        **nothing, "gather_whiten": 2, "weighted_l1": 6}
+    assert commands["embed_int8_save_qvars"]["launches"] == {
+        **nothing, "gather_whiten": 2, "conv_block0": 1, "quant_block": 3}
+    assert commands["visualize_embeddings"]["launches"] == {**nothing, "gather_whiten": 1}
+    assert [r["step"] for r in rec["soak_records"]] == [2, 4, 6]
+    for key, int8_flag in (("protocol_bf16", False), ("protocol_int8", True),
+                           ("siamese_protocol", False)):
+        assert len(rec[key]) == 6 and all(r["int8"] is int8_flag for r in rec[key])
+        assert all(r["key_stream"] == "threefry2x32-partitionable (numpy replay)"
+                   for r in rec[key])
+    gate = rec["int8_gate"]
+    assert gate["int8_accuracy_gate"] in ("pass", "fail") and len(gate["checks"]) == 8
+    assert rec["int8_gate_exit"] == (0 if gate["int8_accuracy_gate"] == "pass" else 2)
+    assert all({"base", "int8", "diff", "tolerance", "agree"} <= set(c) for c in gate["checks"])
+    assert [p["k_way"] for p in rec["sweep"] if "skipped" in p] == [13, 14] * 2
+    assert 0 <= rec["sweep_verification"]["auc"] <= 1
+    assert rec["embed"] == {"shape": [84, 16], "int8_tables_equal": True}
+    assert set(rec["replay_host_ms"]) == {"tasks_500_1shot_5way", "tasks_500_5shot_5way",
+                                          "tasks_500_1shot_10way", "pairs_2000"}
+    assert rec["batch1_request_ms"]["step"] is not None
+    by_name = {k["name"]: k for k in records[-2]["kernels"]}
+    assert by_name["gather_whiten"]["launches_by_path"]["cli_train"] == 9
+    assert by_name["conv_block0"]["launches_by_path"]["cli_sweep"] == 2
+    assert {p: by_name["conv_block0_int8"]["launches_by_path"][p]
+            for p in ("cli_protocol_int8", "cli_int8_gate", "cli_embed")} == {
+        "cli_protocol_int8": 2, "cli_int8_gate": 2, "cli_embed": 2}
+    assert by_name["route_bwd"]["launches_by_path"]["cli_siamese_train"] == 9

@@ -1,4 +1,4 @@
-"""The port stands without JAX, flax, pandas and the JAX package
+"""The port stands without JAX, flax, pandas, matplotlib and the JAX package
 (``voicemap_tpu``), and chip_smoke.py refuses to run where there is no GPU."""
 
 import os
@@ -24,10 +24,13 @@ def _modules():
 
 
 def test_every_module_imports_with_jax_flax_pandas_blocked():
+    """Every module of the port (the experiment CLIs among them) and
+    chip_smoke.py import with JAX, flax, pandas, the JAX package and
+    matplotlib (which the card's machine lacks) blocked."""
     modules = list(_modules()) + ["chip_smoke"]
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'pandas', 'voicemap_tpu'):\n"
+        "for name in ('jax', 'flax', 'pandas', 'voicemap_tpu', 'matplotlib'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {modules!r}:\n"
@@ -107,6 +110,25 @@ def test_the_data_layer_and_streaming_modules_are_covered():
         assert not banned.search(path.read_text()), name
     assert flac_ext.SOURCE.is_relative_to(PACKAGE) and flac_ext.SOURCE.exists()
     assert flac_ext.BUILD_DIR == REPO / "build" / "flac"
+
+
+def test_the_protocol_and_cli_modules_are_covered():
+    """The import tests reach the protocol, the key-stream replay, the sweep's
+    module and the five experiment CLIs, and none of them imports matplotlib
+    at module level."""
+    modules = set(_modules())
+    new = ("ops.jax_random", "eval.protocol", "eval.nshot", "train.checkpoints",
+           "utils.profiling", "experiments", "experiments._train",
+           "experiments.train_classifier", "experiments.train_siamese", "experiments.evaluate",
+           "experiments.embed", "experiments.visualize_embeddings")
+    top_level = re.compile(r"^(import|from)\s+matplotlib\b", re.M)
+    for name in new:
+        assert f"voicemap_tpu_torch.{name}" in modules, name
+        parts = name.split(".")
+        path = PACKAGE.joinpath(*parts).with_suffix(".py")
+        if not path.exists():
+            path = PACKAGE.joinpath(*parts, "__init__.py")
+        assert not top_level.search(path.read_text()), name
 
 
 def test_no_jax_flax_pandas_import_in_the_port():

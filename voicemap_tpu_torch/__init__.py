@@ -8,7 +8,8 @@ where its counterpart does:
   configs and presets
 - :mod:`voicemap_tpu_torch.data` — the pandas-free corpus container
 - :mod:`voicemap_tpu_torch.ops` — preprocess, sampling, distances, the
-  log-mel reference (``melspec``), the hand-written CUDA kernels
+  log-mel reference (``melspec``), the replay of JAX's key stream
+  (``jax_random``), the hand-written CUDA kernels
   (``cuda_preprocess``, ``cuda_conv``, ``cuda_quant_block``,
   ``cuda_conv_train``, ``cuda_routing``, ``cuda_melspec``,
   ``cuda_distance``) and the fused train blocks' autograd Functions
@@ -20,10 +21,14 @@ where its counterpart does:
   flax-tree and qvars converters
 - :mod:`voicemap_tpu_torch.train` — the device store, batch fetch, the
   classifier and siamese train steps, losses, optimizer, metrics, checkpoints and ``fit``
-- :mod:`voicemap_tpu_torch.eval` — batched n-shot k-way evaluation and
-  threshold-free verification (EER, AUC)
-- :mod:`voicemap_tpu_torch.utils` — CUDA-event timing, the serving and
-  train-step profilers and the int8 mid block's stage attribution
+- :mod:`voicemap_tpu_torch.eval` — batched n-shot k-way evaluation and its
+  k sweep, threshold-free verification (EER, AUC) and the frozen protocol
+  (``EVAL_PROTOCOL.json``) with the int8 decision gate
+- :mod:`voicemap_tpu_torch.experiments` — the five experiment CLIs
+  (``python -m voicemap_tpu_torch.experiments.<name>``)
+- :mod:`voicemap_tpu_torch.utils` — CUDA-event timing and request latency,
+  traces, the serving and train-step profilers and the int8 mid block's
+  stage attribution
 
 Public functions keep the JAX layout: ``(B, T, C)`` activations, ``(B, T, 1)``
 model input, ``(B, D)`` float32 embeddings. Models are built on the card

@@ -2,11 +2,15 @@
 
 Port of ``voicemap_tpu/eval/nshot.py`` (``embed_all``,
 ``classifier_nshot_accuracy``, ``siamese_nshot_accuracy``, ``evaluate``,
-``score_table``):
+``score_table``, ``evaluate_sweep``):
 
 1. embed the whole evaluation store once, from deterministic offset-0
    fragments, in chunks → an ``(N, D)`` table;
-2. sample every task's indices on the device (true class at index 0);
+2. sample every task's indices (true class at index 0): on the device from
+   a ``torch.Generator`` (``fit``'s evaluation), or, from a key of
+   ``ops/jax_random``, on the host through its replay of the JAX stream, the
+   JAX package's very tasks (the protocol's and the CLIs'), then moved to
+   the table's device;
 3. score all tasks at once:
    - classifier and melspec2d modes: euclidean distance in matmul form,
      averaged per class for n > 1, argmin over classes;
@@ -38,8 +42,9 @@ or the mel int8 path; config #4: B6 in the model's forward).
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..config import ExperimentConfig
@@ -49,7 +54,8 @@ from ..models.quant_infer import check_qvars_mode, quant_embed
 from ..models.siamese import SiameseNet
 from ..models.spectrogram import MelSpecClassifier
 from ..ops import distance as dist_ops
-from ..ops import sampling
+from ..ops import jax_random, sampling
+from ..ops.sampling import Rng
 from ..train.steps import DeviceStore, fetch_batch
 
 
@@ -121,8 +127,7 @@ def classifier_nshot_predictions(table: torch.Tensor, query_idx: torch.Tensor,
 
 
 def classifier_nshot_accuracy(table: torch.Tensor, speaker_utts: torch.Tensor,
-                              speaker_counts: torch.Tensor,
-                              generator: Optional[torch.Generator],
+                              speaker_counts: torch.Tensor, generator: Rng,
                               num_tasks: int, n: int, k: int) -> torch.Tensor:
     """Nearest-embedding n-shot accuracy (a 0-d tensor) over fresh tasks."""
     tasks = sampling.sample_nshot_tasks(generator, speaker_utts, speaker_counts,
@@ -147,7 +152,7 @@ def siamese_nshot_predictions(table: torch.Tensor, query_idx: torch.Tensor,
 
 def siamese_nshot_accuracy(table: torch.Tensor, w: torch.Tensor, b,
                            speaker_utts: torch.Tensor, speaker_counts: torch.Tensor,
-                           generator: Optional[torch.Generator], num_tasks: int, n: int,
+                           generator: Rng, num_tasks: int, n: int,
                            k: int, metric: str = "uniform_euclidean",
                            same_label: int = 0) -> torch.Tensor:
     """Verification-head n-shot accuracy (a 0-d tensor) over fresh tasks;
@@ -175,11 +180,12 @@ def head_params(model) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def score_table(table: torch.Tensor, store: DeviceStore, cfg: ExperimentConfig,
-                generator: Optional[torch.Generator], num_tasks: int, n: int,
-                k: int, model: Optional[Model] = None) -> float:
+                generator: Rng, num_tasks: int, n: int, k: int,
+                model: Optional[Model] = None) -> float:
     """Score one (n, k) setting against a precomputed embedding table: by
     the siamese head (``model``'s) where :func:`uses_head`, else the nearest
-    class by embedding distance."""
+    class by embedding distance. ``generator``: a torch generator, or a
+    ``jax_random`` key for the JAX package's tasks."""
     if cfg.mode not in ("classifier", "siamese", "melspec2d"):
         raise ValueError(f"score_table: unknown mode {cfg.mode!r}")
     with torch.inference_mode():
@@ -195,13 +201,15 @@ def score_table(table: torch.Tensor, store: DeviceStore, cfg: ExperimentConfig,
 
 
 def evaluate(model: Model, store: DeviceStore, cfg: ExperimentConfig,
-             generator: Optional[torch.Generator], num_tasks: Optional[int] = None,
+             generator: Rng, num_tasks: Optional[int] = None,
              n: Optional[int] = None, k: Optional[int] = None,
              embed_batch: int = 256, fast: bool = False, qvars=None,
              table: Optional[torch.Tensor] = None) -> float:
     """Full n-shot evaluation: embed the table once (unless given), score all
-    tasks. ``qvars`` embeds through the int8 serving path; ``table`` is a
-    precomputed ``embed_all`` table for this store, cfg, fast and qvars."""
+    tasks. ``generator``: a torch generator, or a ``jax_random`` key (the
+    JAX package's tasks for the same key). ``qvars`` embeds through the int8
+    serving path; ``table`` is a precomputed ``embed_all`` table for this
+    store, cfg, fast and qvars."""
     t = cfg.train
     num_tasks = num_tasks or t.num_eval_tasks
     n = n or t.n_shot
@@ -219,3 +227,40 @@ def evaluate(model: Model, store: DeviceStore, cfg: ExperimentConfig,
         table = embed_all(model, store, cfg, batch_size=embed_batch, fast=fast,
                           qvars=qvars)
     return score_table(table, store, cfg, generator, num_tasks, n, k, model=model)
+
+
+def evaluate_sweep(model: Model, store: DeviceStore, cfg: ExperimentConfig, key: np.ndarray,
+                   n_shots: Sequence[int], k_values: Sequence[int], num_tasks: int = 500,
+                   embed_batch: int = 256, fast: bool = False, qvars=None) -> list:
+    """Accuracy over a grid of (n_shot, k_way) settings from ONE embedding
+    table, in (n, k) grid order: ``{n_shot, k_way, num_tasks, chance,
+    accuracy, stderr}`` a point. The tasks of point (n, k) come from
+    ``jax_random.fold_in(key, n·1009 + k)`` (``key`` a ``jax_random`` key),
+    so each point draws the JAX package's tasks for it. A setting the store
+    cannot hold (k above its speakers, n + 1 above its fewest utterances a
+    speaker) is not scored but carries a ``skipped`` reason, worded as the
+    JAX package words it."""
+    if not jax_random.is_key(key):
+        raise TypeError("evaluate_sweep folds (n, k) into a jax_random key")
+    counts = store.speaker_counts
+    num_speakers = int(counts.shape[0])
+    min_utts = int(counts.min())
+    table = embed_all(model, store, cfg, batch_size=embed_batch, fast=fast, qvars=qvars)
+    results = []
+    for n in n_shots:
+        for k in k_values:
+            point = {"n_shot": int(n), "k_way": int(k),
+                     "num_tasks": int(num_tasks), "chance": 1.0 / int(k)}
+            if k > num_speakers:
+                point["skipped"] = f"k_way={k} exceeds the {num_speakers} eval-store speakers"
+            elif min_utts < n + 1:
+                point["skipped"] = (f"n_shot={n} needs ≥{n + 1} utterances per speaker; "
+                                    f"store minimum is {min_utts}")
+            else:
+                acc = score_table(table, store, cfg,
+                                  jax_random.fold_in(key, int(n) * 1009 + int(k)),
+                                  num_tasks, int(n), int(k), model=model)
+                point["accuracy"] = acc
+                point["stderr"] = float(np.sqrt(max(acc * (1.0 - acc), 1e-12) / num_tasks))
+            results.append(point)
+    return results

@@ -1,9 +1,10 @@
 """Threshold-free verification metrics (EER, AUC) of the siamese mode.
 
 Port of ``voicemap_tpu/eval/verification.py``. Balanced same/different pairs
-are drawn on the device (``ops/sampling.sample_verification_batch``, the
-training pair layout) from an embedding table, scored so that a LOWER score
-means "same", and reduced to:
+are drawn (``ops/sampling.sample_verification_batch``, the training pair
+layout: on the device from a torch generator, or from a ``jax_random`` key
+on the host, the JAX package's very pairs) over an embedding table, scored
+so that a LOWER score means "same", and reduced to:
 
 - the EER, where the false-accept rate over different-speaker pairs meets
   the false-reject rate over same-speaker pairs, with its threshold;
@@ -29,6 +30,7 @@ import torch
 from ..config import ExperimentConfig
 from ..ops import distance as dist_ops
 from ..ops import sampling
+from ..ops.sampling import Rng
 from ..train.steps import DeviceStore
 from . import nshot
 
@@ -103,12 +105,14 @@ def pair_scores(table: torch.Tensor, idx_1: torch.Tensor, idx_2: torch.Tensor,
 
 
 def verification_scores(model, store: DeviceStore, cfg: ExperimentConfig,
-                        generator: Optional[torch.Generator], num_pairs: int = 1000,
+                        generator: Rng, num_pairs: int = 1000,
                         embed_batch: int = 256, fast: bool = False, qvars=None,
                         same_label: Optional[int] = None,
                         table: Optional[torch.Tensor] = None
                         ) -> Tuple[np.ndarray, np.ndarray]:
-    """``(scores, labels)`` of ``num_pairs`` balanced pairs, lower ⇒ same.
+    """``(scores, labels)`` of ``num_pairs`` balanced pairs, lower ⇒ same;
+    ``generator`` a torch generator or a ``jax_random`` key (the JAX
+    package's pairs for the same key).
 
     Embeds the store once (unless ``table``, an ``nshot.embed_all`` table of
     this store, cfg, fast and qvars, is given). ``same_label`` sets only the
@@ -127,7 +131,7 @@ def verification_scores(model, store: DeviceStore, cfg: ExperimentConfig,
 
 
 def evaluate_verification(model, store: DeviceStore, cfg: ExperimentConfig,
-                          generator: Optional[torch.Generator], num_pairs: int = 1000,
+                          generator: Rng, num_pairs: int = 1000,
                           embed_batch: int = 256, fast: bool = False, qvars=None,
                           table: Optional[torch.Tensor] = None) -> Dict[str, float]:
     """One-call EER/AUC report over balanced same/different pairs."""

@@ -8,14 +8,26 @@ an alike pair is one speaker and two distinct utterances, a differing pair
 two distinct speakers; a task has k distinct speakers, n distinct support
 utterances each and one more distinct query utterance of class 0, the true
 class. A torch generator cannot replay the JAX package's threefry stream, so
-the same seed draws other batches, pairs and tasks there.
+the same seed draws other batches, pairs and tasks there; ``fit`` draws so.
+
+``sample_verification_batch`` and ``sample_nshot_tasks`` also take, in the
+generator's place, a key of ``ops/jax_random`` (``jax_random.PRNGKey(seed)``):
+they then draw on the host through its replay of the JAX stream, index for
+index the JAX samplers' pairs and tasks (what the frozen eval protocol pins),
+and move the indices to the store's device.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
+
+from . import jax_random
+
+# A torch generator (or None: torch's default one), or a replayed JAX key.
+Rng = Union[Optional[torch.Generator], np.ndarray]
 
 
 def _draw_device(generator: Optional[torch.Generator], device):
@@ -65,14 +77,23 @@ class VerificationBatch(NamedTuple):
     labels: torch.Tensor  # (B,) float32: same_label for alike pairs
 
 
-def sample_verification_batch(generator: Optional[torch.Generator],
-                              speaker_utts: torch.Tensor, counts: torch.Tensor,
-                              batch_size: int, same_label: int = 0) -> VerificationBatch:
+def _on_host(a: torch.Tensor) -> np.ndarray:
+    return a.detach().cpu().numpy()
+
+
+def sample_verification_batch(generator: Rng, speaker_utts: torch.Tensor,
+                              counts: torch.Tensor, batch_size: int,
+                              same_label: int = 0) -> VerificationBatch:
     """``batch_size // 2`` alike pairs, then the rest differing, labelled
     ``same_label`` and ``1 − same_label`` in f32. Every speaker needs ≥ 2
-    utterances and there must be ≥ 2 speakers."""
+    utterances and there must be ≥ 2 speakers. ``generator`` may be a
+    ``jax_random`` key (the JAX sampler's pairs)."""
     S = speaker_utts.shape[0]
     dev = speaker_utts.device
+    if jax_random.is_key(generator):
+        pairs = jax_random.verification_pairs(generator, _on_host(speaker_utts),
+                                              _on_host(counts), batch_size, same_label)
+        return VerificationBatch(*(torch.from_numpy(a).to(dev) for a in pairs))
     half = batch_size // 2
     gdev = _draw_device(generator, dev)
     alike = torch.randint(0, S, (half,), generator=generator, device=gdev).to(dev)
@@ -99,13 +120,13 @@ class NShotTasks(NamedTuple):
     support_idx: torch.Tensor  # (tasks, k, n) utterance ids; true class is 0
 
 
-def sample_nshot_tasks(generator: Optional[torch.Generator],
-                       speaker_utts: torch.Tensor, counts: torch.Tensor,
+def sample_nshot_tasks(generator: Rng, speaker_utts: torch.Tensor, counts: torch.Tensor,
                        num_tasks: int, n: int, k: int) -> NShotTasks:
     """A batch of n-shot k-way tasks; every speaker needs ≥ n+1 utterances.
 
     Speakers and slots are the top of a random ordering (an argsort of
-    uniform scores), so they are distinct without rejection.
+    uniform scores), so they are distinct without rejection. ``generator``
+    may be a ``jax_random`` key (the JAX sampler's tasks).
     """
     S, max_utt = speaker_utts.shape
     if k > S:
@@ -113,6 +134,10 @@ def sample_nshot_tasks(generator: Optional[torch.Generator],
     if n + 1 > max_utt:
         raise ValueError(f"n+1={n + 1} exceeds max utterances/speaker ({max_utt})")
     dev = speaker_utts.device
+    if jax_random.is_key(generator):
+        tasks = jax_random.nshot_tasks(generator, _on_host(speaker_utts), _on_host(counts),
+                                       num_tasks, n, k)
+        return NShotTasks(*(torch.from_numpy(a).to(dev) for a in tasks))
     gdev = _draw_device(generator, dev)
 
     def uniform(*shape):

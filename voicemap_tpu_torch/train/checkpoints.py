@@ -11,7 +11,10 @@ one with the highest n-shot accuracy, whose value persists in
 one. Batch sampling is a function of (seed, step), so restoring the step
 resumes the data stream. The state may be a classifier's or a siamese net's
 (whose Dense(1) head, width 1, :meth:`CheckpointManager.head_num_classes`
-does not read as a class count).
+does not read as a class count). The evaluation and serving CLIs restore
+the best state (``restore_best``) into a model sized by
+``template_num_classes``: the head width the checkpoint holds, not the
+class count of the corpus they read.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from __future__ import annotations
 import json
 import os
 from pathlib import Path
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -77,10 +80,9 @@ class CheckpointManager:
         return torch.load(self.directory / which / f"{steps[-1]}.pt", map_location="cpu",
                           weights_only=True)
 
-    def restore_latest(self, state: TrainState,
-                       plateau: Optional[PlateauScheduler] = None) -> Optional[TrainState]:
-        """Load the newest checkpoint into ``state`` (and ``plateau``); None if there is none."""
-        blob = self.load("latest")
+    def _restore(self, which: str, state: TrainState,
+                 plateau: Optional[PlateauScheduler]) -> Optional[TrainState]:
+        blob = self.load(which)
         if blob is None:
             return None
         state.model.load_state_dict(blob["model"])
@@ -90,11 +92,44 @@ class CheckpointManager:
             plateau.load_state_dict(blob["plateau"])
         return state
 
+    def restore_latest(self, state: TrainState,
+                       plateau: Optional[PlateauScheduler] = None) -> Optional[TrainState]:
+        """Load the newest checkpoint into ``state`` (and ``plateau``); None if there is none."""
+        return self._restore("latest", state, plateau)
+
+    def restore_best(self, state: TrainState,
+                     plateau: Optional[PlateauScheduler] = None) -> Optional[TrainState]:
+        """Load the best checkpoint into ``state`` (and ``plateau``); None if there is none."""
+        return self._restore("best", state, plateau)
+
+    def metadata(self, which: str = "best") -> Optional[Dict[str, Any]]:
+        """What the newest ``which`` checkpoint holds, without a model to load
+        it into: its step, lr, and the shape of every tensor of the model's
+        ``state_dict`` (None if there is none)."""
+        blob = self.load(which)
+        if blob is None:
+            return None
+        return {"step": int(blob["step"]), "lr": float(blob["lr"]),
+                "model": {k: tuple(v.shape) for k, v in blob["model"].items()}}
+
     def head_num_classes(self, which: str = "best") -> Optional[int]:
         """Width of the stored classifier head, or None when it does not
         constrain the class count (no checkpoint, no head, a Dense(1) head)."""
-        blob = self.load(which)
-        if blob is None or "head.weight" not in blob["model"]:
+        meta = self.metadata(which)
+        shape = None if meta is None else meta["model"].get("head.weight")
+        if shape is None or len(shape) != 2:
             return None
-        width = int(blob["model"]["head.weight"].shape[0])
+        width = int(shape[0])
         return width if width > 1 else None
+
+    def template_num_classes(self, which: str, corpus_classes: int) -> int:
+        """The class count a model must have to take the ``which``
+        checkpoint: its head's width where that differs from the corpus's
+        (``load_state_dict`` is shape-strict; the corpus evaluated or
+        embedded has no bearing on the trained head), else the corpus's."""
+        ckpt_classes = self.head_num_classes(which)
+        if ckpt_classes is not None and ckpt_classes != corpus_classes:
+            print(f"sizing head to checkpoint: {ckpt_classes} classes "
+                  f"(corpus has {corpus_classes})")
+            return ckpt_classes
+        return corpus_classes
