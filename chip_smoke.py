@@ -199,7 +199,30 @@ Each phase prints one JSON line; nothing here imports JAX.
     the head (B9); ``embed --int8 --save-qvars`` and ``embed --qvars``,
     equal tables; ``visualize_embeddings``' ``.npz``; the replay's host ms
     at the manifest's settings and one batch-1 request through the
-    checkpoint (``single_request_latency``).
+    checkpoint (``single_request_latency``);
+23. pod slice — config #5 (``parallel/pod_eval``) at world size 1 in an
+    NCCL process group (``HashStore``; destroyed after the phase), on a
+    synthetic stand-in for test-clean (POD_STORE: 40 speakers × 66
+    utterances of 3.5-11.5 s, the counts not the manifest's):
+    ``pod_evaluate`` in bf16 (B1, the model's forward) and int8 (the
+    fidelity gate's qvars: B1 → B2 requant → B3 × 3) at the manifest's four
+    entries' (n, k), 500 tasks each on its ``task_seed`` key, and config
+    #2's net scored by its head (B1, B9), each path's launches held and
+    each accuracy equal to the single-device ``nshot.evaluate``'s; the pod
+    table equal to ``embed_all``'s; ``sharded_sq_euclidean``,
+    ``ring_sq_euclidean`` and ``sharded_nearest_support`` equal to
+    ``pairwise_sq_euclidean`` over the 2,640-row table; the table's embed
+    time and utt/s, the scorer's ms at 500 and 20,000 tasks, the
+    ``all_gather`` and ``all_reduce`` ms, peak memory;
+24. dp slice — data-parallel training (``parallel/data_parallel``) at world
+    size 1 through NCCL: ``make_dp_classifier_train_step`` for 40 steps at
+    batch 32 on config #1 at full width (per step B1 1, B4 1, B5 1, B7 3 +
+    3), losses finite and falling; one DP step held against the
+    single-device step on the same draw (loss and gradient cosines, as the
+    plain-version steps are held); ``fit(dp="on")`` at world size 1 warns
+    and trains unsharded (its launches held); the DP step's ms and utt/s
+    against the single-device step's in turns (single, dp, dp, single);
+    then the run's total seconds.
 
 It ends with the per-kernel summary line, then
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the exit code
@@ -219,9 +242,11 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from voicemap_tpu_torch import _build
 from voicemap_tpu_torch.config import (
@@ -255,6 +280,8 @@ from voicemap_tpu_torch.ops import (
 )
 from voicemap_tpu_torch.ops import distance as dist_ops
 from voicemap_tpu_torch.ops import jax_random
+from voicemap_tpu_torch.parallel import data_parallel, pod_eval, sharded_distance
+from voicemap_tpu_torch.parallel.mesh import data_mesh
 from voicemap_tpu_torch.ops.cuda_conv import (
     bn_affine, conv_block0, conv_block0_reference, conv_blockn, conv_blockn_reference,
 )
@@ -434,6 +461,22 @@ SIAMESE_CLI_STEPS = 40
 CLI_WIDTH: tuple = ()
 SWEEP_K = (2, 14)
 SWEEP_PAIRS = 1000
+
+# pod_slice (config #5): a synthetic stand-in for LibriSpeech test-clean (40
+# speakers, 2,620 utterances of ~7.4 s): 40 x 66 = 2,640 utterances of 3.5-11.5
+# s (mean 7.5 s); synthetic_store gives every speaker the same count, so the
+# counts are not the manifest's. ~0.97 GB of int16 on the host, ~0.24 GB
+# decimated on the card. The scorer is timed at POD_SCORER_TASKS tasks of
+# 1-shot 5-way. The process groups of pod_slice and dp_slice: NCCL (one rank
+# a card, so world size 1 on the one card).
+POD_STORE = dict(n_speakers=40, utterances_per_speaker=66, min_seconds=3.5, max_seconds=11.5)
+POD_TASKS = 500
+POD_SCORER_TASKS = (500, 20000)
+PG_BACKEND = "nccl"
+# dp_slice: the DP and single-device steps timed over this many steps a
+# turn; fit(dp="on") at world size 1 for DP_FIT_STEPS steps.
+DP_TIMING_STEPS = 20
+DP_FIT_STEPS = 10
 
 B1_RTOL, B1_ATOL = 1e-5, 1e-6
 # B2's f32-GEMM kernel (CUDA cores) sums its taps in the plain version's
@@ -1918,13 +1961,8 @@ def plain_kernels():
 
 def held_steps(model, cfg, run, hold: bool = True) -> dict:
     """``run(state) → metrics`` once through the kernels and once through
-    their plain versions, from the same weights: the loss to STEP_LOSS_RTOL,
-    every parameter's gradient to a cosine of STEP_MIN_COSINE. A parameter
-    the loss does not reach has no gradient in either; one whose gradient is
-    zero but for rounding in both (STEP_ZERO_GRAD of the largest gradient's
-    norm) is listed apart: a siamese loss sees only e1 − e2, so the last
-    block's BatchNorm bias and the embedding bias cancel out of it. With
-    ``hold=False`` the numbers are reported and not held."""
+    their plain versions, from the same weights, held by ``compare_steps``.
+    With ``hold=False`` the numbers are reported and not held."""
     snapshot = {k: v.clone() for k, v in model.state_dict().items()}
     runs = []
     for plain in (False, True):
@@ -1932,11 +1970,27 @@ def held_steps(model, cfg, run, hold: bool = True) -> dict:
         state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
         with plain_kernels() if plain else contextlib.nullcontext():
             loss = float(run(state)["loss"])
-        runs.append((loss, {k: p.grad.detach().double().flatten().clone()
-                            for k, p in model.named_parameters() if p.grad is not None}))
+        runs.append((loss, step_grads(model)))
+    return compare_steps(runs, hold, ("kernels", "plain"))
+
+
+def step_grads(model) -> dict:
+    return {k: p.grad.detach().double().flatten().clone()
+            for k, p in model.named_parameters() if p.grad is not None}
+
+
+def compare_steps(runs: list, hold: bool, names: tuple) -> dict:
+    """Two steps' ``(loss, gradients)`` from the same weights: the loss to
+    STEP_LOSS_RTOL, every parameter's gradient to a cosine of
+    STEP_MIN_COSINE. A parameter the loss does not reach has no gradient in
+    either; one whose gradient is zero but for rounding in both
+    (STEP_ZERO_GRAD of the largest gradient's norm) is listed apart: a
+    siamese loss sees only e1 − e2, so the last block's BatchNorm bias and
+    the embedding bias cancel out of it."""
     (loss_k, grads_k), (loss_p, grads_p) = runs
+    a, b = names
     if set(grads_k) != set(grads_p):
-        raise AssertionError(f"kernel and plain steps reach other parameters: "
+        raise AssertionError(f"{a} and {b} steps reach other parameters: "
                              f"{sorted(set(grads_k) ^ set(grads_p))}")
     norms = {k: (float(grads_k[k].norm()), float(grads_p[k].norm())) for k in grads_k}
     tiny = STEP_ZERO_GRAD * max(max(n) for n in norms.values())
@@ -1946,9 +2000,9 @@ def held_steps(model, cfg, run, hold: bool = True) -> dict:
     worst = min(cos, key=cos.get)
     rel = abs(loss_k - loss_p) / abs(loss_p)
     if hold and not (rel <= STEP_LOSS_RTOL and cos[worst] >= STEP_MIN_COSINE):
-        raise AssertionError(f"kernel step against plain step: loss {loss_k} vs {loss_p}, "
+        raise AssertionError(f"{a} step against {b} step: loss {loss_k} vs {loss_p}, "
                              f"min cosine {cos[worst]} at {worst}")
-    return {"held": hold, "loss_kernels": loss_k, "loss_plain": loss_p, "loss_rel_diff": rel,
+    return {"held": hold, f"loss_{a}": loss_k, f"loss_{b}": loss_p, "loss_rel_diff": rel,
             "loss_rtol": STEP_LOSS_RTOL, "min_grad_cosine": cos[worst], "min_at": worst,
             "cosine_tolerance": STEP_MIN_COSINE, "params_with_grad": len(grads_k),
             "zero_grad": zero, "zero_grad_tolerance": STEP_ZERO_GRAD}
@@ -3533,6 +3587,242 @@ def run_protocol_slice(root: str, seed: int, card: str) -> dict:
             "cli_visualize": vis["launches"]}
 
 
+@contextlib.contextmanager
+def process_group():
+    """The default process group at world size 1 (NCCL on the card; no
+    fallback: a failed init raises) and its ``data`` mesh, for one phase;
+    destroyed after it, so that later phases run as before."""
+    dist.init_process_group(PG_BACKEND, store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield data_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def collective_ms(fn, *args) -> float:
+    """CUDA-event ms of one call of a collective (queued, after warm-up)."""
+    return time_fn(fn, *args, iters=30, warmup=5)["mean_s"] * 1e3
+
+
+def scorer_ms(scorer, *args) -> float:
+    """Host ms of one scorer call, its tasks' replay and its result's wait
+    included: the best of three."""
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scorer(*args)
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def run_pod_slice(sliced: dict, siamese: dict, gate: dict, seed: int, card: str) -> dict:
+    """Config #5 at config #1's full width, world size 1 through NCCL:
+    ``pod_evaluate`` on a synthetic stand-in for test-clean (POD_STORE),
+    bf16 (B1, the model's forward) and int8 (the fidelity gate's qvars: B1 →
+    B2 requant → B3), at the manifest's four entries' (n, k), 500 tasks each
+    on its ``task_seed`` key, and config #2's siamese net scored by its head
+    (B9); each accuracy held equal to the single-device ``nshot.evaluate``
+    on the same key, the pod table equal to ``embed_all``'s, the three
+    sharded distances equal to ``pairwise_sq_euclidean`` over the table, the
+    launches counted; the embed, scorer and collective times."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model = sliced["cfg"], sliced["model"]
+    t0 = time.perf_counter()
+    host = synthetic_store(seed, **POD_STORE)
+    store_seconds = time.perf_counter() - t0
+    n_utts = host.audio.shape[0]
+    store = device_store_for(cfg, host, DEVICE)
+    scfg, smodel = siamese["cfg"], siamese["model"]
+    sstore = device_store_for(scfg, host, DEVICE)
+    mean_s = float(host.lengths.mean()) / host.sample_rate
+    store_rec = {"synthetic": True, "speakers": POD_STORE["n_speakers"], "utterances": n_utts,
+                 "seconds": [POD_STORE["min_seconds"], POD_STORE["max_seconds"]],
+                 "mean_seconds": mean_s, "host_gb": host.audio.nbytes / 1e9,
+                 "device_gb": store.audio.nbytes / 1e9, "build_seconds": store_seconds}
+    del host
+    manifest = load_manifest()
+    key = jax_random.PRNGKey(int(manifest["task_seed"]))
+    settings = [(e["n_shot"], e["k_way"]) for e in manifest["entries"]]
+    chunks = -(-n_utts // 256)  # embed_all's batch_size
+    n_mid = len(model.encoder.blocks) - 1
+    idx = torch.arange(n_utts, dtype=torch.int32, device=DEVICE)
+    out, record = {}, {"phase": "pod_slice", "config": cfg.name, "world_size": 1,
+                       "backend": PG_BACKEND, "store": store_rec, "card": card,
+                       "tasks": POD_TASKS, "settings": settings, "paths": {}}
+    with process_group() as mesh:
+        for path, qvars in (("pod_bf16", None), ("pod_int8", gate["qvars"])):
+            table = nshot.embed_all(model, store, cfg, qvars=qvars)
+            reset_counts()
+            t0 = time.perf_counter()
+            accs = [pod_eval.pod_evaluate(model, store, cfg, mesh, key, num_tasks=POD_TASKS,
+                                          n=n, k=k, qvars=qvars) for n, k in settings]
+            launches = read_counts()
+            seconds = time.perf_counter() - t0
+            calls = len(settings) * chunks
+            want = dict(gather_whiten=calls)
+            if qvars is not None:
+                want.update(conv_block0=calls, quant_block=n_mid * calls)
+            expect_launches(path, launches, **want)
+            single = [nshot.evaluate(model, store, cfg, key, num_tasks=POD_TASKS, n=n, k=k,
+                                     qvars=qvars, table=table) for n, k in settings]
+            if accs != single:
+                raise AssertionError(f"{path}: pod accuracies {accs} != single-device {single}")
+            embed = pod_eval.make_sharded_embed_table_fn(model, cfg, mesh, qvars=qvars)
+            pod_table = embed(store, idx)
+            if not torch.equal(pod_table, table):
+                raise AssertionError(f"{path}: the pod table is not embed_all's")
+            check_table(path, pod_table, n_utts, cfg.encoder.embedding_dim, accs[0])
+            embed_s = time_fn(embed, store, idx, iters=3, warmup=1)["mean_s"]
+            record["paths"][path] = {"accuracy": accs, "single_device_accuracy": single,
+                                     "launches": launches, "seconds": seconds,
+                                     "table_embed_s": embed_s, "utt_per_s": n_utts / embed_s}
+            out[path] = launches
+            if qvars is None:
+                bf16_table = table
+
+        reset_counts()
+        t0 = time.perf_counter()
+        acc = pod_eval.pod_evaluate(smodel, sstore, scfg, mesh, key, num_tasks=POD_TASKS,
+                                    n=1, k=5)
+        launches = read_counts()
+        seconds = time.perf_counter() - t0
+        expect_launches("pod_siamese", launches, gather_whiten=chunks, weighted_l1=1)
+        single = nshot.evaluate(smodel, sstore, scfg, key, num_tasks=POD_TASKS, n=1, k=5)
+        if acc != single:
+            raise AssertionError(f"pod_siamese: pod accuracy {acc} != single-device {single}")
+        record["paths"]["pod_siamese"] = {"config": scfg.name, "metric": "weighted_l1",
+                                          "accuracy": acc, "single_device_accuracy": single,
+                                          "launches": launches, "seconds": seconds}
+        out["pod_siamese"] = launches
+
+        t = bf16_table
+        dense = dist_ops.pairwise_sq_euclidean(t, t)
+        sharded = {"sharded_sq_euclidean": sharded_distance.sharded_sq_euclidean(t, t, mesh),
+                   "ring_sq_euclidean": sharded_distance.ring_sq_euclidean(t, t, mesh)}
+        for name, got in sharded.items():
+            if not torch.equal(got, dense):
+                raise AssertionError(f"{name} differs from pairwise_sq_euclidean")
+        nearest = sharded_distance.sharded_nearest_support(t, t, mesh)
+        if not torch.equal(nearest, dense.argmin(dim=1)):
+            raise AssertionError("sharded_nearest_support differs from the dense argmin")
+        record["distances"] = {"shape": [n_utts, n_utts, t.shape[1]], "held": "equal"}
+
+        utts, counts = store.speaker_utts, store.speaker_counts
+        record["scorer_ms"] = {}
+        for tasks in POD_SCORER_TASKS:
+            scorer = pod_eval.make_sharded_task_scorer(mesh, tasks, 1, 5)
+            t0 = time.perf_counter()
+            jax_random.nshot_tasks(key, utts.cpu().numpy(), counts.cpu().numpy(), tasks, 1, 5)
+            replay = (time.perf_counter() - t0) * 1e3
+            record["scorer_ms"][f"tasks_{tasks}_1shot_5way"] = {
+                "ms": scorer_ms(scorer, t, utts, counts, key), "replay_host_ms": replay}
+        gathered = t.new_empty(t.shape)
+        one = torch.ones(1, device=DEVICE)
+        record["collective_ms"] = {
+            "all_gather_table": collective_ms(dist.all_gather_into_tensor, gathered, t),
+            "all_reduce_scalar": collective_ms(dist.all_reduce, one)}
+    record["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(record)
+    return out
+
+
+def run_dp_slice(sliced: dict, seed: int, card: str) -> dict:
+    """Data-parallel training at world size 1 through NCCL:
+    ``make_dp_classifier_train_step`` for TRAIN_STEPS steps at batch 32 on
+    config #1 at full width (per step B1 1, B4 1, B5 1, B7 3 + 3), losses
+    finite and falling; one DP step held against the single-device step on
+    the same draw (``compare_steps``); ``fit(dp="on")`` at world 1 warns
+    and trains unsharded; the DP step's ms and utt/s against the
+    single-device step's, in turns."""
+    torch.cuda.reset_peak_memory_stats()
+    host = sliced["host"]
+    cfg = train_config(seed)
+    store = device_store_for(cfg, host, DEVICE)
+    n = len(host.label_names)
+    model = SpeakerClassifier(cfg.encoder, n, device=DEVICE)
+    weights = from_flax(random_flax_variables(cfg.encoder, n, seed), cfg.encoder)
+    n_mid = len(cfg.encoder.filter_multipliers) - 1
+    S = TRAIN_STEPS
+    record = {"phase": "dp_slice", "config": cfg.name, "world_size": 1, "backend": PG_BACKEND,
+              "batch": TRAIN_BATCH, "steps": S, "card": card}
+    with process_group() as mesh:
+        model.load_state_dict(weights)
+        step, loss_fn = data_parallel.make_dp_classifier_train_step(model, cfg, mesh)
+        state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
+        gen = torch.Generator(device=DEVICE)
+        losses = []
+        reset_counts()
+        t0 = time.perf_counter()
+        for i in range(S):
+            gen.manual_seed(seed * 1_000_003 + i)
+            state, m = step(state, store, gen)
+            losses.append(m["loss"])
+        launches = read_counts()
+        seconds = time.perf_counter() - t0
+        expect_launches("dp_slice", launches, gather_whiten=S, conv_block0_train=S,
+                        conv_block0_train_bwd=S, pool_fwd=n_mid * S, route_bwd=n_mid * S)
+        first, last = losses_falling("dp_slice", losses)
+
+        runs = []
+        for dp in (True, False):
+            model.load_state_dict(weights)
+            make = (data_parallel.make_dp_classifier_train_step if dp
+                    else steps.make_classifier_train_step)
+            one = make(model, cfg, mesh)[0] if dp else make(model, cfg)[0]
+            st = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
+            m = one(st, store, torch.Generator(device=DEVICE).manual_seed(seed + 7))[1]
+            runs.append((float(m["loss"]), step_grads(model)))
+        held = compare_steps(runs, True, ("dp", "single"))
+
+        turns = []
+        for dp in (False, True, True, False):
+            model.load_state_dict(weights)
+            one = (data_parallel.make_dp_classifier_train_step(model, cfg, mesh)[0] if dp
+                   else steps.make_classifier_train_step(model, cfg)[0])
+            st = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
+            g = torch.Generator(device=DEVICE)
+            for i in range(3):  # warm-up
+                one(st, store, g.manual_seed(i))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(DP_TIMING_STEPS):
+                one(st, store, g.manual_seed(seed + i))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / DP_TIMING_STEPS
+            turns.append({"step": "dp" if dp else "single", "ms": ms,
+                          "utt_per_s": TRAIN_BATCH * 1e3 / ms})
+
+        fit_cfg = cfg.replace(train=dataclasses.replace(cfg.train, num_steps=DP_FIT_STEPS,
+                                                        evaluate_every=DP_FIT_STEPS))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            history, fit_losses, fit_launches, eval_launches, fit_seconds = counted_fit(
+                fit_cfg, host, dp="on")
+        said = [str(w.message) for w in caught if "single attached device" in str(w.message)]
+        if not said:
+            raise AssertionError("fit(dp='on') at world size 1 did not warn")
+        F = DP_FIT_STEPS
+        expect_launches("dp_fit", fit_launches, gather_whiten=F, conv_block0_train=F,
+                        conv_block0_train_bwd=F, pool_fwd=n_mid * F, route_bwd=n_mid * F)
+        # the evaluation embeds through the model's own forward: B1 only
+        expect_launches("dp_fit evaluation", eval_launches,
+                        gather_whiten=-(-len(host.labels) // 256))
+        losses_falling("dp_fit", fit_losses, falling=False)
+    mean = {k: float(np.mean([t["ms"] for t in turns if t["step"] == k]))
+            for k in ("dp", "single")}
+    record.update(launches=launches, losses=torch.stack(losses).float().cpu().tolist(),
+                  loss_first5_mean=first, loss_last5_mean=last, seconds=seconds,
+                  dp_vs_single_step=held, step_turns=turns, step_ms=mean,
+                  dp_over_single=mean["dp"] / mean["single"],
+                  fit_dp_on={"warning": said[0], "steps": F, "launches": fit_launches,
+                             "eval_launches": eval_launches, "final_record": history[-1],
+                             "seconds": fit_seconds},
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit(record)
+    return {"dp_train": launches, "dp_fit": fit_launches}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3541,6 +3831,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -3601,6 +3892,8 @@ def main(argv=None) -> int:
         streamed = run_streaming_embed(root, args.seed)
     with tempfile.TemporaryDirectory(prefix="voicemap_protocol_") as root:
         cli = run_protocol_slice(root, args.seed, card)
+    pod = run_pod_slice(sliced, siamese, gate, args.seed, card)
+    dp_paths = run_dp_slice(sliced, args.seed, card)
     for key in ("ms", "plain_ms", "bounds", "library_ms"):
         times[key].update(attributed[key])
         times[key].update(train_times[key])
@@ -3615,7 +3908,8 @@ def main(argv=None) -> int:
     # dilated_train_slice, mel_bf16_slice, mel_int8_slice, siamese_bf16_slice,
     # siamese_int8_slice, verification, score_support, siamese_train_slice,
     # mel_train_slice, corpus_slice's three fits, streaming_embed's three
-    # tables and protocol_slice's CLI commands), set to 0 just before each
+    # tables, protocol_slice's CLI commands, pod_slice's three pod_evaluate
+    # paths and dp_slice's DP steps and fit(dp="on")), set to 0 just before each
     # run and read just after;
     # for the kernels no path runs (B2's, B4's and B5's f32 GEMM, B6's DFT
     # route), the count of the check phase that ran them. On the mel paths the DFT route
@@ -3631,22 +3925,25 @@ def main(argv=None) -> int:
              "siamese_int8": siamese["siamese_int8"], "verification": siamese["verification"],
              "score_support": siamese["score_support"],
              "siamese_train": siamese_trained["launches"],
-             "mel_train": mel_train_launches, **corpus, **streamed, **cli}
+             "mel_train": mel_train_launches, **corpus, **streamed, **cli, **pod,
+             **dp_paths}
     train_paths = ("train", "dilated_train", "siamese_train", "corpus_device",
-                   "corpus_streaming", "corpus_siamese", "cli_train", "cli_siamese_train")
+                   "corpus_streaming", "corpus_siamese", "cli_train", "cli_siamese_train",
+                   "dp_train", "dp_fit")
     cli_int8 = ("cli_protocol_int8", "cli_int8_gate", "cli_embed")
     entries = (("gather_whiten", "gather_whiten",
                 ("bf16", "int8", "train", "dilated_bf16", "dilated_int8", "dilated_train",
                  "mel_bf16", "mel_int8", "siamese_bf16", "siamese_int8", "siamese_train",
                  "mel_train", "corpus_device", "cli_train", "cli_protocol_bf16", *cli_int8,
-                 "cli_sweep", "cli_siamese_train", "cli_siamese_protocol", "cli_visualize")),
+                 "cli_sweep", "cli_siamese_train", "cli_siamese_protocol", "cli_visualize",
+                 "pod_bf16", "pod_int8", "pod_siamese", "dp_train", "dp_fit")),
                ("conv_block0", "conv_block0", ("bf16", "dilated_bf16", "siamese_bf16",
                                                "streaming_bf16", "cli_sweep")),
                ("conv_block0_int8", "conv_block0", ("int8", "dilated_int8", "siamese_int8",
-                                                    "streaming_int8", *cli_int8)),
+                                                    "streaming_int8", *cli_int8, "pod_int8")),
                ("conv_block0_f32", "conv_block0_f32", ("kernels",)),
                ("quant_block", "quant_block", ("int8", "dilated_int8", "siamese_int8",
-                                               "streaming_int8", *cli_int8)),
+                                               "streaming_int8", *cli_int8, "pod_int8")),
                ("conv_block0_train", "conv_block0_train", train_paths),
                ("conv_block0_train_bwd", "conv_block0_train_bwd", train_paths),
                ("conv_block0_train_f32", "conv_block0_train_f32", ("train_kernels",)),
@@ -3658,10 +3955,11 @@ def main(argv=None) -> int:
                ("log_mel_dft", "log_mel_dft", ("mel_kernels",)),
                ("weighted_l1", "weighted_l1",
                 ("siamese_bf16", "siamese_int8", "verification", "score_support",
-                 "cli_siamese_train", "cli_siamese_protocol")),
+                 "cli_siamese_train", "cli_siamese_protocol", "pod_siamese")),
                ("conv_blockn", "conv_blockn", ("bf16", "dilated_bf16", "siamese_bf16",
                                                "streaming_bf16", "cli_sweep")),
                ("quant_block_stage", "quant_block_stage", ("attribution",)))
+    emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[kernel][2],

@@ -7,7 +7,9 @@ and the configs are cut down (filters 32, 0.128 s fragments, train batches
 of 8, 12 train steps, B8 and B3 at (100, 32 → 64), (50, 64 → 96) and
 (25, 96 → 128), and at their edge shapes as the card runs them; config #4 at 0.15 s, 16 frames, 32 mels; config #2 at
 the same 0.128 s and filters 32, 8 pairs a train step, 40 verification
-pairs, B9 timed at (1, 40, 36, 16) and (50, 1, 5, 16)); the train
+pairs, B9 timed at (1, 40, 36, 16) and (50, 1, 5, 16); config #5's store
+12 × 7 utterances of 0.2–0.3 s, the process groups of pod_slice and
+dp_slice on gloo); the train
 policies resolve as they do on the card (B4/B5 and the fused blocks-1+ op).
 What this shows
 is the control flow, the shapes and the records of every phase, the
@@ -106,6 +108,10 @@ def on_the_cpu(monkeypatch):
                         ("SOAK_STEPS", (4, 6)), ("SOAK_EVERY", 2), ("SIAMESE_CLI_STEPS", 3),
                         ("CLI_WIDTH", ("--filters", "32", "--embedding-dim", "16")),
                         ("SWEEP_PAIRS", 40),
+                        ("POD_STORE", dict(n_speakers=12, utterances_per_speaker=7,
+                                           min_seconds=0.2, max_seconds=0.3)),
+                        ("POD_SCORER_TASKS", (498, 2000)), ("PG_BACKEND", "gloo"),
+                        ("DP_TIMING_STEPS", 2), ("DP_FIT_STEPS", 3),
                         ("card_line", lambda: "CPU rehearsal, 0 W")):
         monkeypatch.setattr(cs, name, value)
     # The policies as they resolve on the card: B4/B5, and the fused
@@ -240,7 +246,8 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                       "mel_timing", "siamese_kernels", "siamese_bf16_slice",
                       "siamese_int8_slice", "verification", "score_support",
                       "siamese_train_slice", "siamese_timing", "mel_train_slice",
-                      "mel_train_timing", "corpus_slice", "streaming_embed", "protocol_slice"]
+                      "mel_train_timing", "corpus_slice", "streaming_embed", "protocol_slice",
+                      "pod_slice", "dp_slice", "total"]
     by_phase = {r["phase"]: r for r in records if "phase" in r}
     nothing = {name: 0 for name in cs.KERNELS}
     # bf16: B1 and B2 once an embed chunk, B8 three times (blocks 1-3)
@@ -466,18 +473,20 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                                                        "corpus_device": 3 * steps_run,
                                                        "corpus_streaming": 3 * steps_run,
                                                        "corpus_siamese": 9,
-                                                       "cli_train": 3 * 6, "cli_siamese_train": 9}
+                                                       "cli_train": 3 * 6, "cli_siamese_train": 9,
+                                                       "dp_train": 3 * steps_run,
+                                                       "dp_fit": 3 * 3}
     assert by_name["gather_whiten"]["launches_by_path"]["train"] == steps_run
     assert by_name["gather_whiten"]["launches_by_path"]["siamese_train"] == 2 * steps_run
     assert by_name["weighted_l1"]["launches_by_path"] == {
         "siamese_bf16": 1, "siamese_int8": 1, "verification": 1, "score_support": 1,
-        "cli_siamese_train": 1, "cli_siamese_protocol": 6}
-    assert by_name["weighted_l1"]["launches"] == 11
+        "cli_siamese_train": 1, "cli_siamese_protocol": 6, "pod_siamese": 1}
+    assert by_name["weighted_l1"]["launches"] == 12
     assert by_name["weighted_l1"]["max_abs_err"] == 0.0
     assert by_name["weighted_l1"]["library_ms"] is not None
     assert by_name["quant_block"]["launches_by_path"] == {
         "int8": 6, "dilated_int8": 14, "siamese_int8": 6, "streaming_int8": 3,
-        "cli_protocol_int8": 6, "cli_int8_gate": 6, "cli_embed": 6}
+        "cli_protocol_int8": 6, "cli_int8_gate": 6, "cli_embed": 6, "pod_int8": 3 * 4}
     assert by_name["conv_blockn"]["launches_by_path"] == {"bf16": 6, "dilated_bf16": 14,
                                                           "siamese_bf16": 6, "streaming_bf16": 3,
                                                           "cli_sweep": 6}
@@ -497,7 +506,9 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                                                                 "corpus_streaming": steps_run,
                                                                 "corpus_siamese": 3,
                                                                 "cli_train": 6,
-                                                                "cli_siamese_train": 3}
+                                                                "cli_siamese_train": 3,
+                                                                "dp_train": steps_run,
+                                                                "dp_fit": 3}
     assert by_name["log_mel"]["launches_by_path"] == {"mel_bf16": 2, "mel_int8": 2,
                                                       "mel_train": steps_run,
                                                       "streaming_mel": 1}
@@ -708,3 +719,49 @@ def test_the_protocol_slice_runs_on_the_cpu(rehearsal):
             for p in ("cli_protocol_int8", "cli_int8_gate", "cli_embed")} == {
         "cli_protocol_int8": 2, "cli_int8_gate": 2, "cli_embed": 2}
     assert by_name["route_bwd"]["launches_by_path"]["cli_siamese_train"] == 9
+
+
+def test_the_pod_and_dp_slices_run_on_the_cpu(rehearsal):
+    """pod_slice (config #5 at world size 1, here on gloo): the manifest's
+    four entries in bf16 (B1 once a pod_evaluate, one embed chunk) and int8
+    (B1, B2, B3 × 3), config #2's head scoring (B1, B9), each accuracy the
+    single-device one; dp_slice: the DP step's launches (B1 1, B4 1, B5 1,
+    B7 3 + 3 a step), held against the single-device step, fit(dp="on")
+    warning at world size 1; both groups destroyed after their phase."""
+    code, _, records = rehearsal
+    assert code == 0
+    by_phase = {r["phase"]: r for r in records if "phase" in r}
+    nothing = {name: 0 for name in cs.KERNELS}
+    pod = by_phase["pod_slice"]
+    assert pod["backend"] == "gloo" and pod["world_size"] == 1
+    assert pod["store"]["synthetic"] and pod["store"]["utterances"] == 84
+    assert pod["settings"] == [[1, 5], [5, 5], [1, 5], [1, 10]]
+    paths = pod["paths"]
+    assert paths["pod_bf16"]["launches"] == {**nothing, "gather_whiten": 4}
+    assert paths["pod_int8"]["launches"] == {**nothing, "gather_whiten": 4, "conv_block0": 4,
+                                             "quant_block": 12}
+    assert paths["pod_siamese"]["launches"] == {**nothing, "gather_whiten": 1,
+                                                "weighted_l1": 1}
+    for rec in paths.values():
+        assert rec["accuracy"] == rec["single_device_accuracy"]
+    assert pod["distances"] == {"shape": [84, 84, 16], "held": "equal"}
+    assert set(pod["scorer_ms"]) == {"tasks_498_1shot_5way", "tasks_2000_1shot_5way"}
+    assert set(pod["collective_ms"]) == {"all_gather_table", "all_reduce_scalar"}
+    dp = by_phase["dp_slice"]
+    steps_run = 12
+    assert dp["launches"] == {**nothing, "gather_whiten": steps_run,
+                              "conv_block0_train": steps_run,
+                              "conv_block0_train_bwd": steps_run,
+                              "pool_fwd": 3 * steps_run, "route_bwd": 3 * steps_run}
+    assert dp["loss_last5_mean"] < dp["loss_first5_mean"]
+    held = dp["dp_vs_single_step"]
+    assert held["held"] and held["loss_dp"] == held["loss_single"]
+    assert held["min_grad_cosine"] >= cs.STEP_MIN_COSINE
+    assert [t["step"] for t in dp["step_turns"]] == ["single", "dp", "dp", "single"]
+    assert "single attached device" in dp["fit_dp_on"]["warning"]
+    assert dp["fit_dp_on"]["launches"]["conv_block0_train"] == 3
+    assert not torch.distributed.is_initialized()
+    assert by_phase["total"]["seconds"] > 0
+    by_name = {k["name"]: k for k in records[-2]["kernels"]}
+    assert by_name["gather_whiten"]["launches_by_path"]["pod_int8"] == 4
+    assert by_name["conv_block0_int8"]["launches_by_path"]["pod_int8"] == 4

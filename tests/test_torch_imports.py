@@ -172,3 +172,36 @@ def test_profilers_refuse_to_run_without_a_gpu():
     assert train_profile.main([]) == 1
     assert stage_profile.main([]) == 1
     assert qblock_attrib.main([]) == 1
+
+
+def test_the_parallel_modules_are_covered():
+    """The parallel layer (config #5 and data parallel) imports with JAX and
+    the JAX package blocked, in a process of its own, and none of its
+    modules names them; its five modules are among the ones the first test
+    imports."""
+    modules = set(_modules())
+    new = ("parallel", "parallel.mesh", "parallel.distributed", "parallel.sharded_distance",
+           "parallel.pod_eval", "parallel.data_parallel")
+    banned = re.compile(r"^\s*(import|from)\s+(jax|flax|pandas|voicemap_tpu)\b", re.M)
+    for name in new:
+        assert f"voicemap_tpu_torch.{name}" in modules, name
+        parts = name.split(".")
+        path = PACKAGE.joinpath(*parts).with_suffix(".py")
+        if not path.exists():
+            path = PACKAGE.joinpath(*parts, "__init__.py")
+        assert not banned.search(path.read_text()), name
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'voicemap_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {['voicemap_tpu_torch.' + n for n in new]!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import voicemap_tpu_torch.train.loop as loop\n"
+        "assert loop.use_data_parallel('on', 2, 8, 'cpu')\n"
+        "print('imported')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout

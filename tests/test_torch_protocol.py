@@ -256,7 +256,55 @@ def test_the_store_cache_is_shared(models, proto_corpus, monkeypatch):
     assert len(calls) == len(embeds) == 1
     assert len(r_acc) == len(r_ver) == 1
     assert ("dev-clean",) in cache
-    assert ("table", id(model), False, False, "dev-clean") in cache
+    assert ("table", id(model), protocol.weights_version(model), False, False,
+            "dev-clean") in cache
+
+
+def test_a_restore_into_the_same_model_misses_the_cache(models, proto_corpus, tmp_path):
+    """A second checkpoint restored into the same module (``load_state_dict``
+    copies in place, so ``id(model)`` stays) and run with the first run's
+    cache gives the records of a fresh cache, not the first checkpoint's
+    tables: the key carries the weights' version."""
+    from voicemap_tpu_torch.train.checkpoints import CheckpointManager
+    from voicemap_tpu_torch.train.state import init_state
+
+    model, *_, cfg, _ = models
+    m = protocol.load_manifest()
+    m["entries"] = [dict(e, num_tasks=100) for e in m["entries"]]
+    kw = dict(manifest=m, allow_corpus_mismatch=True, max_store_seconds=5.0)
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    other = {k: v.clone() for k, v in snapshot.items()}
+    g = torch.Generator().manual_seed(3)
+    for k, v in other.items():
+        if v.is_floating_point() and "running" not in k:
+            v.add_(torch.randn(v.shape, generator=g) * 0.5 * (v.std() if v.numel() > 1 else 1.0))
+    second = copy_of(model, other)
+    CheckpointManager(str(tmp_path)).save(init_state(second, 1.0, 1e-3))
+    try:
+        cache = {}
+        first = protocol.run_protocol(model, proto_corpus, cfg, store_cache=cache, **kw)
+        CheckpointManager(str(tmp_path)).restore_latest(init_state(model, 1.0, 1e-3))
+        assert all(torch.equal(v, other[k]) for k, v in model.state_dict().items())
+        again = protocol.run_protocol(model, proto_corpus, cfg, store_cache=cache, **kw)
+        fresh = protocol.run_protocol(model, proto_corpus, cfg, store_cache={}, **kw)
+        assert again == fresh
+        tables = {k: v for k, v in cache.items() if k[0] == "table"}
+        assert len(tables) == 2 * len({tuple(e["subsets"]) for e in m["entries"]})
+        for subset in ("dev-clean", "test-clean"):
+            pair = [v for k, v in tables.items() if k[-1] == subset]
+            assert len(pair) == 2 and not torch.equal(*pair)
+        assert [r["accuracy"] for r in again] != [r["accuracy"] for r in first]
+    finally:
+        model.load_state_dict(snapshot)
+
+
+def copy_of(model, state_dict):
+    """A new module of ``model``'s class and config holding ``state_dict``."""
+    import copy
+
+    twin = copy.deepcopy(model)
+    twin.load_state_dict(state_dict)
+    return twin
 
 
 def test_a_v1_manifest_pins_no_verification(models, proto_corpus):

@@ -151,20 +151,24 @@ def test_a_block_refuses_train_mode():
 
 
 def test_fit_still_refuses_melspec2d():
-    """``fit`` trains config #4 now; what it still refuses, before any work,
-    is data-parallel training (``dp="on"``), which is not ported."""
+    """``fit`` trains config #4; what it still refuses, before any work, is
+    a ``dp`` it does not know. ``dp="on"`` in one process warns, as the JAX
+    ``fit`` does, and trains unsharded."""
     from voicemap_tpu_torch.config import TrainConfig, melspec_2d
     from voicemap_tpu_torch.train.loop import fit
 
     store = synthetic_store(0, 3, 2, 0.35, 0.4)
-    with pytest.raises(NotImplementedError, match="dp='on'"):
-        fit(melspec_2d(), store, device="cpu", dp="on")
+    with pytest.raises(ValueError, match="dp must be"):
+        fit(melspec_2d(), store, device="cpu", dp="sharded")
     cfg = melspec_2d(data=DataConfig(seconds=0.32, downsampling=1),
                      encoder=encoder_cfg("float32"), mel=MEL,
                      train=TrainConfig(batch_size=4, num_steps=1, num_eval_tasks=4, k_way=3))
     with pytest.warns(UserWarning, match="TRAINING store"):
         state, history = fit(cfg, store, device="cpu", verbose=False)
     assert isinstance(state.model, tspec.MelSpecClassifier) and len(history) == 1
+    with pytest.warns(UserWarning, match="single attached device"):
+        state, history = fit(cfg, store, device="cpu", verbose=False, dp="on")
+    assert state.step == 1 and len(history) == 1
 
 
 def test_from_flax_to_flax_round_trip_of_the_mel_tree():

@@ -352,8 +352,8 @@ def test_auto_picks_by_the_threshold_and_a_streaming_run_closes_its_producer(
     with pytest.raises(KeyboardInterrupt):
         loop.fit(cfg, device="cpu", verbose=False, pipeline="streaming", on_step=boom)
     assert len(made) == 2 and made[1].closed
-    with pytest.raises(NotImplementedError, match="A7"):
-        loop.fit(cfg, device="cpu", dp="on")
+    with pytest.raises(ValueError, match="dp must be"):
+        loop.fit(cfg, device="cpu", dp="sharded")
     with pytest.raises(ValueError, match="device pipeline"):
         loop.fit(cfg, dataset.dataset_from_config(cfg.data).to_store(), device="cpu",
                  pipeline="streaming")

@@ -68,14 +68,20 @@ def embed_all(model: Model, store: DeviceStore, cfg: ExperimentConfig,
     ``qvars``, through the int8 serving path."""
     if qvars is not None:
         check_qvars_mode(cfg, qvars)
-    N = store.labels.shape[0]
-    dev = store.audio.device
+    idx = torch.arange(store.labels.shape[0], device=store.audio.device, dtype=torch.int32)
+    return embed_rows(model, store, cfg, idx, batch_size, fast, qvars)
+
+
+def embed_rows(model: Model, store: DeviceStore, cfg: ExperimentConfig,
+               indices: torch.Tensor, batch_size: int = 256, fast: bool = False,
+               qvars=None) -> torch.Tensor:
+    """Embed the store rows ``indices`` (1-D, on the store's device) from
+    offset 0, ``batch_size`` at a time → ``(len(indices), D)`` float32
+    (``embed_all``'s route; the caller checks ``qvars``)."""
     chunks = []
     with torch.inference_mode():
-        for start in range(0, N, batch_size):
-            idx = torch.arange(start, min(start + batch_size, N), device=dev,
-                               dtype=torch.int32)
-            x = fetch_batch(store, idx, cfg, stochastic=False)
+        for start in range(0, indices.shape[0], batch_size):
+            x = fetch_batch(store, indices[start:start + batch_size], cfg, stochastic=False)
             chunks.append(_embed(model, cfg, x, fast, qvars))
     return torch.cat(chunks, dim=0)
 

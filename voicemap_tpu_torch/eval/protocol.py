@@ -18,7 +18,10 @@ the same file the JAX package reads.
 
 The records are the JAX package's with ``model`` (a port model on its
 device) in place of ``(model, state)``: the stores are built on the model's
-device, and the caches key model-dependent entries by ``id(model)``.
+device, and the caches key model-dependent entries by ``id(model)`` and
+:func:`weights_version`: a restore into the same module (``load_state_dict``
+copies in place) changes the key, where the JAX package keys by its immutable
+state.
 """
 
 from __future__ import annotations
@@ -139,10 +142,18 @@ def _entry_store(cfg_base, data_root: str, subsets, manifest: Dict,
     return out
 
 
+def weights_version(model) -> tuple:
+    """The version counter of every parameter and buffer of ``model``: an
+    in-place write (a restore, an optimizer step, a train-mode BatchNorm
+    update) changes it; an eval-mode forward does not."""
+    return tuple(t._version for t in (*model.parameters(), *model.buffers()))
+
+
 def _entry_qvars(model, cfg, store, subsets, cache: Optional[Dict]):
     """The int8 qvars calibrated on one entry's store, shared between passes
-    through ``cache`` (keyed ``('qvars', id(model), *subsets)``)."""
-    key = ("qvars", id(model)) + tuple(subsets)
+    through ``cache`` (keyed ``('qvars', id(model), weights_version(model),
+    *subsets)``)."""
+    key = ("qvars", id(model), weights_version(model)) + tuple(subsets)
     if cache is not None and key in cache:
         return cache[key]
     qvars = quantize_from_store(model, cfg, store)
@@ -154,8 +165,10 @@ def _entry_qvars(model, cfg, store, subsets, cache: Optional[Dict]):
 def _entry_table(model, cfg, store, subsets, fast, qvars, cache: Optional[Dict]):
     """The embedding table of one entry's store, shared between the accuracy
     and verification passes (fragments are deterministic, so the table is
-    the same), keyed ``('table', id(model), int8?, fast?, *subsets)``."""
-    key = ("table", id(model), qvars is not None, bool(fast)) + tuple(subsets)
+    the same), keyed ``('table', id(model), weights_version(model), int8?,
+    fast?, *subsets)``."""
+    key = ("table", id(model), weights_version(model), qvars is not None,
+           bool(fast)) + tuple(subsets)
     if cache is not None and key in cache:
         return cache[key]
     table = nshot.embed_all(model, store, cfg, fast=fast, qvars=qvars)

@@ -51,10 +51,14 @@ def train_flags(args) -> dict:
 
 def run_fit(cfg, args):
     """``fit(cfg)`` on ``args.device`` (under ``--profile``'s trace) →
-    ``(state, history)``; prints the last record."""
+    ``(state, history)``; prints the last record. Run as one of several
+    processes (``VOICEMAP_NUM_PROCESSES``, ``VOICEMAP_PROCESS_ID``,
+    ``VOICEMAP_COORDINATOR``), it joins their process group first."""
+    from ..parallel import distributed
     from ..train.loop import fit
     from ..utils.profiling import trace
 
+    distributed.initialize(device=args.device)
     with trace(args.profile):
         state, history = fit(cfg, device=args.device, max_store_seconds=args.max_store_seconds,
                              dp=args.dp, pipeline=args.pipeline)

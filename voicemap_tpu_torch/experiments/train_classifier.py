@@ -6,8 +6,11 @@ LibriSpeech-shaped synthetic corpus under ``--data-root`` first;
 ``--dilated`` trains config #3's encoder, ``--melspec`` config #4's log-mel
 classifier. Training is the port's ``fit(cfg)`` from the corpus on disk
 (``--pipeline``); ``--profile`` writes a ``torch.profiler`` Chrome trace of
-the run. ``--quant-forward int8`` and ``--dp on`` are passed to ``fit``,
-which does not train them yet and says so.
+the run. ``--quant-forward int8`` is passed to ``fit``, which does not
+train it yet and says so. ``--dp on`` trains data-parallel over the
+processes started with ``VOICEMAP_NUM_PROCESSES``, ``VOICEMAP_PROCESS_ID``
+and ``VOICEMAP_COORDINATOR`` (``parallel/distributed.initialize``); in one
+process it warns and trains unsharded.
 
     python -m voicemap_tpu_torch.experiments.train_classifier --synthetic \\
         --data-root /tmp/syn --num-steps 300 --checkpoint-dir /tmp/ckpt

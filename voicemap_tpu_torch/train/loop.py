@@ -1,16 +1,18 @@
 """The training loop: steps → periodic n-shot eval → plateau LR → checkpoints
 → JSONL metrics.
 
-Port of ``voicemap_tpu/train/loop.py :: fit`` on one card, in classifier
-mode (configs #1 and #3), siamese mode (config #2, BCE or contrastive) and
-log-mel mode (config #4). ``fit`` trains either on an ``AudioStore`` that
-the caller builds (``data/store.py``, for example ``synthetic_store``), or,
-with no store given, on the corpus on disk that ``cfg.data`` names, as the
-JAX ``fit`` does: through the device pipeline (the corpus decoded into one
+Port of ``voicemap_tpu/train/loop.py :: fit``, in classifier mode (configs
+#1 and #3), siamese mode (config #2, BCE or contrastive) and log-mel mode
+(config #4). ``fit`` trains either on an ``AudioStore`` that the caller
+builds (``data/store.py``, for example ``synthetic_store``), or, with no
+store given, on the corpus on disk that ``cfg.data`` names, as the JAX
+``fit`` does: through the device pipeline (the corpus decoded into one
 store on the card) or the streaming pipeline (``data/pipeline.py``, batches
-cut on the host), picked by the store's size. Not ported yet: data parallel
-(``dp="on"``, ROADMAP §A7) and the ``fused_recompute`` and ``fused_int8``
-train forwards.
+cut on the host), picked by the store's size. With more than one process in
+the default group, ``dp`` trains data-parallel by the JAX package's rules
+(:func:`use_data_parallel`): the step builders of ``train/steps.py`` given
+the ``data`` axis's process group (``parallel/data_parallel``). Not ported
+yet: the ``fused_recompute`` and ``fused_int8`` train forwards (ROADMAP §A2).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..eval import nshot
 from ..models.classifier import SpeakerClassifier
 from ..models.siamese import SiameseNet
 from ..models.spectrogram import MelSpecClassifier
+from ..parallel import distributed, mesh as mesh_mod
 from . import steps as steps_mod
 from .checkpoints import CheckpointManager
 from .metrics import JSONLWriter, PlateauScheduler
@@ -105,6 +108,38 @@ def _corpus_stores(cfg: ExperimentConfig, device, max_store_seconds, pipeline: s
     return train_ds, pipeline, store, val
 
 
+_DP_ONE_DEVICE_MSG = "dp='on' with a single attached device — training proceeds unsharded"
+
+
+def use_data_parallel(dp: str, world: int, batch_size: int, device) -> bool:
+    """Whether ``fit`` trains data-parallel over ``world`` ranks, by the JAX
+    ``fit``'s rules: ``"on"`` whenever there is more than one rank (and it
+    raises where the batch does not divide them), ``"auto"`` only with more
+    than one rank on the card (the JAX rule's TPU, carried to CUDA) and a
+    batch that divides them, ``"off"`` never."""
+    if dp not in ("auto", "on", "off"):
+        raise ValueError(f"dp must be 'auto', 'on' or 'off', got {dp!r}")
+    use = world > 1 and (dp == "on" or (dp == "auto" and torch.device(device).type == "cuda"))
+    if use and batch_size % world:
+        if dp == "on":
+            raise ValueError(f"dp='on' but batch_size {batch_size} does not divide the "
+                             f"{world} devices")
+        use = False
+    return use
+
+
+def _make_step(model, cfg: ExperimentConfig, streaming: bool, dp: bool):
+    """``(step, loss_fn)``: the builder of the JAX ``fit``'s four-way choice
+    (siamese or not, streaming or device store), data-parallel over every
+    rank of the default group with ``dp``."""
+    make = {(True, True): steps_mod.make_streaming_siamese_step,
+            (True, False): steps_mod.make_streaming_classifier_step,
+            (False, True): steps_mod.make_siamese_train_step,
+            (False, False): steps_mod.make_classifier_train_step}[streaming,
+                                                                  cfg.mode == "siamese"]
+    return make(model, cfg, mesh_mod.data_mesh().get_group("data") if dp else None)
+
+
 def fit(cfg: ExperimentConfig, train_store: Optional[AudioStore] = None,
         val_store: Optional[AudioStore] = None, device="cuda", verbose: bool = True,
         on_step: Optional[Callable[[int, Dict[str, torch.Tensor]], None]] = None, *,
@@ -126,8 +161,18 @@ def fit(cfg: ExperimentConfig, train_store: Optional[AudioStore] = None,
     from ``cfg.data.val_subsets`` at ``stochastic=False``; without them the
     training corpus is evaluated, with a warning (an error under
     ``require_holdout_eval``), a streaming run on a sub-store of files cut to
-    at most 10 s. ``dp``: ``"auto"`` and ``"off"`` train on one card;
-    ``"on"`` (data parallel) is not ported.
+    at most 10 s.
+
+    ``dp`` (:func:`use_data_parallel`): data-parallel over every rank of
+    the default process group (``parallel/distributed.initialize``), the
+    global batch ``batch_size``, each rank holding the whole store (device
+    pipeline) or cutting the same host batches and keeping its rows
+    (streaming, so every rank's host decodes the whole global batch);
+    ``"on"`` with one rank warns and trains unsharded. Every rank builds the same model from the seed, restores the same checkpoint
+    (the directory must be one that every rank reads) and evaluates with the
+    same generator, so the plateau schedule stays replicated; only rank 0
+    writes the records (which carry the metrics averaged over the ranks)
+    and the checkpoints, and prints.
 
     Every ``evaluate_every`` steps and at the end: n-shot accuracy on the
     validation store, the plateau schedule, one JSONL record (loss, accuracy,
@@ -144,12 +189,13 @@ def fit(cfg: ExperimentConfig, train_store: Optional[AudioStore] = None,
     if cfg.mode not in ("classifier", "siamese", "melspec2d"):
         raise NotImplementedError(
             f"fit: classifier, siamese and melspec2d modes are ported, not {cfg.mode!r}")
-    if dp == "on":
-        raise NotImplementedError(
-            "fit(dp='on'): data-parallel training is not ported yet (ROADMAP §A7, the "
-            "parallel layer); dp='auto' and 'off' train on one card")
-    if dp not in ("auto", "off"):
-        raise ValueError(f"dp must be 'auto', 'on' or 'off', got {dp!r}")
+    world = distributed.world_size()
+    use_dp = use_data_parallel(dp, world, t.batch_size, device)
+    if dp == "on" and world == 1:
+        # up front, before any corpus decode, as the JAX fit warns
+        warnings.warn(_DP_ONE_DEVICE_MSG, UserWarning, stacklevel=2)
+    lead = distributed.rank() == 0
+    verbose = verbose and lead
     if pipeline not in ("auto", "device", "streaming"):
         raise ValueError(f"pipeline must be 'auto', 'device' or 'streaming', got {pipeline!r}")
     if train_store is not None:
@@ -170,21 +216,20 @@ def fit(cfg: ExperimentConfig, train_store: Optional[AudioStore] = None,
     model = init_model(cfg, num_classes, device, t.seed)
     state = init_state(model, t.clipnorm, t.learning_rate)
     streaming = pipeline == "streaming"
-    if cfg.mode == "siamese":
-        make = (steps_mod.make_streaming_siamese_step if streaming
-                else steps_mod.make_siamese_train_step)
-    else:
-        make = (steps_mod.make_streaming_classifier_step if streaming
-                else steps_mod.make_classifier_train_step)
-    step, loss_fn = make(model, cfg)
+    step, loss_fn = _make_step(model, cfg, streaming, use_dp)
     if verbose:
         print(f"block 0: {'B4/B5' if loss_fn.fused_block0 else 'autograd'}, "
               f"blocks 1+: {loss_fn.blockn}, {pipeline} pipeline")
+        if use_dp:
+            print(f"data-parallel over {world} devices (local batch "
+                  f"{t.batch_size // world}, {pipeline} pipeline)")
     ckpt = None
     if t.checkpoint_dir:
         ckpt = CheckpointManager(t.checkpoint_dir)
         if ckpt.restore_latest(state) is not None and verbose:
             print(f"resumed from step {state.step}")
+        if not lead:  # every rank restores; rank 0 alone writes
+            ckpt = None
     # As the reference's fit: a fresh schedule from the (restored) lr, with
     # no best and no bad count; the checkpoint's plateau state is not read.
     plateau = PlateauScheduler(state.lr, t.plateau_factor, t.plateau_patience, t.min_lr)
@@ -195,7 +240,7 @@ def fit(cfg: ExperimentConfig, train_store: Optional[AudioStore] = None,
 
         stream = StreamingPipeline(train_ds, cfg, seed=t.seed,
                                    mode="siamese" if cfg.mode == "siamese" else "classifier")
-    log = JSONLWriter(t.log_path)
+    log = JSONLWriter(t.log_path if lead else None)
     dev = val.audio.device
     gen = torch.Generator(device=dev)
     history: List[Dict[str, Any]] = []

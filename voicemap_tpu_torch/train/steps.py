@@ -26,6 +26,17 @@ plain torch ops (the JAX package computes these outside any kernel), and
 ``train_on_batch`` / ``train_on_pairs`` train on it, so the card runs B4,
 B5 and B7 and no B1. ``make_embed_fn`` embeds store rows at offset 0.
 
+Every builder takes an optional process ``group`` (the ``data`` axis of a
+mesh; ``parallel/data_parallel``'s builders pass it). With one, the step is
+data-parallel over its ``n`` ranks: a device-store step samples and fetches
+``batch_size / n`` rows on each rank from :func:`rank_generator` of the
+step's generator; a streaming step keeps rank ``r``'s rows ``[r·B/n,
+(r+1)·B/n)`` of the host batch, and only its dropout generator takes the
+rank; after ``backward()`` every gradient, every floating BatchNorm buffer
+and the two metrics are averaged over the group in one ``all_reduce``
+(:func:`_mean_over_group`), and the clipped update then sees the averaged
+gradient.
+
 The port has one preprocessing path, the fused one: the store is decimated
 once when it is shipped, and every batch goes through the B1 gather+whiten
 (``ops/cuda_preprocess``). Lengths and offsets are in decimated units, as on
@@ -35,9 +46,10 @@ the JAX package's Pallas path.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..config import ExperimentConfig
@@ -193,30 +205,119 @@ def classifier_loss_fn(model: SpeakerClassifier | MelSpecClassifier,
     return loss_fn
 
 
-def train_on_batch(state: TrainState, x: torch.Tensor, y: torch.Tensor,
-                   generator: Optional[torch.Generator], loss_fn: Callable):
-    """One update on the batch ``(x (B, T, 1) f32, y (B,))`` → ``(state,
-    {"loss", "accuracy"})``; the metrics are the forward's, before the update,
-    as 0-d tensors on the device (no host sync)."""
-    state.optimizer.zero_grad()
-    loss, acc = loss_fn(x, y, generator)
+_GOLDEN = 0x9E3779B97F4A7C15
+
+
+def _splitmix64(x: int) -> int:
+    """SplitMix64's finalizer: every output bit depends on every input bit
+    (a CPU generator seeds its Mersenne twister from the low 32 bits only)."""
+    x = (x + _GOLDEN) % 2 ** 64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) % 2 ** 64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) % 2 ** 64
+    return x ^ (x >> 31)
+
+
+def rank_generator(generator: Optional[torch.Generator],
+                   rank: int) -> Optional[torch.Generator]:
+    """Rank ``rank``'s generator for a step: the caller's own for rank 0
+    (so at world 1 a data-parallel step draws what the single-device step
+    draws), else a new one on its device seeded ``splitmix64(initial_seed +
+    rank·φ)`` (φ = 0x9E3779B97F4A7C15). ``fit`` seeds step ``i``'s generator
+    with ``seed·1000003 + i``, so a rank's draws are a function of (seed,
+    step, rank), as ``fold_in(key, axis_index)`` makes them in JAX (torch's
+    draws, not JAX's: ROADMAP §C "RNG")."""
+    if generator is None or rank == 0:
+        return generator
+    seed = _splitmix64((generator.initial_seed() + rank * _GOLDEN) % 2 ** 64)
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
+def _group_place(cfg: ExperimentConfig, group) -> Tuple[int, int]:
+    """``(size, this rank's index)`` of the data-parallel group, ``(1, 0)``
+    without one; the size must divide the global batch."""
+    if group is None:
+        return 1, 0
+    n = dist.get_world_size(group)
+    if cfg.train.batch_size % n:
+        raise ValueError(f"data-axis size {n} must divide the global batch "
+                         f"{cfg.train.batch_size}")
+    return n, dist.get_rank(group)
+
+
+def _draw_generator(generator: Optional[torch.Generator], group, rank: int):
+    """The generator of this rank's sub-batch draws; a data-parallel step
+    needs a seeded one, else every rank would draw from its own global
+    stream."""
+    if group is not None and generator is None:
+        raise ValueError("a DP step draws its sub-batch from a seeded generator")
+    return rank_generator(generator, rank)
+
+
+def _local_rows(a, n: int, rank: int):
+    """Rank ``rank``'s contiguous rows of a host batch of ``n`` ranks."""
+    B = a.shape[0]
+    if B % n:
+        raise ValueError(f"host batch {B} does not divide the {n} ranks")
+    return a[rank * B // n:(rank + 1) * B // n]
+
+
+@torch.no_grad()
+def _mean_over_group(state: TrainState, metrics: Tuple[torch.Tensor, ...],
+                     group) -> Tuple[torch.Tensor, ...]:
+    """Average, in one all_reduce, every gradient, every floating buffer of
+    the model and ``metrics`` over ``group``, in place; → the averaged
+    metrics. (Not ``DistributedDataParallel``: its wrapper renames the state
+    dict and expects the forward to go through it, where the train forwards
+    of ``models/fused_train`` call into the model's blocks themselves; and
+    its reduce would carry neither the buffers nor the metrics.)"""
+    grads = [p.grad for p in state.optimizer.params if p.grad is not None]
+    buffers = [b for b in state.model.buffers() if b.is_floating_point()]
+    parts = grads + buffers
+    flat = torch.cat([t.reshape(-1).float() for t in parts]
+                     + [m.detach().reshape(1).float() for m in metrics])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    offset = 0
+    for t in parts:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+    return tuple(flat[offset:])
+
+
+def _update(state: TrainState, loss: torch.Tensor, acc: torch.Tensor, group):
+    """Backward, the mean over ``group`` when there is one, the clipped
+    update."""
     loss.backward()
+    if group is not None:
+        loss, acc = _mean_over_group(state, (loss, acc), group)
     apply_updates(state)
     return state, {"loss": loss.detach(), "accuracy": acc}
 
 
-def make_classifier_train_step(model: SpeakerClassifier, cfg: ExperimentConfig):
+def train_on_batch(state: TrainState, x: torch.Tensor, y: torch.Tensor,
+                   generator: Optional[torch.Generator], loss_fn: Callable, group=None):
+    """One update on the batch ``(x (B, T, 1) f32, y (B,))`` → ``(state,
+    {"loss", "accuracy"})``; the metrics are the forward's, before the update,
+    as 0-d tensors on the device (no host sync). With ``group``, averaged
+    over it first (:func:`_mean_over_group`)."""
+    state.optimizer.zero_grad()
+    return _update(state, *loss_fn(x, y, generator), group)
+
+
+def make_classifier_train_step(model: SpeakerClassifier, cfg: ExperimentConfig, group=None):
     """``(step, loss_fn)``; ``step(state, store, generator) → (state, metrics)``
-    samples ``batch_size`` utterance ids, fetches their fragments and trains
-    on them."""
+    samples ``batch_size`` utterance ids (``batch_size / n`` on each of the
+    ``n`` ranks of ``group``), fetches their fragments and trains on them."""
     loss_fn = classifier_loss_fn(model, cfg)
-    B = cfg.train.batch_size
+    n, rank = _group_place(cfg, group)
+    B = cfg.train.batch_size // n
 
     def step(state: TrainState, store: DeviceStore, generator: Optional[torch.Generator]):
-        idx = sampling.sample_classifier_batch(generator, store.labels.shape[0], B,
+        gen = _draw_generator(generator, group, rank)
+        idx = sampling.sample_classifier_batch(gen, store.labels.shape[0], B,
                                                store.audio.device)
-        x = fetch_batch(store, idx, cfg, generator, stochastic=cfg.data.stochastic)
-        return train_on_batch(state, x, store.labels[idx], generator, loss_fn)
+        x = fetch_batch(store, idx, cfg, gen, stochastic=cfg.data.stochastic)
+        return train_on_batch(state, x, store.labels[idx], gen, loss_fn, group)
 
     return step, loss_fn
 
@@ -255,31 +356,31 @@ def siamese_loss_fn(model: SiameseNet, cfg: ExperimentConfig) -> Callable:
 
 
 def train_on_pairs(state: TrainState, x1: torch.Tensor, x2: torch.Tensor, y: torch.Tensor,
-                   generator: Optional[torch.Generator], loss_fn: Callable):
+                   generator: Optional[torch.Generator], loss_fn: Callable, group=None):
     """One update on the pairs ``(x1, x2)`` (each ``(B, T, 1)`` f32) with
     labels ``y (B,)`` f32 → ``(state, {"loss", "accuracy"})``, as
     :func:`train_on_batch`."""
     state.optimizer.zero_grad()
-    loss, acc = loss_fn(x1, x2, y, generator)
-    loss.backward()
-    apply_updates(state)
-    return state, {"loss": loss.detach(), "accuracy": acc}
+    return _update(state, *loss_fn(x1, x2, y, generator), group)
 
 
-def make_siamese_train_step(model: SiameseNet, cfg: ExperimentConfig):
+def make_siamese_train_step(model: SiameseNet, cfg: ExperimentConfig, group=None):
     """``(step, loss_fn)``; ``step(state, store, generator) → (state,
-    metrics)`` samples ``batch_size`` pairs (half alike, half differing),
-    fetches x1 and x2 and trains on them."""
+    metrics)`` samples ``batch_size`` pairs (half alike, half differing;
+    ``batch_size / n`` on each rank of ``group``), fetches x1 and x2 and
+    trains on them."""
     loss_fn = siamese_loss_fn(model, cfg)
-    B = cfg.train.batch_size
+    n, rank = _group_place(cfg, group)
+    B = cfg.train.batch_size // n
     same = cfg.siamese.same_label
 
     def step(state: TrainState, store: DeviceStore, generator: Optional[torch.Generator]):
-        batch = sampling.sample_verification_batch(generator, store.speaker_utts,
+        gen = _draw_generator(generator, group, rank)
+        batch = sampling.sample_verification_batch(gen, store.speaker_utts,
                                                    store.speaker_counts, B, same)
-        x1 = fetch_batch(store, batch.idx_1, cfg, generator, stochastic=cfg.data.stochastic)
-        x2 = fetch_batch(store, batch.idx_2, cfg, generator, stochastic=cfg.data.stochastic)
-        return train_on_pairs(state, x1, x2, batch.labels, generator, loss_fn)
+        x1 = fetch_batch(store, batch.idx_1, cfg, gen, stochastic=cfg.data.stochastic)
+        x2 = fetch_batch(store, batch.idx_2, cfg, gen, stochastic=cfg.data.stochastic)
+        return train_on_pairs(state, x1, x2, batch.labels, gen, loss_fn, group)
 
     return step, loss_fn
 
@@ -306,30 +407,39 @@ def preprocess_fragments(frags_i16: torch.Tensor, cfg: ExperimentConfig) -> torc
 
 
 def make_streaming_classifier_step(model: SpeakerClassifier | MelSpecClassifier,
-                                   cfg: ExperimentConfig):
+                                   cfg: ExperimentConfig, group=None):
     """``(step, loss_fn)``; ``step(state, frags, y, generator) → (state,
     metrics)`` trains on host-streamed fragments ``(B, frag)`` int16 and
-    labels ``(B,)`` (``data/pipeline.StreamingPipeline``)."""
+    labels ``(B,)`` (``data/pipeline.StreamingPipeline``); each rank of
+    ``group`` ships and trains on its own rows of the host batch."""
     loss_fn = classifier_loss_fn(model, cfg)
     device = _device_of(model)
+    n, rank = _group_place(cfg, group)
+    mine = lambda a: host_to_device(_local_rows(a, n, rank), device)  # noqa: E731
 
     def step(state: TrainState, frags, y, generator: Optional[torch.Generator]):
-        x = preprocess_fragments(host_to_device(frags, device), cfg)
-        return train_on_batch(state, x, host_to_device(y, device), generator, loss_fn)
+        x = preprocess_fragments(mine(frags), cfg)
+        return train_on_batch(state, x, mine(y), rank_generator(generator, rank), loss_fn,
+                              group)
 
     return step, loss_fn
 
 
-def make_streaming_siamese_step(model: SiameseNet, cfg: ExperimentConfig):
+def make_streaming_siamese_step(model: SiameseNet, cfg: ExperimentConfig, group=None):
     """``(step, loss_fn)``; ``step(state, f1, f2, y, generator) → (state,
-    metrics)`` trains on host-streamed pair fragments."""
+    metrics)`` trains on host-streamed pair fragments. The pipeline's
+    half-alike, half-differing layout needs no reshuffle across the ranks of
+    ``group``: the loss is a mean over equal shards."""
     loss_fn = siamese_loss_fn(model, cfg)
     device = _device_of(model)
+    n, rank = _group_place(cfg, group)
+    mine = lambda a: host_to_device(_local_rows(a, n, rank), device)  # noqa: E731
 
     def step(state: TrainState, f1, f2, y, generator: Optional[torch.Generator]):
-        x1 = preprocess_fragments(host_to_device(f1, device), cfg)
-        x2 = preprocess_fragments(host_to_device(f2, device), cfg)
-        return train_on_pairs(state, x1, x2, host_to_device(y, device), generator, loss_fn)
+        x1 = preprocess_fragments(mine(f1), cfg)
+        x2 = preprocess_fragments(mine(f2), cfg)
+        return train_on_pairs(state, x1, x2, mine(y), rank_generator(generator, rank),
+                              loss_fn, group)
 
     return step, loss_fn
 
