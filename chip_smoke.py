@@ -48,7 +48,17 @@ Each phase prints one JSON line; nothing here imports JAX.
    of the train step and at ROUTING_EDGES (C = 67 with odd T/pool, pool 4
    in f32, B = 1, rows of very different scale, forced ties, pool 3, 257
    channel vectors, and pool 1 at config #3's train shapes), a_sel and dz
-   bit for bit, each against its plain version; the launch counters read
+   bit for bit, each against its plain version; B7's phase-index mode at
+   the same shapes and edges (and an f32 activation with a bf16 selection,
+   as the pool-rate-residual forward pools), a_sel, idx and dz bit for bit,
+   the selection equal to the value mode's; B3's train epilogue (the int8
+   training forward's conv, on operands from the in-step quantize pass) at
+   config #1's three block shapes (CHECK_ROWS rows, bf16 out; f32 out at
+   the train step's batch), at config #3's seven dilated and pool-1 blocks
+   and at QTRAIN_EDGES (B = 1, T odd, Cin = 32, Couts 72, 100 and 75, d =
+   16 below the reach, f32 out), bit for bit; B8 at pool 1 with f32 output
+   and rows (b, 1, 0), the pool-rate-residual forward's conv, at the three
+   train block shapes within ``blockn_bound``; the launch counters read
    around the phase;
 4. slice — config #1 at full width (filters 128, embedding 64, 3 s at 16 kHz,
    downsampling 4) built from a flax-layout tree through ``from_flax``,
@@ -72,6 +82,24 @@ Each phase prints one JSON line; nothing here imports JAX.
    and the last five below the first five; then one step from fixed weights and a
    fixed batch through the kernels and through their plain versions,
    held together (loss, gradient cosine per parameter);
+7b. int8 train slice — the same ``fit`` with ``quant_forward="int8"``
+   (``fused_int8``): per step B1 1, B4 1, B5 1, B3's train epilogue 3, B7
+   3 + 3 (value mode, on the dequantized activation); the evaluation B1
+   only; losses finite and falling; one step through every kernel against
+   every plain version reported in f32 and bf16, and through B3's train
+   epilogue alone and B7 alone (the rest plain) held in both;
+7c. recompute train slice — 40 steps at batch 32 through
+   ``classifier_train_forward(blockn="fused_recompute")`` with the port's
+   optimizer (no config resolves to it): per step B1 1, B4 1, B5 1, B8 3
+   (pool 1, f32 out), B7's index mode 3 + 3; losses finite and falling;
+   one step held against its plain-version step in f32 and bf16;
+7d. raw store slice — ``fit`` for RAW_STEPS steps with
+   ``use_pallas_preprocess=False``: the store raw, each batch through the
+   plain chain (offsets over the raw fragment, gather, ÷ 32768, decimation,
+   whitening), B1 0 in training and in the evaluation; the chain's batch on
+   the card against the same chain on the CPU on the same offsets (max abs
+   ≤ 1e-6); at offset 0 the raw store's batch against the decimated
+   store's (B1), within B1's own tolerance;
 8. timing — CUDA-event times of each kernel beside its plain version, its
    bound and (B2) ``F.conv1d`` at (B, 1, T), (B3) a library GEMM; B8 per block beside its bound, its plain
    version, ``F.conv1d`` (conv and bias only) and the cuDNN block it
@@ -87,8 +115,13 @@ Each phase prints one JSON line; nothing here imports JAX.
    also at B=2048 beside their bounds;
    on an earlier line (train_layout) the fused step at B=2048 under the
    profiler, with the device ms of cuDNN's NCHW↔NHWC conversions; the train
-   step's ms and utt/s at B=32 and B=2048 under both blocks-1+ policies, in
-   turns (jnp, fused, fused, jnp), and peak memory;
+   step's ms and utt/s at B=32 and B=2048 under the four blocks-1+
+   policies (jnp, fused, fused_recompute, fused_int8), in turns (the four,
+   then the four backwards), peak memory, and each policy's idle share
+   under the profiler; B3's train epilogue per block at B=2048 beside its
+   bound, its plain version and ``torch._int_mm`` on the patch matrix; B7's
+   index mode per block at the train step's batch beside its bound and
+   plain version;
 9b. config #3 (``dilated_4khz``: eight blocks, pools 4, 1, 2, 1, 2, 1, 2,
    1, dilations 1, 2, 1, 4, 1, 8, 1, 16) at full width from a flax-layout
    tree: dilated_slice, the same 500 tasks in bf16 (B1 → B2 → B8 × 7),
@@ -267,6 +300,7 @@ from voicemap_tpu_torch.experiments import (
 )
 from voicemap_tpu_torch.models.classifier import SpeakerClassifier
 from voicemap_tpu_torch.models.convert import from_flax
+from voicemap_tpu_torch.models import fused_train
 from voicemap_tpu_torch.models.fast_infer import fast_embed, takes_blockn
 from voicemap_tpu_torch.models.quant_infer import (
     quant_embed, quant_embed_mel, quantize_encoder, quantize_from_frags, quantize_from_store,
@@ -275,8 +309,8 @@ from voicemap_tpu_torch.models.quant_infer import (
 from voicemap_tpu_torch.models.siamese import SiameseNet
 from voicemap_tpu_torch.models.spectrogram import MelSpecClassifier
 from voicemap_tpu_torch.ops import (
-    block0_tc, block0_train_tc, cuda_conv_train, cuda_distance, cuda_melspec, cuda_routing,
-    melspec, sampling,
+    block0_tc, block0_train_tc, cuda_conv, cuda_conv_train, cuda_distance, cuda_melspec,
+    cuda_quant_block, cuda_routing, melspec, preprocess, sampling,
 )
 from voicemap_tpu_torch.ops import distance as dist_ops
 from voicemap_tpu_torch.ops import jax_random
@@ -284,6 +318,7 @@ from voicemap_tpu_torch.parallel import data_parallel, pod_eval, sharded_distanc
 from voicemap_tpu_torch.parallel.mesh import data_mesh
 from voicemap_tpu_torch.ops.cuda_conv import (
     bn_affine, conv_block0, conv_block0_reference, conv_blockn, conv_blockn_reference,
+    conv_blockn_rows, conv_blockn_rows_reference,
 )
 from voicemap_tpu_torch.ops.cuda_distance import (
     MAX_D, weighted_l1, weighted_l1_reference, weighted_l1_work,
@@ -299,11 +334,13 @@ from voicemap_tpu_torch.ops.cuda_preprocess import (
 )
 from voicemap_tpu_torch.ops.cuda_quant_block import (
     STAGES, quant_block, quant_block_reference, quant_block_stage, quant_block_stage_reference,
+    quant_block_train, quant_block_train_reference,
 )
-from voicemap_tpu_torch.ops.conv_train import FusedBlocknTrain
+from voicemap_tpu_torch.ops.conv_train import FusedBlocknTrain, quantize_int8
 from voicemap_tpu_torch.ops.cuda_routing import (
     is_channels_last, pool_fwd, pool_fwd_reference, route_bwd, route_bwd_reference,
 )
+from voicemap_tpu_torch.train import losses as train_losses
 from voicemap_tpu_torch.train import steps
 from voicemap_tpu_torch.train.loop import fit, init_model
 from voicemap_tpu_torch.train.state import init_state
@@ -399,6 +436,18 @@ ROUTING_EDGES = ((5, 67, 250, 2, torch.bfloat16, "plain"),
                  (32, 256, 1500, 1, torch.bfloat16, "scaled"),
                  (32, 384, 750, 1, torch.bfloat16, "plain"),
                  (32, 512, 375, 1, torch.bfloat16, "plain"))
+# B3's train epilogue's edges (B, T, Cin, Cout, dilation, out dtype): B = 1
+# at block 1's shape; T odd (1001); Cin = 32 (one wgmma k-step a tap); Couts
+# 72, 100 and 75 (a partial channel tile; no multiple of 8; odd); d = 16 with
+# T below the reach; f32 out at block 3's shape (the f32 step's).
+QTRAIN_EDGES = ((1, 3000, 128, 256, 1, torch.bfloat16), (2, 1001, 128, 256, 1, torch.bfloat16),
+                (3, 300, 32, 72, 1, torch.bfloat16), (2, 301, 64, 100, 2, torch.float32),
+                (3, 513, 128, 75, 4, torch.bfloat16), (2, 20, 64, 72, 16, torch.float32),
+                (2, 750, 384, 512, 1, torch.float32))
+# raw_store_slice: fit's steps with use_pallas_preprocess=False, and the
+# batch the raw chain is held at on the card against the CPU.
+RAW_STEPS = 10
+RAW_CHAIN_ATOL = 1e-6
 # Config #4: 3 s at 16 kHz, downsampling 1, over the bench store undecimated.
 MEL_FRAG = 48000
 # B6's edges (B, T, geometry): n_mels 32; T = 47999 and 30001, ending
@@ -591,17 +640,52 @@ KERNELS = {
                     "voicemap_tpu/ops/pallas_conv.py:300"),
     "quant_block_stage": (quant_block_stage, "launches", "voicemap_tpu_torch/csrc/quant_block.cu",
                           "benchmarks/bench_qblock_attrib.py:43"),
+    "quant_block_train": (quant_block_train, "launches", "voicemap_tpu_torch/csrc/quant_block.cu",
+                          "voicemap_tpu/ops/pallas_quant_block.py:99"),
+    "pool_fwd_idx": (pool_fwd, "idx_launches", "voicemap_tpu_torch/csrc/routing.cu",
+                     "voicemap_tpu/ops/pallas_routing.py:69"),
+    "route_bwd_idx": (route_bwd, "idx_launches", "voicemap_tpu_torch/csrc/routing.cu",
+                      "voicemap_tpu/ops/pallas_routing.py:133"),
 }
 # The train kernels' plain versions, by the module attribute each wrapper
-# is reached through on the train path.
+# is reached through on the train path (B7's serve both of its modes; B3's
+# train epilogue and B8 with its rows are the int8 and the
+# pool-rate-residual forwards' convs).
 PLAIN = ((cuda_conv_train, "conv_block0_train", conv_block0_train_reference),
          (cuda_conv_train, "conv_block0_train_bwd", conv_block0_train_bwd_reference),
          (cuda_routing, "pool_fwd", pool_fwd_reference),
-         (cuda_routing, "route_bwd", route_bwd_reference))
+         (cuda_routing, "route_bwd", route_bwd_reference),
+         (cuda_quant_block, "quant_block_train", quant_block_train_reference),
+         (cuda_conv, "conv_blockn_rows", conv_blockn_rows_reference))
+
+
+STARTED: list = []  # main's start on the host clock
 
 
 def emit(record: dict) -> None:
+    """One JSON line; a phase's record also gets the seconds since the run
+    began and the device memory then allocated and reserved."""
+    if "phase" in record and STARTED:
+        record = {**record, "at_s": time.perf_counter() - STARTED[0],
+                  "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+                  "reserved_gb": torch.cuda.memory_reserved() / 1e9}
     print(json.dumps(record), flush=True)
+
+
+def warm_workspaces() -> None:
+    """The libraries' long-lived workspaces (cuBLAS in f32, f64 and bf16,
+    cuBLASLt's int8 GEMM) allocated while the card is empty: one allocated
+    later inside a large freed segment keeps the whole segment reserved,
+    and config #3's jnp step at B=2048 peaks within 2 GB of the card's
+    memory (dilated_timing's peak_mem_gb)."""
+    if torch.device(DEVICE).type != "cuda":
+        return
+    a = torch.ones(64, 64, device=DEVICE)
+    for t in (a, a.double(), a.to(torch.bfloat16)):
+        t @ t
+    q = torch.ones(64, 64, dtype=torch.int8, device=DEVICE)
+    torch._int_mm(q, q)
+    torch.cuda.synchronize()
 
 
 def card_line() -> str:
@@ -1883,13 +1967,130 @@ def check_routing(seed: int, B: int, c: int, T: int, pool: int, dt,
     return checks, errors
 
 
+def check_routing_idx(seed: int, B: int, c: int, T: int, pool: int, dt, rows: str = "plain",
+                      sel_dt=None) -> list:
+    """B7's phase-index mode against its plain version: a_sel and idx equal,
+    the selection equal to the value mode's kernel output, the routing by
+    idx's dz bit for bit, stats and db to TRAIN_REL_TOL; ``sel_dt`` (the
+    GEMM dtype) where it differs from the activation's, as the
+    pool-rate-residual forward pools an f32 activation into a bf16 a_sel."""
+    z, b, sgn, cot, c0, c1, c2 = routing_inputs(seed, B, c, T, pool, dt, rows)
+    sel_dt = sel_dt or dt
+    sel, s1, s2, ix = pool_fwd(z, b, sgn, pool, sel_dt, want_idx=True)
+    want = pool_fwd_reference(z, b, sgn, pool, sel_dt, want_idx=True)
+    shape = (B, c, T // pool)
+    checks = [check_exact("pool_fwd_idx", sel, want[0], shape),
+              check_exact("pool_fwd_idx", ix, want[3], shape),
+              check_exact("pool_fwd_idx", sel, pool_fwd(z, b, sgn, pool, sel_dt)[0], shape),
+              check_rel("pool_fwd_idx", s1, want[1], TRAIN_REL_TOL),
+              check_rel("pool_fwd_idx", s2, want[2], TRAIN_REL_TOL)]
+    dz, db = route_bwd(z, b, ix, cot, c0, c1, c2, pool, dt)
+    want_dz, want_db = route_bwd_reference(z, b, ix, cot, c0, c1, c2, pool, dt)
+    checks += [check_exact("route_bwd_idx", dz, want_dz, (B, c, T)),
+               check_rel("route_bwd_idx", db, want_db, TRAIN_REL_TOL)]
+    if not (is_channels_last(ix) and is_channels_last(dz)):
+        raise AssertionError(f"B7 index mode outputs not channels last: {ix.stride()}")
+    for ch in checks:
+        ch.update(B=B, pool=pool, rows=rows, mode="idx")
+    return checks
+
+
+def qtrain_inputs(seed: int, B: int, T: int, cin: int, cout: int) -> tuple:
+    """B3's train epilogue's inputs as the int8 train op forms them: bf16
+    activations and fan-in-scaled weights through ``quantize_int8`` (the
+    in-step scales), and a conv bias."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(B, T, cin, generator=g, device=DEVICE).to(torch.bfloat16)
+    w = torch.randn(cout, cin, 3, generator=g, device=DEVICE) * (3 * cin) ** -0.5
+    b = torch.randn(cout, generator=g, device=DEVICE) * 0.05
+    qx, qw, scale = quantize_int8(x, w)
+    return qx, qw, scale, b
+
+
+def check_qtrain(args: tuple, dilation: int = 1, out_dtype=torch.bfloat16) -> dict:
+    """B3's train epilogue against its plain version, bit for bit (exact
+    int32 sums, the same f32 epilogue ops)."""
+    qx, qw = args[:2]
+    B, T = qx.shape[:2]
+    out = quant_block_train(*args, out_dtype, dilation)
+    ref = torch.cat([quant_block_train_reference(qx[i:i + CHECK_ROWS], *args[1:], out_dtype,
+                                                 dilation)
+                     for i in range(0, B, CHECK_ROWS)]) if B else out
+    c = check_exact("quant_block_train", out, ref, (B, T, qw.shape[2]))
+    return {**c, "cin": qx.shape[2], "dilation": dilation,
+            "relu_zeros": float((ref == 0).float().mean()) if ref.numel() else 0.0}
+
+
+def check_blockn_rows(seed: int, B: int, T: int, cin: int, cout: int) -> dict:
+    """B8 at pool 1, f32 out, rows (b, 1, 0) (the pool-rate-residual
+    forward's conv) against its plain version, within ``blockn_bound``'s
+    bound at mul = 1 and add = 0: u·(4·K·(S + |b|) + 4·|ref|)."""
+    x, (w, b, *_) = blockn_inputs(seed, B, T, cin, cout)
+    zero = torch.zeros(cout, device=DEVICE)
+    one = torch.ones(cout, device=DEVICE)
+    out = conv_blockn_rows(x, w, b, one, zero, 1, torch.float32)
+    ref = conv_blockn_rows_reference(x, w, b, one, zero, 1, torch.float32)
+    torch.cuda.synchronize()
+    if out.shape != (B, T, cout) or bool((ref < 0).any()):
+        raise AssertionError(f"conv_blockn_rows: {tuple(out.shape)}, or a negative relu")
+    k = w.shape[0]
+    S = conv_blockn_rows_reference(x.abs(), w.abs(), zero, one, zero, 1, torch.float32)
+    bnd = F32_UNIT_ROUNDOFF * (B8_TERM_ULPS * k * cin * (S + b.abs())
+                               + B8_EPILOGUE_ULPS * ref.abs())
+    diff = (out - ref).abs()
+    ratio = float((diff / bnd.clamp(min=1e-30)).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"conv_blockn_rows {(B, T, cin, cout)}: {ratio} of its bound")
+    return {"kernel": "conv_blockn", "rows": "(b, 1, 0)", "pool": 1, "out_dtype": "float32",
+            "shape": [B, T, cin, cout], "max_abs_err": float(diff.max()),
+            "err_over_bound": ratio,
+            "tolerance": f"|err| <= u*({B8_TERM_ULPS}*K*(S+|b|) + {B8_EPILOGUE_ULPS}*|ref|), "
+                         f"u = 2^-24, S = sum|x*w|"}
+
+
+def check_a2_kernels() -> tuple[list, dict]:
+    """The int8 and the pool-rate-residual forwards' kernels: B3's train
+    epilogue at config #1's three blocks (CHECK_ROWS rows, bf16 out; the
+    train step's batch in f32), config #3's seven dilated and pool-1 blocks
+    and QTRAIN_EDGES; B7's index mode at the three train block shapes (and
+    with an f32 activation and a bf16 selection) and at ROUTING_EDGES; B8
+    with its rows at the three train block shapes. The largest errors."""
+    main = []  # the main shapes' checks, whose errors the kernels line reports
+    for i, (T, cin, cout, _) in enumerate(QBLOCKS):
+        main.append(check_qtrain(qtrain_inputs(400 + i, CHECK_ROWS, T, cin, cout)))
+        main.append(check_qtrain(qtrain_inputs(410 + i, TRAIN_BATCH, T, cin, cout),
+                                 out_dtype=torch.float32))
+        torch.cuda.empty_cache()
+    checks = list(main)
+    for i, (T, cin, cout, _, d, _) in enumerate(DILATED_BLOCKS):
+        checks.append(check_qtrain(qtrain_inputs(420 + i, CHECK_ROWS, T, cin, cout), d))
+        torch.cuda.empty_cache()
+    for B, T, cin, cout, d, dt in QTRAIN_EDGES:
+        checks.append(check_qtrain(qtrain_inputs(B + T + d, B, T, cin, cout), d, dt))
+    for i, (c, T) in enumerate(TRAIN_BLOCKS):
+        ch = check_routing_idx(430 + i, TRAIN_BATCH, c, T, 2, torch.bfloat16)
+        main += ch
+        checks += ch + check_routing_idx(440 + i, TRAIN_BATCH, c, T, 2, torch.float32,
+                                         sel_dt=torch.bfloat16)
+    for B, c, T, pool, dt, rows in ROUTING_EDGES:
+        checks += check_routing_idx(B + c + T + 1, B, c, T, pool, dt, rows)
+    cin = TRAIN_C0
+    for i, (c, T) in enumerate(TRAIN_BLOCKS):
+        checks.append(check_blockn_rows(450 + i, TRAIN_BATCH, T, cin, c))
+        cin = c
+    errors = {k: max(c["max_abs_err"] for c in main if c["kernel"] == k)
+              for k in ("quant_block_train", "pool_fwd_idx", "route_bwd_idx")}
+    return checks, errors
+
+
 def check_train_kernels(store, idx, offsets) -> dict:
     """B4/B5 on the tensor cores at the train step's shape and at
     B45_EDGES, B5 at the train step's own inputs on its own routes
     (check_b5_step), their f32 route at B45_F32_EDGE, B45_F32_WIDE and
     B45_F32_ROWS; B7 at
     the three block shapes
-    of the train step and at ROUTING_EDGES, bf16 and f32; the launch
+    of the train step and at ROUTING_EDGES, bf16 and f32; the int8 and the
+    pool-rate-residual forwards' kernels (``check_a2_kernels``); the launch
     counters read around the phase (B4's and B5's f32 route runs only
     here)."""
     reset_counts()
@@ -1918,6 +2119,9 @@ def check_train_kernels(store, idx, offsets) -> dict:
             errors[k] = max(errors.get(k, 0.0), v)
     for B, c, T, pool, dt, rows in ROUTING_EDGES:
         checks += check_routing(B + c + T, B, c, T, pool, dt, rows)[0]
+    a2_checks, a2_errors = check_a2_kernels()
+    checks += a2_checks
+    errors.update(a2_errors)
     launches = read_counts()
     emit({"phase": "train_kernels", "checks": checks, "launches": launches})
     return {"errors": errors, "launches": launches}
@@ -1945,12 +2149,14 @@ def evaluation_launches():
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """The train path with every train kernel (B4, B5, B7) and B6, which
-    config #4's forward runs, replaced by its plain version."""
+def plain_kernels(keep: tuple = ()):
+    """The train path with every train kernel (B4, B5, B7, B3's train
+    epilogue, B8 with its rows) and B6, which config #4's forward runs,
+    replaced by its plain version; the wrappers named in ``keep`` stay."""
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in PLAIN]
     for mod, name, plain in PLAIN:
-        setattr(mod, name, plain)
+        if name not in keep:
+            setattr(mod, name, plain)
     try:
         with plain_log_mel():
             yield
@@ -1959,16 +2165,19 @@ def plain_kernels():
             setattr(mod, name, real)
 
 
-def held_steps(model, cfg, run, hold: bool = True) -> dict:
+def held_steps(model, cfg, run, hold: bool = True, only: tuple = None) -> dict:
     """``run(state) → metrics`` once through the kernels and once through
-    their plain versions, from the same weights, held by ``compare_steps``.
-    With ``hold=False`` the numbers are reported and not held."""
+    their plain versions, from the same weights, held by ``compare_steps``;
+    with ``only`` (wrapper names of PLAIN), the first run keeps just those
+    kernels and every other one plain. With ``hold=False`` the numbers are
+    reported and not held."""
     snapshot = {k: v.clone() for k, v in model.state_dict().items()}
     runs = []
     for plain in (False, True):
         model.load_state_dict(snapshot)
         state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
-        with plain_kernels() if plain else contextlib.nullcontext():
+        with (plain_kernels() if plain else contextlib.nullcontext() if only is None
+              else plain_kernels(only)):
             loss = float(run(state)["loss"])
         runs.append((loss, step_grads(model)))
     return compare_steps(runs, hold, ("kernels", "plain"))
@@ -2008,17 +2217,18 @@ def compare_steps(runs: list, hold: bool, names: tuple) -> dict:
             "zero_grad": zero, "zero_grad_tolerance": STEP_ZERO_GRAD}
 
 
-def classifier_step(cfg, host, store, seed: int):
+def classifier_step(cfg, host, store, seed: int, loss_fn_of=None):
     """``(model, run)``: config ``cfg``'s classifier with the seed's random
     weights and ``run(state)``, one train step on a fixed batch drawn from
-    ``store`` with fixed dropout, both from ``seed``."""
+    ``store`` with fixed dropout, both from ``seed``, through the loss of
+    ``loss_fn_of(model, cfg)`` (``steps.classifier_loss_fn`` by default)."""
     n = len(host.label_names)
     model = SpeakerClassifier(cfg.encoder, n, device=DEVICE)
     model.load_state_dict(from_flax(random_flax_variables(cfg.encoder, n, seed), cfg.encoder))
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     idx = sampling.sample_classifier_batch(gen, store.labels.shape[0], TRAIN_BATCH, DEVICE)
     x, y = fetch_batch(store, idx, cfg, gen), store.labels[idx]
-    loss_fn = steps.classifier_loss_fn(model, cfg)
+    loss_fn = (loss_fn_of or steps.classifier_loss_fn)(model, cfg)
 
     def run(state):
         drop = torch.Generator(device=DEVICE).manual_seed(seed + 1)
@@ -2110,19 +2320,191 @@ def run_train_slice(sliced: dict, seed: int, base=None, phase: str = "train_slic
     return {"launches": train, "cfg": cfg, "store": store, "host": host}
 
 
-def held_bf16_f32_steps(cfg, host, store, seed: int) -> dict:
-    """One classifier step of ``cfg`` through the kernels and through their
-    plain versions (``held_steps``), held in f32 compute and reported in
-    bf16, as config #2's steps are: in bf16 the kernels' f32 statistics,
-    summed in another order, flip a bf16 rounding of BatchNorm's affine now
-    and then and the later blocks carry it on; in f32 only the kernels' own
+def held_bf16_f32_steps(cfg, host, store, seed: int, loss_fn_of=None,
+                        hold: tuple = ("float32",), only: tuple = None) -> dict:
+    """One classifier step of ``cfg`` through the kernels (``only`` those,
+    where given) and through their plain versions (``held_steps``), held in
+    the compute dtypes ``hold`` (f32 by default) and reported in the others,
+    as config #2's steps are: in bf16 the kernels' f32 statistics, summed in
+    another order, flip a bf16 rounding of BatchNorm's affine now and then
+    and the later blocks carry it on; in f32 only the kernels' own
     summation order is left."""
     out = {}
     for dtype in ("float32", "bfloat16"):
         dcfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder, compute_dtype=dtype))
-        model, run = classifier_step(dcfg, host, store, seed)
-        out[dtype] = held_steps(model, dcfg, run, hold=dtype == "float32")
+        model, run = classifier_step(dcfg, host, store, seed, loss_fn_of)
+        out[dtype] = held_steps(model, dcfg, run, hold=dtype in hold, only=only)
     return out
+
+
+def recompute_loss_fn(model, cfg):
+    """``steps.classifier_loss_fn`` with blocks 1+ through the
+    pool-rate-residual op: ``classifier_train_forward(blockn=
+    "fused_recompute")``, which no config resolves to (as in the JAX
+    package)."""
+    fused0 = steps.resolve_fused_block0(cfg, model)
+
+    def loss_fn(x, y, generator):
+        model.train()
+        logits = fused_train.classifier_train_forward(model, x, generator, "fused_recompute",
+                                                      fused0)
+        return (train_losses.softmax_ce(logits, y),
+                train_losses.categorical_accuracy(logits, y))
+
+    loss_fn.fused_block0, loss_fn.blockn = fused0, "fused_recompute"
+    return loss_fn
+
+
+def step_with(loss_fn, cfg, batch: int):
+    """``step(state, store, generator)``: ``steps.make_classifier_train_step``'s
+    step (sample, fetch, update) with ``loss_fn``."""
+    def step(state, store, generator):
+        idx = sampling.sample_classifier_batch(generator, store.labels.shape[0], batch,
+                                               store.audio.device)
+        x = fetch_batch(store, idx, cfg, generator, stochastic=cfg.data.stochastic)
+        return steps.train_on_batch(state, x, store.labels[idx], generator, loss_fn)
+
+    return step
+
+
+def per_step(steps_run: int, **counts) -> dict:
+    """Launches of ``steps_run`` steps of ``counts`` each."""
+    return {k: v * steps_run for k, v in counts.items()}
+
+
+def run_int8_train_slice(sliced: dict, seed: int) -> dict:
+    """``fit`` at full config #1 width with ``quant_forward="int8"``
+    (``fused_int8``), TRAIN_STEPS steps at batch 32, one evaluation at the
+    end: per step B1 1, B4 1, B5 1, B3's train epilogue 3, B7 3 + 3; the
+    evaluation on the model's own forward (B1 only); losses finite and
+    falling. Then one step from fixed weights and a fixed batch: through
+    every kernel against every plain version, reported in f32 and bf16
+    (not held: the in-step quantizer turns B4's order-level differences
+    into flipped int8 levels, PERF.md §6); through the
+    kernels the int8 path adds or feeds anew, each alone (B3's train
+    epilogue; B7 on the dequantized activation), the rest plain, held in
+    f32 and bf16."""
+    host = sliced["host"]
+    base = train_config(seed)
+    cfg = base.replace(train=dataclasses.replace(base.train, quant_forward="int8"))
+    n_mid = len(cfg.encoder.filter_multipliers) - 1
+    copies = FusedBlocknTrain.cotangent_copies
+    history, losses, train, evals, seconds = counted_fit(cfg, host)
+    check_channels_last_path(FusedBlocknTrain.cotangent_copies - copies)
+    expect_launches("int8_train_slice", train,
+                    **per_step(TRAIN_STEPS, gather_whiten=1, conv_block0_train=1,
+                               conv_block0_train_bwd=1, quant_block_train=n_mid,
+                               pool_fwd=n_mid, route_bwd=n_mid))
+    expect_launches("int8_train_slice evaluation", evals,
+                    gather_whiten=-(-len(host.labels) // 256))
+    first, last = losses_falling("int8_train_slice", losses)
+    store = device_store_for(cfg, host, DEVICE)
+    emit({"phase": "int8_train_slice", "config": cfg.name, "blockn": "fused_int8",
+          "dtype": "bfloat16", "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+          "launches": train, "eval_launches": evals, "loss_first5_mean": first,
+          "loss_last5_mean": last, "losses": [float(v) for v in losses],
+          "final_record": history[-1], "seconds": seconds,
+          "plain_steps": held_bf16_f32_steps(cfg, host, store, seed, hold=()),
+          "kernel_steps": {name: held_bf16_f32_steps(cfg, host, store, seed,
+                                                     hold=("float32", "bfloat16"), only=only)
+                           for name, only in (("quant_block_train", ("quant_block_train",)),
+                                              ("b7", ("pool_fwd", "route_bwd")))}})
+    return {"launches": train}
+
+
+def run_recompute_train_slice(sliced: dict, seed: int) -> dict:
+    """TRAIN_STEPS steps at batch 32 at full config #1 width through
+    ``classifier_train_forward(blockn="fused_recompute")`` (``step_with``)
+    with the port's clipped Adam, each step's generator seeded as ``fit``
+    seeds it: per step B1 1, B4 1, B5 1, B8 3 (pool 1, f32 out, rows (b, 1,
+    0)), B7's index mode 3 + 3; losses finite and falling; one step against
+    its plain-version step, held in f32 and bf16 (as config #1's fused
+    step)."""
+    host = sliced["host"]
+    cfg = train_config(seed)
+    n_mid = len(cfg.encoder.filter_multipliers) - 1
+    model = init_model(cfg, len(host.label_names), DEVICE, seed)
+    state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
+    store = device_store_for(cfg, host, DEVICE)
+    step = step_with(recompute_loss_fn(model, cfg), cfg, TRAIN_BATCH)
+    copies = FusedBlocknTrain.cotangent_copies
+    losses = []
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed * 1000003 + i)
+        state, m = step(state, store, gen)
+        losses.append(m["loss"])
+    train = read_counts()
+    seconds = time.perf_counter() - t0
+    check_channels_last_path(FusedBlocknTrain.cotangent_copies - copies)
+    expect_launches("recompute_train_slice", train,
+                    **per_step(TRAIN_STEPS, gather_whiten=1, conv_block0_train=1,
+                               conv_block0_train_bwd=1, conv_blockn=n_mid,
+                               pool_fwd_idx=n_mid, route_bwd_idx=n_mid))
+    first, last = losses_falling("recompute_train_slice", losses)
+    emit({"phase": "recompute_train_slice", "config": cfg.name, "blockn": "fused_recompute",
+          "dtype": "bfloat16", "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+          "launches": train, "loss_first5_mean": first, "loss_last5_mean": last,
+          "losses": [float(v) for v in losses], "seconds": seconds,
+          "plain_steps": held_bf16_f32_steps(cfg, host, store, seed, recompute_loss_fn,
+                                             hold=("float32", "bfloat16"))})
+    return {"launches": train}
+
+
+def run_raw_store_slice(sliced: dict, seed: int) -> dict:
+    """``use_pallas_preprocess=False`` at full config #1 width: ``fit`` for
+    RAW_STEPS steps on the raw store (per step B4 1, B5 1, B7 3 + 3, B1 0;
+    the evaluation B1 0 too), losses finite; the raw chain's batch on the
+    card against the same chain on the CPU on the same offsets (one CPU
+    generator draws them for both), to RAW_CHAIN_ATOL; at offset 0
+    (``stochastic=False``) the raw store's batch against the decimated
+    store's B1 batch, within B1's tolerance: PARITY.md's equality at offset
+    0, held."""
+    host = sliced["host"]
+    base = train_config(seed)
+    cfg = base.replace(train=dataclasses.replace(
+        base.train, use_pallas_preprocess=False, num_steps=RAW_STEPS,
+        evaluate_every=RAW_STEPS))
+    n_mid = len(cfg.encoder.filter_multipliers) - 1
+    history, losses, train, evals, seconds = counted_fit(cfg, host)
+    expect_launches("raw_store_slice", train,
+                    **per_step(RAW_STEPS, conv_block0_train=1, conv_block0_train_bwd=1,
+                               pool_fwd=n_mid, route_bwd=n_mid))
+    expect_launches("raw_store_slice evaluation", evals)
+    first, last = losses_falling("raw_store_slice", losses, falling=False)
+    raw = device_store_for(cfg, host, DEVICE)
+    if raw.downsampling != 0:
+        raise AssertionError("use_pallas_preprocess=False built a decimated store")
+    raw_cpu = device_store_for(cfg, host, "cpu")
+    idx = torch.arange(min(len(host.labels), 256), dtype=torch.int32)
+    reset_counts()
+    got = fetch_batch(raw, idx, cfg, torch.Generator().manual_seed(seed))
+    chain_launches = read_counts()
+    want = fetch_batch(raw_cpu, idx, cfg, torch.Generator().manual_seed(seed))
+    offsets = preprocess.sample_offsets(raw_cpu.lengths[idx.long()], cfg.data.fragment_length,
+                                        torch.Generator().manual_seed(seed))
+    chain_err = float((got.cpu() - want).abs().max())
+    if chain_launches["gather_whiten"] or not chain_err <= RAW_CHAIN_ATOL:
+        raise AssertionError(f"raw chain on the card against the CPU: max abs err {chain_err}, "
+                             f"B1 launches {chain_launches['gather_whiten']}")
+    decimated = device_store_for(base, host, DEVICE)
+    at0_raw = fetch_batch(raw, idx, cfg, stochastic=False)
+    at0_b1 = fetch_batch(decimated, idx, base, stochastic=False)
+    torch.testing.assert_close(at0_raw, at0_b1, rtol=B1_RTOL, atol=B1_ATOL)
+    emit({"phase": "raw_store_slice", "config": cfg.name, "use_pallas_preprocess": False,
+          "batch": TRAIN_BATCH, "steps": RAW_STEPS, "launches": train, "eval_launches": evals,
+          "loss_first5_mean": first, "loss_last5_mean": last,
+          "losses": [float(v) for v in losses], "final_record": history[-1],
+          "seconds": seconds, "store": {"rows": raw.audio.shape[0],
+                                        "samples": raw.audio.shape[1], "downsampling": 0},
+          "chain_vs_cpu": {"rows": int(idx.shape[0]), "max_abs_err": chain_err,
+                           "tolerance": RAW_CHAIN_ATOL,
+                           "offsets_off_the_decimation_grid": int(
+                               (offsets % cfg.data.downsampling != 0).sum())},
+          "offset0_raw_vs_b1": {"max_abs_err": float((at0_raw - at0_b1).abs().max()),
+                                "tolerance": f"rtol {B1_RTOL}, atol {B1_ATOL}"}})
+    return {"launches": train}
 
 
 def layout_profile(cfg, n_classes: int, dstore, batch: int, seed: int) -> dict:
@@ -2142,18 +2524,38 @@ def layout_profile(cfg, n_classes: int, dstore, batch: int, seed: int) -> dict:
     return {"config": cfg.name, "batch": batch, "blockn": loss_fn.blockn, **prof}
 
 
-def train_step_turns(base, n_classes: int, dstore, seed: int) -> list:
+POLICIES = ("jnp", "fused", "fused_recompute", "fused_int8")  # blocks 1+'s train forwards
+
+
+def policy_step(base, policy: str, batch: int, n_classes: int, seed: int) -> tuple:
+    """``(state, step, loss_fn)``: ``base``'s classifier at ``batch`` with
+    blocks 1+ under ``policy`` (``fused_int8`` through
+    ``quant_forward="int8"``, ``fused_recompute`` through
+    ``recompute_loss_fn``, which no config reaches)."""
+    cfg = base.replace(train=dataclasses.replace(
+        base.train, batch_size=batch, use_fused_blockn=policy != "jnp",
+        quant_forward="int8" if policy == "fused_int8" else "none"))
+    model = init_model(cfg, n_classes, DEVICE, seed)
+    state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
+    if policy == "fused_recompute":
+        loss_fn = recompute_loss_fn(model, cfg)
+        return state, step_with(loss_fn, cfg, batch), loss_fn
+    step, loss_fn = steps.make_classifier_train_step(model, cfg)
+    if loss_fn.blockn != policy:
+        raise AssertionError(f"the {policy} step resolved to {loss_fn.blockn}")
+    return state, step, loss_fn
+
+
+def train_step_turns(base, n_classes: int, dstore, seed: int,
+                     policies: tuple = ("jnp", "fused")) -> list:
     """The train step of ``base`` at each batch of TRAIN_TIMING_BATCHES under
-    both blocks-1+ policies, in turns (jnp, fused, fused, jnp): a drift of the
-    card or the host over the run weighs on both policies alike."""
+    each blocks-1+ policy, in turns (the policies, then the policies
+    backwards: jnp, fused, fused, jnp for two): a drift of the card or the
+    host over the run weighs on every policy alike."""
     step_rows = []
     for bt in TRAIN_TIMING_BATCHES:
-        for blockn in ("jnp", "fused", "fused", "jnp"):
-            cfg = base.replace(train=dataclasses.replace(
-                base.train, batch_size=bt, use_fused_blockn=blockn == "fused"))
-            model = init_model(cfg, n_classes, DEVICE, seed)
-            state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
-            step, loss_fn = steps.make_classifier_train_step(model, cfg)
+        for blockn in (*policies, *reversed(policies)):
+            state, step, loss_fn = policy_step(base, blockn, bt, n_classes, seed)
             gen = torch.Generator(device=DEVICE).manual_seed(seed)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2162,15 +2564,15 @@ def train_step_turns(base, n_classes: int, dstore, seed: int) -> list:
                               "step_ms": r["mean_s"] * 1e3, "step_p50_ms": r["p50_s"] * 1e3,
                               "utt_per_s": bt / r["mean_s"],
                               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-            del model, state, step, loss_fn
+            del state, step, loss_fn
     return step_rows
 
 
-def train_step_summary(step_rows: list) -> list:
+def train_step_summary(step_rows: list, policies: tuple = ("jnp", "fused")) -> list:
     """Each (batch, policy)'s mean over its turns."""
     summary = []
     for bt in TRAIN_TIMING_BATCHES:
-        for blockn in ("jnp", "fused"):
+        for blockn in policies:
             turns = [r for r in step_rows if (r["batch"], r["blockn"]) == (bt, blockn)]
             step_ms = sum(r["step_ms"] for r in turns) / len(turns)
             summary.append({"batch": bt, "blockn": blockn, "step_ms": step_ms,
@@ -2180,12 +2582,101 @@ def train_step_summary(step_rows: list) -> list:
     return summary
 
 
+def policy_profiles(base, n_classes: int, dstore, seed: int) -> list:
+    """One profiled window of the step (``stage_profile.profile``) at each
+    batch of TRAIN_TIMING_BATCHES under each of POLICIES: the device's idle
+    share and the window's ms a step."""
+    rows = []
+    for bt in TRAIN_TIMING_BATCHES:
+        for policy in POLICIES:
+            state, step, _ = policy_step(base, policy, bt, n_classes, seed)
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            prof = stage_profile.profile([("step", lambda _: step(state, dstore, gen))])
+            rows.append({"batch": bt, "blockn": policy, "idle_share": prof.get("idle_share"),
+                         "window_ms_per_step": prof.get("window_ms_per_batch"),
+                         "device_events_per_step": prof.get("device_events_per_batch")})
+            del state, step
+            torch.cuda.empty_cache()
+    return rows
+
+
+def time_qtrain_blocks(seed: int) -> list:
+    """B3's train epilogue at config #1's three blocks and B=BATCH, bf16
+    out, beside its bound, its plain version and ``torch._int_mm`` on the
+    patch matrix (the GEMM alone)."""
+    rows = []
+    for i, (T, cin, cout, _) in enumerate(QBLOCKS):
+        args = qtrain_inputs(500 + i, BATCH, T, cin, cout)
+        qx, qw = args[:2]
+        # Bytes: x (int8), w, the rows s and b, a (bf16) written once.
+        moved = BATCH * T * cin + 3 * cin * cout + 2 * cout * 4 + BATCH * T * cout * 2
+        row = {"T": T, "cin": cin, "cout": cout, "out": "bfloat16",
+               **bound(moved, 2.0 * BATCH * T * 3 * cin * cout, INT8_OPS_PER_S)}
+        row["ms"] = time_fn(quant_block_train, *args, iters=20)["mean_s"] * 1e3
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["plain_ms"] = time_fn(in_chunks(quant_block_train_reference, *args), iters=1,
+                                  warmup=1)["mean_s"] * 1e3
+        try:  # library yardstick: torch._int_mm on the im2col'd input, GEMM only
+            xp = torch.nn.functional.pad(qx, (0, 0, 1, 1))
+            a = torch.cat([xp[:, j:j + T] for j in range(3)], dim=-1).reshape(BATCH * T, 3 * cin)
+            del xp
+            row["library_ms"] = time_fn(torch._int_mm, a, qw.reshape(3 * cin, cout).contiguous(),
+                                        iters=10)["mean_s"] * 1e3
+            row["library"] = "torch._int_mm on im2col (B*T, 3*Cin) x (3*Cin, Cout), GEMM only"
+            del a
+        except (RuntimeError, NotImplementedError) as e:
+            row["library_ms"], row["library"] = None, f"torch._int_mm refused: {e}"
+        rows.append(row)
+        del args, qx, qw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_routing_idx(seed: int) -> list:
+    """B7's phase-index mode at the train step's three blocks (TRAIN_BATCH)
+    as the pool-rate-residual step runs it (forward: an f32 activation into
+    a bf16 selection and the index; backward: a bf16 conv output routed by
+    the index), queued, beside its bound and its plain version."""
+    rows = []
+    for i, (cb, tb) in enumerate(TRAIN_BLOCKS):
+        za, bias, sg, g, k0, k1, k2 = routing_inputs(60 + i, TRAIN_BATCH, cb, tb, 2,
+                                                     torch.float32)
+        zero = torch.zeros_like(bias)
+        z = za.to(torch.bfloat16)
+        ix = pool_fwd(za, zero, sg, 2, torch.bfloat16, want_idx=True)[3]
+        full, half = TRAIN_BATCH * cb * tb, TRAIN_BATCH * cb * (tb // 2)
+        fwd = (za, zero, sg, 2, torch.bfloat16)
+        bwd = (z, bias, ix, g, k0, k1, k2, 2)
+        row = {"batch": TRAIN_BATCH, "C": cb, "T": tb,
+               "pool_fwd_idx_ms": time_fn(pool_fwd, *fwd, want_idx=True, iters=50,
+                                          queued=True)["mean_s"] * 1e3,
+               "route_bwd_idx_ms": time_fn(route_bwd, *bwd, iters=50,
+                                           queued=True)["mean_s"] * 1e3,
+               "pool_fwd_idx_plain_ms": time_fn(pool_fwd_reference, *fwd, want_idx=True,
+                                                iters=3, warmup=1)["mean_s"] * 1e3,
+               "route_bwd_idx_plain_ms": time_fn(route_bwd_reference, *bwd, iters=3,
+                                                 warmup=1)["mean_s"] * 1e3,
+               # Bytes: a (f32) in, a_sel (bf16) and idx out, four (C,) rows;
+               # z (bf16), idx and g (f32) in, dz (bf16) out, five rows.
+               # Operations as B7's value mode: 8 an element forward, 12 backward.
+               "pool_fwd_idx_bound": bound(full * 4 + half * 2 + half + 4 * cb * 4, 8.0 * full,
+                                           F32_OPS_PER_S),
+               "route_bwd_idx_bound": bound(full * 2 + half + half * 4 + full * 2 + 5 * cb * 4,
+                                            12.0 * full, F32_OPS_PER_S)}
+        rows.append(row)
+        del za, z, ix, g
+        torch.cuda.empty_cache()
+    return rows
+
+
 def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -> dict:
     """B4, B5 and B7 at the train step's shapes beside bounds, plain
     versions and (B5) a library call, B7 per block at B=2048 beside its
-    bound; the ``fused`` step's layout conversions at B=2048 (an earlier
-    line); the train step at each batch of TRAIN_TIMING_BATCHES under both
-    blocks-1+ policies."""
+    bound; B3's train epilogue per block at B=2048 and B7's index mode per
+    block at the train step's batch beside theirs; the ``fused`` step's
+    layout conversions at B=2048 (an earlier line); the train step at each
+    batch of TRAIN_TIMING_BATCHES under the four blocks-1+ policies, with
+    each policy's idle share."""
     B, T, c = TRAIN_BATCH, FRAG, TRAIN_C0
     ms, plain_ms, bounds, library_ms, b45 = {}, {}, {}, {}, []
     f32 = torch.float32
@@ -2297,21 +2788,42 @@ def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -
         bounds[name] = {"bound_ms": sum(r[f"{name}_bound"]["bound_ms"] for r in at_b),
                         "bound_by": "bytes"}
 
+    qtrain = time_qtrain_blocks(seed)
+    idx_blocks = time_routing_idx(seed)
+    ms["quant_block_train"] = sum(r["ms"] for r in qtrain)
+    plain_ms["quant_block_train"] = sum(r["plain_ms"] for r in qtrain)
+    bounds["quant_block_train"] = {  # bound_by: the kind that bounds most of the sum
+        "bound_ms": sum(r["bound_ms"] for r in qtrain),
+        "bound_by": max(("bytes", "operations"), key=lambda kind: sum(
+            r["bound_ms"] for r in qtrain if r["bound_by"] == kind))}
+    library_ms["quant_block_train"] = (None if any(r["library_ms"] is None for r in qtrain)
+                                       else sum(r["library_ms"] for r in qtrain))
+    for name in ("pool_fwd_idx", "route_bwd_idx"):
+        ms[name] = sum(r[f"{name}_ms"] for r in idx_blocks)
+        plain_ms[name] = sum(r[f"{name}_plain_ms"] for r in idx_blocks)
+        bounds[name] = {"bound_ms": sum(r[f"{name}_bound"]["bound_ms"] for r in idx_blocks),
+                        "bound_by": "bytes"}
+        library_ms[name] = None
+
     host, base = trained["host"], trained["cfg"]
     dstore = trained["store"]
-    step_rows = train_step_turns(base, len(host.label_names), dstore, seed)
+    step_rows = train_step_turns(base, len(host.label_names), dstore, seed, POLICIES)
     torch.cuda.empty_cache()
     emit({"phase": "train_layout", "card": card,
           "fused_step": layout_profile(base, len(host.label_names), dstore, big, seed)})
-    summary = train_step_summary(step_rows)
+    summary = train_step_summary(step_rows, POLICIES)
+    profiles = policy_profiles(base, len(host.label_names), dstore, seed)
     emit({"phase": "train_timing", "card": card, "kernel_ms": ms, "plain_ms": plain_ms,
           "bound": bounds, "library_ms": library_ms,
           "library": {"conv_block0_train_bwd": "torch.nn.grad.conv1d_weight on a "
                       "materialized bf16 (B, C, T) dz, the weight-gradient GEMM alone: less "
                       "work than B5 (no recompute, routing, dz or db)",
-                      "conv_block0_train_bwd_f32": "the same call in f32 (TF32 off)"},
-          "block0_batches": b45, "routing_blocks": blocks, "train_step_turns": step_rows,
-          "train_step": summary})
+                      "conv_block0_train_bwd_f32": "the same call in f32 (TF32 off)",
+                      "quant_block_train": "torch._int_mm on the patch matrix, GEMM only, "
+                      "summed over blocks 1-3"},
+          "block0_batches": b45, "routing_blocks": blocks, "routing_idx_blocks": idx_blocks,
+          "quant_block_train_blocks": qtrain, "train_step_turns": step_rows,
+          "train_step": summary, "train_step_profiles": profiles})
     return {"ms": ms, "plain_ms": plain_ms, "bounds": bounds, "library_ms": library_ms}
 
 
@@ -3832,6 +4344,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     started = time.perf_counter()
+    STARTED[:] = [started]
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -3841,6 +4354,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    warm_workspaces()
     path, seconds, ptxas = _build.build()
     _build.library()
     emit({"phase": "build", "library": path.name, "seconds": seconds,
@@ -3856,6 +4370,9 @@ def main(argv=None) -> int:
     sliced_int8 = run_int8_slice(sliced, args.seed)
     gate = run_fidelity_gate(store, offsets, sliced["model"], args.seed)
     trained = run_train_slice(sliced, args.seed)
+    int8_trained = run_int8_train_slice(sliced, args.seed)
+    recomputed = run_recompute_train_slice(sliced, args.seed)
+    raw_trained = run_raw_store_slice(sliced, args.seed)
     times = run_timing(store, idx, offsets, params, checked["s0"], sliced["model"],
                        sliced["cfg"], gate["qvars"], args.seed, card)
     attributed = run_attribution(args.seed, card, times["b3_library"])
@@ -3904,7 +4421,8 @@ def main(argv=None) -> int:
     checked["errors"].update(checked_siamese["errors"])
 
     # Each entry's launches: the counts of the path runs above (phases slice,
-    # int8_slice, train_slice, attribution, dilated_slice, dilated_int8_slice,
+    # int8_slice, train_slice, int8_train_slice, recompute_train_slice,
+    # raw_store_slice, attribution, dilated_slice, dilated_int8_slice,
     # dilated_train_slice, mel_bf16_slice, mel_int8_slice, siamese_bf16_slice,
     # siamese_int8_slice, verification, score_support, siamese_train_slice,
     # mel_train_slice, corpus_slice's three fits, streaming_embed's three
@@ -3918,7 +4436,9 @@ def main(argv=None) -> int:
              "mel_kernels": checked_mel["launches"],
              "bf16": sliced["launches"], "int8": sliced_int8["launches"],
              "attribution": attributed["launches"],
-             "train": trained["launches"], "dilated_bf16": sliced3_launches["bf16"],
+             "train": trained["launches"], "int8_train": int8_trained["launches"],
+             "recompute_train": recomputed["launches"], "raw_train": raw_trained["launches"],
+             "dilated_bf16": sliced3_launches["bf16"],
              "dilated_int8": sliced3_launches["int8"], "dilated_train": sliced3_launches["train"],
              "mel_bf16": mel["mel_bf16"],
              "mel_int8": mel["mel_int8"], "siamese_bf16": siamese["siamese_bf16"],
@@ -3927,12 +4447,13 @@ def main(argv=None) -> int:
              "siamese_train": siamese_trained["launches"],
              "mel_train": mel_train_launches, **corpus, **streamed, **cli, **pod,
              **dp_paths}
-    train_paths = ("train", "dilated_train", "siamese_train", "corpus_device",
-                   "corpus_streaming", "corpus_siamese", "cli_train", "cli_siamese_train",
-                   "dp_train", "dp_fit")
+    train_paths = ("train", "int8_train", "raw_train", "dilated_train", "siamese_train",
+                   "corpus_device", "corpus_streaming", "corpus_siamese", "cli_train",
+                   "cli_siamese_train", "dp_train", "dp_fit")
     cli_int8 = ("cli_protocol_int8", "cli_int8_gate", "cli_embed")
     entries = (("gather_whiten", "gather_whiten",
-                ("bf16", "int8", "train", "dilated_bf16", "dilated_int8", "dilated_train",
+                ("bf16", "int8", "train", "int8_train", "recompute_train", "raw_train",
+                 "dilated_bf16", "dilated_int8", "dilated_train",
                  "mel_bf16", "mel_int8", "siamese_bf16", "siamese_int8", "siamese_train",
                  "mel_train", "corpus_device", "cli_train", "cli_protocol_bf16", *cli_int8,
                  "cli_sweep", "cli_siamese_train", "cli_siamese_protocol", "cli_visualize",
@@ -3944,8 +4465,9 @@ def main(argv=None) -> int:
                ("conv_block0_f32", "conv_block0_f32", ("kernels",)),
                ("quant_block", "quant_block", ("int8", "dilated_int8", "siamese_int8",
                                                "streaming_int8", *cli_int8, "pod_int8")),
-               ("conv_block0_train", "conv_block0_train", train_paths),
-               ("conv_block0_train_bwd", "conv_block0_train_bwd", train_paths),
+               ("conv_block0_train", "conv_block0_train", (*train_paths, "recompute_train")),
+               ("conv_block0_train_bwd", "conv_block0_train_bwd",
+                (*train_paths, "recompute_train")),
                ("conv_block0_train_f32", "conv_block0_train_f32", ("train_kernels",)),
                ("conv_block0_train_bwd_f32", "conv_block0_train_bwd_f32", ("train_kernels",)),
                ("pool_fwd", "pool_fwd", train_paths),
@@ -3957,8 +4479,12 @@ def main(argv=None) -> int:
                 ("siamese_bf16", "siamese_int8", "verification", "score_support",
                  "cli_siamese_train", "cli_siamese_protocol", "pod_siamese")),
                ("conv_blockn", "conv_blockn", ("bf16", "dilated_bf16", "siamese_bf16",
-                                               "streaming_bf16", "cli_sweep")),
-               ("quant_block_stage", "quant_block_stage", ("attribution",)))
+                                               "streaming_bf16", "cli_sweep",
+                                               "recompute_train")),
+               ("quant_block_stage", "quant_block_stage", ("attribution",)),
+               ("quant_block_train", "quant_block_train", ("int8_train",)),
+               ("pool_fwd_idx", "pool_fwd_idx", ("recompute_train",)),
+               ("route_bwd_idx", "route_bwd_idx", ("recompute_train",)))
     emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
     print(card, flush=True)
     emit({"kernels": [

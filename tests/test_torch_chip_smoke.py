@@ -91,6 +91,13 @@ def on_the_cpu(monkeypatch):
                         ("TRAIN_BATCH", 8), ("TRAIN_C0", 16), ("TRAIN_STEPS", 12),
                         ("TRAIN_BLOCKS", ((64, 100), (96, 50), (128, 24))),
                         ("TRAIN_TIMING_BATCHES", (4, 8)), ("B45_F32_WIDE", (2, 1200, 16)),
+                        ("QTRAIN_EDGES", ((1, 100, 32, 64, 1, torch.bfloat16),
+                                          (2, 101, 32, 64, 1, torch.bfloat16),
+                                          (3, 30, 32, 72, 1, torch.bfloat16),
+                                          (2, 31, 64, 100, 2, torch.float32),
+                                          (3, 53, 32, 75, 4, torch.bfloat16),
+                                          (2, 20, 64, 72, 16, torch.float32))),
+                        ("RAW_STEPS", 4),
                         ("siamese_config", lambda: small_siamese),
                         ("B9_TIMING", (1, 40, 36, 16)), ("B9_NSHOT", (50, 1, 5, 16)),
                         ("SIAMESE_PAIRS", 40), ("SIAMESE_BATCH", 8),
@@ -115,9 +122,11 @@ def on_the_cpu(monkeypatch):
                         ("card_line", lambda: "CPU rehearsal, 0 W")):
         monkeypatch.setattr(cs, name, value)
     # The policies as they resolve on the card: B4/B5, and the fused
-    # blocks-1+ op unless the config says otherwise.
+    # blocks-1+ op unless the config says otherwise (its int8 forward for
+    # quant_forward="int8", over every flag).
     monkeypatch.setattr(steps, "resolve_fused_block0", lambda cfg, model: True)
     monkeypatch.setattr(steps, "resolve_blockn", lambda cfg, device: (
+        "fused_int8" if cfg.train.quant_forward == "int8" else
         "jnp" if cfg.train.use_fused_blockn is False else "fused"))
     # The plain versions count as launches where the wrappers call them, on
     # the counter of the kernel the card would launch: B2's, B4's and B5's
@@ -163,15 +172,35 @@ def on_the_cpu(monkeypatch):
     monkeypatch.setattr(cuda_melspec, "log_mel_reference", mel_counted)
     monkeypatch.setattr(cuda_conv_train, "conv_block0_train_reference", train_counted)
     monkeypatch.setattr(cuda_conv_train, "conv_block0_train_bwd_reference", train_bwd_counted)
+    pool_ref, route_ref = cuda_routing.pool_fwd_reference, cuda_routing.route_bwd_reference
+
+    def pool_counted(*a, **k):  # B7: the index mode on its own counter
+        idx_mode = a[5] if len(a) > 5 else k.get("want_idx", False)
+        if idx_mode:
+            cuda_routing.pool_fwd.idx_launches += 1
+        else:
+            cuda_routing.pool_fwd.launches += 1
+        return pool_ref(*a, **k)
+
+    def route_counted(z, b, sel, *a, **k):
+        if sel.dtype == torch.int8:
+            cuda_routing.route_bwd.idx_launches += 1
+        else:
+            cuda_routing.route_bwd.launches += 1
+        return route_ref(z, b, sel, *a, **k)
+
+    monkeypatch.setattr(cuda_routing, "pool_fwd_reference", pool_counted)
+    monkeypatch.setattr(cuda_routing, "route_bwd_reference", route_counted)
     for mod, ref, wrapper in ((cuda_conv, "conv_blockn_reference", cuda_conv.conv_blockn),
+                              (cuda_conv, "conv_blockn_rows_reference", cuda_conv.conv_blockn),
+                              (cuda_quant_block, "quant_block_train_reference",
+                               cuda_quant_block.quant_block_train),
                               (cuda_quant_block, "quant_block_stage_reference",
                                cuda_quant_block.quant_block_stage),
                               (cuda_preprocess, "gather_whiten_reference",
                                cuda_preprocess.gather_whiten),
                               (cuda_quant_block, "quant_block_reference",
                                cuda_quant_block.quant_block),
-                              (cuda_routing, "pool_fwd_reference", cuda_routing.pool_fwd),
-                              (cuda_routing, "route_bwd_reference", cuda_routing.route_bwd),
                               (cuda_distance, "weighted_l1_reference",
                                cuda_distance.weighted_l1)):
         def counted(*a, _ref=getattr(mod, ref), _w=wrapper, **k):
@@ -238,7 +267,8 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
     assert lines[0] == lines[-3] == "CPU rehearsal, 0 W"
     phases = [r["phase"] for r in records if "phase" in r]
     assert phases == ["device", "build", "kernels", "train_kernels", "slice", "int8_slice",
-                      "int8_fidelity_gate", "train_slice", "timing", "attribution",
+                      "int8_fidelity_gate", "train_slice", "int8_train_slice",
+                      "recompute_train_slice", "raw_store_slice", "timing", "attribution",
                       "train_layout", "train_timing",
                       "dilated_slice", "dilated_int8_slice", "dilated_int8_fidelity",
                       "dilated_train_slice", "dilated_timing",
@@ -285,10 +315,13 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
     assert train["loss_last5_mean"] < train["loss_first5_mean"]
     assert train["plain_step"]["min_grad_cosine"] >= cs.STEP_MIN_COSINE
     timing = by_phase["train_timing"]
+    policies = ("jnp", "fused", "fused_recompute", "fused_int8")
     assert [(r["batch"], r["blockn"]) for r in timing["train_step_turns"]] == [
-        (b, p) for b in (4, 8) for p in ("jnp", "fused", "fused", "jnp")]
+        (b, p) for b in (4, 8) for p in (*policies, *reversed(policies))]
     assert [(r["batch"], r["blockn"], len(r["turns_ms"])) for r in timing["train_step"]] == [
-        (4, "jnp", 2), (4, "fused", 2), (8, "jnp", 2), (8, "fused", 2)]
+        (b, p, 2) for b in (4, 8) for p in policies]
+    assert [(r["batch"], r["blockn"]) for r in timing["train_step_profiles"]] == [
+        (b, p) for b in (4, 8) for p in policies]
     # B7 per block at the train step's batch (with its plain version) and at
     # the largest timing batch; the fused step's layout conversions apart
     routing = timing["routing_blocks"]
@@ -462,12 +495,16 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                                             "conv_block0_train_bwd", "conv_block0_train_f32",
                                             "conv_block0_train_bwd_f32", "pool_fwd", "route_bwd",
                                             "log_mel", "log_mel_dft", "weighted_l1",
-                                            "conv_blockn", "quant_block_stage"]
+                                            "conv_blockn", "quant_block_stage",
+                                            "quant_block_train", "pool_fwd_idx",
+                                            "route_bwd_idx"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k) and k["launches"] > 0 and k["bound_by"] in (
             "bytes", "operations")
     by_name = {k["name"]: k for k in kernels}
     assert by_name["pool_fwd"]["launches_by_path"] == {"train": 3 * steps_run,
+                                                       "int8_train": 3 * steps_run,
+                                                       "raw_train": 3 * 4,
                                                        "dilated_train": 7 * steps_run,
                                                        "siamese_train": 3 * steps_run,
                                                        "corpus_device": 3 * steps_run,
@@ -489,7 +526,8 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
         "cli_protocol_int8": 6, "cli_int8_gate": 6, "cli_embed": 6, "pod_int8": 3 * 4}
     assert by_name["conv_blockn"]["launches_by_path"] == {"bf16": 6, "dilated_bf16": 14,
                                                           "siamese_bf16": 6, "streaming_bf16": 3,
-                                                          "cli_sweep": 6}
+                                                          "cli_sweep": 6,
+                                                          "recompute_train": 3 * steps_run}
     assert by_name["conv_blockn"]["library_ms"] is not None
     assert by_name["conv_blockn"]["source"] == "voicemap_tpu_torch/csrc/conv_blockn.cu"
     assert list(by_name["quant_block_stage"]["launches_by_path"]) == ["attribution"]
@@ -500,6 +538,9 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
         assert by_name[name]["launches_by_path"] == {"train_kernels": 8}
     assert by_name["conv_block0_train_bwd_f32"]["library_ms"] is not None
     assert by_name["conv_block0_train"]["launches_by_path"] == {"train": steps_run,
+                                                                "int8_train": steps_run,
+                                                                "raw_train": 4,
+                                                                "recompute_train": steps_run,
                                                                 "dilated_train": steps_run,
                                                                 "siamese_train": steps_run,
                                                                 "corpus_device": steps_run,
@@ -765,3 +806,75 @@ def test_the_pod_and_dp_slices_run_on_the_cpu(rehearsal):
     by_name = {k["name"]: k for k in records[-2]["kernels"]}
     assert by_name["gather_whiten"]["launches_by_path"]["pod_int8"] == 4
     assert by_name["conv_block0_int8"]["launches_by_path"]["pod_int8"] == 4
+
+
+def test_the_int8_recompute_and_raw_store_phases_run_on_the_cpu(rehearsal):
+    """int8_train_slice (per step B1 1, B4 1, B5 1, B3's train epilogue 3,
+    B7 3 + 3; the evaluation B1 only; the all-kernel step reported, each
+    of its own kernels' steps held),
+    recompute_train_slice (B1 1, B4 1, B5 1, B8 3, B7's index mode 3 + 3),
+    raw_store_slice (no B1 anywhere; the chain against the CPU and, at
+    offset 0, against B1); B3's train epilogue, B7's index mode and B8 with
+    its rows in train_kernels; their entries in the kernels line."""
+    code, _, records = rehearsal
+    assert code == 0
+    by_phase = {r["phase"]: r for r in records if "phase" in r}
+    nothing = {name: 0 for name in cs.KERNELS}
+    steps_run = 12
+    per_step = {"gather_whiten": 1, "conv_block0_train": 1, "conv_block0_train_bwd": 1}
+    int8 = by_phase["int8_train_slice"]
+    assert int8["blockn"] == "fused_int8"
+    assert int8["launches"] == {**nothing, **{k: steps_run * v for k, v in per_step.items()},
+                                "quant_block_train": 3 * steps_run, "pool_fwd": 3 * steps_run,
+                                "route_bwd": 3 * steps_run}
+    assert int8["eval_launches"] == {**nothing, "gather_whiten": 2}
+    assert int8["loss_last5_mean"] < int8["loss_first5_mean"]
+    rec = by_phase["recompute_train_slice"]
+    assert rec["launches"] == {**nothing, **{k: steps_run * v for k, v in per_step.items()},
+                               "conv_blockn": 3 * steps_run, "pool_fwd_idx": 3 * steps_run,
+                               "route_bwd_idx": 3 * steps_run}
+    assert rec["loss_last5_mean"] < rec["loss_first5_mean"]
+    # the int8 step through every kernel is reported; each of its own
+    # kernels alone is held, in both dtypes; the recompute step is held
+    assert not any(r["held"] for r in int8["plain_steps"].values())
+    assert set(int8["kernel_steps"]) == {"quant_block_train", "b7"}
+    for held in (*int8["kernel_steps"].values(), rec["plain_steps"]):
+        assert held["float32"]["held"] and held["bfloat16"]["held"]
+        assert min(r["min_grad_cosine"] for r in held.values()) >= cs.STEP_MIN_COSINE
+    raw = by_phase["raw_store_slice"]
+    assert raw["launches"] == {**nothing, "conv_block0_train": 4, "conv_block0_train_bwd": 4,
+                               "pool_fwd": 12, "route_bwd": 12}
+    assert raw["eval_launches"] == nothing and raw["store"]["downsampling"] == 0
+    assert raw["chain_vs_cpu"]["max_abs_err"] <= cs.RAW_CHAIN_ATOL
+    assert raw["chain_vs_cpu"]["offsets_off_the_decimation_grid"] > 0
+    checks = by_phase["train_kernels"]["checks"]
+    qtrain = [c for c in checks if c["kernel"] == "quant_block_train"]
+    assert len(qtrain) == 2 * 3 + len(cs.DILATED_BLOCKS) + len(cs.QTRAIN_EDGES)
+    assert all(c["max_abs_err"] == 0.0 for c in qtrain)
+    assert [c["dtype"] for c in qtrain[:2]] == ["bfloat16", "float32"]
+    assert [c["dilation"] for c in qtrain[6:6 + len(cs.DILATED_BLOCKS)]] == [
+        d for *_, d, _ in cs.DILATED_BLOCKS]
+    assert {c["cin"] for c in qtrain} >= {32}
+    idx = [c for c in checks if c.get("mode") == "idx"]
+    assert [(c["B"], c["pool"], c["rows"]) for c in idx if c["kernel"] == "route_bwd_idx"][
+        ::2][6:] == [(e[0], e[3], e[5]) for e in cs.ROUTING_EDGES]
+    assert all(c["max_abs_err"] == 0.0 for c in idx if c["kernel"] == "route_bwd_idx"
+               and "rel_err" not in c)
+    rows8 = [c for c in checks if c.get("rows") == "(b, 1, 0)"]
+    assert len(rows8) == 3 and all(c["err_over_bound"] <= 1.0 for c in rows8)
+    launches = by_phase["train_kernels"]["launches"]
+    assert launches["pool_fwd_idx"] > 0 and launches["route_bwd_idx"] > 0
+    timing = by_phase["train_timing"]
+    assert [r["T"] for r in timing["quant_block_train_blocks"]] == [T for T, *_ in cs.QBLOCKS]
+    assert all({"ms", "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(r)
+               for r in timing["quant_block_train_blocks"])
+    assert [r["C"] for r in timing["routing_idx_blocks"]] == [c for c, _ in cs.TRAIN_BLOCKS]
+    by_name = {k["name"]: k for k in records[-2]["kernels"]}
+    assert by_name["quant_block_train"]["launches_by_path"] == {"int8_train": 3 * steps_run}
+    assert by_name["quant_block_train"]["max_abs_err"] == 0.0
+    assert by_name["quant_block_train"]["bound_by"] in ("bytes", "operations")
+    for name in ("pool_fwd_idx", "route_bwd_idx"):
+        assert by_name[name]["launches_by_path"] == {"recompute_train": 3 * steps_run}
+        assert by_name[name]["max_abs_err"] == 0.0
+    assert by_name["gather_whiten"]["launches_by_path"]["raw_train"] == 0
+    assert by_name["gather_whiten"]["launches_by_path"]["int8_train"] == steps_run

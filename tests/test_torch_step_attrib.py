@@ -24,20 +24,33 @@ def tiny(monkeypatch):
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(step_attrib, "STORE", dict(n_speakers=5, utterances_per_speaker=3,
                                                    min_seconds=0.3, max_seconds=0.5))
-    # The policies as they resolve on the card: B4/B5 and the fused blocks-1+ op.
+    # The policies as they resolve on the card: B4/B5 and the fused blocks-1+ op
+    # (its int8 forward for quant_forward="int8").
     monkeypatch.setattr(steps, "resolve_fused_block0", lambda cfg, model: True)
-    monkeypatch.setattr(steps, "resolve_blockn", lambda cfg, device: "fused")
+    monkeypatch.setattr(steps, "resolve_blockn", lambda cfg, device: (
+        "fused_int8" if cfg.train.quant_forward == "int8" else "fused"))
 
 
 def test_every_variant_reproduces_the_plain_step_on_the_cpu(tiny):
-    records = list(step_attrib.attribute(seed=3))
+    variants_reproduce_the_plain_step(records=list(step_attrib.attribute(seed=3)))
+
+
+def test_every_variant_reproduces_the_plain_int8_step_on_the_cpu(tiny):
+    """``--quant-forward int8 --dtype float32``: the int8 forward's step,
+    B3's train epilogue among the wrappers put back."""
+    records = list(step_attrib.attribute(seed=3, quant_forward="int8", dtype="float32"))
+    assert {(r["quant_forward"], r["dtype"]) for r in records} == {("int8", "float32")}
+    variants_reproduce_the_plain_step(records)
+
+
+def variants_reproduce_the_plain_step(records):
     assert [r["variant"] for r in records] == list(step_attrib.VARIANTS)
     for r in records:
         assert r["loss"] == r["loss_plain"], r["variant"]
         assert len(r["cosines"]) == 20
         assert min(r["cosines"].values()) > 1 - 1e-12, r["variant"]
     by = {r["variant"]: r["probe"] for r in records}
-    assert by["plain"] == {} and by["b7"] == {}
+    assert by["plain"] == {} and by["b7"] == {} and by["b3_train"] == {}
     for variant in ("all", "b4", "b4_a_sel", "b4_stats", "a_sel_flips"):
         p = by[variant]
         assert p["a_sel_differ"] == 0 and p["a_sel_max_ulps"] == 0, variant

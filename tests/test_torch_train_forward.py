@@ -141,3 +141,8 @@ def test_fused_forward_needs_a_generator_with_dropout():
     assert a.shape == (2, CLASSES) and not torch.equal(a, b)
     with pytest.raises(ValueError):
         classifier_train_forward(model, x, None, "fused_recompute", True)
+    c = classifier_train_forward(model, x, torch.Generator().manual_seed(2), "fused_recompute",
+                                 True)
+    assert c.shape == (2, CLASSES) and torch.isfinite(c).all()
+    with pytest.raises(ValueError):
+        classifier_train_forward(model, x, torch.Generator().manual_seed(2), "fused_pallas", True)

@@ -200,8 +200,12 @@ def test_policies_resolve():
     assert steps.resolve_blockn(experiment(fused=True), "cpu") == "fused"
     assert steps.resolve_blockn(experiment(fused=False), "cpu") == "jnp"
     int8 = auto.replace(train=dataclasses.replace(auto.train, quant_forward="int8"))
-    with pytest.raises(NotImplementedError):
-        steps.resolve_blockn(int8, "cpu")
+    assert steps.resolve_blockn(int8, "cpu") == "fused_int8"  # over every flag, as in JAX
+    no = int8.replace(train=dataclasses.replace(int8.train, use_fused_blockn=False))
+    assert steps.resolve_blockn(no, "cpu") == "fused_int8"
+    int4 = auto.replace(train=dataclasses.replace(auto.train, quant_forward="int4"))
+    with pytest.raises(ValueError):
+        steps.resolve_blockn(int4, "cpu")
     assert jconfig.TrainConfig().quant_forward == "none"
 
 

@@ -47,6 +47,8 @@ SIGNATURES = {
     "vm_quant_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, w, aff, out, B, T, Cin, Cout, stage, stream
     "vm_quant_block_stage": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, aff (rows s, b), out, B, T, Cin, Cout, dilation, out_kind, stream
+    "vm_quant_block_train": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, w, aff, out, B, T, Cin, Cout, k, dilation, pool, out_kind, stream
     "vm_conv_blockn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, w, w_stride_k, w_stride_c, bias, sgn, sel, part, stats, B, T, C, tile,
@@ -58,13 +60,13 @@ SIGNATURES = {
     # gemm_f32, stream
     "vm_block0_train_tc_bwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _P),
-    # z, bias, sgn, sel, part, stats, B, C, T, pool, vec, strips, span, a_bf16,
-    # sel_bf16, stream
-    "vm_pool_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # z, bias, a_sel, g, c0, c1, c2, dz, part, db, B, C, T, pool, vec, strips,
-    # span, a_bf16, out_bf16, stream
+    # z, bias, sgn, sel, idx (NULL: no index), part, stats, B, C, T, pool, vec,
+    # strips, span, a_bf16, sel_bf16, stream
+    "vm_pool_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # z, bias, a_sel (or idx), g, c0, c1, c2, dz, part, db, B, C, T, pool, vec,
+    # strips, span, a_bf16, out_bf16, by_idx, stream
     "vm_route_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _P),
+                     _I, _P),
     # x, frag, offs, weights, bands, out, B, T, n_frames, ksteps, hop, M, n_passes,
     # n_weights, log_eps, stream
     "vm_log_mel_tc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -65,6 +65,19 @@
 //   kStagePool: + the pair select by the sign of alpha; writes sel[u] int32;
 //   kStageFull: + the epilogue and requantization: B3 itself, which every
 //               B3 launch runs.
+//
+// The train epilogue (kTrain; the int8 training forward, voicemap_tpu/ops/
+// conv_train.py make_fused_blockn_train(quant="int8"), whose conv the JAX
+// package leaves to XLA's int8 conv) is the same main loop at pool 1 with
+// another epilogue: per output channel co, with s[co] = sx * sw[co] formed
+// in f32 by the wrapper,
+//   a[t] = max(float(acc[t]) * s[co] + b[co], 0)   rounded op by op
+// written channels last in bf16 or f32, the dequantized activation that the
+// train op's pool pass (B7) reads. No requantization and no pool: B7 pools,
+// and the BatchNorm statistics read every a. Bit for bit against its plain
+// version, since the int32 sums are exact and the epilogue's roundings fixed.
+// Bytes bound it at blocks 1-2 of config #1 (3.15 GB of bf16 a written at
+// block 1, B=2048), operations at block 3.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,20 +92,24 @@ namespace {
 constexpr int kTaps = 3;
 
 enum OutKind { kInt8 = 0, kBF16 = 1, kF32 = 2 };
-enum Stage { kStageMma = 0, kStagePool = 1, kStageFull = 2 };
+// B10's prefixes, then B3's full epilogue; kTrain is no prefix: the train
+// forward's dequantizing epilogue at pool 1.
+enum Stage { kStageMma = 0, kStagePool = 1, kStageFull = 2, kTrain = 3 };
 template <int OUT, int STAGE>
-constexpr int kOutBytes = STAGE != kStageFull ? 4 : OUT == kInt8 ? 1 : OUT == kBF16 ? 2 : 4;
+constexpr int kOutBytes = STAGE == kStageMma || STAGE == kStagePool
+                              ? 4
+                              : OUT == kInt8 ? 1 : OUT == kBF16 ? 2 : 4;
 
 // x: (B, T, Cin) int8 through mx; w: (Cout, 3 * Kp) int8 through mw; aff:
-// (3, Cout) f32 rows alpha, beta, gamma; out: (B, T / pool, Cout), int32 for
-// the mma and pool stages.
+// (3, Cout) f32 rows alpha, beta, gamma (kTrain: s, b and a row not read);
+// out: (B, T / pool, Cout), int32 for the mma and pool stages.
 template <int MW, int OUT, int STAGE>
 __global__ void __launch_bounds__(sm90conv::kThreads, 1)
 quant_block_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
                    const sm90conv::Problem p, const float* __restrict__ aff,
                    void* __restrict__ out) {
   using V2 = std::conditional_t<
-      STAGE != kStageFull, int2,
+      STAGE == kStageMma || STAGE == kStagePool, int2,
       std::conditional_t<OUT == kInt8, char2,
                          std::conditional_t<OUT == kBF16, __nv_bfloat162, float2>>>;
   sm90conv::run<MW, int, V2>(
@@ -101,6 +118,17 @@ quant_block_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant
         constexpr int N = sm90conv::kTileN;
         if constexpr (STAGE == kStageMma) {
           return make_int2(lo0, lo1);
+        } else if constexpr (STAGE == kTrain) {
+          // pool 1: lo and hi are the same conv row's sums
+          const float2 sc = sm90conv::rows_at(a + 4 * col);
+          const float2 bi = sm90conv::rows_at(a + 4 * (N + col));
+          const float a0 = fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(lo0), sc.x), bi.x), 0.f);
+          const float a1 = fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(lo1), sc.y), bi.y), 0.f);
+          if constexpr (OUT == kBF16) {
+            return __floats2bfloat162_rn(a0, a1);
+          } else {
+            return make_float2(a0, a1);
+          }
         } else {
           const float2 al = sm90conv::rows_at(a + 4 * col);
           const int s0 = al.x > 0.f ? max(lo0, hi0) : min(lo0, hi0);
@@ -172,6 +200,22 @@ extern "C" int vm_quant_block(const void* x, const void* w, const void* aff,
   if (out_kind == kBF16)
     return (int)launch<kBF16, kStageFull>(x, w, aff, out, B, T, Cin, Cout, d, pool, s);
   return (int)launch<kF32, kStageFull>(x, w, aff, out, B, T, Cin, Cout, d, pool, s);
+}
+
+// The train epilogue: out (B, T, Cout) = max(float(acc) * s + b, 0) in bf16
+// (out_kind 1) or f32 (2), pool 1; aff (3, Cout) f32 rows s, b and one not
+// read. The same limits as vm_quant_block.
+extern "C" int vm_quant_block_train(const void* x, const void* w, const void* aff, void* out,
+                                    int B, int T, int Cin, int Cout, int d, int out_kind,
+                                    void* stream) {
+  if (Cin <= 0 || Cin % 32 != 0 || (out_kind != kBF16 && out_kind != kF32) || d < 1 ||
+      2 * d > sm90conv::kMaxReach)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || T < 1 || Cout == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (out_kind == kBF16)
+    return (int)launch<kBF16, kTrain>(x, w, aff, out, B, T, Cin, Cout, d, 1, s);
+  return (int)launch<kF32, kTrain>(x, w, aff, out, B, T, Cin, Cout, d, 1, s);
 }
 
 // B10. stage: 0 mma (out int32, acc[2u]), 1 pool (out int32, sel[u]), 2 full

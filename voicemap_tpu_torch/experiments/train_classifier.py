@@ -6,8 +6,9 @@ LibriSpeech-shaped synthetic corpus under ``--data-root`` first;
 ``--dilated`` trains config #3's encoder, ``--melspec`` config #4's log-mel
 classifier. Training is the port's ``fit(cfg)`` from the corpus on disk
 (``--pipeline``); ``--profile`` writes a ``torch.profiler`` Chrome trace of
-the run. ``--quant-forward int8`` is passed to ``fit``, which does not
-train it yet and says so. ``--dp on`` trains data-parallel over the
+the run. ``--quant-forward int8`` trains blocks 1+ through the int8
+forward (``fused_int8``), ``--pallas-preprocess off`` from the raw store
+through the plain preprocessing chain. ``--dp on`` trains data-parallel over the
 processes started with ``VOICEMAP_NUM_PROCESSES``, ``VOICEMAP_PROCESS_ID``
 and ``VOICEMAP_COORDINATOR`` (``parallel/distributed.initialize``); in one
 process it warns and trains unsharded.
@@ -52,12 +53,13 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--compute-dtype", default="bfloat16")
     p.add_argument("--quant-forward", default="none", choices=["none", "int8"],
-                   help="blocks-1+ forward convs in int8 (not trained by the port yet)")
+                   help="blocks-1+ forward convs in int8 (s8 x s8 -> s32 on the B3 kernel's "
+                        "train epilogue, a straight-through backward)")
     p.add_argument("--fused-block0", default="auto", choices=["auto", "on", "off"],
                    help="block 0 through the B4/B5 kernels; auto = on the card")
     p.add_argument("--pallas-preprocess", default="auto", choices=["auto", "on", "off"],
-                   help="the JAX script's preprocessing switch; the port gathers "
-                        "and whitens through the B1 kernel")
+                   help="auto and on: gather and whiten through the B1 kernel from a "
+                        "store decimated once; off: the raw store and the plain chain")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--log-path", default=None)
     p.add_argument("--dilated", action="store_true",

@@ -5,7 +5,8 @@ with its name and default, and ``--device``. Pairs of same and different
 speakers, BCE (or the contrastive loss), the periodic n-shot evaluation
 gating the checkpoints and the plateau schedule; training is the port's
 ``fit(cfg)`` from the corpus on disk. ``--distance-metric weighted_l1``
-scores through the B9 kernel.
+scores through the B9 kernel; ``--quant-forward int8`` and
+``--pallas-preprocess off`` as in ``train_classifier``.
 
     python -m voicemap_tpu_torch.experiments.train_siamese --data-root /tmp/syn \\
         --subsets train-clean-100 --val-subsets dev-clean --distance-metric weighted_l1
@@ -50,12 +51,13 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--compute-dtype", default="bfloat16")
     p.add_argument("--quant-forward", default="none", choices=["none", "int8"],
-                   help="blocks-1+ forward convs in int8 (not trained by the port yet)")
+                   help="blocks-1+ forward convs in int8 (s8 x s8 -> s32 on the B3 kernel's "
+                        "train epilogue, a straight-through backward)")
     p.add_argument("--fused-block0", default="auto", choices=["auto", "on", "off"],
                    help="block 0 through the B4/B5 kernels; auto = on the card")
     p.add_argument("--pallas-preprocess", default="auto", choices=["auto", "on", "off"],
-                   help="the JAX script's preprocessing switch; the port gathers "
-                        "and whitens through the B1 kernel")
+                   help="auto and on: gather and whiten through the B1 kernel from a "
+                        "store decimated once; off: the raw store and the plain chain")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--log-path", default=None)
     p.add_argument("--synthetic", action="store_true")

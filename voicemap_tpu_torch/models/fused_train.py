@@ -6,11 +6,17 @@ Port of ``voicemap_tpu/models/fused_train.py :: encoder_train_forward``,
 ``ops/conv_train.FusedBlock0Train`` (B4 forward, B5 backward) when it is
 eligible; blocks 1+ run either flax's ``ConvBlock`` train semantics
 differentiated by autograd (``blockn="jnp"``, ``ConvBlock.forward_train_nct``)
-or the save-act fused op ``FusedBlocknTrain`` (``blockn="fused"``: cuDNN
-convs around B7's pool and routing passes, channels last from block 0's
-pooled output to the head, with no copy between blocks; a block that falls
-back to ``forward_train_nct`` reads the strided tensor as it is). With f32
-compute and dropout 0 the forward matches flax's ``model.apply(train=True)``.
+or a fused op, channels last from block 0's pooled output to the head, with
+no copy between blocks (a block that falls back to ``forward_train_nct``
+reads the strided tensor as it is): the save-act ``FusedBlocknTrain``
+(``blockn="fused"``: cuDNN convs around B7's pool and routing passes); its
+int8 forward (``"fused_int8"``: the conv in s8×s8→s32 on B3's train
+epilogue with in-step scales, a straight-through backward); or the
+pool-rate-residual ``FusedBlocknRecompute`` (``"fused_recompute"``: B8 or
+cuDNN in f32, B7 with the phase index, the conv recomputed in the
+backward), as the JAX package's ``blockn`` names them. With f32 compute and
+dropout 0 the forward matches flax's ``model.apply(train=True)`` (the int8
+forward its own JAX counterpart).
 
 These functions take the module and use its parameters, so gradients land in
 ``.grad`` as usual, and they **update the BatchNorm running buffers of the
@@ -27,13 +33,15 @@ from __future__ import annotations
 import torch
 
 from ..ops import distance as dist_ops
-from ..ops.conv_train import FusedBlock0Train, FusedBlocknTrain, symmetric_padding
+from ..ops.conv_train import (
+    FusedBlock0Train, FusedBlocknRecompute, FusedBlocknTrain, symmetric_padding,
+)
 from ..ops.cuda_conv_train import KERNEL_POOL, KERNEL_TAPS, MAX_CHANNELS
 from .classifier import SpeakerClassifier
 from .encoder import ConvEncoder, spatial_dropout
 from .siamese import SiameseNet
 
-BLOCKN = ("jnp", "fused")
+BLOCKN = ("jnp", "fused", "fused_recompute", "fused_int8")
 
 
 def _gemm_dtype(cdt: torch.dtype) -> torch.dtype:
@@ -54,9 +62,11 @@ def encoder_train_forward(encoder: ConvEncoder, x: torch.Tensor,
     """``(B, T, 1)`` f32 → ``(B, D)`` f32 embeddings, train semantics.
 
     ``blockn``: ``"jnp"`` for autograd through flax-semantics blocks,
-    ``"fused"`` for the save-act fused op (a block whose T does not divide
-    its pool falls back to the plain block, as in the JAX package, and so
-    does a block whose SAME padding is not symmetric).
+    ``"fused"`` for the save-act fused op, ``"fused_int8"`` for its int8
+    forward, ``"fused_recompute"`` for the pool-rate-residual op (under the
+    three fused ones a block whose T does not divide its pool falls back to
+    the plain block, as in the JAX package, and so does a block whose SAME
+    padding is not symmetric).
     ``fused_block0`` sends an eligible block 0 through B4/B5.
     """
     if blockn not in BLOCKN:
@@ -76,17 +86,21 @@ def encoder_train_forward(encoder: ConvEncoder, x: torch.Tensor,
         y = spatial_dropout(pooled.to(cdt), cfg.dropout, generator, channel_dim=2)
         blk.update_running_stats(mu, var)
         h = y.transpose(1, 2)  # (B, C, T/4), channels last: what the fused blocks take
-        if blockn != "fused":
+        if blockn == "jnp":
             h = h.contiguous()  # channel first for the jnp blocks' cuDNN convs
         start = 1
     for i in range(start, len(encoder.blocks)):
         blk = encoder.blocks[i]
         pool = blk.pool_size
         symmetric = symmetric_padding(blk.conv.kernel_size[0], blk.conv.dilation[0]) is not None
-        if blockn == "fused" and i >= 1 and symmetric and (pool <= 1 or h.shape[2] % pool == 0):
-            pooled, mu, var = FusedBlocknTrain.apply(
-                h, blk.conv.weight, blk.conv.bias, blk.bn.weight, blk.bn.bias, max(pool, 1),
-                blk.bn.eps, blk.conv.dilation[0], gdt)
+        if blockn != "jnp" and i >= 1 and symmetric and (pool <= 1 or h.shape[2] % pool == 0):
+            args = (h, blk.conv.weight, blk.conv.bias, blk.bn.weight, blk.bn.bias, max(pool, 1),
+                    blk.bn.eps, blk.conv.dilation[0], gdt)
+            if blockn == "fused_recompute":
+                pooled, mu, var = FusedBlocknRecompute.apply(*args)
+            else:
+                pooled, mu, var = FusedBlocknTrain.apply(
+                    *args, "int8" if blockn == "fused_int8" else "none")
             h = spatial_dropout(pooled.to(cdt), cfg.dropout, generator)
             blk.update_running_stats(mu, var)
         else:

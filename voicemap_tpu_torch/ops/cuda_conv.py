@@ -242,6 +242,22 @@ def conv_blockn_reference(
     add`` in f32, the max of the phases, and one rounding to ``out_dtype``.
     An odd T floors at pool 2.
     """
+    return _blockn_reference(x, w, *bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps),
+                             pool, out_dtype, gemm_dtype, dilation)
+
+
+def conv_blockn_rows_reference(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                               mul: torch.Tensor, add: torch.Tensor, pool: int = 1,
+                               out_dtype: torch.dtype = torch.float32,
+                               gemm_dtype: torch.dtype = torch.bfloat16,
+                               dilation: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of :func:`conv_blockn_rows`: B8's, with the
+    epilogue's rows given."""
+    return _blockn_reference(x, w, bias.float(), mul.float(), add.float(), pool, out_dtype,
+                             gemm_dtype, dilation)
+
+
+def _blockn_reference(x, w, bias, mul, add, pool, out_dtype, gemm_dtype, dilation):
     if pool not in conv_sm90.POOLS:
         raise ValueError(f"conv_blockn: pool 1 or 2, got {pool}")
     k, _, cout = w.shape
@@ -257,8 +273,7 @@ def conv_blockn_reference(
     frames = xp.unfold(1, win, pool)[:, :t_out]  # (B, t_out, Cin, win)
     frames = frames.transpose(2, 3).reshape(B, t_out, win * cin)
     y = frames @ stacked_weights_chan(w.to(gemm_dtype), pool, dilation)  # (B, t_out, pool·Cout)
-    bias, mul, add = (v.repeat(pool) for v in
-                      bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps))
+    bias, mul, add = (v.repeat(pool) for v in (bias, mul, add))
     y = torch.relu(y + bias) * mul + add
     return y.unflatten(-1, (pool, cout)).amax(dim=-2).to(out_dtype)
 
@@ -267,7 +282,8 @@ def check_blockn_launch(x: torch.Tensor, w: torch.Tensor, vecs: tuple, pool: int
                         out_dtype: torch.dtype, gemm_dtype: torch.dtype,
                         dilation: int = 1) -> None:
     """Raise ``ValueError`` for what the B8 kernel does not take: ``vecs``
-    are the bias and the four BatchNorm tensors."""
+    are the bias and the four BatchNorm tensors, or the epilogue's three
+    rows."""
     if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError("conv_blockn: x must be a contiguous (B, T, Cin) bfloat16 tensor")
     cin = x.shape[2]
@@ -290,7 +306,7 @@ def check_blockn_launch(x: torch.Tensor, w: torch.Tensor, vecs: tuple, pool: int
     if any(p.device != x.device for p in (w, *vecs)):
         raise ValueError(f"conv_blockn: every parameter must lie on {x.device}")
     if any(p.shape != (cout,) for p in vecs):
-        raise ValueError(f"conv_blockn: bias and BatchNorm tensors must be ({cout},)")
+        raise ValueError(f"conv_blockn: the per-channel tensors must be ({cout},)")
     if x.data_ptr() % 16:
         raise ValueError("conv_blockn: x must be 16-byte aligned")
 
@@ -319,6 +335,33 @@ def conv_blockn(
         raise ValueError(f"conv_blockn: no kernel for device {x.device}")
     check_blockn_launch(x, w, (b, bn_scale, bn_bias, bn_mean, bn_var), pool, out_dtype,
                         gemm_dtype, dilation)
+    return _launch_blockn(x, w, bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps), pool,
+                          out_dtype, dilation)
+
+
+def conv_blockn_rows(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, mul: torch.Tensor,
+                     add: torch.Tensor, pool: int = 1, out_dtype: torch.dtype = torch.float32,
+                     gemm_dtype: torch.dtype = torch.bfloat16, dilation: int = 1) -> torch.Tensor:
+    """B8 with the epilogue's rows given: ``relu(conv + bias) * mul + add``,
+    max-pooled → ``(B, T // pool, Cout)``. The pool-rate-residual train
+    forward (``ops/conv_train.FusedBlocknRecompute``) runs B8 unchanged
+    through this at pool 1 with f32 output and rows ``(b, 1, 0)``: its
+    epilogue then yields ``relu(acc + b)`` in f32 exactly (a product by 1 and
+    a sum with 0 round to themselves), the JAX package's ``relu(conv with
+    f32 accumulation + b)``. Counts on ``conv_blockn.launches``."""
+    if x.device.type == "cpu":
+        return conv_blockn_rows_reference(x, w, bias, mul, add, pool, out_dtype, gemm_dtype,
+                                          dilation)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_blockn: no kernel for device {x.device}")
+    check_blockn_launch(x, w, (bias, mul, add), pool, out_dtype, gemm_dtype, dilation)
+    return _launch_blockn(x, w, (bias.float(), mul.float(), add.float()), pool, out_dtype,
+                          dilation)
+
+
+def _launch_blockn(x, w, rows: tuple, pool: int, out_dtype, dilation: int) -> torch.Tensor:
+    """One B8 launch on checked inputs, the epilogue's rows ``(bias, mul,
+    add)`` in f32."""
     B, T, cin = x.shape
     k, _, cout = w.shape
     out = torch.empty((B, T // pool, cout), dtype=out_dtype, device=x.device)
@@ -326,7 +369,7 @@ def conv_blockn(
         return out
     # (Cout, k·Kp) K-major, each tap's Cin padded with zeros to 128 bytes
     wp = conv_sm90.pack_taps(w.to(torch.bfloat16))
-    aff = torch.stack(bn_affine(b, bn_scale, bn_bias, bn_mean, bn_var, bn_eps)).contiguous()
+    aff = torch.stack(rows).contiguous()
     from .._build import check, library
 
     lib = library()

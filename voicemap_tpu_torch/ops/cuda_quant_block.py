@@ -38,6 +38,15 @@ shifted tap adds) have no separate stage here: the taps already sit inside
 K = 3·Cin, the layout of the TPU's ``_kernel_xk``, which the ``full`` stage
 is.
 
+B3's train epilogue (``quant_block_train``) is the same kernel at pool 1
+with the int8 training forward's epilogue (``make_fused_blockn_train(quant=
+"int8")`` of ``voicemap_tpu/ops/conv_train.py``, whose conv the JAX package
+leaves to XLA's int8 conv): ``a = relu(float(acc) · s + b)`` in f32, op by
+op, with ``s = sx·sw`` per output channel formed by the caller, written
+channels last in bf16 or f32, with no requantization and no pool (the train
+op's pool pass, B7, reads ``a``). ``quant_block_train_reference`` is its
+plain version; the two agree bit for bit.
+
 Dispatch is by the input's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel, and a failed build or launch raises. PyTorch
 has no int32 matrix product on the card, so the plain version accumulates in
@@ -165,6 +174,52 @@ def quant_block(
 quant_block.launches = 0  # kernel launches; the CPU path does not count
 
 
+def quant_block_train_reference(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                                bias: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16,
+                                dilation: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of B3's train epilogue → ``(B, T, Cout)``
+    ``out_dtype``: ``relu(float(acc) · scale + bias)``, each op rounded in
+    f32, then one rounding to ``out_dtype``."""
+    acc = accumulate(x_q, w_q, dilation).float()
+    return torch.relu(acc * scale.float() + bias.float()).to(out_dtype)
+
+
+def quant_block_train(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16,
+                      dilation: int = 1) -> torch.Tensor:
+    """B3's train epilogue: the int8 conv (k=3, SAME, dilation d) of ``x_q
+    (B, T, Cin)`` and ``w_q (3, Cin, Cout)`` (``pack_weights`` packs it),
+    dequantized as ``relu(float(acc) · scale + bias)`` → ``(B, T, Cout)``
+    ``out_dtype`` (bf16 or f32), pool 1."""
+    if x_q.device.type == "cpu":
+        return quant_block_train_reference(x_q, w_q, scale, bias, out_dtype, dilation)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"quant_block_train: no kernel for device {x_q.device}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("quant_block_train: the kernel writes bfloat16 or float32")
+    check_quant_launch("quant_block_train", x_q, w_q, (scale, bias), 1, dilation)
+    B, T, cin = x_q.shape
+    cout = w_q.shape[2]
+    out = torch.empty((B, T, cout), dtype=out_dtype, device=x_q.device)
+    if out.numel() == 0:
+        return out
+    rows = torch.stack([scale.float(), bias.float(), torch.zeros_like(scale, dtype=torch.float32)])
+    from .._build import check, library
+
+    lib = library()
+    with torch.cuda.device(x_q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.vm_quant_block_train(x_q.data_ptr(), pack_weights(w_q).data_ptr(),
+                                       rows.contiguous().data_ptr(), out.data_ptr(), B, T, cin,
+                                       cout, dilation, _OUT_KIND[out_dtype], stream)
+    check(err, "quant_block_train")
+    quant_block_train.launches += 1
+    return out
+
+
+quant_block_train.launches = 0  # kernel launches; the CPU path does not count
+
+
 def check_quant_launch(name: str, x_q, w_q, vecs: tuple, pool: int = KERNEL_POOL,
                        dilation: int = 1) -> None:
     """Raise ``ValueError`` for what B3's kernel does not take: ``vecs`` are
@@ -188,7 +243,7 @@ def check_quant_launch(name: str, x_q, w_q, vecs: tuple, pool: int = KERNEL_POOL
     if any(p.device != x_q.device for p in (w_q, *vecs)):
         raise ValueError(f"{name}: every parameter must lie on {x_q.device}")
     if any(p.shape != (cout,) for p in vecs):
-        raise ValueError(f"{name}: alpha, beta and gamma must be ({cout},)")
+        raise ValueError(f"{name}: the epilogue's rows must be ({cout},) each")
     if x_q.data_ptr() % 16:
         raise ValueError(f"{name}: x_q must be 16-byte aligned")
 

@@ -23,6 +23,17 @@ conv's output without its bias, in the activation dtype;
   ``dz = 1[a>0]·((c0·g + c1) + c2·a)`` op by op in f32, written in
   ``out_dtype``, and ``db = Σ dz`` in f32.
 
+The phase-index mode, for the pool-rate-residual variant of the op
+(``make_fused_blockn_train(save_act=False)``, ``ops/conv_train.py``'s
+``FusedBlocknRecompute``), whose backward recomputes ``a`` from another conv
+than its forward's, so that routing by value could miss: ``pool_fwd(...,
+want_idx=True)`` also returns ``idx`` (int8, channels last, pool rate), the
+first phase whose ``s·a`` is the strict max (the JAX package's ``_pool_lane``
+index, and the phase the value mode routes to), and ``route_bwd`` given
+``idx`` (int8) in ``a_sel``'s place routes ``g`` to that phase. Each mode is
+its own instance of the same kernels; they count apart, the index mode on
+``idx_launches``.
+
 Dispatch is by the input's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel, and a failed build or launch raises. Both
 raise on a tensor in another layout: they never copy one into theirs.
@@ -95,23 +106,45 @@ def _btc(t, pool=1):
     return t.permute(0, 2, 1).reshape(B, T // pool, pool, c)
 
 
-def pool_fwd_reference(z, b, sgn, pool: int, sel_dtype=torch.bfloat16):
-    """Plain PyTorch version → ``(a_sel (B, C, T/pool), Σa (C,), Σa² (C,))``."""
+def first_max_phase(v: torch.Tensor) -> torch.Tensor:
+    """``v (B, T/pool, pool, C)`` → int8 ``(B, T/pool, C)``: the first phase
+    ``j`` with ``v_j`` greater than every earlier phase's, from −inf (the
+    kernel's rule: a NaN is never taken)."""
+    best = torch.full_like(v[:, :, 0], float("-inf"))
+    idx = torch.zeros(best.shape, dtype=torch.int8, device=v.device)
+    for j in range(v.shape[2]):
+        gt = v[:, :, j] > best
+        idx = torch.where(gt, torch.tensor(j, dtype=torch.int8, device=v.device), idx)
+        best = torch.fmax(best, v[:, :, j])
+    return idx
+
+
+def pool_fwd_reference(z, b, sgn, pool: int, sel_dtype=torch.bfloat16, want_idx: bool = False):
+    """Plain PyTorch version → ``(a_sel (B, C, T/pool), Σa (C,), Σa² (C,))``,
+    and with ``want_idx`` the phase index ``idx (B, C, T/pool)`` int8 after
+    them."""
     B, c, T = z.shape
     af = _btc(_activation(z, b), pool).float()
     s = sgn.float()
     best = (af * s).amax(2)
     sel = (best * s).to(sel_dtype).permute(0, 2, 1)
-    return sel, af.sum((0, 1, 2)), (af * af).sum((0, 1, 2))
+    out = (sel, af.sum((0, 1, 2)), (af * af).sum((0, 1, 2)))
+    if want_idx:
+        out += (first_max_phase(af * s).permute(0, 2, 1),)
+    return out
 
 
 def route_bwd_reference(z, b, a_sel, g, c0, c1, c2, pool: int, out_dtype=torch.bfloat16):
-    """Plain PyTorch version → ``(dz (B, C, T) out_dtype, db (C,) f32)``."""
+    """Plain PyTorch version → ``(dz (B, C, T) out_dtype, db (C,) f32)``;
+    ``a_sel`` int8 is the phase index."""
     B, c, T = z.shape
     a = _activation(z, b)
     ar = _btc(a, pool).float()
-    eq = ar == _btc(a_sel).float()
-    first = eq & (eq.cumsum(2) == 1)
+    if a_sel.dtype == torch.int8:
+        first = torch.arange(pool, device=z.device).view(1, 1, pool, 1) == _btc(a_sel).long()
+    else:
+        eq = ar == _btc(a_sel).float()
+        first = eq & (eq.cumsum(2) == 1)
     gj = torch.where(first, _btc(g.to(a.dtype)).float(), 0.0)
     dz = c0.float() * gj + c1.float() + c2.float() * ar
     dz = torch.where(ar > 0, dz, 0.0)
@@ -135,19 +168,21 @@ def _check(name, z, b, pool, *others):
                              f"(T·C, 1, C); got strides {tuple(t.stride())}")
 
 
-def pool_fwd(z, b, sgn, pool: int, sel_dtype=torch.bfloat16):
+def pool_fwd(z, b, sgn, pool: int, sel_dtype=torch.bfloat16, want_idx: bool = False):
     """B7 forward: ``(a_sel (B, C, T/pool) sel_dtype, Σa (C,), Σa² (C,))``,
-    one read of ``z``."""
+    one read of ``z``; with ``want_idx`` also ``idx (B, C, T/pool)`` int8,
+    the selected phase."""
     _check("pool_fwd", z, b, pool, sgn)
     if z.device.type == "cpu":
-        return pool_fwd_reference(z, b, sgn, pool, sel_dtype)
+        return pool_fwd_reference(z, b, sgn, pool, sel_dtype, want_idx)
     if z.device.type != "cuda":
         raise ValueError(f"pool_fwd: no kernel for device {z.device}")
     if sel_dtype not in _DTYPES:
         raise ValueError("pool_fwd: sel_dtype must be float32 or bfloat16")
     B, c, T = z.shape
     sel = channels_last((B, c, T // pool), sel_dtype, z.device)
-    vec = vector_width(c, z.dtype, z, sel)
+    idx = channels_last((B, c, T // pool), torch.int8, z.device) if want_idx else None
+    vec = vector_width(c, z.dtype, z, sel, *(() if idx is None else (idx,)))
     strips, span = launch_plan(B, c, T, pool, vec, _sms(z.device.index) * FWD_CTAS_PER_SM)
     part = torch.empty((B * strips, 2, c), dtype=torch.float32, device=z.device)
     stats = torch.empty((2, c), dtype=torch.float32, device=z.device)
@@ -156,21 +191,27 @@ def pool_fwd(z, b, sgn, pool: int, sel_dtype=torch.bfloat16):
 
     with torch.cuda.device(z.device):
         err = library().vm_pool_fwd(
-            z.data_ptr(), bf.data_ptr(), sg.data_ptr(), sel.data_ptr(), part.data_ptr(),
-            stats.data_ptr(), B, c, T, pool, vec, strips, span, int(z.dtype == torch.bfloat16),
+            z.data_ptr(), bf.data_ptr(), sg.data_ptr(), sel.data_ptr(),
+            None if idx is None else idx.data_ptr(), part.data_ptr(), stats.data_ptr(), B, c, T,
+            pool, vec, strips, span, int(z.dtype == torch.bfloat16),
             int(sel_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     check(err, "pool_fwd")
-    pool_fwd.launches += 1
-    return sel, stats[0], stats[1]
+    if idx is None:
+        pool_fwd.launches += 1
+        return sel, stats[0], stats[1]
+    pool_fwd.idx_launches += 1
+    return sel, stats[0], stats[1], idx
 
 
 def route_bwd(z, b, a_sel, g, c0, c1, c2, pool: int, out_dtype=torch.bfloat16):
-    """B7 backward: ``(dz (B, C, T) out_dtype, db (C,) f32)``, one read of ``z``."""
+    """B7 backward: ``(dz (B, C, T) out_dtype, db (C,) f32)``, one read of
+    ``z``; ``a_sel`` int8 is ``pool_fwd``'s ``idx``, and routes by phase."""
     _check("route_bwd", z, b, pool, a_sel, g, c0, c1, c2)
     B, c, T = z.shape
-    if a_sel.dtype != z.dtype:
+    by_idx = a_sel.dtype == torch.int8
+    if not by_idx and a_sel.dtype != z.dtype:
         raise ValueError(f"route_bwd: a_sel must be in z's dtype {z.dtype} for exact-match "
-                         f"routing, got {a_sel.dtype}")
+                         f"routing, or the int8 phase index; got {a_sel.dtype}")
     if a_sel.shape != (B, c, T // pool) or g.shape != a_sel.shape:
         raise ValueError(f"route_bwd: a_sel and g must be {(B, c, T // pool)}")
     if g.dtype != torch.float32:
@@ -195,12 +236,18 @@ def route_bwd(z, b, a_sel, g, c0, c1, c2, pool: int, out_dtype=torch.bfloat16):
         err = library().vm_route_bwd(
             z.data_ptr(), bf.data_ptr(), a_sel.data_ptr(), g.data_ptr(), *(v.data_ptr() for v in cs),
             dz.data_ptr(), part.data_ptr(), db.data_ptr(), B, c, T, pool, vec, strips, span,
-            int(z.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            int(z.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), int(by_idx),
             torch.cuda.current_stream().cuda_stream)
     check(err, "route_bwd")
-    route_bwd.launches += 1
+    if by_idx:
+        route_bwd.idx_launches += 1
+    else:
+        route_bwd.launches += 1
     return dz, db
 
 
-pool_fwd.launches = 0  # kernel launches; the CPU path does not count
+# kernel launches; the CPU path does not count: the value mode, the index mode
+pool_fwd.launches = 0
+pool_fwd.idx_launches = 0
 route_bwd.launches = 0
+route_bwd.idx_launches = 0

@@ -11,8 +11,11 @@ store on the card) or the streaming pipeline (``data/pipeline.py``, batches
 cut on the host), picked by the store's size. With more than one process in
 the default group, ``dp`` trains data-parallel by the JAX package's rules
 (:func:`use_data_parallel`): the step builders of ``train/steps.py`` given
-the ``data`` axis's process group (``parallel/data_parallel``). Not ported
-yet: the ``fused_recompute`` and ``fused_int8`` train forwards (ROADMAP §A2).
+the ``data`` axis's process group (``parallel/data_parallel``). The train
+forward is the one ``train/steps.resolve_blockn`` picks, ``fused_int8``
+for ``quant_forward="int8"``; the store is decimated once for B1 or kept
+raw for the plain chain as ``use_pallas_preprocess`` resolves
+(``train/steps.device_store_for``).
 """
 
 from __future__ import annotations

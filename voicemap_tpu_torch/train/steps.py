@@ -37,10 +37,15 @@ and the two metrics are averaged over the group in one ``all_reduce``
 (:func:`_mean_over_group`), and the clipped update then sees the averaged
 gradient.
 
-The port has one preprocessing path, the fused one: the store is decimated
-once when it is shipped, and every batch goes through the B1 gather+whiten
-(``ops/cuda_preprocess``). Lengths and offsets are in decimated units, as on
-the JAX package's Pallas path.
+Two preprocessing paths, as in the JAX package, chosen by how the store was
+shipped (``DeviceStore.downsampling``), never by the config at fetch time:
+a store decimated once when it was shipped goes through the B1
+gather+whiten (``ops/cuda_preprocess``), lengths and offsets in decimated
+units (the JAX package's Pallas path); a raw int16 store
+(``use_pallas_preprocess=False``) through the plain chain of
+``ops/preprocess`` on the device: offsets over the raw fragment length, the
+gather, ÷ 32768, the stride decimation, the whitening (the JAX package's
+XLA chain, which it leaves to XLA; no kernel).
 """
 
 from __future__ import annotations
@@ -66,10 +71,13 @@ from .state import TrainState, apply_updates
 
 @dataclass
 class DeviceStore:
-    """An :class:`AudioStore` on a device, decimated by ``downsampling``."""
+    """An :class:`AudioStore` on a device, as it was prepared: decimated once
+    by ``downsampling`` > 0 (B1's store, lengths in decimated units), or raw
+    (``downsampling`` 0, the plain chain's store, raw lengths), as the JAX
+    ``DeviceStore.pallas_ds`` records it."""
 
-    audio: torch.Tensor  # (N, ceil(T_store / ds)) int16
-    lengths: torch.Tensor  # (N,) int32, decimated units
+    audio: torch.Tensor  # (N, ceil(T_store / ds)) int16; raw: (N, T_store)
+    lengths: torch.Tensor  # (N,) int32, decimated units (raw units when raw)
     labels: torch.Tensor  # (N,) int32
     speaker_utts: torch.Tensor  # (S, max_utt) int32
     speaker_counts: torch.Tensor  # (S,) int32
@@ -78,7 +86,8 @@ class DeviceStore:
     @classmethod
     def from_host(cls, store: AudioStore, device, downsampling: int,
                   min_length: int = 0) -> "DeviceStore":
-        """Ship the corpus to ``device`` and decimate it there, once.
+        """Ship the corpus to ``device``, and decimate it there once by
+        ``downsampling`` > 0; 0 keeps it raw.
 
         ``min_length`` zero-pads rows to at least this many raw samples.
         """
@@ -86,9 +95,12 @@ class DeviceStore:
         if audio.shape[1] < min_length:
             audio = F.pad(audio, (0, min_length - audio.shape[1]))
         put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+        lengths = put(store.lengths)
+        if downsampling:
+            audio, lengths = decimate_store(audio, downsampling), lengths // downsampling
         return cls(
-            audio=decimate_store(audio, downsampling),
-            lengths=put(store.lengths) // downsampling,
+            audio=audio,
+            lengths=lengths,
             labels=put(store.labels),
             speaker_utts=put(store.speaker_utts),
             speaker_counts=put(store.speaker_counts),
@@ -96,24 +108,47 @@ class DeviceStore:
         )
 
 
+def resolve_pallas_preprocess(cfg: ExperimentConfig) -> bool:
+    """Whether the store is decimated once for B1 (True) or kept raw for the
+    plain chain (False). ``cfg.train.use_pallas_preprocess``: None = auto,
+    B1's store on every device: the card's counterpart of the JAX package's
+    production path (its Pallas gather+whiten on the TPU); the JAX package
+    resolves auto to its XLA chain off the TPU, a choice made for that
+    device, not this one. False takes the raw chain."""
+    flag = cfg.train.use_pallas_preprocess
+    return True if flag is None else bool(flag)
+
+
 def device_store_for(cfg: ExperimentConfig, audio_store: AudioStore,
                      device) -> DeviceStore:
-    """The :class:`DeviceStore` that ``fetch_batch`` needs for this config."""
-    return DeviceStore.from_host(audio_store, device, cfg.data.downsampling,
-                                 min_length=cfg.data.fragment_length)
+    """The :class:`DeviceStore` prepared as this config resolves
+    (:func:`resolve_pallas_preprocess`): decimated once, or raw."""
+    ds = cfg.data.downsampling if resolve_pallas_preprocess(cfg) else 0
+    return DeviceStore.from_host(audio_store, device, ds, min_length=cfg.data.fragment_length)
 
 
 def fetch_batch(store: DeviceStore, indices: torch.Tensor, cfg: ExperimentConfig,
                 generator: Optional[torch.Generator] = None,
                 stochastic: bool = True) -> torch.Tensor:
-    """Utterance ids ``(B,)`` → preprocessed model inputs ``(B, T_model, 1)`` f32."""
+    """Utterance ids ``(B,)`` → preprocessed model inputs ``(B, T_model, 1)`` f32.
+
+    Dispatches on how the store was prepared, never on the config's flag: a
+    decimated store takes B1, a raw one the plain chain (offsets over the
+    raw fragment, gather, ÷ 32768, stride decimation, whitening where
+    ``whiten_rms`` is set), in the JAX package's order."""
     d = cfg.data
+    indices = indices.to(device=store.audio.device, dtype=torch.int32).contiguous()
+    if not store.downsampling:
+        frag = d.fragment_length
+        offsets = preprocess.sample_offsets(store.lengths[indices.long()], frag, generator,
+                                            stochastic)
+        return preprocess_fragments(
+            preprocess.gather_fragments(store.audio, indices, offsets, frag), cfg)
     if store.downsampling != d.downsampling:
         raise ValueError(
             f"store decimated by {store.downsampling} but config expects "
             f"downsampling {d.downsampling}")
     t_out = d.model_length
-    indices = indices.to(device=store.audio.device, dtype=torch.int32).contiguous()
     offsets = preprocess.sample_offsets(store.lengths[indices.long()], t_out,
                                         generator, stochastic)
     out = gather_whiten(store.audio, indices, offsets.contiguous(), t_out,
@@ -148,14 +183,20 @@ def resolve_fused_block0(cfg: ExperimentConfig, model) -> bool:
 
 
 def resolve_blockn(cfg: ExperimentConfig, device) -> str:
-    """How blocks 1+ train: ``"fused"`` (the save-act op with B7) or ``"jnp"``.
+    """How blocks 1+ train: ``"fused"`` (the save-act op with B7),
+    ``"fused_int8"`` or ``"jnp"``.
 
-    None = auto: ``"fused"`` on the card whenever every block's bf16
-    full-rate activation stays under ``_SAVE_ACT_LIMIT_SHARE`` of its memory,
-    else ``"jnp"``; ``"jnp"`` on the CPU.
+    ``quant_forward="int8"`` is an explicit opt-in: ``"fused_int8"`` (the
+    save-act op's int8 forward), whatever the flags and the size gate say,
+    as the JAX package resolves it (blocks whose T does not divide the pool
+    still take the plain block). Otherwise None = auto: ``"fused"`` on the
+    card whenever every block's bf16 full-rate activation stays under
+    ``_SAVE_ACT_LIMIT_SHARE`` of its memory, else ``"jnp"``; ``"jnp"`` on
+    the CPU. ``"fused_recompute"`` is reached by no config, as in the JAX
+    package: only a caller of the train forward names it.
     """
     if cfg.train.quant_forward == "int8":
-        raise NotImplementedError("the int8 training forward (fused_int8) is not ported")
+        return "fused_int8"
     if cfg.train.quant_forward != "none":
         raise ValueError(f"TrainConfig.quant_forward must be 'none' or 'int8', "
                          f"got {cfg.train.quant_forward!r}")
@@ -395,9 +436,9 @@ def host_to_device(a, device) -> torch.Tensor:
 
 
 def preprocess_fragments(frags_i16: torch.Tensor, cfg: ExperimentConfig) -> torch.Tensor:
-    """``(B, frag)`` int16 host-cut fragments → ``(B, T_model, 1)`` f32:
-    ÷ 32768, stride decimation, whitening (the streaming path; plain torch
-    ops, at whatever phase the host cut the fragment)."""
+    """``(B, frag)`` int16 fragments → ``(B, T_model, 1)`` f32: ÷ 32768,
+    stride decimation, whitening (plain torch ops: the streaming path, at
+    whatever phase the host cut the fragment, and the raw store's)."""
     d = cfg.data
     x = frags_i16.float() * preprocess.INT16_SCALE
     x = preprocess.stride_decimate(x, d.downsampling)

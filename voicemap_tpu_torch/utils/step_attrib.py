@@ -2,7 +2,8 @@
 and through their plain versions to each kernel, and to each of B4's and
 B5's outputs.
 
-    python3 -m voicemap_tpu_torch.utils.step_attrib [--seeds 0 1 2]
+    python3 -m voicemap_tpu_torch.utils.step_attrib [--seeds 0 1 2] \
+        [--quant-forward int8] [--dtype float32]
 
 For each seed, one classifier step as ``chip_smoke.py``'s
 ``compare_plain_step`` takes it (config #1 at full width, batch 32, random
@@ -20,6 +21,10 @@ whose gradient moved most, each with E[a²]/var from the plain statistics).
 (cuDNN, the optimizer) varies from run to run. ``a_sel_flips`` runs every plain version with ``a_sel`` moved by one
 bf16 ulp at as many random nonzero elements as B4's kernel changes: a
 rounding change of the kernel's size with no kernel at all.
+
+``--quant-forward int8`` takes the same step through the int8 train forward
+(``fused_int8``; variant ``b3_train`` puts back B3's train epilogue alone),
+``--dtype float32`` in f32 compute.
 
 It reaches the train path through the checkout's own ``chip_smoke`` and the
 wrappers' public signatures, so the same file runs against another checkout:
@@ -43,7 +48,8 @@ sys.path.insert(0, os.getcwd())
 import chip_smoke as cs  # noqa: E402
 
 B4, B5 = "conv_block0_train", "conv_block0_train_bwd"
-ALL = {B4: "kernel", B5: "kernel", "pool_fwd": "kernel", "route_bwd": "kernel"}
+ALL = {B4: "kernel", B5: "kernel", "pool_fwd": "kernel", "route_bwd": "kernel",
+       "quant_block_train": "kernel", "conv_blockn_rows": "kernel"}
 # Variant → {wrapper: what it returns}; wrappers not named are plain.
 # B4: "kernel", "a_sel" (the kernel's a_sel, the plain statistics), "stats"
 # (the plain a_sel, the kernel's statistics), "flips" (see the docstring);
@@ -59,8 +65,10 @@ VARIANTS = {
     "b5_dw": {B5: "dw"},
     "b5_db": {B5: "db"},
     "b7": {"pool_fwd": "kernel", "route_bwd": "kernel"},
+    "b3_train": {"quant_block_train": "kernel"},
 }
 BIAS0 = "encoder.blocks.0.conv.bias"
+_INT_OF = {torch.bfloat16: torch.int16, torch.float32: torch.int32}  # a_sel's bits
 STORE = dict(n_speakers=40, utterances_per_speaker=8, min_seconds=3.5, max_seconds=6.0)
 
 
@@ -70,15 +78,16 @@ def rel_diff(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def flip_ulps(a: torch.Tensor, n: int, seed: int) -> torch.Tensor:
-    """``a`` (bf16) with ``n`` of its nonzero elements, drawn from ``seed``,
-    moved by one ulp up or down."""
-    bits = a.contiguous().view(torch.int16).flatten().clone()
+    """``a`` (bf16 or f32) with ``n`` of its nonzero elements, drawn from
+    ``seed``, moved by one ulp up or down."""
+    itype = _INT_OF[a.dtype]
+    bits = a.contiguous().view(itype).flatten().clone()
     nonzero = (bits != 0).nonzero().flatten()
     gen = torch.Generator(device=a.device).manual_seed(seed)
     pick = nonzero[torch.randperm(nonzero.numel(), generator=gen, device=a.device)[:n]]
     step = torch.randint(0, 2, (pick.numel(),), generator=gen, device=a.device) * 2 - 1
-    bits[pick] += step.to(torch.int16)
-    return bits.view(torch.bfloat16).view(a.shape)
+    bits[pick] += step.to(itype)
+    return bits.view(a.dtype).view(a.shape)
 
 
 def b4_variant(kernel, plain, take: str, probe: dict, seed: int):
@@ -86,7 +95,8 @@ def b4_variant(kernel, plain, take: str, probe: dict, seed: int):
         ref = plain(*args, **kw)
         out = kernel(*args, **kw)
         differ = out[0] != ref[0]
-        ulps = (out[0].view(torch.int16).int() - ref[0].view(torch.int16).int()).abs()
+        itype = _INT_OF[out[0].dtype]
+        ulps = (out[0].view(itype).long() - ref[0].view(itype).long()).abs()
         n = args[0].shape[0] * args[0].shape[1]
         mean_sq = ref[2].double() / n
         var = mean_sq - (ref[1].double() / n) ** 2
@@ -135,14 +145,18 @@ def wrappers(spec: dict, probe: dict, seed: int) -> dict:
     return use
 
 
-def train_step(seed: int):
+def train_step(seed: int, quant_forward: str = "none", dtype: str = None):
     """chip_smoke's ``compare_plain_step`` set-up: the model, its weights'
-    snapshot, its config and the step, from ``seed``."""
+    snapshot, its config and the step, from ``seed`` (with
+    ``quant_forward``, in compute ``dtype`` where given)."""
     host = cs.synthetic_store(seed, **STORE)
     base = cs.classifier_baseline()
     cfg = base.replace(train=dataclasses.replace(
         base.train, batch_size=cs.TRAIN_BATCH, num_steps=cs.TRAIN_STEPS,
-        evaluate_every=cs.TRAIN_STEPS, num_eval_tasks=500, seed=seed))
+        evaluate_every=cs.TRAIN_STEPS, num_eval_tasks=500, seed=seed,
+        quant_forward=quant_forward))
+    if dtype is not None:
+        cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder, compute_dtype=dtype))
     store = cs.device_store_for(cfg, host, cs.DEVICE)
     n = len(host.label_names)
     model = cs.SpeakerClassifier(cfg.encoder, n, device=cs.DEVICE)
@@ -177,9 +191,10 @@ def grads_under(use: dict, model, snapshot: dict, cfg, run) -> tuple[float, dict
                   for k, p in model.named_parameters() if p.grad is not None}
 
 
-def attribute(seed: int, variants: dict = VARIANTS):
+def attribute(seed: int, variants: dict = VARIANTS, quant_forward: str = "none",
+              dtype: str = None):
     """Yield one record a variant at ``seed``."""
-    model, snapshot, cfg, run = train_step(seed)
+    model, snapshot, cfg, run = train_step(seed, quant_forward, dtype)
     loss_p, grads_p = grads_under(wrappers({}, {}, seed), model, snapshot, cfg, run)
     for variant, spec in variants.items():
         probe = {}
@@ -200,7 +215,8 @@ def attribute(seed: int, variants: dict = VARIANTS):
                  "grad": float(grads_p[BIAS0][c]), "mean_sq_over_var": ratio[c]} for c in top]
             probe["mean_sq_over_var_median"] = float(
                 torch.tensor([r for r in ratio if r is not None]).median())
-        yield {"seed": seed, "variant": variant, "loss_plain": loss_p, "loss": loss,
+        yield {"seed": seed, "variant": variant, "quant_forward": quant_forward,
+               "dtype": cfg.encoder.compute_dtype, "loss_plain": loss_p, "loss": loss,
                "loss_rel_diff": abs(loss - loss_p) / abs(loss_p),
                "min_grad_cosine": cos[worst], "min_at": worst, "cosines": cos, "probe": probe}
 
@@ -208,6 +224,9 @@ def attribute(seed: int, variants: dict = VARIANTS):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    parser.add_argument("--quant-forward", default="none", choices=["none", "int8"])
+    parser.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
+                        help="compute dtype (default: the config's, bf16)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("step_attrib: no CUDA device; nothing was run", file=sys.stderr)
@@ -219,7 +238,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     package = os.path.dirname(os.path.abspath(cs.__file__))
     for seed in args.seeds:
-        for record in attribute(seed):
+        for record in attribute(seed, quant_forward=args.quant_forward, dtype=args.dtype):
             print(json.dumps({"checkout": package, **record}), flush=True)
     return 0
 
