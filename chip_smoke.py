@@ -255,6 +255,31 @@ Each phase prints one JSON line; nothing here imports JAX.
     plain-version steps are held); ``fit(dp="on")`` at world size 1 warns
     and trains unsharded (its launches held); the DP step's ms and utt/s
     against the single-device step's in turns (single, dp, dp, single);
+25. mesh slice — sequence, tensor and pipeline parallelism
+    (``parallel/{halo_conv,dp_sp,tensor_parallel,pipeline_parallel}``).
+    First, in-process at world size 1 through NCCL, each program whose mesh
+    admits one rank against its single-device counterpart (sp at seq 1,
+    dp_sp at 1 × 1, tp at model 1, GPipe at S = 1) and the real-encoder
+    pipeline's refusal at pp 1. Then MESH_WORLD = 6 ranks, all on the one
+    card, in a gloo group whose collectives stage through the host
+    (``parallel/comm``), on a file rendezvous under ``build/``, their stdout
+    gathered: sp, ``make_sharded_embed_fn`` on config #3 in f32 over seq 3 of
+    {data 2, seq 3}, against the dense forward to 1e-4 relative; dp_sp, one
+    config #3 step at its batch (64) on the same mesh at dropout 0 (B1 1 a rank),
+    against the single-device full-batch step on the same draws (loss to
+    1e-5, every gradient's and new running statistic's cosine ≥ 0.99999),
+    and one at the config's dropout reported; tp,
+    ``make_tp_encoder_embed_fn`` on config #1 in bf16 over {data 3, model 2}
+    (B2 1, B8 3 a rank), against the f32 Dense on ``fast_trunk``'s output to
+    1e-5, and ``make_tp_mlp`` against the dense product; pp and pp-bwd,
+    GPipe with the six ranks as stages against the stages in turn; pp-real,
+    the two-stage real encoder on ranks 0 and 1, eval in bf16 (B2 on stage 0,
+    B8 on stage 1) against ``fast_embed`` per microbatch, train in f32
+    against sequential autograd (loss 1e-5, gradients 1e-4, the chained
+    statistics 1e-5); the dry run's nine-field line from rank 0; each
+    program's ms, the bytes and ms staged through the host, peak memory a
+    rank (one card shared by six ranks over host transport: not collective
+    costs across cards);
     then the run's total seconds.
 
 It ends with the per-kernel summary line, then
@@ -275,6 +300,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -300,8 +326,9 @@ from voicemap_tpu_torch.experiments import (
 )
 from voicemap_tpu_torch.models.classifier import SpeakerClassifier
 from voicemap_tpu_torch.models.convert import from_flax
+from voicemap_tpu_torch.models.encoder import ConvEncoder
 from voicemap_tpu_torch.models import fused_train
-from voicemap_tpu_torch.models.fast_infer import fast_embed, takes_blockn
+from voicemap_tpu_torch.models.fast_infer import fast_embed, fast_trunk, takes_blockn
 from voicemap_tpu_torch.models.quant_infer import (
     quant_embed, quant_embed_mel, quantize_encoder, quantize_from_frags, quantize_from_store,
     quantize_mel_encoder,
@@ -314,8 +341,11 @@ from voicemap_tpu_torch.ops import (
 )
 from voicemap_tpu_torch.ops import distance as dist_ops
 from voicemap_tpu_torch.ops import jax_random
-from voicemap_tpu_torch.parallel import data_parallel, pod_eval, sharded_distance
-from voicemap_tpu_torch.parallel.mesh import data_mesh
+from voicemap_tpu_torch.parallel import (
+    comm, data_parallel, distributed, dp_sp, dryrun, halo_conv, pipeline_parallel, pod_eval,
+    sharded_distance, tensor_parallel,
+)
+from voicemap_tpu_torch.parallel.mesh import data_mesh, make_mesh
 from voicemap_tpu_torch.ops.cuda_conv import (
     bn_affine, conv_block0, conv_block0_reference, conv_blockn, conv_blockn_reference,
     conv_blockn_rows, conv_blockn_rows_reference,
@@ -526,6 +556,44 @@ PG_BACKEND = "nccl"
 # turn; fit(dp="on") at world size 1 for DP_FIT_STEPS steps.
 DP_TIMING_STEPS = 20
 DP_FIT_STEPS = 10
+# mesh_slice: MESH_WORLD ranks, all on the one card, in one gloo group (NCCL
+# refuses two ranks on one card) whose collectives parallel/comm stages
+# through the host: the numbers are one card shared by the ranks over host
+# transport, not collective costs across cards. Config #3's 12000 / 32 =
+# 375 = 3·5³ samples after its pools, so seq 2 and 4 cannot shard it (nor
+# config #1): seq 3.
+MESH_WORLD = 6
+MESH_DATA_SEQ = {"data": 2, "seq": 3}
+MESH_DATA_MODEL = {"data": 3, "model": 2}
+MESH_SP_BATCH = 16  # rows of the sequence-parallel embed
+MESH_TP_ROWS = 64  # rows a data index of the tensor-parallel embed
+MESH_MLP = (64, 512, 1024, 64)  # B, D, H, F of the tensor-parallel MLP
+MESH_PP = (256, 32, 8)  # D, mb, n_micro of the homogeneous pipeline (S = MESH_WORLD)
+MESH_PPR_EVAL = (32, 4)  # mb, n_micro of the real encoder's eval pipeline
+MESH_PPR_TRAIN = (8, 3)  # mb, n_micro of its train step (f32)
+# the data × seq step's store: 8 speakers × 4 utterances of 3.5-5 s
+MESH_STORE = dict(n_speakers=8, utterances_per_speaker=4, min_seconds=3.5, max_seconds=5.0)
+MESH_CALLS = 5  # timed calls of each program, after one warm-up
+MESH_TIMEOUT = 600.0
+# A picklable function each rank calls first (the CPU rehearsal sets one
+# that counts the plain versions as launches); None on the card.
+MESH_CHILD_SETUP = None
+# the holds: the sharded forward against the dense f32 one, relative to the
+# largest output; the data × seq step against the single-device full-batch
+# step (loss; each gradient's and each new running statistic's cosine); the
+# TP embedding against the f32 Dense on fast_embed's trunk and the TP MLP
+# against the dense product; GPipe against the stages in turn; the real
+# encoder's train pipeline against sequential autograd (loss, gradients and
+# chained statistics relative to their largest value), its eval pipeline
+# against fast_embed per microbatch
+MESH_SP_RTOL = 1e-4
+MESH_LOSS_RTOL = 1e-5
+MESH_MIN_COSINE = 0.99999
+MESH_TP_RTOL = 1e-5
+MESH_PP_RTOL = 1e-5
+MESH_PPR_GRAD_RTOL = 1e-4
+MESH_PPR_STATS_RTOL = 1e-5
+MESH_PPR_EVAL_RTOL = 1e-5
 
 B1_RTOL, B1_ATOL = 1e-5, 1e-6
 # B2's f32-GEMM kernel (CUDA cores) sums its taps in the plain version's
@@ -4335,6 +4403,502 @@ def run_dp_slice(sliced: dict, seed: int, card: str) -> dict:
     return {"dp_train": launches, "dp_fit": fit_launches}
 
 
+# ---------------------------------------------------------------------------
+# mesh_slice: sequence, tensor and pipeline parallelism over MESH_WORLD ranks
+# ---------------------------------------------------------------------------
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_counts(device) -> dict:
+    """The launch counters (``read_counts`` without its CUDA call off the card)."""
+    _sync(device)
+    return {name: getattr(wrapper, counter) for name, (wrapper, counter, _, _) in KERNELS.items()}
+
+
+def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| over max |want|."""
+    got, want = got.detach().double(), want.detach().double()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-300))
+
+
+def hold(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def mesh_timed(fn, device, calls: int) -> dict:
+    """Host ms of one call of ``fn`` (one warm-up, then ``calls`` calls, the
+    card synchronized around them) and what a call staged through the host
+    (``parallel/comm.STAGED``)."""
+    fn()
+    _sync(device)
+    comm.reset_staged()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    return {"ms": ms, "staged_bytes": comm.STAGED["bytes"] / calls,
+            "staged_calls": comm.STAGED["calls"] / calls,
+            "staged_ms": comm.STAGED["seconds"] * 1e3 / calls}
+
+
+def mesh_classifier(cfg, n: int, seed: int, device):
+    """Config ``cfg``'s classifier with the seed's random flax weights."""
+    model = SpeakerClassifier(cfg.encoder, n, device=device)
+    model.load_state_dict(from_flax(random_flax_variables(cfg.encoder, n, seed), cfg.encoder))
+    return model
+
+
+def f32_config(cfg, dropout: float = None):
+    enc = dataclasses.replace(cfg.encoder, compute_dtype="float32",
+                              dropout=cfg.encoder.dropout if dropout is None else dropout)
+    return cfg.replace(encoder=enc)
+
+
+def mesh_configs() -> tuple:
+    """mesh_slice's configs #3 and #1, at full width."""
+    return dilated_4khz(), classifier_baseline()
+
+
+def mesh_plan(seed: int) -> dict:
+    """What every rank of mesh_slice runs, from this module's constants and
+    configs (a rank cannot see a caller's changes to them)."""
+    config3, config1 = mesh_configs()
+    return {"seed": seed, "device": DEVICE, "world": MESH_WORLD,
+            "data_seq": dict(MESH_DATA_SEQ), "data_model": dict(MESH_DATA_MODEL),
+            "config3": config3, "config1": config1,
+            "sp_batch": MESH_SP_BATCH, "tp_rows": MESH_TP_ROWS, "mlp": MESH_MLP, "pp": MESH_PP,
+            "ppr_eval": MESH_PPR_EVAL, "ppr_train": MESH_PPR_TRAIN, "store": dict(MESH_STORE),
+            "calls": MESH_CALLS, "child_setup": MESH_CHILD_SETUP}
+
+
+def mesh_sp(plan: dict, sizes: dict) -> dict:
+    """``make_sharded_embed_fn`` on config #3 in f32 (time over ``seq``)
+    against the single-device ``ConvEncoder`` eval forward."""
+    dev, seed = plan["device"], plan["seed"]
+    cfg = f32_config(plan["config3"])
+    mesh = make_mesh(sizes)
+    sax = comm.axis(mesh, "seq")
+    enc = mesh_classifier(cfg, 8, seed, dev).encoder
+    T, B = cfg.data.model_length, plan["sp_batch"]
+    x = torch.as_tensor(np.random.default_rng(seed + 21).standard_normal((B, T, 1)),
+                        dtype=torch.float32).to(dev)
+    t_loc = T // sax.size
+    x_local = x[:, sax.index * t_loc:(sax.index + 1) * t_loc].contiguous()
+    embed = halo_conv.make_sharded_embed_fn(cfg.encoder, mesh, "seq")
+
+    def run():
+        with torch.no_grad():
+            return embed(enc, x_local)
+
+    reset_counts()
+    got = run()
+    launches = mesh_counts(dev)
+    with torch.no_grad():
+        want = enc(x)
+    rel = max_rel(got, want)
+    hold(rel <= MESH_SP_RTOL, f"sp: sharded embed against the dense forward {rel}")
+    return {"config": cfg.name, "batch": B, "T": T, "seq": sax.size, "rel_err": rel,
+            "tolerance": MESH_SP_RTOL, "launches": launches,
+            **mesh_timed(run, dev, plan["calls"])}
+
+
+def mesh_step_rows(store, cfg, gen_seed: int, n_data: int, device) -> tuple:
+    """The data × seq step's draws, every data row's, concatenated: the
+    single-device full batch."""
+    xs, ys = [], []
+    for d in range(n_data):
+        g = steps.rank_generator(torch.Generator(device=device).manual_seed(gen_seed), d)
+        idx = sampling.sample_classifier_batch(g, store.labels.shape[0],
+                                               cfg.train.batch_size // n_data, device)
+        xs.append(fetch_batch(store, idx, cfg, g, cfg.data.stochastic))
+        ys.append(store.labels[idx])
+    return torch.cat(xs), torch.cat(ys)
+
+
+def float_buffers(model) -> dict:
+    return {k: b.detach().double().flatten().clone() for k, b in model.named_buffers()
+            if b.is_floating_point()}
+
+
+def cosines(a: dict, b: dict) -> dict:
+    return {k: float(torch.nn.functional.cosine_similarity(a[k], b[k], dim=0)) for k in a}
+
+
+def mesh_dp_sp(plan: dict, sizes: dict, host) -> dict:
+    """One config #3 step at its batch over ``{data, seq}`` at dropout 0 (B1
+    on the decimated store, counted), held on the mesh's first rank against
+    the single-device full-batch step (autograd blocks, f32) on the same
+    draws; one step at the config's dropout reported; the step's ms."""
+    dev, seed = plan["device"], plan["seed"]
+    cfg = f32_config(plan["config3"], dropout=0.0)
+    mesh = make_mesh(sizes)
+    dax, sax = comm.axis(mesh, "data"), comm.axis(mesh, "seq")
+    store = device_store_for(cfg, host, dev)
+    n = len(host.label_names)
+    model = mesh_classifier(cfg, n, seed, dev)
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    step, _ = dp_sp.make_dp_sp_classifier_train_step(model, cfg, mesh)
+    state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
+    reset_counts()
+    m = step(state, store, torch.Generator(device=dev).manual_seed(seed + 31))[1]
+    launches = mesh_counts(dev)
+    loss, grads, buffers = float(m["loss"]), step_grads(model), float_buffers(model)
+    out = {"config": cfg.name, "batch": cfg.train.batch_size, "mesh": sizes, "loss": loss,
+           "launches": launches}
+    if dax.index == 0 and sax.index == 0:
+        ref = mesh_classifier(cfg, n, seed, dev)
+        ref.load_state_dict(snapshot)
+        ref_cfg = cfg.replace(train=dataclasses.replace(cfg.train, use_fused_block0=False,
+                                                        use_fused_blockn=False))
+        x, y = mesh_step_rows(store, cfg, seed + 31, dax.size, dev)
+        ref_state = init_state(ref, cfg.train.clipnorm, cfg.train.learning_rate)
+        rm = steps.train_on_batch(ref_state, x, y, None, steps.classifier_loss_fn(ref, ref_cfg))[1]
+        ref_loss = float(rm["loss"])
+        g_cos, b_cos = cosines(grads, step_grads(ref)), cosines(buffers, float_buffers(ref))
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        worst_g, worst_b = min(g_cos, key=g_cos.get), min(b_cos, key=b_cos.get)
+        hold(rel <= MESH_LOSS_RTOL and g_cos[worst_g] >= MESH_MIN_COSINE
+             and b_cos[worst_b] >= MESH_MIN_COSINE,
+             f"dp_sp against the single-device step: loss {loss} vs {ref_loss}, gradient "
+             f"cosine {g_cos[worst_g]} at {worst_g}, statistic cosine {b_cos[worst_b]} at "
+             f"{worst_b}")
+        out["single_device"] = {
+            "loss": ref_loss, "loss_rel_diff": rel, "loss_rtol": MESH_LOSS_RTOL,
+            "min_grad_cosine": g_cos[worst_g], "min_grad_at": worst_g,
+            "min_stat_cosine": b_cos[worst_b], "min_stat_at": worst_b,
+            "cosine_tolerance": MESH_MIN_COSINE, "blocks": "autograd (jnp), f32"}
+    gen = torch.Generator(device=dev)
+    out.update(mesh_timed(lambda: step(state, store, gen.manual_seed(seed + 32)), dev,
+                          plan["calls"]))
+    drop_cfg = f32_config(plan["config3"])
+    drop = mesh_classifier(drop_cfg, n, seed, dev)
+    drop_step, _ = dp_sp.make_dp_sp_classifier_train_step(drop, drop_cfg, mesh)
+    dm = drop_step(init_state(drop, drop_cfg.train.clipnorm, drop_cfg.train.learning_rate),
+                   store, torch.Generator(device=dev).manual_seed(seed + 33))[1]
+    out["at_config_dropout"] = {"dropout": drop_cfg.encoder.dropout, "loss": float(dm["loss"])}
+    hold(np.isfinite(out["at_config_dropout"]["loss"]), "dp_sp: non-finite loss at dropout")
+    return out
+
+
+def mesh_tp(plan: dict, sizes: dict) -> dict:
+    """``make_tp_encoder_embed_fn`` on config #1 in bf16 over ``{data,
+    model}`` (B2 and B8 counted) against the f32 Dense on ``fast_trunk``'s
+    output, and ``make_tp_mlp`` against the dense product."""
+    dev, seed = plan["device"], plan["seed"]
+    cfg = plan["config1"]
+    mesh = make_mesh(sizes)
+    dax = comm.axis(mesh, "data")
+    enc = mesh_classifier(cfg, 8, seed, dev).encoder
+    T, rows = cfg.data.model_length, plan["tp_rows"]
+    x = torch.as_tensor(np.random.default_rng(seed + 41).standard_normal(
+        (dax.size * rows, T, 1)), dtype=torch.float32).to(dev)
+    x_local = x[dax.index * rows:(dax.index + 1) * rows].contiguous()
+    fn = tensor_parallel.make_tp_encoder_embed_fn(cfg.encoder, mesh)
+    reset_counts()
+    emb = fn(enc, x_local)
+    launches = mesh_counts(dev)
+    with torch.inference_mode(), halo_conv.full_f32():
+        h = fast_trunk(enc, x_local).amax(dim=1).float()
+        want = h @ enc.embed.weight.t().float() + enc.embed.bias.float()
+        served = fast_embed(enc, x_local)
+    rel = max_rel(emb, want)
+    hold(rel <= MESH_TP_RTOL, f"tp: the embedding against the f32 head on the trunk {rel}")
+    B, D, H, F_ = plan["mlp"]
+    r = np.random.default_rng(seed + 42)
+    w = [torch.as_tensor(r.standard_normal(s) * (s[0] ** -0.5 if len(s) > 1 else 0.1),
+                         dtype=torch.float32).to(dev)
+         for s in ((B, D), (D, H), (H,), (H, F_), (F_,))]
+    mlp = tensor_parallel.make_tp_mlp(mesh, "model")
+    with torch.no_grad(), halo_conv.full_f32():
+        y = mlp(*w)
+        dense = torch.relu(w[0] @ w[1] + w[2]) @ w[3] + w[4]
+    mlp_rel = max_rel(y, dense)
+    hold(mlp_rel <= MESH_TP_RTOL, f"tp: the MLP against the dense product {mlp_rel}")
+    with torch.no_grad():
+        mlp_t = mesh_timed(lambda: mlp(*w), dev, plan["calls"])
+    return {"config": cfg.name, "dtype": cfg.encoder.compute_dtype, "mesh": sizes,
+            "rows": rows, "rel_err": rel, "tolerance": MESH_TP_RTOL,
+            "rel_to_served_bf16_head": max_rel(emb, served), "launches": launches,
+            "mlp": {"shape": [B, D, H, F_], "rel_err": mlp_rel, **mlp_t},
+            **mesh_timed(lambda: fn(enc, x_local), dev, plan["calls"])}
+
+
+def _mesh_stage(params, x):
+    w, b = params
+    return torch.relu(x @ w + b)
+
+
+def _mesh_mse(out, y):
+    return torch.mean((out - y) ** 2)
+
+
+def mesh_pp(plan: dict, stages: int) -> dict:
+    """``make_gpipe_fn`` and ``make_gpipe_train_step`` with every rank a
+    stage (dense relu stages) against the stages applied in turn."""
+    dev, seed = plan["device"], plan["seed"]
+    D, mb, M = plan["pp"]
+    mesh = make_mesh({"pp": stages})
+    me = comm.axis(mesh, "pp").index
+    r = np.random.default_rng(seed + 51)
+    f32 = dict(dtype=torch.float32, device=dev)
+    ws = torch.as_tensor(r.standard_normal((stages, D, D)) * D ** -0.5, **f32)
+    bs = torch.as_tensor(r.standard_normal((stages, D)) * 0.1, **f32)
+    x = torch.as_tensor(r.standard_normal((M, mb, D)), **f32)
+    tgt = torch.as_tensor(r.standard_normal((M, mb, D)), **f32)
+    mine = (ws[me:me + 1], bs[me:me + 1])
+    fn = pipeline_parallel.make_gpipe_fn(mesh, _mesh_stage, M)
+    step = pipeline_parallel.make_gpipe_train_step(mesh, _mesh_stage, _mesh_mse, M)
+    with halo_conv.full_f32():
+        with torch.no_grad():
+            y = fn(mine, x)
+        loss, grads = step(mine, x, tgt)
+        wr, br = ws.clone().requires_grad_(), bs.clone().requires_grad_()
+        seq = x
+        for s in range(stages):
+            seq = _mesh_stage((wr[s], br[s]), seq)
+        ref_loss = _mesh_mse(seq, tgt)
+        ref_loss.backward()
+    ref_loss = float(ref_loss.detach())
+    rel = {"out": max_rel(y, seq), "loss": abs(float(loss) - ref_loss) / ref_loss,
+           "grad_w": max_rel(grads[0][0], wr.grad[me]), "grad_b": max_rel(grads[1][0], br.grad[me])}
+    worst = max(rel, key=rel.get)
+    hold(rel[worst] <= MESH_PP_RTOL, f"pp: {worst} against the sequential stages {rel[worst]}")
+    with halo_conv.full_f32():
+        with torch.no_grad():
+            fwd_t = mesh_timed(lambda: fn(mine, x), dev, plan["calls"])
+        step_t = mesh_timed(lambda: step(mine, x, tgt), dev, plan["calls"])
+    return {"stages": stages, "D": D, "mb": mb, "n_micro": M, "rel_err": rel,
+            "tolerance": MESH_PP_RTOL, "out_shape": list(y.shape), "loss": float(loss),
+            "forward": fwd_t, "train_step": step_t}
+
+
+def grads_row(cfg, model, pack) -> torch.Tensor:
+    """An encoder's gradients in the pipeline's flat row: a module holding
+    them as its parameters and zeros as its statistics, packed."""
+    g = ConvEncoder(cfg.encoder, device=next(model.parameters()).device)
+    sd = {k: torch.zeros_like(v) for k, v in g.state_dict().items()}
+    sd.update({k: p.grad for k, p in model.named_parameters()})
+    g.load_state_dict(sd)
+    return pack(g)
+
+
+def mesh_pp_real(plan: dict, rank: int) -> dict:
+    """The two-stage real-encoder pipeline on a ``{pp 2}`` mesh of ranks 0
+    and 1 (every rank builds the mesh): eval on config #1 in bf16 (B2 on
+    stage 0, B8 on stage 1, counted) against ``fast_embed`` per microbatch;
+    a train step in f32 against sequential autograd over the microbatches,
+    and ``apply_stats`` against the chained train-mode forwards."""
+    dev, seed = plan["device"], plan["seed"]
+    mesh = make_mesh({"pp": 2})
+    if rank >= 2:
+        return {}
+    cfg = plan["config1"]
+    T = cfg.data.model_length
+    r = np.random.default_rng(seed + 61)
+    f32 = dict(dtype=torch.float32, device=dev)
+    mb, M = plan["ppr_eval"]
+    enc = mesh_classifier(cfg, 8, seed, dev).encoder
+    x = torch.as_tensor(r.standard_normal((M, mb, T, 1)), **f32)
+    fn, pack = pipeline_parallel.make_gpipe_real_encoder_fn(cfg.encoder, mesh, enc, mb, T, M)
+    flat = pack(enc)
+    reset_counts()
+    with torch.no_grad():
+        out = fn(flat, x)
+    eval_launches = mesh_counts(dev)
+    want = torch.stack([fast_embed(enc, x[t]) for t in range(M)])
+    eval_rel = max_rel(out, want)
+    hold(eval_rel <= MESH_PPR_EVAL_RTOL, f"pp-real eval against fast_embed {eval_rel}")
+    with torch.no_grad():
+        eval_t = mesh_timed(lambda: fn(flat, x), dev, plan["calls"])
+
+    cfg32 = f32_config(cfg, dropout=0.0)  # the pipeline's train blocks drop nothing
+    mb, M = plan["ppr_train"]
+    enc = mesh_classifier(cfg32, 8, seed, dev).encoder
+    snapshot = {k: v.clone() for k, v in enc.state_dict().items()}
+    x = torch.as_tensor(r.standard_normal((M, mb, T, 1)), **f32)
+    y = torch.as_tensor(r.standard_normal((M, mb, cfg.encoder.embedding_dim)), **f32)
+    step, pack, apply_stats = pipeline_parallel.make_gpipe_real_train_step(
+        cfg32.encoder, mesh, enc, mb, T, M, _mesh_mse)
+    flat = pack(enc)
+    reset_counts()
+    loss, grads, stats = step(flat, x, y)
+    train_launches = mesh_counts(dev)
+    new = comm.tree_flatten(apply_stats(enc, stats))[0]
+    ref = ConvEncoder(cfg32.encoder, device=dev)
+    ref.load_state_dict(snapshot)
+    ref.train()
+    ref_loss = _mesh_mse(torch.stack([ref(x[t]) for t in range(M)]), y)
+    ref_loss.backward()
+    ref_loss = float(ref_loss.detach())
+    chained = [t for blk in ref.blocks for t in (blk.bn.running_mean, blk.bn.running_var)]
+    rel = {"loss": abs(float(loss) - ref_loss) / ref_loss,
+           "grads": max_rel(grads, grads_row(cfg32, ref, pack)),
+           "stats": max(max_rel(a, b) for a, b in zip(new, chained))}
+    hold(rel["loss"] <= MESH_LOSS_RTOL and rel["grads"] <= MESH_PPR_GRAD_RTOL
+         and rel["stats"] <= MESH_PPR_STATS_RTOL, f"pp-real train against sequential {rel}")
+    train_t = mesh_timed(lambda: step(flat, x, y), dev, plan["calls"])
+    return {"stage": rank, "config": cfg.name,
+            "eval": {"dtype": cfg.encoder.compute_dtype, "mb": plan["ppr_eval"][0],
+                     "n_micro": plan["ppr_eval"][1], "rel_err": eval_rel,
+                     "equal": bool(torch.equal(out, want)), "tolerance": MESH_PPR_EVAL_RTOL,
+                     "launches": eval_launches, **eval_t},
+            "train": {"dtype": "float32", "mb": mb, "n_micro": M, "loss": float(loss),
+                      "rel_err": rel, "tolerances": {
+                          "loss": MESH_LOSS_RTOL, "grads": MESH_PPR_GRAD_RTOL,
+                          "stats": MESH_PPR_STATS_RTOL},
+                      "launches": train_launches, **train_t}}
+
+
+def mesh_programs(rank: int, world: int, plan: dict) -> dict:
+    """Every program of mesh_slice on this rank of the world."""
+    dev = plan["device"]
+    host = synthetic_store(plan["seed"], **plan["store"])
+    out = {"rank": rank}
+    for name, fn in (("sp", lambda: mesh_sp(plan, plan["data_seq"])),
+                     ("dp_sp", lambda: mesh_dp_sp(plan, plan["data_seq"], host)),
+                     ("tp", lambda: mesh_tp(plan, plan["data_model"])),
+                     ("pp", lambda: mesh_pp(plan, world)),
+                     ("pp_real", lambda: mesh_pp_real(plan, rank))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fields = dryrun.dryrun_rank(rank, world, dev)
+    out["dryrun"] = {"fields": fields, "line": dryrun.line(world, fields),
+                     "seconds": time.perf_counter() - t0}
+    if rank == 0:
+        print(out["dryrun"]["line"], flush=True)
+    out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          if torch.device(dev).type == "cuda" else 0.0)
+    return out
+
+
+def _mesh_rank(rank: int, world: int, rendezvous: str, plan: dict, out_dir: str) -> None:
+    """One rank of mesh_slice: its stdout and stderr to ``rank<r>.log``,
+    the gloo group joined with its tensors on the card, every program run,
+    the results to ``rank<r>.pt``."""
+    log = open(os.path.join(out_dir, f"rank{rank}.log"), "w")
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    try:
+        if plan["child_setup"] is not None:
+            plan["child_setup"]()
+        torch.set_num_threads(1)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        distributed.initialize(rendezvous, world, rank, device=plan["device"], backend="gloo")
+        try:
+            torch.save(mesh_programs(rank, world, plan), os.path.join(out_dir, f"rank{rank}.pt"))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+
+
+def spawn_mesh(plan: dict, out_dir: str) -> list:
+    """MESH_WORLD ranks of ``_mesh_rank`` on a file rendezvous in
+    ``out_dir``; every process stopped on return → their results."""
+    world = plan["world"]
+    try:
+        distributed.spawn(_mesh_rank, world, (world, f"file://{out_dir}/rendezvous", plan,
+                                              out_dir), MESH_TIMEOUT)
+    except BaseException:
+        for r in range(world):
+            path = os.path.join(out_dir, f"rank{r}.log")
+            if os.path.exists(path):
+                print(f"--- mesh_slice rank {r} ---\n{open(path).read()[-4000:]}",
+                      file=sys.stderr)
+        raise
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def run_mesh_slice(seed: int, card: str) -> dict:
+    """Sequence, tensor and pipeline parallelism on the card: first each
+    program whose mesh admits one rank, in-process at world size 1 through
+    PG_BACKEND (NCCL: the device tensors go to the collectives as they are),
+    held against its single-device counterpart, and the real-encoder
+    pipeline's refusal at pp 1; then MESH_WORLD ranks on the one card in a
+    gloo group (file rendezvous under ``build/``, destroyed after the
+    phase), each running sp, dp_sp, tp, pp, pp-real and the dry run, held
+    as the functions above say; their stdout gathered, the dry run's line
+    printed from rank 0's. Times are one card shared by the ranks over host
+    transport, not collective costs across cards."""
+    plan = mesh_plan(seed)
+    record = {"phase": "mesh_slice", "card": card, "world": plan["world"],
+              "transport": f"gloo, host-staged: one card shared by {plan['world']} ranks; "
+                           "not a collective cost across cards",
+              "meshes": {"sp_dp_sp": plan["data_seq"], "tp": plan["data_model"],
+                         "pp": {"pp": plan["world"]}, "pp_real": {"pp": 2}}}
+    one = {"data": 1, "seq": 1}
+    with process_group():
+        host = synthetic_store(seed, **plan["store"])
+        record["world_1"] = {
+            "backend": PG_BACKEND, "sp": mesh_sp(plan, one), "dp_sp": mesh_dp_sp(plan, one, host),
+            "tp": mesh_tp(plan, {"data": 1, "model": 1}), "pp": mesh_pp(plan, 1)}
+        cfg = plan["config1"]
+        try:
+            pipeline_parallel.make_gpipe_real_encoder_fn(
+                cfg.encoder, make_mesh({"pp": 1}), ConvEncoder(cfg.encoder, device=DEVICE), 2,
+                cfg.data.model_length, 2)
+        except ValueError as e:
+            record["world_1"]["pp_real_refusal"] = str(e)
+        else:
+            raise AssertionError("the real-encoder pipeline ran at pp 1")
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "mesh_slice")
+    if os.path.isdir(out_dir):
+        for name in os.listdir(out_dir):
+            os.remove(os.path.join(out_dir, name))
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    results = spawn_mesh(plan, out_dir)
+    record["seconds"] = time.perf_counter() - t0
+    logs = [open(os.path.join(out_dir, f"rank{r}.log")).read() for r in range(plan["world"])]
+    line = results[0]["dryrun"]["line"]
+    hold(line in logs[0], "the dry run's line is not in rank 0's stdout")
+    hold(all(r["dryrun"]["fields"] == results[0]["dryrun"]["fields"] for r in results),
+         "the ranks' dry-run fields differ")
+    n_mid = len(plan["config1"].encoder.filter_multipliers) - 1
+    M = plan["ppr_eval"][1]
+    for r in [{"rank": "at world 1", **record["world_1"]}, *results]:
+        expect_launches(f"dp_sp rank {r['rank']}", r["dp_sp"]["launches"], gather_whiten=1)
+        expect_launches(f"tp rank {r['rank']}", r["tp"]["launches"], conv_block0=1,
+                        conv_blockn=n_mid)
+        expect_launches(f"sp rank {r['rank']}", r["sp"]["launches"])
+    expect_launches("pp-real stage 0", results[0]["pp_real"]["eval"]["launches"], conv_block0=M)
+    expect_launches("pp-real stage 1", results[1]["pp_real"]["eval"]["launches"],
+                    conv_blockn=n_mid * M)
+    for r in results[:2]:
+        expect_launches(f"pp-real train rank {r['rank']}", r["pp_real"]["train"]["launches"])
+    hold(all(r["dp_sp"]["loss"] == results[0]["dp_sp"]["loss"] for r in results),
+         "dp_sp: the ranks' losses differ")
+
+    def summed(get) -> dict:
+        parts = [get(r) for r in results if get(r) is not None]
+        return {k: sum(p[k] for p in parts) for k in KERNELS}
+
+    paths = {"sp_embed": summed(lambda r: r["sp"]["launches"]),
+             "dp_sp_train": summed(lambda r: r["dp_sp"]["launches"]),
+             "tp_embed": summed(lambda r: r["tp"]["launches"]),
+             "pp_real_eval": summed(lambda r: r["pp_real"].get("eval", {}).get("launches")),
+             "pp_real_train": summed(lambda r: r["pp_real"].get("train", {}).get("launches"))}
+    print(line, flush=True)
+    record.update(ranks=results, dryrun_line=line, launches=paths,
+                  stdout_tail=[log[-2000:] for log in logs])
+    emit(record)
+    return paths
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4411,6 +4975,7 @@ def main(argv=None) -> int:
         cli = run_protocol_slice(root, args.seed, card)
     pod = run_pod_slice(sliced, siamese, gate, args.seed, card)
     dp_paths = run_dp_slice(sliced, args.seed, card)
+    mesh_paths = run_mesh_slice(args.seed, card)
     for key in ("ms", "plain_ms", "bounds", "library_ms"):
         times[key].update(attributed[key])
         times[key].update(train_times[key])
@@ -4427,7 +4992,8 @@ def main(argv=None) -> int:
     # siamese_int8_slice, verification, score_support, siamese_train_slice,
     # mel_train_slice, corpus_slice's three fits, streaming_embed's three
     # tables, protocol_slice's CLI commands, pod_slice's three pod_evaluate
-    # paths and dp_slice's DP steps and fit(dp="on")), set to 0 just before each
+    # paths, dp_slice's DP steps and fit(dp="on") and mesh_slice's programs, summed
+    # over its ranks), set to 0 just before each
     # run and read just after;
     # for the kernels no path runs (B2's, B4's and B5's f32 GEMM, B6's DFT
     # route), the count of the check phase that ran them. On the mel paths the DFT route
@@ -4446,7 +5012,7 @@ def main(argv=None) -> int:
              "score_support": siamese["score_support"],
              "siamese_train": siamese_trained["launches"],
              "mel_train": mel_train_launches, **corpus, **streamed, **cli, **pod,
-             **dp_paths}
+             **dp_paths, **mesh_paths}
     train_paths = ("train", "int8_train", "raw_train", "dilated_train", "siamese_train",
                    "corpus_device", "corpus_streaming", "corpus_siamese", "cli_train",
                    "cli_siamese_train", "dp_train", "dp_fit")
@@ -4457,9 +5023,10 @@ def main(argv=None) -> int:
                  "mel_bf16", "mel_int8", "siamese_bf16", "siamese_int8", "siamese_train",
                  "mel_train", "corpus_device", "cli_train", "cli_protocol_bf16", *cli_int8,
                  "cli_sweep", "cli_siamese_train", "cli_siamese_protocol", "cli_visualize",
-                 "pod_bf16", "pod_int8", "pod_siamese", "dp_train", "dp_fit")),
+                 "pod_bf16", "pod_int8", "pod_siamese", "dp_train", "dp_fit", "dp_sp_train")),
                ("conv_block0", "conv_block0", ("bf16", "dilated_bf16", "siamese_bf16",
-                                               "streaming_bf16", "cli_sweep")),
+                                               "streaming_bf16", "cli_sweep", "tp_embed",
+                                               "pp_real_eval", "sp_embed", "pp_real_train")),
                ("conv_block0_int8", "conv_block0", ("int8", "dilated_int8", "siamese_int8",
                                                     "streaming_int8", *cli_int8, "pod_int8")),
                ("conv_block0_f32", "conv_block0_f32", ("kernels",)),
@@ -4480,7 +5047,8 @@ def main(argv=None) -> int:
                  "cli_siamese_train", "cli_siamese_protocol", "pod_siamese")),
                ("conv_blockn", "conv_blockn", ("bf16", "dilated_bf16", "siamese_bf16",
                                                "streaming_bf16", "cli_sweep",
-                                               "recompute_train")),
+                                               "recompute_train", "tp_embed", "pp_real_eval",
+                                               "sp_embed", "pp_real_train")),
                ("quant_block_stage", "quant_block_stage", ("attribution",)),
                ("quant_block_train", "quant_block_train", ("int8_train",)),
                ("pool_fwd_idx", "pool_fwd_idx", ("recompute_train",)),

@@ -24,6 +24,7 @@ import io
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,10 +37,100 @@ from voicemap_tpu_torch.ops import (
     block0_train_tc, cuda_conv, cuda_conv_train, cuda_distance, cuda_melspec, cuda_preprocess,
     cuda_quant_block, cuda_routing,
 )
+from voicemap_tpu_torch.parallel import dryrun
 from voicemap_tpu_torch.train import steps
 
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms"}
+
+
+def count_plain_versions(monkeypatch):
+    """The plain versions count as launches where the wrappers call them, on
+    the counter of the kernel the card would launch: B2's, B4's and B5's
+    f32-GEMM kernels for a float32 GEMM, B6's DFT route for an n_fft it
+    takes."""
+    block0_ref, mel_ref = cuda_conv.conv_block0_reference, cuda_melspec.log_mel_reference
+
+    def block0_counted(*a, **k):
+        gemm = a[10] if len(a) > 10 else k.get("gemm_dtype", torch.bfloat16)
+        if gemm == torch.float32:
+            cuda_conv.conv_block0.f32_launches += 1
+        else:
+            cuda_conv.conv_block0.launches += 1
+        return block0_ref(*a, **k)
+
+    def mel_counted(x, cfg, sr):
+        cuda_melspec.log_mel.launches += 1
+        if cuda_melspec.log_mel_route(cfg, sr) == "dft":
+            cuda_melspec.log_mel.dft_launches += 1
+        return mel_ref(x, cfg, sr)
+
+    train_ref = cuda_conv_train.conv_block0_train_reference
+    train_bwd_ref = cuda_conv_train.conv_block0_train_bwd_reference
+
+    def train_counted(*a, **k):  # B4: the f32 route for a float32 GEMM
+        gemm = a[5] if len(a) > 5 else k.get("gemm_dtype", torch.bfloat16)
+        wrapper = cuda_conv_train.conv_block0_train
+        if gemm == torch.float32:
+            wrapper.f32_launches += 1
+        else:
+            wrapper.launches += 1
+        return train_ref(*a, **k)
+
+    def train_bwd_counted(*a, **k):  # B5, likewise
+        gemm = a[9] if len(a) > 9 else k.get("gemm_dtype", torch.bfloat16)
+        wrapper = cuda_conv_train.conv_block0_train_bwd
+        if gemm == torch.float32:
+            wrapper.f32_launches += 1
+        else:
+            wrapper.launches += 1
+        return train_bwd_ref(*a, **k)
+
+    monkeypatch.setattr(cuda_conv, "conv_block0_reference", block0_counted)
+    monkeypatch.setattr(cuda_melspec, "log_mel_reference", mel_counted)
+    monkeypatch.setattr(cuda_conv_train, "conv_block0_train_reference", train_counted)
+    monkeypatch.setattr(cuda_conv_train, "conv_block0_train_bwd_reference", train_bwd_counted)
+    pool_ref, route_ref = cuda_routing.pool_fwd_reference, cuda_routing.route_bwd_reference
+
+    def pool_counted(*a, **k):  # B7: the index mode on its own counter
+        idx_mode = a[5] if len(a) > 5 else k.get("want_idx", False)
+        if idx_mode:
+            cuda_routing.pool_fwd.idx_launches += 1
+        else:
+            cuda_routing.pool_fwd.launches += 1
+        return pool_ref(*a, **k)
+
+    def route_counted(z, b, sel, *a, **k):
+        if sel.dtype == torch.int8:
+            cuda_routing.route_bwd.idx_launches += 1
+        else:
+            cuda_routing.route_bwd.launches += 1
+        return route_ref(z, b, sel, *a, **k)
+
+    monkeypatch.setattr(cuda_routing, "pool_fwd_reference", pool_counted)
+    monkeypatch.setattr(cuda_routing, "route_bwd_reference", route_counted)
+    for mod, ref, wrapper in ((cuda_conv, "conv_blockn_reference", cuda_conv.conv_blockn),
+                              (cuda_conv, "conv_blockn_rows_reference", cuda_conv.conv_blockn),
+                              (cuda_quant_block, "quant_block_train_reference",
+                               cuda_quant_block.quant_block_train),
+                              (cuda_quant_block, "quant_block_stage_reference",
+                               cuda_quant_block.quant_block_stage),
+                              (cuda_preprocess, "gather_whiten_reference",
+                               cuda_preprocess.gather_whiten),
+                              (cuda_quant_block, "quant_block_reference",
+                               cuda_quant_block.quant_block),
+                              (cuda_distance, "weighted_l1_reference",
+                               cuda_distance.weighted_l1)):
+        def counted(*a, _ref=getattr(mod, ref), _w=wrapper, **k):
+            _w.launches += 1
+            return _ref(*a, **k)
+        monkeypatch.setattr(mod, ref, counted)
+
+
+def _mesh_child_setup():
+    """What each rank of mesh_slice calls first here: the plain versions
+    counted as launches (a spawned rank sees none of this module's patches)."""
+    count_plain_versions(pytest.MonkeyPatch())
 
 
 def on_the_cpu(monkeypatch):
@@ -119,6 +210,18 @@ def on_the_cpu(monkeypatch):
                                            min_seconds=0.2, max_seconds=0.3)),
                         ("POD_SCORER_TASKS", (498, 2000)), ("PG_BACKEND", "gloo"),
                         ("DP_TIMING_STEPS", 2), ("DP_FIT_STEPS", 3),
+                        ("MESH_WORLD", 4), ("MESH_DATA_SEQ", {"data": 2, "seq": 2}),
+                        ("MESH_DATA_MODEL", {"data": 2, "model": 2}), ("MESH_SP_BATCH", 2),
+                        ("MESH_TP_ROWS", 2), ("MESH_MLP", (4, 16, 32, 8)),
+                        ("MESH_PP", (16, 4, 4)), ("MESH_PPR_EVAL", (2, 2)),
+                        ("MESH_PPR_TRAIN", (2, 2)), ("MESH_CALLS", 1),
+                        ("MESH_STORE", dict(n_speakers=6, utterances_per_speaker=4,
+                                            min_seconds=0.2, max_seconds=0.3)),
+                        ("MESH_CHILD_SETUP", _mesh_child_setup),
+                        # config #3 at 0.256 s: its last blocks' 16-sample halo fits the
+                        # 16-sample shards of seq 2
+                        ("mesh_configs", lambda: (small_dilated.replace(data=DataConfig(
+                            seconds=0.256, downsampling=4)), small)),
                         ("card_line", lambda: "CPU rehearsal, 0 W")):
         monkeypatch.setattr(cs, name, value)
     # The policies as they resolve on the card: B4/B5, and the fused
@@ -128,85 +231,7 @@ def on_the_cpu(monkeypatch):
     monkeypatch.setattr(steps, "resolve_blockn", lambda cfg, device: (
         "fused_int8" if cfg.train.quant_forward == "int8" else
         "jnp" if cfg.train.use_fused_blockn is False else "fused"))
-    # The plain versions count as launches where the wrappers call them, on
-    # the counter of the kernel the card would launch: B2's, B4's and B5's
-    # f32-GEMM kernels for a float32 GEMM, B6's DFT route for an n_fft it takes.
-    block0_ref, mel_ref = cuda_conv.conv_block0_reference, cuda_melspec.log_mel_reference
-
-    def block0_counted(*a, **k):
-        gemm = a[10] if len(a) > 10 else k.get("gemm_dtype", torch.bfloat16)
-        if gemm == torch.float32:
-            cuda_conv.conv_block0.f32_launches += 1
-        else:
-            cuda_conv.conv_block0.launches += 1
-        return block0_ref(*a, **k)
-
-    def mel_counted(x, cfg, sr):
-        cuda_melspec.log_mel.launches += 1
-        if cuda_melspec.log_mel_route(cfg, sr) == "dft":
-            cuda_melspec.log_mel.dft_launches += 1
-        return mel_ref(x, cfg, sr)
-
-    train_ref = cuda_conv_train.conv_block0_train_reference
-    train_bwd_ref = cuda_conv_train.conv_block0_train_bwd_reference
-
-    def train_counted(*a, **k):  # B4: the f32 route for a float32 GEMM
-        gemm = a[5] if len(a) > 5 else k.get("gemm_dtype", torch.bfloat16)
-        wrapper = cuda_conv_train.conv_block0_train
-        if gemm == torch.float32:
-            wrapper.f32_launches += 1
-        else:
-            wrapper.launches += 1
-        return train_ref(*a, **k)
-
-    def train_bwd_counted(*a, **k):  # B5, likewise
-        gemm = a[9] if len(a) > 9 else k.get("gemm_dtype", torch.bfloat16)
-        wrapper = cuda_conv_train.conv_block0_train_bwd
-        if gemm == torch.float32:
-            wrapper.f32_launches += 1
-        else:
-            wrapper.launches += 1
-        return train_bwd_ref(*a, **k)
-
-    monkeypatch.setattr(cuda_conv, "conv_block0_reference", block0_counted)
-    monkeypatch.setattr(cuda_melspec, "log_mel_reference", mel_counted)
-    monkeypatch.setattr(cuda_conv_train, "conv_block0_train_reference", train_counted)
-    monkeypatch.setattr(cuda_conv_train, "conv_block0_train_bwd_reference", train_bwd_counted)
-    pool_ref, route_ref = cuda_routing.pool_fwd_reference, cuda_routing.route_bwd_reference
-
-    def pool_counted(*a, **k):  # B7: the index mode on its own counter
-        idx_mode = a[5] if len(a) > 5 else k.get("want_idx", False)
-        if idx_mode:
-            cuda_routing.pool_fwd.idx_launches += 1
-        else:
-            cuda_routing.pool_fwd.launches += 1
-        return pool_ref(*a, **k)
-
-    def route_counted(z, b, sel, *a, **k):
-        if sel.dtype == torch.int8:
-            cuda_routing.route_bwd.idx_launches += 1
-        else:
-            cuda_routing.route_bwd.launches += 1
-        return route_ref(z, b, sel, *a, **k)
-
-    monkeypatch.setattr(cuda_routing, "pool_fwd_reference", pool_counted)
-    monkeypatch.setattr(cuda_routing, "route_bwd_reference", route_counted)
-    for mod, ref, wrapper in ((cuda_conv, "conv_blockn_reference", cuda_conv.conv_blockn),
-                              (cuda_conv, "conv_blockn_rows_reference", cuda_conv.conv_blockn),
-                              (cuda_quant_block, "quant_block_train_reference",
-                               cuda_quant_block.quant_block_train),
-                              (cuda_quant_block, "quant_block_stage_reference",
-                               cuda_quant_block.quant_block_stage),
-                              (cuda_preprocess, "gather_whiten_reference",
-                               cuda_preprocess.gather_whiten),
-                              (cuda_quant_block, "quant_block_reference",
-                               cuda_quant_block.quant_block),
-                              (cuda_distance, "weighted_l1_reference",
-                               cuda_distance.weighted_l1)):
-        def counted(*a, _ref=getattr(mod, ref), _w=wrapper, **k):
-            _w.launches += 1
-            return _ref(*a, **k)
-        monkeypatch.setattr(mod, ref, counted)
+    count_plain_versions(monkeypatch)
     gather = cs.gather_whiten
 
     def gather_nan(store, idx, off, frag, *a, **k):  # the kernel's NaN rows for bad ids
@@ -277,7 +302,7 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                       "siamese_int8_slice", "verification", "score_support",
                       "siamese_train_slice", "siamese_timing", "mel_train_slice",
                       "mel_train_timing", "corpus_slice", "streaming_embed", "protocol_slice",
-                      "pod_slice", "dp_slice", "total"]
+                      "pod_slice", "dp_slice", "mesh_slice", "total"]
     by_phase = {r["phase"]: r for r in records if "phase" in r}
     nothing = {name: 0 for name in cs.KERNELS}
     # bf16: B1 and B2 once an embed chunk, B8 three times (blocks 1-3)
@@ -527,7 +552,10 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
     assert by_name["conv_blockn"]["launches_by_path"] == {"bf16": 6, "dilated_bf16": 14,
                                                           "siamese_bf16": 6, "streaming_bf16": 3,
                                                           "cli_sweep": 6,
-                                                          "recompute_train": 3 * steps_run}
+                                                          "recompute_train": 3 * steps_run,
+                                                          "tp_embed": 3 * 4,
+                                                          "pp_real_eval": 3 * 2,
+                                                          "sp_embed": 0, "pp_real_train": 0}
     assert by_name["conv_blockn"]["library_ms"] is not None
     assert by_name["conv_blockn"]["source"] == "voicemap_tpu_torch/csrc/conv_blockn.cu"
     assert list(by_name["quant_block_stage"]["launches_by_path"]) == ["attribution"]
@@ -878,3 +906,59 @@ def test_the_int8_recompute_and_raw_store_phases_run_on_the_cpu(rehearsal):
         assert by_name[name]["max_abs_err"] == 0.0
     assert by_name["gather_whiten"]["launches_by_path"]["raw_train"] == 0
     assert by_name["gather_whiten"]["launches_by_path"]["int8_train"] == steps_run
+
+
+def test_the_mesh_slice_runs_on_the_cpu(rehearsal):
+    """mesh_slice at world size 1 (here on gloo) and over four spawned ranks
+    on gloo ({data 2, seq 2}, {data 2, model 2}, pp 4, pp 2): every program
+    held, the launches a rank (B1 1 for the data × seq step; B2 1 and B8 3
+    for the TP embed; B2 on the pipeline's stage 0, B8 on stage 1; none for
+    the sequence-parallel embed and the pipeline's train step), the dry
+    run's nine fields from rank 0, the group destroyed after the phase."""
+    code, lines, records = rehearsal
+    assert code == 0
+    by_phase = {r["phase"]: r for r in records if "phase" in r}
+    nothing = {name: 0 for name in cs.KERNELS}
+    mesh = by_phase["mesh_slice"]
+    assert mesh["world"] == 4 and mesh["meshes"]["sp_dp_sp"] == {"data": 2, "seq": 2}
+    one = mesh["world_1"]
+    assert one["backend"] == "gloo"
+    assert one["sp"]["rel_err"] <= cs.MESH_SP_RTOL and one["sp"]["seq"] == 1
+    assert one["dp_sp"]["single_device"]["min_grad_cosine"] >= cs.MESH_MIN_COSINE
+    assert one["dp_sp"]["launches"] == {**nothing, "gather_whiten": 1}
+    assert one["tp"]["launches"] == {**nothing, "conv_block0": 1, "conv_blockn": 3}
+    assert one["pp"]["stages"] == 1
+    assert one["pp_real_refusal"] == "real-encoder pipeline is a 2-stage split; pp=1"
+    ranks = mesh["ranks"]
+    assert [r["rank"] for r in ranks] == [0, 1, 2, 3]
+    for r in ranks:
+        assert r["sp"]["launches"] == nothing and r["sp"]["seq"] == 2
+        assert r["dp_sp"]["launches"] == {**nothing, "gather_whiten": 1}
+        assert r["tp"]["launches"] == {**nothing, "conv_block0": 1, "conv_blockn": 3}
+        assert r["tp"]["rel_err"] <= cs.MESH_TP_RTOL
+        assert r["pp"]["stages"] == 4 and max(r["pp"]["rel_err"].values()) <= cs.MESH_PP_RTOL
+        assert r["dp_sp"]["loss"] == ranks[0]["dp_sp"]["loss"]
+        assert r["sp"]["staged_bytes"] == 0  # the CPU stages nothing
+    held = ranks[0]["dp_sp"]["single_device"]
+    assert held["loss_rel_diff"] <= cs.MESH_LOSS_RTOL
+    assert min(held["min_grad_cosine"], held["min_stat_cosine"]) >= cs.MESH_MIN_COSINE
+    assert np.isfinite(ranks[0]["dp_sp"]["at_config_dropout"]["loss"])
+    assert ranks[0]["pp_real"]["eval"]["launches"] == {**nothing, "conv_block0": 2}
+    assert ranks[1]["pp_real"]["eval"]["launches"] == {**nothing, "conv_blockn": 3 * 2}
+    assert ranks[2]["pp_real"] == {"seconds": ranks[2]["pp_real"]["seconds"]}
+    for r in ranks[:2]:
+        assert r["pp_real"]["train"]["launches"] == nothing
+        assert max(r["pp_real"]["train"]["rel_err"].values()) <= cs.MESH_PPR_GRAD_RTOL
+    assert mesh["launches"]["dp_sp_train"] == {**nothing, "gather_whiten": 4}
+    assert mesh["launches"]["tp_embed"] == {**nothing, "conv_block0": 4, "conv_blockn": 12}
+    assert mesh["launches"]["pp_real_eval"] == {**nothing, "conv_block0": 2, "conv_blockn": 6}
+    assert mesh["launches"]["sp_embed"] == mesh["launches"]["pp_real_train"] == nothing
+    line = mesh["dryrun_line"]
+    assert line.startswith("dryrun_multichip ok: 4 devices, dp loss=") and line in lines
+    assert tuple(ranks[0]["dryrun"]["fields"]) == dryrun.FIELDS
+    assert line in mesh["stdout_tail"][0]
+    assert not torch.distributed.is_initialized()
+    by_name = {k["name"]: k for k in records[-2]["kernels"]}
+    assert by_name["gather_whiten"]["launches_by_path"]["dp_sp_train"] == 4
+    assert by_name["conv_block0"]["launches_by_path"]["tp_embed"] == 4
+    assert by_name["conv_block0"]["launches_by_path"]["pp_real_eval"] == 2

@@ -205,3 +205,34 @@ def test_the_parallel_modules_are_covered():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "imported" in proc.stdout
+
+
+def test_the_sequence_tensor_and_pipeline_modules_are_covered():
+    """The halo-exchange, data × seq, tensor and pipeline parallel modules,
+    their collectives and the dry run import with JAX and the JAX package
+    blocked, in a process of their own, and none of them names them; the
+    first test imports them too."""
+    modules = set(_modules())
+    new = ("parallel.comm", "parallel.halo_conv", "parallel.dp_sp", "parallel.tensor_parallel",
+           "parallel.pipeline_parallel", "parallel.dryrun")
+    banned = re.compile(r"^\s*(import|from)\s+(jax|flax|pandas|voicemap_tpu)\b", re.M)
+    for name in new:
+        assert f"voicemap_tpu_torch.{name}" in modules, name
+        path = PACKAGE.joinpath(*name.split(".")).with_suffix(".py")
+        assert not banned.search(path.read_text()), name
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'voicemap_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {['voicemap_tpu_torch.' + n for n in new]!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from voicemap_tpu_torch.parallel import dryrun\n"
+        "assert dryrun.main(['--n', '2']) == 1  # no card here: refused, nothing spawned\n"
+        "print('imported')\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout

@@ -100,16 +100,19 @@ def port_model(cfg, state_dict):
     return model.eval()
 
 
-def spawn(fn, world: int, tmp: Path, timeout: float = 240.0) -> None:
+def spawn(fn, world: int, tmp: Path, timeout: float = 240.0, meanwhile=None) -> None:
     """Run ``fn(rank, world, rendezvous, tmp)`` in ``world`` spawned
     processes, to join one gloo group through ``distributed.initialize`` at
     ``rendezvous`` (a file in ``tmp``: no port to race for); fail (and stop
-    them) on an error or past ``timeout``."""
+    them) on an error or past ``timeout``. ``meanwhile()``, where given, runs
+    here while they run."""
     rendezvous = f"file://{tmp / 'rendezvous'}"
     ctx = mp.start_processes(fn, args=(world, rendezvous, str(tmp)), nprocs=world,
                              join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
+        if meanwhile is not None:
+            meanwhile()
         while not ctx.join(timeout=1.0):
             if time.monotonic() > deadline:
                 raise TimeoutError(f"{fn.__name__} ranks still running after {timeout} s")

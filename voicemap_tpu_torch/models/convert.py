@@ -21,6 +21,9 @@ transpose, with its bias ``(1,)`` as it is.
 parameter name, back to the flax tree as numpy arrays, so the tests can hold
 the port's gradients, updated parameters and batch statistics against the
 JAX package's leaf by leaf.
+``variables_of`` is the same tree over a live 1D model's tensors, as views
+in flax's layouts that stay on the device and in autograd (the parallel
+programs of ``parallel/`` take it where the JAX functions take ``variables``).
 ``qvars_from_numpy`` maps an int8 serving artifact of the JAX package
 (``models/quant_infer.quantize_encoder``, or ``quantize_mel_encoder`` with its
 0-d ``s0`` and 4-D ``w_q``) onto the port's tensors; the layout is the same
@@ -138,3 +141,29 @@ def to_flax(sd: Dict[str, torch.Tensor], cfg: EncoderConfig) -> dict:
     if any(k.endswith("running_mean") for k in sd):
         out["batch_stats"] = stats
     return out
+
+
+def _encoder_views(encoder) -> tuple[dict, dict]:
+    params, stats = {}, {}
+    for i, blk in enumerate(encoder.blocks):
+        params[f"block_{i}"] = {
+            "conv": {"kernel": blk.conv.weight.permute(2, 1, 0), "bias": blk.conv.bias},
+            "bn": {"scale": blk.bn.weight, "bias": blk.bn.bias}}
+        stats[f"block_{i}"] = {"bn": {"mean": blk.bn.running_mean, "var": blk.bn.running_var}}
+    params["embed"] = {"kernel": encoder.embed.weight.t(), "bias": encoder.embed.bias}
+    return params, stats
+
+
+def variables_of(model) -> dict:
+    """A 1D ``ConvEncoder`` or ``SpeakerClassifier`` → ``{"params": ...,
+    "batch_stats": ...}`` in flax's tree and layouts, every leaf a view of
+    the module's own tensor (conv kernels ``(k, Cin, Cout)``, Dense kernels
+    ``(in, out)``): gradients through a leaf land in the parameter's
+    ``.grad``, and writing a statistic writes the module's buffer."""
+    if hasattr(model, "encoder"):
+        params, stats = _encoder_views(model.encoder)
+        out = {"params": {"encoder": params}, "batch_stats": {"encoder": stats}}
+        out["params"]["head"] = {"kernel": model.head.weight.t(), "bias": model.head.bias}
+        return out
+    params, stats = _encoder_views(model)
+    return {"params": params, "batch_stats": stats}

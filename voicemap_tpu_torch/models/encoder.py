@@ -64,6 +64,52 @@ def update_running_stats(bn: nn.Module, momentum: float, mu: torch.Tensor,
         buf.copy_(momentum * buf + (1.0 - momentum) * new.detach())
 
 
+def same_pad(x: torch.Tensor, kernel_size: int, dilation: int = 1) -> torch.Tensor:
+    """Pad the time axis (last) of ``x`` for a SAME conv, as XLA pads: the
+    odd one of an even reach goes on the right."""
+    reach = dilation * (kernel_size - 1)
+    return F.pad(x, (reach // 2, reach - reach // 2))
+
+
+def max_pool(y: torch.Tensor, pool: int) -> torch.Tensor:
+    """Max-pool the time axis (last) by ``pool``, flooring the tail."""
+    return F.max_pool1d(y, pool, pool) if pool > 1 else y
+
+
+def block_eval_nct(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   scale: torch.Tensor, beta: torch.Tensor, mean: torch.Tensor,
+                   var: torch.Tensor, eps: float, pool: int, dilation: int,
+                   cdt: torch.dtype) -> torch.Tensor:
+    """One block in eval mode, ``(B, Cin, T)`` → ``(B, C, T // pool)`` in
+    ``cdt``: Conv(SAME) in ``cdt``, relu, BatchNorm on the running statistics
+    in f32, max-pool. ``weight`` in torch's layout ``(Cout, Cin, k)``."""
+    y = F.conv1d(same_pad(x.to(cdt), weight.shape[2], dilation), weight.to(cdt), bias.to(cdt),
+                 dilation=dilation)
+    y = F.batch_norm(torch.relu(y).float(), mean, var, scale, beta, False, 0.0, eps).to(cdt)
+    return max_pool(y, pool)
+
+
+def block_train_nct(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    scale: torch.Tensor, beta: torch.Tensor, eps: float, pool: int,
+                    dilation: int, cdt: torch.dtype, dropout: float = 0.0,
+                    generator=None) -> tuple:
+    """One block in train mode (``_jnp_block_train``), ``(B, Cin, T)`` →
+    ``(pooled (B, C, T // pool), mu, var)``: the conv and bias in ``cdt``,
+    BatchNorm's batch statistics in f32 (the biased variance), its affine in
+    ``cdt``, spatial dropout. Differentiable; updates nothing."""
+    z = F.conv1d(same_pad(x.to(cdt), weight.shape[2], dilation), weight.to(cdt),
+                 dilation=dilation) + bias.to(cdt)[:, None]
+    a = torch.relu(z)
+    af = a.float()
+    mu = af.mean((0, 2))
+    var = torch.clamp((af * af).mean((0, 2)) - mu * mu, min=0.0)
+    mul = scale * torch.rsqrt(var + eps)
+    add = beta - mu * mul
+    y = a * mul.to(cdt)[:, None] + add.to(cdt)[:, None]
+    y = spatial_dropout(y, dropout, generator)
+    return max_pool(y, pool), mu, var
+
+
 class ConvBlock(nn.Module):
     """Conv(SAME) → relu → BatchNorm → SpatialDropout → max-pool."""
 
@@ -85,16 +131,6 @@ class ConvBlock(nn.Module):
         self.bn_momentum = bn_momentum
         self.eval()
 
-    def _pad(self, x: torch.Tensor) -> torch.Tensor:
-        reach = self.conv.dilation[0] * (self.conv.kernel_size[0] - 1)
-        # XLA's SAME: the odd one of an even reach goes on the right.
-        return F.pad(x, (reach // 2, reach - reach // 2))
-
-    def _pool(self, y: torch.Tensor) -> torch.Tensor:
-        if self.pool_size > 1:
-            y = F.max_pool1d(y, self.pool_size, self.pool_size)  # floor
-        return y
-
     def update_running_stats(self, mu: torch.Tensor, var: torch.Tensor) -> None:
         """flax's update, in place: ``m·old + (1 − m)·batch``."""
         update_running_stats(self.bn, self.bn_momentum, mu, var)
@@ -104,29 +140,20 @@ class ConvBlock(nn.Module):
         train mode with batch statistics, dropout and the running-stats update."""
         if self.training:
             return self.forward_train_nct(x, generator)
-        cdt = self.compute_dtype
-        y = F.conv1d(self._pad(x.to(cdt)), self.conv.weight.to(cdt), self.conv.bias.to(cdt),
-                     dilation=self.conv.dilation[0])
-        y = self.bn(torch.relu(y).float()).to(cdt)
-        return self._pool(y)
+        bn = self.bn
+        return block_eval_nct(x, self.conv.weight, self.conv.bias, bn.weight, bn.bias,
+                              bn.running_mean, bn.running_var, bn.eps, self.pool_size,
+                              self.conv.dilation[0], self.compute_dtype)
 
     def forward_train_nct(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        """Train mode (``_jnp_block_train``): the conv and bias in the compute
-        dtype, BatchNorm's batch statistics in f32, its affine in the compute
-        dtype; updates the running statistics in place."""
-        cdt = self.compute_dtype
-        z = F.conv1d(self._pad(x.to(cdt)), self.conv.weight.to(cdt),
-                     dilation=self.conv.dilation[0]) + self.conv.bias.to(cdt)[:, None]
-        a = torch.relu(z)
-        af = a.float()
-        mu = af.mean((0, 2))
-        var = torch.clamp((af * af).mean((0, 2)) - mu * mu, min=0.0)
-        mul = self.bn.weight * torch.rsqrt(var + self.bn.eps)
-        add = self.bn.bias - mu * mul
-        y = a * mul.to(cdt)[:, None] + add.to(cdt)[:, None]
-        y = spatial_dropout(y, self.dropout, generator)
+        """Train mode (:func:`block_train_nct`); updates the running
+        statistics in place."""
+        y, mu, var = block_train_nct(x, self.conv.weight, self.conv.bias, self.bn.weight,
+                                     self.bn.bias, self.bn.eps, self.pool_size,
+                                     self.conv.dilation[0], self.compute_dtype, self.dropout,
+                                     generator)
         self.update_running_stats(mu, var)
-        return self._pool(y)
+        return y
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         """``(B, T, Cin)`` → ``(B, T // pool, C)``."""

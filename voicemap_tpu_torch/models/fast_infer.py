@@ -28,50 +28,76 @@ import torch
 
 from ..ops import conv_sm90
 from ..ops.cuda_conv import conv_block0, conv_blockn
-from .encoder import ConvBlock, ConvEncoder
+from .encoder import ConvBlock, ConvEncoder, block_eval_nct
 
 
 def takes_blockn(blk: ConvBlock) -> bool:
     """Whether B8 computes this block: bf16, k odd, pool 1 or 2, a reach the
     kernel's input box holds (``conv_sm90.takes``)."""
-    return (blk.compute_dtype == torch.bfloat16
-            and conv_sm90.takes(blk.conv.kernel_size[0], blk.conv.dilation[0],
-                                max(blk.pool_size, 1)))
+    return takes(blk.conv.kernel_size[0], blk.conv.dilation[0], blk.pool_size,
+                 blk.compute_dtype)
+
+
+def takes(k: int, dilation: int, pool: int, cdt: torch.dtype) -> bool:
+    """:func:`takes_blockn` from a block's shape and compute dtype."""
+    return cdt == torch.bfloat16 and conv_sm90.takes(k, dilation, max(pool, 1))
+
+
+def block0_apply(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                 scale: torch.Tensor, beta: torch.Tensor, mean: torch.Tensor,
+                 var: torch.Tensor, eps: float, pool: int, cdt: torch.dtype) -> torch.Tensor:
+    """Block 0 through B2, ``(B, T, 1)`` f32 → ``(B, T // pool, C)`` in
+    ``cdt``; ``kernel`` in flax's layout ``(k, 1, C)``."""
+    return conv_block0(x, kernel, bias, scale, beta, mean, var, eps, pool=pool,
+                       out_dtype=cdt, gemm_dtype=cdt)
+
+
+def blockn_apply(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                 scale: torch.Tensor, beta: torch.Tensor, mean: torch.Tensor,
+                 var: torch.Tensor, eps: float, pool: int, dilation: int,
+                 cdt: torch.dtype) -> torch.Tensor:
+    """One block 1+ channels last, ``(B, T, Cin)`` → ``(B, T // pool, C)``:
+    B8 where it takes the block (:func:`takes`), else
+    ``encoder.block_eval_nct``; ``kernel`` in flax's layout ``(k, Cin, Cout)``."""
+    if not takes(kernel.shape[0], dilation, pool, cdt):
+        return block_eval_nct(h.transpose(1, 2), kernel.permute(2, 1, 0), bias, scale, beta,
+                              mean, var, eps, pool, dilation, cdt).transpose(1, 2)
+    return conv_blockn(h.to(cdt).contiguous(), kernel, bias, scale, beta, mean, var, eps,
+                       max(pool, 1), out_dtype=cdt, gemm_dtype=cdt, dilation=dilation)
+
+
+def _block_tensors(blk: ConvBlock) -> tuple:
+    """A block's (flax-layout kernel, bias, scale, beta, mean, var, eps)."""
+    bn = blk.bn
+    return (blk.conv.weight.permute(2, 1, 0), blk.conv.bias, bn.weight, bn.bias,
+            bn.running_mean, bn.running_var, bn.eps)
 
 
 def blockn(blk: ConvBlock, h: torch.Tensor) -> torch.Tensor:
-    """One block 1+ channels last, ``(B, T, Cin)`` → ``(B, T // pool, C)``:
-    B8 where it takes the block, else the module's own forward."""
-    if not takes_blockn(blk):
-        return blk.forward_nct(h.transpose(1, 2)).transpose(1, 2)
-    cdt = blk.compute_dtype
-    return conv_blockn(h.contiguous(), blk.conv.weight.permute(2, 1, 0), blk.conv.bias,
-                       blk.bn.weight, blk.bn.bias, blk.bn.running_mean, blk.bn.running_var,
-                       blk.bn.eps, max(blk.pool_size, 1), out_dtype=cdt, gemm_dtype=cdt,
-                       dilation=blk.conv.dilation[0])
+    """One block 1+ of a module channels last (:func:`blockn_apply`)."""
+    return blockn_apply(h, *_block_tensors(blk), blk.pool_size, blk.conv.dilation[0],
+                        blk.compute_dtype)
 
 
-def fast_embed(encoder: ConvEncoder, x: torch.Tensor) -> torch.Tensor:
-    """``(B, T, 1)`` float32 → ``(B, embedding_dim)`` float32, inference forward."""
+def fast_trunk(encoder: ConvEncoder, x: torch.Tensor) -> torch.Tensor:
+    """The conv trunk of :func:`fast_embed`, ``(B, T, 1)`` f32 → ``(B, T',
+    C)`` channels last in the compute dtype, before the global max: the ONE
+    shared eval trunk (the tensor-parallel embed and the pipeline's stages
+    run it too)."""
     cfg = encoder.cfg
     if cfg.dilations[0] != 1:
         raise ValueError("fast_embed: the block-0 kernel takes dilation 1 only")
     cdt = encoder.compute_dtype
     blk = encoder.blocks[0]
     with torch.inference_mode():
-        h = conv_block0(
-            x,
-            blk.conv.weight.permute(2, 1, 0),  # (k, 1, C), the flax layout
-            blk.conv.bias,
-            blk.bn.weight,
-            blk.bn.bias,
-            blk.bn.running_mean,
-            blk.bn.running_var,
-            blk.bn.eps,
-            pool=blk.pool_size,
-            out_dtype=cdt,
-            gemm_dtype=cdt,
-        )  # (B, T/4, C)
+        h = block0_apply(x, *_block_tensors(blk), blk.pool_size, cdt)  # (B, T/4, C)
         for blk in encoder.blocks[1:]:
             h = blockn(blk, h)
+    return h
+
+
+def fast_embed(encoder: ConvEncoder, x: torch.Tensor) -> torch.Tensor:
+    """``(B, T, 1)`` float32 → ``(B, embedding_dim)`` float32, inference forward."""
+    h = fast_trunk(encoder, x)
+    with torch.inference_mode():
         return encoder.pool_and_embed(h.transpose(1, 2))

@@ -1,7 +1,11 @@
 """The parallel layer: meshes over ``torch.distributed`` process groups,
-multi-process initialization, the sharded distance matrix, pod-scale
-n-shot evaluation and data-parallel training (port of
-``voicemap_tpu/parallel``; its halo-exchange conv, tensor and pipeline
-parallelism are not ported yet)."""
+multi-process initialization, the collectives of the parallel programs
+(``comm``), the sharded distance matrix, pod-scale n-shot evaluation,
+data-parallel training, halo-exchange sequence parallelism, data × seq
+training, tensor and pipeline parallelism, and the multichip dry run
+(port of ``voicemap_tpu/parallel``)."""
 
-from . import data_parallel, distributed, mesh, pod_eval, sharded_distance  # noqa: F401
+from . import (  # noqa: F401
+    comm, data_parallel, distributed, dp_sp, halo_conv, mesh, pipeline_parallel, pod_eval,
+    sharded_distance, tensor_parallel,
+)

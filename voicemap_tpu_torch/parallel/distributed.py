@@ -17,18 +17,21 @@ drives one device (one card, or the CPU under gloo):
   cross slices.
 
 One card takes one rank under NCCL, so a world of more than one process
-needs as many cards; more processes than cards run on gloo on the CPU.
+needs as many cards; more processes than cards run on gloo, on the CPU or
+with their tensors on a shared card (``backend="gloo"``).
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Dict, Optional
+import time
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 from torch.distributed.device_mesh import DeviceMesh
 
 from .mesh import default_device_type
@@ -46,14 +49,18 @@ def rank() -> int:
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None, device="cuda") -> bool:
+               process_id: Optional[int] = None, device="cuda",
+               backend: Optional[str] = None) -> bool:
     """Join the default process group when running multi-process; returns
     whether distributed mode is active. Safe to call unconditionally.
 
     ``coordinator_address``: ``host:port`` of rank 0 (TCP), or any
     ``init_process_group`` URL (``file:///shared/rendezvous``). ``device``:
     ``"cuda"`` (NCCL; the process takes card ``process_id`` mod the cards it
-    sees) or ``"cpu"`` (gloo)."""
+    sees) or ``"cpu"`` (gloo). ``backend="gloo"`` with ``"cuda"`` keeps the
+    tensors on the card and the group on gloo, whose collectives
+    ``parallel/comm`` stages through the host: more ranks than cards (NCCL
+    refuses two ranks on one card)."""
     num = num_processes if num_processes is not None else int(
         os.environ.get("VOICEMAP_NUM_PROCESSES", "1"))
     if num <= 1:
@@ -74,7 +81,7 @@ def initialize(coordinator_address: Optional[str] = None,
         address = f"tcp://{address}"
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(process_id % torch.cuda.device_count())
-        backend = "nccl"
+        backend = backend or "nccl"
     else:
         backend = "gloo"
     dist.init_process_group(backend, init_method=address, world_size=num, rank=process_id)
@@ -119,3 +126,21 @@ def global_mesh(axis_sizes: Optional[Dict[str, int]] = None,
         raise RuntimeError("a mesh needs the default process group: call initialize or "
                            "init_process_group first")
     return DeviceMesh(default_device_type(), torch.from_numpy(ranks), mesh_dim_names=names)
+
+
+def spawn(fn: Callable, nprocs: int, args: tuple, timeout: float) -> None:
+    """Run ``fn(rank, *args)`` in ``nprocs`` processes started by ``spawn``
+    (each imports its modules afresh); raise on a rank's error or past
+    ``timeout`` seconds, and stop every process that is still alive."""
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{nprocs} ranks of {fn.__name__} still running after "
+                                   f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)

@@ -30,7 +30,6 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
-import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import ExperimentConfig
@@ -39,6 +38,7 @@ from ..models.quant_infer import check_qvars_mode
 from ..models.siamese import SiameseNet
 from ..ops import jax_random, sampling
 from ..train.steps import DeviceStore
+from .comm import all_gather_into_tensor, all_reduce_
 from .mesh import axis_group
 
 
@@ -62,7 +62,7 @@ def make_sharded_embed_table_fn(model, cfg: ExperimentConfig, mesh: DeviceMesh,
         mine = indices[me * local:(me + 1) * local].to(store.audio.device)
         rows = nshot.embed_rows(model, store, cfg, mine, embed_batch, qvars=qvars)
         table = rows.new_empty(n * local, rows.shape[1])
-        dist.all_gather_into_tensor(table, rows.contiguous(), group=group)
+        all_gather_into_tensor(table, rows, group)
         return table
 
     return embed_table
@@ -93,7 +93,7 @@ def _accuracy(pred: torch.Tensor, num_tasks: int, group) -> float:
     summed over the axis, then the mean of a 0/1 vector of that count (the
     single-device ``(pred == 0).float().mean()``, to the bit)."""
     correct = (pred == 0).sum().float()
-    dist.all_reduce(correct, group=group)
+    all_reduce_(correct, group)
     hits = torch.arange(num_tasks, device=pred.device) < correct
     return float(hits.float().mean())
 

@@ -30,6 +30,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops.distance import pairwise_sq_euclidean
+from .comm import all_gather_into_tensor, exchange
 from .mesh import axis_group
 
 
@@ -39,7 +40,7 @@ def gather_columns(block: torch.Tensor, mesh: DeviceMesh, axis: str = "data") ->
     group, n, _ = axis_group(mesh, axis)
     rows, cols = block.shape
     out = block.new_empty(n * rows, cols)
-    dist.all_gather_into_tensor(out, block.contiguous(), group=group)
+    all_gather_into_tensor(out, block, group)
     return out.view(n, rows, cols).permute(1, 0, 2).reshape(rows, n * cols)
 
 
@@ -61,7 +62,7 @@ def sharded_nearest_support(q: torch.Tensor, s_local: torch.Tensor, mesh: Device
     local_min, local_arg = d.min(dim=1)
     pair = torch.stack([local_min.double(), (local_arg + me * s_local.shape[0]).double()])
     gathered = pair.new_empty(n * 2, q.shape[0])
-    dist.all_gather_into_tensor(gathered, pair, group=group)
+    all_gather_into_tensor(gathered, pair, group)
     mins, args = gathered.view(n, 2, -1).unbind(1)
     winner = mins.argmin(dim=0)  # the first minimum: the lowest shard
     return args.gather(0, winner[None]).squeeze(0).long()
@@ -83,11 +84,9 @@ def ring_sq_euclidean(q_local: torch.Tensor, s_local: torch.Tensor, mesh: Device
         src = (me - step) % n
         if step + 1 < n:  # pass the block on while this tile computes
             recv = torch.empty_like(blk)
-            reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, blk, nxt, group),
-                                           dist.P2POp(dist.irecv, recv, prv, group)])
+            finish = exchange([(blk, nxt)], [(recv, prv)], group, wait=False)
         out[src * rows:(src + 1) * rows] = pairwise_sq_euclidean(blk, s_local)
         if step + 1 < n:
-            for r in reqs:
-                r.wait()
+            finish()
             blk = recv
     return out

@@ -314,9 +314,11 @@ def _mean_over_group(state: TrainState, metrics: Tuple[torch.Tensor, ...],
     grads = [p.grad for p in state.optimizer.params if p.grad is not None]
     buffers = [b for b in state.model.buffers() if b.is_floating_point()]
     parts = grads + buffers
+    from ..parallel.comm import all_reduce_  # the parallel layer imports this module
+
     flat = torch.cat([t.reshape(-1).float() for t in parts]
                      + [m.detach().reshape(1).float() for m in metrics])
-    dist.all_reduce(flat, group=group)
+    all_reduce_(flat, group)  # staged through the host for a card's tensor under gloo
     flat /= dist.get_world_size(group)
     offset = 0
     for t in parts:
