@@ -321,13 +321,6 @@ def test_each_cli_runs_as_a_module():
 
 
 def test_step_timer_and_the_request_timer_without_a_card():
-    timer = profiling.StepTimer(window=3)
-    assert timer.stats() == {}
-    for _ in range(5):
-        timer.tick()
-    stats = timer.stats()
-    assert len(timer.samples) == 3 and stats["steps_per_sec"] > 0
-    assert stats["step_p50_s"] <= stats["step_p95_s"]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):

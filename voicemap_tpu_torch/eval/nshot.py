@@ -57,6 +57,7 @@ from ..ops import distance as dist_ops
 from ..ops import jax_random, sampling
 from ..ops.sampling import Rng
 from ..train.steps import DeviceStore, fetch_batch
+from ..utils.profiling import span
 
 
 Model = Union[SpeakerClassifier, SiameseNet, MelSpecClassifier]
@@ -78,12 +79,13 @@ def embed_rows(model: Model, store: DeviceStore, cfg: ExperimentConfig,
     """Embed the store rows ``indices`` (1-D, on the store's device) from
     offset 0, ``batch_size`` at a time → ``(len(indices), D)`` float32
     (``embed_all``'s route; the caller checks ``qvars``)."""
-    chunks = []
-    with torch.inference_mode():
-        for start in range(0, indices.shape[0], batch_size):
-            x = fetch_batch(store, indices[start:start + batch_size], cfg, stochastic=False)
-            chunks.append(_embed(model, cfg, x, fast, qvars))
-    return torch.cat(chunks, dim=0)
+    with span("embed_rows", indices.shape[0]):
+        chunks = []
+        with torch.inference_mode():
+            for start in range(0, indices.shape[0], batch_size):
+                x = fetch_batch(store, indices[start:start + batch_size], cfg, stochastic=False)
+                chunks.append(_embed(model, cfg, x, fast, qvars))
+        return torch.cat(chunks, dim=0)
 
 
 def _embed(model: Model, cfg: ExperimentConfig, x: torch.Tensor, fast: bool,
@@ -122,14 +124,15 @@ def classifier_nshot_predictions(table: torch.Tensor, query_idx: torch.Tensor,
                                  support_idx: torch.Tensor) -> torch.Tensor:
     """Predicted class ``(tasks,)`` of each task: nearest class by the mean
     euclidean distance of the query to the class's supports."""
-    q = table[query_idx.long()]  # (tasks, D)
-    s = table[support_idx.long()]  # (tasks, k, n, D)
-    qn = (q * q).sum(-1)[:, None, None]
-    sn = (s * s).sum(-1)
-    cross = torch.einsum("td,tknd->tkn", q, s)
-    sq = (qn + sn - 2.0 * cross).clamp(min=0.0)
-    # Mean of euclidean (not squared) distances: the two orders differ for n > 1.
-    return torch.sqrt(sq + 1e-12).mean(-1).argmin(-1)
+    with span("nshot_predict", query_idx.shape[0]):
+        q = table[query_idx.long()]  # (tasks, D)
+        s = table[support_idx.long()]  # (tasks, k, n, D)
+        qn = (q * q).sum(-1)[:, None, None]
+        sn = (s * s).sum(-1)
+        cross = torch.einsum("td,tknd->tkn", q, s)
+        sq = (qn + sn - 2.0 * cross).clamp(min=0.0)
+        # Mean of euclidean (not squared) distances: the two orders differ for n > 1.
+        return torch.sqrt(sq + 1e-12).mean(-1).argmin(-1)
 
 
 def classifier_nshot_accuracy(table: torch.Tensor, speaker_utts: torch.Tensor,

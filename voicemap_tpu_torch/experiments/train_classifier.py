@@ -6,9 +6,10 @@ LibriSpeech-shaped synthetic corpus under ``--data-root`` first;
 ``--dilated`` trains config #3's encoder, ``--melspec`` config #4's log-mel
 classifier. Training is the port's ``fit(cfg)`` from the corpus on disk
 (``--pipeline``); ``--profile`` writes a ``torch.profiler`` Chrome trace of
-the run. ``--quant-forward int8`` trains blocks 1+ through the int8
-forward (``fused_int8``), ``--pallas-preprocess off`` from the raw store
-through the plain preprocessing chain. ``--dp on`` trains data-parallel over the
+the run, with the program's ``voicemap.*`` spans on it. ``--quant-forward
+int8`` trains blocks 1+ through the int8 forward (``fused_int8``),
+``--pallas-preprocess off`` from the raw store through the plain
+preprocessing chain. ``--dp on`` trains data-parallel over the
 processes started with ``VOICEMAP_NUM_PROCESSES``, ``VOICEMAP_PROCESS_ID``
 and ``VOICEMAP_COORDINATOR`` (``parallel/distributed.initialize``); in one
 process it warns and trains unsharded.
@@ -80,7 +81,9 @@ def parse_args(argv=None):
                    help="data-parallel training (on: not ported yet)")
     p.add_argument("--max-store-seconds", type=float, default=30.0)
     p.add_argument("--profile", default=None,
-                   help="write a torch.profiler Chrome trace of the run to this directory")
+                   help="write a torch.profiler Chrome trace of the run to this directory; "
+                        "it carries the program's voicemap.* spans (a step's fetch_batch, forward, "
+                        "backward and optimizer; embed_rows in each evaluation)")
     add_device_option(p)
     args = p.parse_args(argv)
     args.val_subsets = resolve_val_subsets(args, ["test-clean"])

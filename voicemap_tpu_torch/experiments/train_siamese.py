@@ -71,7 +71,9 @@ def parse_args(argv=None):
                    help="data-parallel training (on: not ported yet)")
     p.add_argument("--max-store-seconds", type=float, default=30.0)
     p.add_argument("--profile", default=None,
-                   help="write a torch.profiler Chrome trace of the run to this directory")
+                   help="write a torch.profiler Chrome trace of the run to this directory; "
+                        "it carries the program's voicemap.* spans (a step's fetch_batch, backward "
+                        "and optimizer; embed_rows in each evaluation)")
     add_device_option(p)
     args = p.parse_args(argv)
     args.val_subsets = resolve_val_subsets(args, ["dev-clean"])

@@ -28,6 +28,7 @@ import torch
 
 from ..ops import conv_sm90
 from ..ops.cuda_conv import conv_block0, conv_blockn
+from ..utils.profiling import span
 from .encoder import ConvBlock, ConvEncoder, block_eval_nct
 
 
@@ -88,16 +89,19 @@ def fast_trunk(encoder: ConvEncoder, x: torch.Tensor) -> torch.Tensor:
     if cfg.dilations[0] != 1:
         raise ValueError("fast_embed: the block-0 kernel takes dilation 1 only")
     cdt = encoder.compute_dtype
-    blk = encoder.blocks[0]
+    blk, rows = encoder.blocks[0], x.shape[0]
     with torch.inference_mode():
-        h = block0_apply(x, *_block_tensors(blk), blk.pool_size, cdt)  # (B, T/4, C)
-        for blk in encoder.blocks[1:]:
-            h = blockn(blk, h)
+        with span("block0", rows):
+            h = block0_apply(x, *_block_tensors(blk), blk.pool_size, cdt)  # (B, T/4, C)
+        for i, blk in enumerate(encoder.blocks[1:], start=1):
+            with span(f"blockn.{i}", rows):
+                h = blockn(blk, h)
     return h
 
 
 def fast_embed(encoder: ConvEncoder, x: torch.Tensor) -> torch.Tensor:
     """``(B, T, 1)`` float32 → ``(B, embedding_dim)`` float32, inference forward."""
-    h = fast_trunk(encoder, x)
-    with torch.inference_mode():
-        return encoder.pool_and_embed(h.transpose(1, 2))
+    with span("embed", x.shape[0]):
+        h = fast_trunk(encoder, x)
+        with span("head", x.shape[0]), torch.inference_mode():
+            return encoder.pool_and_embed(h.transpose(1, 2))

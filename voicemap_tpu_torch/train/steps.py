@@ -65,6 +65,7 @@ from ..models.siamese import SiameseNet
 from ..models.spectrogram import MelSpecClassifier
 from ..ops import preprocess, sampling
 from ..ops.cuda_preprocess import decimate_store, gather_whiten
+from ..utils.profiling import span
 from . import losses
 from .state import TrainState, apply_updates
 
@@ -137,23 +138,24 @@ def fetch_batch(store: DeviceStore, indices: torch.Tensor, cfg: ExperimentConfig
     raw fragment, gather, ÷ 32768, stride decimation, whitening where
     ``whiten_rms`` is set), in the JAX package's order."""
     d = cfg.data
-    indices = indices.to(device=store.audio.device, dtype=torch.int32).contiguous()
-    if not store.downsampling:
-        frag = d.fragment_length
-        offsets = preprocess.sample_offsets(store.lengths[indices.long()], frag, generator,
-                                            stochastic)
-        return preprocess_fragments(
-            preprocess.gather_fragments(store.audio, indices, offsets, frag), cfg)
-    if store.downsampling != d.downsampling:
-        raise ValueError(
-            f"store decimated by {store.downsampling} but config expects "
-            f"downsampling {d.downsampling}")
-    t_out = d.model_length
-    offsets = preprocess.sample_offsets(store.lengths[indices.long()], t_out,
-                                        generator, stochastic)
-    out = gather_whiten(store.audio, indices, offsets.contiguous(), t_out,
-                        d.whiten_rms, d.whiten_eps)
-    return out[..., None]
+    with span("fetch_batch", indices.shape[0]):
+        indices = indices.to(device=store.audio.device, dtype=torch.int32).contiguous()
+        if not store.downsampling:
+            frag = d.fragment_length
+            offsets = preprocess.sample_offsets(store.lengths[indices.long()], frag, generator,
+                                                stochastic)
+            return preprocess_fragments(
+                preprocess.gather_fragments(store.audio, indices, offsets, frag), cfg)
+        if store.downsampling != d.downsampling:
+            raise ValueError(
+                f"store decimated by {store.downsampling} but config expects "
+                f"downsampling {d.downsampling}")
+        t_out = d.model_length
+        offsets = preprocess.sample_offsets(store.lengths[indices.long()], t_out,
+                                            generator, stochastic)
+        out = gather_whiten(store.audio, indices, offsets.contiguous(), t_out,
+                            d.whiten_rms, d.whiten_eps)
+        return out[..., None]
 
 
 # The largest share of the card's memory that one block's saved full-rate
@@ -327,13 +329,15 @@ def _mean_over_group(state: TrainState, metrics: Tuple[torch.Tensor, ...],
     return tuple(flat[offset:])
 
 
-def _update(state: TrainState, loss: torch.Tensor, acc: torch.Tensor, group):
+def _update(state: TrainState, loss: torch.Tensor, acc: torch.Tensor, group, rows: int):
     """Backward, the mean over ``group`` when there is one, the clipped
-    update."""
-    loss.backward()
+    update (``rows``: the batch, for the spans)."""
+    with span("backward", rows):
+        loss.backward()
     if group is not None:
         loss, acc = _mean_over_group(state, (loss, acc), group)
-    apply_updates(state)
+    with span("optimizer", rows):
+        apply_updates(state)
     return state, {"loss": loss.detach(), "accuracy": acc}
 
 
@@ -344,7 +348,9 @@ def train_on_batch(state: TrainState, x: torch.Tensor, y: torch.Tensor,
     as 0-d tensors on the device (no host sync). With ``group``, averaged
     over it first (:func:`_mean_over_group`)."""
     state.optimizer.zero_grad()
-    return _update(state, *loss_fn(x, y, generator), group)
+    with span("forward", x.shape[0]):
+        loss, acc = loss_fn(x, y, generator)
+    return _update(state, loss, acc, group, x.shape[0])
 
 
 def make_classifier_train_step(model: SpeakerClassifier, cfg: ExperimentConfig, group=None):
@@ -356,11 +362,12 @@ def make_classifier_train_step(model: SpeakerClassifier, cfg: ExperimentConfig, 
     B = cfg.train.batch_size // n
 
     def step(state: TrainState, store: DeviceStore, generator: Optional[torch.Generator]):
-        gen = _draw_generator(generator, group, rank)
-        idx = sampling.sample_classifier_batch(gen, store.labels.shape[0], B,
-                                               store.audio.device)
-        x = fetch_batch(store, idx, cfg, gen, stochastic=cfg.data.stochastic)
-        return train_on_batch(state, x, store.labels[idx], gen, loss_fn, group)
+        with span("train_step", B):
+            gen = _draw_generator(generator, group, rank)
+            idx = sampling.sample_classifier_batch(gen, store.labels.shape[0], B,
+                                                   store.audio.device)
+            x = fetch_batch(store, idx, cfg, gen, stochastic=cfg.data.stochastic)
+            return train_on_batch(state, x, store.labels[idx], gen, loss_fn, group)
 
     return step, loss_fn
 
@@ -404,7 +411,7 @@ def train_on_pairs(state: TrainState, x1: torch.Tensor, x2: torch.Tensor, y: tor
     labels ``y (B,)`` f32 → ``(state, {"loss", "accuracy"})``, as
     :func:`train_on_batch`."""
     state.optimizer.zero_grad()
-    return _update(state, *loss_fn(x1, x2, y, generator), group)
+    return _update(state, *loss_fn(x1, x2, y, generator), group, x1.shape[0])
 
 
 def make_siamese_train_step(model: SiameseNet, cfg: ExperimentConfig, group=None):
@@ -431,10 +438,11 @@ def make_siamese_train_step(model: SiameseNet, cfg: ExperimentConfig, group=None
 def host_to_device(a, device) -> torch.Tensor:
     """A host batch (numpy or a CPU tensor) on ``device``; to the card through
     pinned memory, without waiting for the copy."""
-    t = torch.as_tensor(a)
-    if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    with span("host_to_device", len(a)):
+        t = torch.as_tensor(a)
+        if torch.device(device).type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
 
 
 def preprocess_fragments(frags_i16: torch.Tensor, cfg: ExperimentConfig) -> torch.Tensor:
@@ -442,11 +450,12 @@ def preprocess_fragments(frags_i16: torch.Tensor, cfg: ExperimentConfig) -> torc
     stride decimation, whitening (plain torch ops: the streaming path, at
     whatever phase the host cut the fragment, and the raw store's)."""
     d = cfg.data
-    x = frags_i16.float() * preprocess.INT16_SCALE
-    x = preprocess.stride_decimate(x, d.downsampling)
-    if d.whiten_rms is not None:
-        x = preprocess.whiten(x, d.whiten_rms, d.whiten_eps)
-    return x[..., None]
+    with span("preprocess", frags_i16.shape[0]):
+        x = frags_i16.float() * preprocess.INT16_SCALE
+        x = preprocess.stride_decimate(x, d.downsampling)
+        if d.whiten_rms is not None:
+            x = preprocess.whiten(x, d.whiten_rms, d.whiten_eps)
+        return x[..., None]
 
 
 def make_streaming_classifier_step(model: SpeakerClassifier | MelSpecClassifier,

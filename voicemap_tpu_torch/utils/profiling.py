@@ -1,13 +1,19 @@
-"""Steady-state timing on CUDA events, request latency, traces, step times.
+"""Steady-state timing on CUDA events, request latency, traces and the
+program's spans.
 
-Port of ``time_fn``, ``throughput``, ``single_request_latency``, ``trace``
-and ``StepTimer`` from ``voicemap_tpu/utils/profiling.py``. PyTorch returns
+Port of ``time_fn``, ``throughput``, ``single_request_latency`` and
+``trace`` from ``voicemap_tpu/utils/profiling.py``. PyTorch returns
 before the device finishes, so times come from CUDA events recorded on the
 current stream around the calls, read after a synchronize. Timing needs a
 GPU: without one these functions raise instead of timing the CPU. The JAX
 package's ``device_fetch_sync`` and ``null_fetch_rtt`` serve a remote TPU
 platform on which only a value fetch waits for the device; the card has no
 such transport, so they have no counterpart.
+
+The program's spans (:func:`span`, the port's own) mark its layer
+boundaries. They are on exactly while a ``torch.profiler`` records (the
+CLIs' ``--profile``, the benchmark's traced window), and cost one check a
+call otherwise.
 """
 
 from __future__ import annotations
@@ -15,8 +21,10 @@ from __future__ import annotations
 import contextlib
 import os
 import statistics
+import threading
 import time
-from typing import Callable, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -142,34 +150,122 @@ def trace(logdir: Optional[str]):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    try:
+        with profile(activities=activities) as prof:
+            yield
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    finally:
+        clear_spans()  # the trace holds the spans; their records have no reader here
 
 
-class StepTimer:
-    """Rolling step times of a train loop on the host's clock: ``tick()``
-    once a step, ``stats()`` over the last ``window`` intervals."""
+SPAN_PREFIX = "voicemap."  # the spans' names on the profiler's timeline
+# Past this many spans whose CUDA events are unresolved, a closing span
+# resolves those that have finished (a long ``--profile`` run keeps no more
+# events than the device has in flight).
+PENDING_EVENTS_CAP = 4096
 
-    def __init__(self, window: int = 100):
-        self.window = window
-        self.samples: list = []
-        self._last = None
 
-    def tick(self):
-        now = time.perf_counter()
-        if self._last is not None:
-            self.samples.append(now - self._last)
-            if len(self.samples) > self.window:
-                self.samples.pop(0)
-        self._last = now
+@dataclass
+class SpanRecord:
+    """One span entered while a profiler recorded: its ``name``, the span
+    open around it on the same thread (``parent``, ``None`` at the top),
+    the work count at the boundary (``rows``), and the milliseconds between
+    its edges (``ms``): on the card, two CUDA events on the current stream,
+    resolved once finished; on the CPU, the host's clock."""
 
-    def stats(self) -> Dict[str, float]:
-        if not self.samples:
-            return {}
-        s = sorted(self.samples)
-        return {
-            "step_p50_s": statistics.median(s),
-            "step_p95_s": s[min(len(s) - 1, int(0.95 * len(s)))],
-            "steps_per_sec": 1.0 / (sum(s) / len(s)),
-        }
+    name: str
+    parent: Optional[str]
+    rows: Optional[int]
+    ms: Optional[float] = None
+    events: Optional[tuple] = field(default=None, repr=False)
+
+
+_records: List[SpanRecord] = []
+_pending: List[SpanRecord] = []  # records whose events are not yet resolved
+_open = threading.local()  # .stack: the spans open on this thread
+_OFF = contextlib.nullcontext()
+
+
+def _resolve(record: SpanRecord, wait: bool) -> bool:
+    """Read ``record``'s events into its ``ms`` and drop them; without
+    ``wait``, only if its end event has finished."""
+    start, end = record.events
+    if wait:
+        end.synchronize()
+    elif not end.query():
+        return False
+    record.ms, record.events = start.elapsed_time(end), None
+    return True
+
+
+class _Span:
+    __slots__ = ("record", "annotation", "start")
+
+    def __init__(self, name: str, rows: Optional[int]):
+        self.record = SpanRecord(name, None, rows)
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.record.parent = stack[-1].name if stack else None
+        stack.append(self.record)
+        _records.append(self.record)
+        # The events lie outside the host scope, so that its interval holds
+        # the program's work and not the cost of timing it.
+        if torch.cuda.is_initialized():
+            # torch.Event records on the current stream from C++: half the
+            # host time of torch.cuda.Event, which looks the stream up in Python
+            self.start = torch.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.start = time.perf_counter()
+        # PyTorch's C++ scope: ~0.9 µs a span under a profiler with CUDA
+        # activity against record_function's ~9.7 on an H100's host
+        # (PERF.md), and no shadow on the device's timeline.
+        self.annotation = torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + self.record.name)
+        self.annotation.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.annotation.__exit__(*exc)
+        if isinstance(self.start, float):
+            self.record.ms = (time.perf_counter() - self.start) * 1e3
+        else:
+            end = torch.Event(enable_timing=True)
+            end.record()
+            self.record.events = (self.start, end)
+            _pending.append(self.record)
+            if len(_pending) >= PENDING_EVENTS_CAP:
+                _pending[:] = [r for r in _pending if r.events and not _resolve(r, wait=False)]
+        _open.stack.pop()
+        return False
+
+
+def span(name: str, rows: Optional[int] = None):
+    """A context manager around one of the program's layer boundaries.
+
+    While a ``torch.profiler`` records, it opens a host scope named
+    ``"voicemap." + name`` (the host interval, on the profiler's clock) and
+    keeps a :class:`SpanRecord` (see :func:`spans`); otherwise it is one
+    shared null context."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name, rows)
+
+
+def spans() -> List[SpanRecord]:
+    """The records of every span entered while a profiler recorded, in the
+    order they opened; each closed span's ``ms`` resolved (on the card, this
+    waits for its end event)."""
+    for r in _records:
+        if r.events is not None:
+            _resolve(r, wait=True)
+    _pending.clear()
+    return list(_records)
+
+
+def clear_spans() -> None:
+    """Drop every span record."""
+    _records.clear()
+    _pending.clear()

@@ -51,6 +51,7 @@ from ..models.spectrogram import MelSpecClassifier
 from ..ops.cuda_conv import conv_block0
 from ..ops.cuda_preprocess import decimate_store, gather_whiten
 from ..ops.cuda_quant_block import quant_block
+from .profiling import clear_spans
 
 STORE_T, DS, FRAG = 56000, 4, 12000
 MEL_FRAG = 48000  # config #4: 3 s at downsampling 1
@@ -140,10 +141,13 @@ def profile(stages, batches: int = 3) -> dict:
 
     run(stages)
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(batches):
-            run(stages)
-        torch.cuda.synchronize()
+    try:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(batches):
+                run(stages)
+            torch.cuda.synchronize()
+    finally:
+        clear_spans()  # the stages' spans have no reader here
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
