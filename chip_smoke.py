@@ -368,7 +368,8 @@ from voicemap_tpu_torch.ops.cuda_quant_block import (
 )
 from voicemap_tpu_torch.ops.conv_train import FusedBlocknTrain, quantize_int8
 from voicemap_tpu_torch.ops.cuda_routing import (
-    is_channels_last, pool_fwd, pool_fwd_reference, route_bwd, route_bwd_reference,
+    bn_apply, bn_apply_reference, bn_grad, bn_grad_reference, is_channels_last, pool_fwd,
+    pool_fwd_reference, route_bwd, route_bwd_reference,
 )
 from voicemap_tpu_torch.train import losses as train_losses
 from voicemap_tpu_torch.train import steps
@@ -714,17 +715,32 @@ KERNELS = {
                      "voicemap_tpu/ops/pallas_routing.py:69"),
     "route_bwd_idx": (route_bwd, "idx_launches", "voicemap_tpu_torch/csrc/routing.cu",
                       "voicemap_tpu/ops/pallas_routing.py:133"),
+    # The BatchNorm epilogue pair: on the TPU, XLA's pool-rate chain (the
+    # affine after the custom VJP's forward; â and the two sums in its backward)
+    "bn_apply": (bn_apply, "launches", "voicemap_tpu_torch/csrc/routing.cu",
+                 "voicemap_tpu/ops/conv_train.py:295 (XLA's pool-rate chain)"),
+    "bn_grad": (bn_grad, "launches", "voicemap_tpu_torch/csrc/routing.cu",
+                "voicemap_tpu/ops/conv_train.py:323 (XLA's pool-rate chain)"),
 }
 # The train kernels' plain versions, by the module attribute each wrapper
 # is reached through on the train path (B7's serve both of its modes; B3's
 # train epilogue and B8 with its rows are the int8 and the
-# pool-rate-residual forwards' convs).
+# pool-rate-residual forwards' convs; the BatchNorm epilogue pair runs after
+# every fused block).
 PLAIN = ((cuda_conv_train, "conv_block0_train", conv_block0_train_reference),
          (cuda_conv_train, "conv_block0_train_bwd", conv_block0_train_bwd_reference),
          (cuda_routing, "pool_fwd", pool_fwd_reference),
          (cuda_routing, "route_bwd", route_bwd_reference),
          (cuda_quant_block, "quant_block_train", quant_block_train_reference),
-         (cuda_conv, "conv_blockn_rows", conv_blockn_rows_reference))
+         (cuda_conv, "conv_blockn_rows", conv_blockn_rows_reference),
+         (cuda_routing, "bn_apply", bn_apply_reference),
+         (cuda_routing, "bn_grad", bn_grad_reference))
+# The eager chain the BatchNorm epilogue pair replaced, by its ops on a
+# block's pool-rate output: the affine and the gradient's â (with a
+# per-channel vector), the cast, the dropout's divide and where, and their
+# gradients (any of these three).
+CHAIN_WITH_VECTOR = ("aten::sub", "aten::mul", "aten::add")
+CHAIN_ANY = ("aten::div", "aten::where", "aten::_to_copy")
 
 
 STARTED: list = []  # main's start on the host clock
@@ -2063,6 +2079,111 @@ def check_routing_idx(seed: int, B: int, c: int, T: int, pool: int, dt, rows: st
     return checks
 
 
+EPILOGUE_RATE = 0.05  # config #1's dropout
+
+
+def epilogue_shapes() -> list:
+    """``(T', C)`` of config #1's four pool-rate outputs at the train
+    kernels' sizes: block 0's ``(FRAG / 4, TRAIN_C0)`` and blocks 1-3's
+    ``(T / 2, C)``."""
+    return [(FRAG // 4, TRAIN_C0)] + [(T // 2, c) for c, T in TRAIN_BLOCKS]
+
+
+def epilogue_inputs(seed: int, B: int, tp: int, c: int) -> tuple:
+    """The BatchNorm epilogue pair's inputs as a fused block hands them: a
+    bf16 relu ``a_sel (B, T', C)``, per-channel μ, r, γ·r (γ of both signs)
+    and β, a bf16 cotangent of ``y`` and a keep mask at EPILOGUE_RATE."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    sel = (torch.randn(B, tp, c, generator=g, device=DEVICE) * 1.5 + 0.3).relu().to(
+        torch.bfloat16)
+    mu = torch.rand(c, generator=g, device=DEVICE) * 0.5 + 0.4
+    r = torch.rand(c, generator=g, device=DEVICE) + 0.5
+    gamma = torch.rand(c, generator=g, device=DEVICE) + 0.5
+    gamma[::3] *= -1.0
+    beta = torch.randn(c, generator=g, device=DEVICE) * 0.1
+    gy = torch.randn(B, tp, c, generator=g, device=DEVICE).to(torch.bfloat16)
+    mask = torch.empty(B, c, device=DEVICE).bernoulli_(1.0 - EPILOGUE_RATE, generator=g)
+    return sel, mu, r, gamma * r, beta, gy, mask
+
+
+def epilogue_sum_depth(B: int, tp: int, c: int, vec: int) -> int:
+    """The most f32 additions a term of ``bn_grad``'s per-channel sums goes
+    through on the card: its thread's share of a strip, the CTA's fold over
+    its position rows, and fold.cuh's over the B·strips partial rows (a
+    split of 8, then the 8 in order). On the CPU the plain version's
+    ``torch.sum`` folds in an order of its own: B·T', which bounds any."""
+    if torch.device(DEVICE).type != "cuda":
+        return B * tp
+    slots = cuda_routing._sms(torch.cuda.current_device()) * cuda_routing.GRAD_CTAS_PER_SM
+    strips, span = cuda_routing.launch_plan(B, c, tp, 1, vec, slots)
+    rows = cuda_routing.THREADS // min(c // vec, cuda_routing.THREADS)
+    return -(-span // rows) + rows + -(-B * strips // 8) + 8
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    ints = {torch.bfloat16: torch.int16, torch.float16: torch.int16, torch.float32: torch.int32}
+    return a.dtype == b.dtype and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+
+
+def check_bn_epilogue(B: int) -> list:
+    """``bn_apply`` and ``bn_grad`` at the four pool-rate shapes, batch B,
+    bf16 with a keep mask at EPILOGUE_RATE, against their plain versions (the
+    eager chain they replaced) in CHECK_ROWS chunks: ``y`` and the f32
+    cotangent ``g'`` bit for bit; Σg' and Σg'·â each within
+    γ_d·Σ|term| of the float64 sum of the plain terms (the same f32 terms:
+    only the order of the sum differs), d the kernel's summation depth and
+    γ_d = d·u / (1 − d·u)."""
+    keep = 1.0 - EPILOGUE_RATE
+    checks = []
+    for i, (tp, c) in enumerate(epilogue_shapes()):
+        sel, mu, r, scale, beta, gy, mask = epilogue_inputs(60 + i, B, tp, c)
+        vec = cuda_routing.vector_width(c, torch.bfloat16, sel, gy)
+        y = bn_apply(sel, mu, scale, beta, mask, keep, torch.bfloat16)
+        g, s1, s2 = bn_grad(gy, sel, mask, keep, mu, r)
+        torch.cuda.synchronize()
+        if y.shape != sel.shape or g.shape != sel.shape or g.dtype != torch.float32:
+            raise AssertionError(f"bn_apply/bn_grad {(B, tp, c)}: {y.shape}, {g.shape} {g.dtype}")
+        sums = torch.zeros(4, c, dtype=torch.float64, device=DEVICE)  # Σ, Σ|·| of both terms
+        y_err = g_err = 0.0
+        for lo in range(0, B, CHECK_ROWS):
+            rows = slice(lo, lo + CHECK_ROWS)
+            want_y = bn_apply_reference(sel[rows], mu, scale, beta, mask[rows], keep,
+                                        torch.bfloat16)
+            want_g = bn_grad_reference(gy[rows], sel[rows], mask[rows], keep, mu, r)[0]
+            if not (same_bits(y[rows], want_y) and same_bits(g[rows], want_g)):
+                raise AssertionError(f"bn_apply/bn_grad {(B, tp, c)} rows {lo}+: not bit for "
+                                     f"bit the eager chain's")
+            y_err = max(y_err, float((y[rows].float() - want_y.float()).abs().max()))
+            g_err = max(g_err, float((g[rows] - want_g).abs().max()))
+            terms = want_g * ((sel[rows].float() - mu) * r)
+            for k, t in enumerate((want_g, terms)):
+                sums[2 * k] += t.double().sum((0, 1))
+                sums[2 * k + 1] += t.double().abs().sum((0, 1))
+            del want_y, want_g, terms
+        depth = epilogue_sum_depth(B, tp, c, vec)
+        u = F32_UNIT_ROUNDOFF
+        gamma_d = depth * u / (1.0 - depth * u)
+        errs = [(got.double() - sums[2 * k]).abs() for k, got in enumerate((s1, s2))]
+        ratio = max(float((e / (gamma_d * sums[2 * k + 1]).clamp(min=1e-300)).max())
+                    for k, e in enumerate(errs))
+        if not ratio <= 1.0:
+            raise AssertionError(f"bn_grad {(B, tp, c)}: the sums at {ratio} of their order "
+                                 f"bound (depth {depth})")
+        shape = [B, tp, c]
+        checks += [{"kernel": "bn_apply", "dtype": "bfloat16", "shape": shape,
+                    "rate": EPILOGUE_RATE, "max_abs_err": y_err,
+                    "tolerance": "bit for bit the eager chain's y"},
+                   {"kernel": "bn_grad", "dtype": "bfloat16", "shape": shape,
+                    "rate": EPILOGUE_RATE, "max_abs_err": g_err,
+                    "sums_max_abs_err": max(float(e.max()) for e in errs),
+                    "sums_err_over_bound": ratio, "sum_depth": depth,
+                    "tolerance": "g' bit for bit; each sum within d*u/(1-d*u) of its "
+                                 "sum of |term| of the float64 sum"}]
+        del sel, gy, y, g
+        torch.cuda.empty_cache()
+    return checks
+
+
 def qtrain_inputs(seed: int, B: int, T: int, cin: int, cout: int) -> tuple:
     """B3's train epilogue's inputs as the int8 train op forms them: bf16
     activations and fan-in-scaled weights through ``quantize_int8`` (the
@@ -2158,9 +2279,10 @@ def check_train_kernels(store, idx, offsets) -> dict:
     B45_F32_ROWS; B7 at
     the three block shapes
     of the train step and at ROUTING_EDGES, bf16 and f32; the int8 and the
-    pool-rate-residual forwards' kernels (``check_a2_kernels``); the launch
-    counters read around the phase (B4's and B5's f32 route runs only
-    here)."""
+    pool-rate-residual forwards' kernels (``check_a2_kernels``); the
+    BatchNorm epilogue pair at the four pool-rate shapes, at the train step's
+    batch and the large one (``check_bn_epilogue``); the launch counters read
+    around the phase (B4's and B5's f32 route runs only here)."""
     reset_counts()
     x = gather_whiten(store, idx[:TRAIN_BATCH], offsets[:TRAIN_BATCH], FRAG)[..., None]
     checks, errors = check_block0_train(x, block0_train_inputs(10, TRAIN_BATCH, FRAG, TRAIN_C0))
@@ -2190,6 +2312,10 @@ def check_train_kernels(store, idx, offsets) -> dict:
     a2_checks, a2_errors = check_a2_kernels()
     checks += a2_checks
     errors.update(a2_errors)
+    epilogue = check_bn_epilogue(TRAIN_BATCH) + check_bn_epilogue(TRAIN_TIMING_BATCHES[-1])
+    checks += epilogue
+    for name in ("bn_apply", "bn_grad"):
+        errors[name] = max(ch["max_abs_err"] for ch in epilogue if ch["kernel"] == name)
     launches = read_counts()
     emit({"phase": "train_kernels", "checks": checks, "launches": launches})
     return {"errors": errors, "launches": launches}
@@ -2312,6 +2438,70 @@ def compare_plain_step(cfg, host, store, seed: int) -> dict:
     return held_steps(model, cfg, run)
 
 
+def pool_rate_shapes(cfg, batch: int) -> tuple[set, set]:
+    """Each block's pool-rate output shape on the fused train forward (block
+    0's ``(B, T', C)``, blocks 1+'s ``(B, C, T')``) and the shapes of a
+    per-channel vector."""
+    enc, T = cfg.encoder, cfg.data.model_length
+    shapes, vectors = set(), set()
+    for i, (mult, pool) in enumerate(zip(enc.filter_multipliers, enc.pool_sizes)):
+        c = enc.filters * mult
+        T //= max(pool, 1)
+        shapes.add((batch, T, c) if i == 0 else (batch, c, T))
+        vectors.update({(c,), (c, 1)})
+    return shapes, vectors
+
+
+def chain_ops(events, shapes: set, vectors: set) -> list:
+    """The profiler's ops that belong to the eager pool-rate chain, each
+    ``"name [input shapes] under [parents]"``. The head's global max reads
+    block 3's output too: its gradient's casts are not the chain's."""
+    found = []
+    for e in events:
+        ins = [tuple(s) for s in e.input_shapes]
+        if not any(s in shapes for s in ins) or not (
+                e.name in CHAIN_ANY or e.name in CHAIN_WITH_VECTOR
+                and any(s in vectors for s in ins)):
+            continue
+        parents, p = [], e.cpu_parent
+        while p is not None:
+            parents.append(p.name)
+            p = p.cpu_parent
+        if not any(name.startswith("AmaxBackward") for name in parents):
+            found.append(f"{e.name} {ins[:3]} under {parents[:2]}")
+    return found
+
+
+def check_epilogue_step(cfg, host, store, seed: int) -> dict:
+    """One ``compare_plain_step`` step through the kernels and through the
+    plain versions, each under the profiler (host ops and their shapes):
+    the kernel step launches ``bn_apply`` and ``bn_grad`` once a block, and
+    on the card runs no op of the eager chain they replaced on a pool-rate
+    tensor; the plain step, which runs that chain, shows that the count sees
+    it."""
+    model, run = classifier_step(cfg, host, store, seed)
+    shapes, vectors = pool_rate_shapes(cfg, TRAIN_BATCH)
+    out = {}
+    for plain in (False, True):
+        state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate)
+        before = (bn_apply.launches, bn_grad.launches)
+        with (plain_kernels() if plain else contextlib.nullcontext()), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU], record_shapes=True) as prof:
+            run(state)
+        found = chain_ops(prof.events(), shapes, vectors)
+        out["plain" if plain else "kernels"] = {
+            "bn_apply": bn_apply.launches - before[0], "bn_grad": bn_grad.launches - before[1],
+            "chain_ops": len(found), **({} if plain else {"chain_op_list": found[:8]})}
+    n = len(cfg.encoder.filter_multipliers)
+    got = out["kernels"]
+    # On the CPU the wrappers run the plain versions, that is, the chain.
+    gone = got["chain_ops"] == 0 or torch.device(DEVICE).type != "cuda"
+    if (got["bn_apply"], got["bn_grad"]) != (n, n) or not gone or not out["plain"]["chain_ops"]:
+        raise AssertionError(f"the fused step's epilogue: {out}; want bn_apply and bn_grad "
+                             f"{n} each, no op of the eager chain, and the plain step's seen")
+    return out
+
+
 def check_channels_last_path(copies: int) -> None:
     """The fused blocks' backward found every cotangent channels last, as
     the train forward lays them out: none was copied into that layout."""
@@ -2358,9 +2548,11 @@ def run_train_slice(sliced: dict, seed: int, base=None, phase: str = "train_slic
     want = {name: 0 for name in KERNELS}
     want.update(gather_whiten=S, conv_block0_train=S, conv_block0_train_bwd=S,
                 pool_fwd=n_mid * S, route_bwd=n_mid * S)
+    want = with_epilogue(want)
     if train != want:
         raise AssertionError(f"train launches {train}, want {want} (per step: B1 1, B4 1, "
-                             f"B5 1, B7 {n_mid} + {n_mid})")
+                             f"B5 1, B7 {n_mid} + {n_mid}, bn_apply and bn_grad "
+                             f"{n_mid + 1} each)")
     # As the reference's fit, the evaluation embeds through the model's own
     # forward: B1 for the fragments, then cuDNN; neither B2 nor B8.
     want_eval = {name: 0 for name in KERNELS}
@@ -2378,7 +2570,8 @@ def run_train_slice(sliced: dict, seed: int, base=None, phase: str = "train_slic
     if not (bool(((acc >= 0) & (acc <= 1)).all()) and 0.0 <= val_acc <= 1.0):
         raise AssertionError(f"accuracy outside [0, 1]: {acc.tolist()}, val {val_acc}")
     store = device_store_for(cfg, host, DEVICE)
-    held = ({"plain_step": compare_plain_step(cfg, host, store, seed)} if base is None else
+    held = ({"plain_step": compare_plain_step(cfg, host, store, seed),
+             "epilogue_step": check_epilogue_step(cfg, host, store, seed)} if base is None else
             {"plain_steps": held_bf16_f32_steps(cfg, host, store, seed)})
     emit({"phase": phase, "config": cfg.name, "dtype": "bfloat16",
           "batch": TRAIN_BATCH, "steps": S, "speakers": len(host.label_names),
@@ -2737,10 +2930,45 @@ def time_routing_idx(seed: int) -> list:
     return rows
 
 
+def time_bn_epilogue(batches: tuple) -> list:
+    """The BatchNorm epilogue pair, queued, at the four pool-rate shapes and
+    each of ``batches`` (bf16, a keep mask at EPILOGUE_RATE), beside the
+    plain versions (the eager chain the pair replaced) and the bound."""
+    keep = 1.0 - EPILOGUE_RATE
+    rows = []
+    for bt in batches:
+        for i, (tp, c) in enumerate(epilogue_shapes()):
+            sel, mu, r, scale, beta, gy, mask = epilogue_inputs(70 + i, bt, tp, c)
+            fwd = (sel, mu, scale, beta, mask, keep, torch.bfloat16)
+            bwd = (gy, sel, mask, keep, mu, r)
+            n = bt * tp * c
+            iters = 50 if bt == TRAIN_BATCH else 10
+            # Bytes: the bf16 a_sel read and y written; the bf16 cotangent and
+            # a_sel read and the f32 cotangent written (the mask and the
+            # vectors, B·C and C floats, left out). Operations: f32 on the CUDA
+            # cores, 5 an element forward (the affine's 3, the dropout's
+            # product and select), 8 backward (the product and select, â's 2,
+            # the 2 sums' product and 2 adds).
+            row = {"batch": bt, "T'": tp, "C": c,
+                   "bn_apply_bound": bound(n * 4, 5.0 * n, F32_OPS_PER_S),
+                   "bn_grad_bound": bound(n * 8, 8.0 * n, F32_OPS_PER_S)}
+            for name, fn, ref, args in (("bn_apply", bn_apply, bn_apply_reference, fwd),
+                                        ("bn_grad", bn_grad, bn_grad_reference, bwd)):
+                row[f"{name}_ms"] = time_fn(fn, *args, iters=iters,
+                                            queued=True)["mean_s"] * 1e3
+                row[f"{name}_plain_ms"] = time_fn(ref, *args, iters=3, warmup=1)["mean_s"] * 1e3
+                row[f"{name}_bound_share"] = row[f"{name}_bound"]["bound_ms"] / row[f"{name}_ms"]
+            rows.append(row)
+            del sel, gy, fwd, bwd
+            torch.cuda.empty_cache()
+    return rows
+
+
 def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -> dict:
     """B4, B5 and B7 at the train step's shapes beside bounds, plain
     versions and (B5) a library call, B7 per block at B=2048 beside its
-    bound; B3's train epilogue per block at B=2048 and B7's index mode per
+    bound; the BatchNorm epilogue pair per pool-rate output at the train
+    step's batch and at B=2048 beside its bound and the eager chain; B3's train epilogue per block at B=2048 and B7's index mode per
     block at the train step's batch beside theirs; the ``fused`` step's
     layout conversions at B=2048 (an earlier line); the train step at each
     batch of TRAIN_TIMING_BATCHES under the four blocks-1+ policies, with
@@ -2856,6 +3084,15 @@ def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -
         bounds[name] = {"bound_ms": sum(r[f"{name}_bound"]["bound_ms"] for r in at_b),
                         "bound_by": "bytes"}
 
+    epilogue = time_bn_epilogue((B, big))
+    for name in ("bn_apply", "bn_grad"):
+        at_b = [r for r in epilogue if r["batch"] == B]
+        ms[name] = sum(r[f"{name}_ms"] for r in at_b)
+        plain_ms[name] = sum(r[f"{name}_plain_ms"] for r in at_b)
+        bounds[name] = {"bound_ms": sum(r[f"{name}_bound"]["bound_ms"] for r in at_b),
+                        "bound_by": "bytes"}
+        library_ms[name] = None
+
     qtrain = time_qtrain_blocks(seed)
     idx_blocks = time_routing_idx(seed)
     ms["quant_block_train"] = sum(r["ms"] for r in qtrain)
@@ -2890,6 +3127,7 @@ def run_train_timing(store, idx, offsets, trained: dict, seed: int, card: str) -
                       "quant_block_train": "torch._int_mm on the patch matrix, GEMM only, "
                       "summed over blocks 1-3"},
           "block0_batches": b45, "routing_blocks": blocks, "routing_idx_blocks": idx_blocks,
+          "bn_epilogue_blocks": epilogue,
           "quant_block_train_blocks": qtrain, "train_step_turns": step_rows,
           "train_step": summary, "train_step_profiles": profiles})
     return {"ms": ms, "plain_ms": plain_ms, "bounds": bounds, "library_ms": library_ms}
@@ -3487,9 +3725,10 @@ def run_siamese_train_slice(host, seed: int) -> dict:
     want = {name: 0 for name in KERNELS}
     want.update(gather_whiten=2 * S, conv_block0_train=S, conv_block0_train_bwd=S,
                 pool_fwd=3 * S, route_bwd=3 * S)
+    want = with_epilogue(want)
     if train != want:
         raise AssertionError(f"siamese train launches {train}, want {want} (per step: B1 2, "
-                             f"B4 1, B5 1, B7 3 + 3)")
+                             f"B4 1, B5 1, B7 3 + 3, bn_apply and bn_grad 4 each)")
     want_eval = {name: 0 for name in KERNELS}
     want_eval.update(gather_whiten=-(-len(host.labels) // 256), weighted_l1=1)
     if eval_counts != want_eval:
@@ -3640,9 +3879,21 @@ def counted_fit(cfg, *args, **kw) -> tuple:
     return history, losses, {k: total[k] - eval_counts[k] for k in total}, eval_counts, seconds
 
 
+def with_epilogue(want: dict) -> dict:
+    """``want`` with the BatchNorm epilogue pair's launches: one ``bn_apply``
+    a fused block's forward (B4, B7 in either mode) and one ``bn_grad`` a
+    fused block's backward (B5, B7 in either mode)."""
+    return {**want,
+            "bn_apply": sum(want.get(k, 0) for k in ("conv_block0_train", "pool_fwd",
+                                                     "pool_fwd_idx")),
+            "bn_grad": sum(want.get(k, 0) for k in ("conv_block0_train_bwd", "route_bwd",
+                                                    "route_bwd_idx"))}
+
+
 def expect_launches(name: str, got: dict, **want) -> None:
     full = {k: 0 for k in KERNELS}
     full.update(want)
+    full = with_epilogue(full)
     if got != full:
         raise AssertionError(f"{name} launches {got}, want {full}")
 
@@ -5052,7 +5303,9 @@ def main(argv=None) -> int:
                ("quant_block_stage", "quant_block_stage", ("attribution",)),
                ("quant_block_train", "quant_block_train", ("int8_train",)),
                ("pool_fwd_idx", "pool_fwd_idx", ("recompute_train",)),
-               ("route_bwd_idx", "route_bwd_idx", ("recompute_train",)))
+               ("route_bwd_idx", "route_bwd_idx", ("recompute_train",)),
+               ("bn_apply", "bn_apply", (*train_paths, "recompute_train")),
+               ("bn_grad", "bn_grad", (*train_paths, "recompute_train")))
     emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
     print(card, flush=True)
     emit({"kernels": [

@@ -120,7 +120,9 @@ def count_plain_versions(monkeypatch):
                               (cuda_quant_block, "quant_block_reference",
                                cuda_quant_block.quant_block),
                               (cuda_distance, "weighted_l1_reference",
-                               cuda_distance.weighted_l1)):
+                               cuda_distance.weighted_l1),
+                              (cuda_routing, "bn_apply_reference", cuda_routing.bn_apply),
+                              (cuda_routing, "bn_grad_reference", cuda_routing.bn_grad)):
         def counted(*a, _ref=getattr(mod, ref), _w=wrapper, **k):
             _w.launches += 1
             return _ref(*a, **k)
@@ -331,14 +333,32 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
     assert all(c["max_abs_err"] == 0.0 for c in b10)
     train = by_phase["train_slice"]
     steps_run = 12
+    # the BatchNorm epilogue pair once a fused block a step
     assert train["launches"] == {**nothing, "gather_whiten": steps_run,
                                  "conv_block0_train": steps_run,
                                  "conv_block0_train_bwd": steps_run,
-                                 "pool_fwd": 3 * steps_run, "route_bwd": 3 * steps_run}
+                                 "pool_fwd": 3 * steps_run, "route_bwd": 3 * steps_run,
+                                 "bn_apply": 4 * steps_run, "bn_grad": 4 * steps_run}
     # the evaluation embeds through the model's own forward: B1, no B2 or B8
     assert train["eval_launches"] == {**nothing, "gather_whiten": 2}
     assert train["loss_last5_mean"] < train["loss_first5_mean"]
     assert train["plain_step"]["min_grad_cosine"] >= cs.STEP_MIN_COSINE
+    # the plain step's eager chain is what the card's step is held to run
+    # none of
+    step = train["epilogue_step"]
+    assert (step["kernels"]["bn_apply"], step["kernels"]["bn_grad"]) == (4, 4)
+    assert step["plain"]["chain_ops"] >= 4 * 4
+    # the pair checked at the four pool-rate shapes at the train step's
+    # batch and the large one, and timed there
+    shapes = [[8, 100, 16], [8, 50, 64], [8, 25, 96], [8, 12, 128]]
+    epilogue = [c for c in by_phase["train_kernels"]["checks"]
+                if c["kernel"] in ("bn_apply", "bn_grad")]
+    assert [(c["kernel"], c["shape"]) for c in epilogue] == [
+        (k, sh) for sh in shapes for k in ("bn_apply", "bn_grad")] * 2
+    assert all(c["max_abs_err"] == 0.0 and c["rate"] == cs.EPILOGUE_RATE for c in epilogue)
+    assert all(c["sums_err_over_bound"] <= 1.0 for c in epilogue if c["kernel"] == "bn_grad")
+    assert [[r["batch"], r["T'"], r["C"]] for r in by_phase["train_timing"][
+        "bn_epilogue_blocks"]] == shapes * 2
     timing = by_phase["train_timing"]
     policies = ("jnp", "fused", "fused_recompute", "fused_int8")
     assert [(r["batch"], r["blockn"]) for r in timing["train_step_turns"]] == [
@@ -477,7 +497,8 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
     assert strain["launches"] == {**nothing, "gather_whiten": 2 * steps_run,
                                   "conv_block0_train": steps_run,
                                   "conv_block0_train_bwd": steps_run,
-                                  "pool_fwd": 3 * steps_run, "route_bwd": 3 * steps_run}
+                                  "pool_fwd": 3 * steps_run, "route_bwd": 3 * steps_run,
+                                  "bn_apply": 4 * steps_run, "bn_grad": 4 * steps_run}
     assert strain["eval_launches"] == {**nothing, "gather_whiten": 2, "weighted_l1": 1}
     assert strain["loss_last5_mean"] < strain["loss_first5_mean"]
     plain_steps = strain["plain_steps"]
@@ -522,7 +543,7 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                                             "log_mel", "log_mel_dft", "weighted_l1",
                                             "conv_blockn", "quant_block_stage",
                                             "quant_block_train", "pool_fwd_idx",
-                                            "route_bwd_idx"]
+                                            "route_bwd_idx", "bn_apply", "bn_grad"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k) and k["launches"] > 0 and k["bound_by"] in (
             "bytes", "operations")
@@ -538,6 +559,15 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                                                        "cli_train": 3 * 6, "cli_siamese_train": 9,
                                                        "dp_train": 3 * steps_run,
                                                        "dp_fit": 3 * 3}
+    for name in ("bn_apply", "bn_grad"):  # one a fused block on every train path
+        assert by_name[name]["launches_by_path"] == {
+            "train": 4 * steps_run, "int8_train": 4 * steps_run, "raw_train": 4 * 4,
+            "dilated_train": 8 * steps_run, "siamese_train": 4 * steps_run,
+            "corpus_device": 4 * steps_run, "corpus_streaming": 4 * steps_run,
+            "corpus_siamese": 12, "cli_train": 4 * 6, "cli_siamese_train": 12,
+            "dp_train": 4 * steps_run, "dp_fit": 4 * 3, "recompute_train": 4 * steps_run}
+        assert by_name[name]["max_abs_err"] == 0.0  # the CPU runs the plain versions
+        assert by_name[name]["source"] == "voicemap_tpu_torch/csrc/routing.cu"
     assert by_name["gather_whiten"]["launches_by_path"]["train"] == steps_run
     assert by_name["gather_whiten"]["launches_by_path"]["siamese_train"] == 2 * steps_run
     assert by_name["weighted_l1"]["launches_by_path"] == {
@@ -617,7 +647,8 @@ def test_the_config_3_phases_run_on_the_cpu(rehearsal):
     assert train["launches"] == {**nothing, "gather_whiten": steps_run,
                                  "conv_block0_train": steps_run,
                                  "conv_block0_train_bwd": steps_run,
-                                 "pool_fwd": 7 * steps_run, "route_bwd": 7 * steps_run}
+                                 "pool_fwd": 7 * steps_run, "route_bwd": 7 * steps_run,
+                                 "bn_apply": 8 * steps_run, "bn_grad": 8 * steps_run}
     assert train["eval_launches"] == {**nothing, "gather_whiten": 2}
     assert train["loss_last5_mean"] < train["loss_first5_mean"]
     assert train["plain_steps"]["float32"]["held"]
@@ -690,7 +721,8 @@ def test_the_config_4_training_and_corpus_phases_run_on_the_cpu(rehearsal):
     corpus = by_phase["corpus_slice"]
     assert corpus["corpus"]["files"] == 36 and corpus["corpus"]["write_seconds"] > 0
     per_step = {"conv_block0_train": steps_run, "conv_block0_train_bwd": steps_run,
-                "pool_fwd": 3 * steps_run, "route_bwd": 3 * steps_run}
+                "pool_fwd": 3 * steps_run, "route_bwd": 3 * steps_run,
+                "bn_apply": 4 * steps_run, "bn_grad": 4 * steps_run}
     runs = corpus["runs"]
     assert runs["device"]["launches"] == {**nothing, **per_step, "gather_whiten": steps_run}
     assert runs["streaming"]["launches"] == {**nothing, **per_step}
@@ -699,7 +731,7 @@ def test_the_config_4_training_and_corpus_phases_run_on_the_cpu(rehearsal):
         assert runs[name]["loss_last5_mean"] < runs[name]["loss_first5_mean"]
     assert runs["siamese_streaming"]["launches"] == {
         **nothing, "conv_block0_train": 3, "conv_block0_train_bwd": 3, "pool_fwd": 9,
-        "route_bwd": 9}
+        "route_bwd": 9, "bn_apply": 12, "bn_grad": 12}
     assert runs["siamese_streaming"]["eval_launches"] == {**nothing, "gather_whiten": 1,
                                                           "weighted_l1": 1}
     assert corpus["decode"]["files"] == 18 and corpus["decode"]["read_batch_files_per_s"] > 0
@@ -746,7 +778,7 @@ def test_the_protocol_slice_runs_on_the_cpu(rehearsal):
     assert commands["evaluate_int8_gate"]["argv"][-3:] == [
         "--protocol", "--allow-corpus-mismatch", "--int8-gate"]
     per_step = {"conv_block0_train": 1, "conv_block0_train_bwd": 1, "pool_fwd": 3,
-                "route_bwd": 3}
+                "route_bwd": 3, "bn_apply": 4, "bn_grad": 4}
     assert commands["train_classifier_0"]["launches"] == {
         **nothing, **{k: 4 * v for k, v in per_step.items()}, "gather_whiten": 4 + 2}
     assert commands["train_classifier_1"]["launches"] == {
@@ -821,7 +853,8 @@ def test_the_pod_and_dp_slices_run_on_the_cpu(rehearsal):
     assert dp["launches"] == {**nothing, "gather_whiten": steps_run,
                               "conv_block0_train": steps_run,
                               "conv_block0_train_bwd": steps_run,
-                              "pool_fwd": 3 * steps_run, "route_bwd": 3 * steps_run}
+                              "pool_fwd": 3 * steps_run, "route_bwd": 3 * steps_run,
+                              "bn_apply": 4 * steps_run, "bn_grad": 4 * steps_run}
     assert dp["loss_last5_mean"] < dp["loss_first5_mean"]
     held = dp["dp_vs_single_step"]
     assert held["held"] and held["loss_dp"] == held["loss_single"]
@@ -849,7 +882,8 @@ def test_the_int8_recompute_and_raw_store_phases_run_on_the_cpu(rehearsal):
     by_phase = {r["phase"]: r for r in records if "phase" in r}
     nothing = {name: 0 for name in cs.KERNELS}
     steps_run = 12
-    per_step = {"gather_whiten": 1, "conv_block0_train": 1, "conv_block0_train_bwd": 1}
+    per_step = {"gather_whiten": 1, "conv_block0_train": 1, "conv_block0_train_bwd": 1,
+                "bn_apply": 4, "bn_grad": 4}
     int8 = by_phase["int8_train_slice"]
     assert int8["blockn"] == "fused_int8"
     assert int8["launches"] == {**nothing, **{k: steps_run * v for k, v in per_step.items()},
@@ -871,7 +905,7 @@ def test_the_int8_recompute_and_raw_store_phases_run_on_the_cpu(rehearsal):
         assert min(r["min_grad_cosine"] for r in held.values()) >= cs.STEP_MIN_COSINE
     raw = by_phase["raw_store_slice"]
     assert raw["launches"] == {**nothing, "conv_block0_train": 4, "conv_block0_train_bwd": 4,
-                               "pool_fwd": 12, "route_bwd": 12}
+                               "pool_fwd": 12, "route_bwd": 12, "bn_apply": 16, "bn_grad": 16}
     assert raw["eval_launches"] == nothing and raw["store"]["downsampling"] == 0
     assert raw["chain_vs_cpu"]["max_abs_err"] <= cs.RAW_CHAIN_ATOL
     assert raw["chain_vs_cpu"]["offsets_off_the_decimation_grid"] > 0

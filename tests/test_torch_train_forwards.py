@@ -110,7 +110,8 @@ def port_block(op, x, w, b, gamma, beta, gw, pool, dilation, *extra):
     tx = torch.tensor(x.transpose(0, 2, 1).copy(), requires_grad=True)  # (B, Cin, T)
     tp = [torch.tensor(w.transpose(2, 1, 0).copy(), requires_grad=True)] + [
         torch.tensor(p, requires_grad=True) for p in (b, gamma, beta)]
-    out, mu, var = op.apply(tx, *tp, pool, EPS, dilation, torch.float32, *extra)
+    out, mu, var = op.apply(tx, *tp, pool, EPS, dilation, torch.float32, *extra, torch.float32,
+                            None, 1.0)
     loss = scalar(out, mu, var, torch.from_numpy(gw.transpose(0, 2, 1).copy()))
     gx, *gp = torch.autograd.grad(loss, [tx, *tp])
     return loss.item(), (out, mu, var), gx, gp
@@ -331,7 +332,7 @@ def test_fit_trains_through_the_int8_forward(tmp_path):
     real = FusedBlocknTrain.forward
 
     def spy(ctx, *args):
-        quants.append(args[-1])
+        quants.append(args[9])  # after (x, w, b, γ, β, pool, eps, dilation, gemm_dtype)
         return real(ctx, *args)
 
     with pytest.MonkeyPatch.context() as mp:
@@ -415,7 +416,8 @@ def test_conv_train_module_names_the_new_ops():
     x = torch.randn(2, 8, 16)
     args = [torch.randn(8, 8, 3), torch.zeros(8), torch.ones(8), torch.zeros(8)]
     with pytest.raises(ValueError):
-        FusedBlocknTrain.apply(x, *args, 2, EPS, 1, torch.float32, "int4")
+        FusedBlocknTrain.apply(x, *args, 2, EPS, 1, torch.float32, "int4", torch.float32, None,
+                               1.0)
     with pytest.raises(ValueError):  # SAME padding of an even k is not symmetric
         FusedBlocknRecompute.apply(x, torch.randn(8, 8, 4), *args[1:], 2, EPS, 1,
-                                   torch.float32)
+                                   torch.float32, torch.float32, None, 1.0)

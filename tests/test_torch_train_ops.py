@@ -5,12 +5,17 @@ the Pallas cores in interpret mode) and ``FusedBlocknTrain`` against
 ``make_fused_blockn_train(save_act=True)`` with ``routing="pallas"`` in
 interpret mode, at f32: the same numpy inputs and parameters, values and
 ``torch.autograd.grad`` against ``jax.grad`` of one scalar that reads the
-pooled output, μ and σ², within 1e-4. Negative BatchNorm scales and dead
-relu regions in every case. The port's blocks-1+ op takes and gives
-``(B, C, T)`` tensors; the test transposes at its edge (the op lays its
-tensors out channels last itself). Then the fused path's layout: the
-residual is the raw conv output, channels last from block 0's output to the
-head, with no copy between blocks.
+pooled output, μ and σ², within 1e-4, with no dropout mask, with an
+all-keeping one, and with a mask that drops channels at keep 0.7 (the JAX
+side applies ``where(mask, y / keep, 0)`` after its op). Negative BatchNorm scales and dead relu regions in every
+case. The port's blocks-1+ op takes and gives ``(B, C, T)`` tensors; the
+test transposes at its edge (the op lays its tensors out channels last
+itself). Then the fused path's layout: the residual is the raw conv output,
+channels last from block 0's output to the head, with no copy between
+blocks. Then the pool-rate epilogue (``cuda_routing.bn_apply``/``bn_grad``)
+inside each op against the chain it replaced, ``spatial_dropout(pooled.to(
+dtype))`` after the op, bit for bit, and the fused forward's dropout draws
+against the benchmark reference's ``draw_step``.
 """
 
 import dataclasses
@@ -22,11 +27,15 @@ import pytest
 import torch
 
 from voicemap_tpu.ops.conv_train import make_fused_block0_train, make_fused_blockn_train
+from portbench.reference.conv1d_encoder import draw_step
 from voicemap_tpu_torch.config import classifier_baseline
 from voicemap_tpu_torch.models import fused_train
 from voicemap_tpu_torch.models.classifier import SpeakerClassifier
-from voicemap_tpu_torch.ops import cuda_routing
-from voicemap_tpu_torch.ops.conv_train import FusedBlock0Train, FusedBlocknTrain
+from voicemap_tpu_torch.models.encoder import spatial_dropout
+from voicemap_tpu_torch.ops import cuda_conv_train, cuda_routing
+from voicemap_tpu_torch.ops.conv_train import (
+    FusedBlock0Train, FusedBlocknRecompute, FusedBlocknTrain,
+)
 from voicemap_tpu_torch.ops.cuda_routing import is_channels_last
 
 EPS = 1e-3
@@ -49,8 +58,34 @@ def block0_params(seed, c=16):
     return w, b, gamma, beta
 
 
+MASKS = ["none", "all_kept", "keep_0.7"]
+
+
+def epilogue(mask: str, B: int, c: int) -> tuple:
+    """The ops' trailing ``(out_dtype, mask, keep)``: f32 out, and no mask,
+    one that keeps every channel at keep 1 (the same values), or one that
+    drops some channels of every row at keep 0.7."""
+    if mask == "none":
+        return torch.float32, None, 1.0
+    if mask == "all_kept":
+        return torch.float32, torch.ones(B, c), 1.0
+    m = (torch.rand(B, c, generator=torch.Generator().manual_seed(B * c)) < 0.7).float()
+    m[:, 0], m[:, 1] = 0.0, 1.0
+    return torch.float32, m, 0.7
+
+
+def jax_dropout(out, tail):
+    """``where(mask, out / keep, 0)`` on a JAX ``(B, T', C)`` output, for the
+    port's trailing ``(out_dtype, mask, keep)``."""
+    _, mask, keep = tail
+    if mask is None:
+        return out
+    return jnp.where(jnp.asarray(mask.numpy())[:, None, :] != 0, out / keep, 0.0)
+
+
+@pytest.mark.parametrize("mask", MASKS)
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_fused_block0_matches_jax_custom_vjp(impl):
+def test_fused_block0_matches_jax_custom_vjp(impl, mask):
     B, T, c = 3, 256, 16
     rng = np.random.default_rng(1)
     x = (rng.standard_normal((B, T, 1)) * 0.5).astype(np.float32)
@@ -60,15 +95,18 @@ def test_fused_block0_matches_jax_custom_vjp(impl):
 
     fn = make_fused_block0_train(4, EPS, impl=impl, gemm_dtype="float32",
                                  sel_dtype="float32", interpret=True)
+    tail = epilogue(mask, B, c)
 
     def jloss(p):
         out, mu, var = fn(jnp.asarray(x), *p)
+        out = jax_dropout(out, tail)
         return scalar(out, mu, var, jnp.asarray(gw)), (out, mu, var)
 
     (jl, jouts), jgrads = jax.value_and_grad(jloss, has_aux=True)(tuple(map(jnp.asarray, params)))
 
     tp = [torch.tensor(p, requires_grad=True) for p in params]
-    outs = FusedBlock0Train.apply(torch.from_numpy(x), *tp, 4, EPS, torch.float32, torch.float32)
+    outs = FusedBlock0Train.apply(torch.from_numpy(x), *tp, 4, EPS, torch.float32, torch.float32,
+                                  *tail)
     loss = scalar(*outs, torch.from_numpy(gw))
     grads = torch.autograd.grad(loss, tp)
     np.testing.assert_allclose(loss.item(), float(jl), rtol=TOL)
@@ -83,13 +121,15 @@ def test_fused_block0_matches_jax_custom_vjp(impl):
 def test_fused_block0_input_gets_no_gradient():
     x = torch.randn(2, 64, 1, requires_grad=True)
     tp = [torch.tensor(p, requires_grad=True) for p in block0_params(3, 8)]
-    out, _, _ = FusedBlock0Train.apply(x, *tp, 4, EPS, torch.float32, torch.float32)
+    out, _, _ = FusedBlock0Train.apply(x, *tp, 4, EPS, torch.float32, torch.float32,
+                                       torch.float32, None, 1.0)
     gx, gw = torch.autograd.grad(out.sum(), [x, tp[0]], allow_unused=True)
     assert gx is None and gw is not None  # audio is data, as the TPU op's zeros say
 
 
+@pytest.mark.parametrize("mask", MASKS)
 @pytest.mark.parametrize("pool,dilation", [(2, 1), (2, 4), (1, 2), (4, 1)])
-def test_fused_blockn_matches_jax_custom_vjp(pool, dilation):
+def test_fused_blockn_matches_jax_custom_vjp(pool, dilation, mask):
     cin, cout, k, B, T = 6, 8, 3, 3, 64
     rng = np.random.default_rng(pool * 10 + dilation)
     x = rng.standard_normal((B, T, cin)).astype(np.float32)
@@ -103,9 +143,11 @@ def test_fused_blockn_matches_jax_custom_vjp(pool, dilation):
     fn = make_fused_blockn_train(pool, EPS, dilation=dilation, gemm_dtype="float32",
                                  sel_dtype="float32", save_act=True, routing="pallas",
                                  interpret=True)
+    tail = epilogue(mask, B, cout)
 
     def jloss(xx, p):
         out, mu, var = fn(xx, *p)
+        out = jax_dropout(out, tail)
         return scalar(out, mu, var, jnp.asarray(gw)), (out, mu, var)
 
     jparams = tuple(map(jnp.asarray, (w, b, gamma, beta)))
@@ -115,7 +157,8 @@ def test_fused_blockn_matches_jax_custom_vjp(pool, dilation):
     tx = torch.tensor(x.transpose(0, 2, 1).copy(), requires_grad=True)  # (B, Cin, T)
     tp = [torch.tensor(w.transpose(2, 1, 0).copy(), requires_grad=True)] + [
         torch.tensor(p, requires_grad=True) for p in (b, gamma, beta)]
-    out, mu, var = FusedBlocknTrain.apply(tx, *tp, pool, EPS, dilation, torch.float32)
+    out, mu, var = FusedBlocknTrain.apply(tx, *tp, pool, EPS, dilation, torch.float32, "none",
+                                          *tail)
     assert out.shape == (B, cout, T // pool)
     loss = scalar(out, mu, var, torch.from_numpy(gw.transpose(0, 2, 1).copy()))
     gx, *gp = torch.autograd.grad(loss, [tx, *tp])
@@ -140,9 +183,10 @@ def test_fused_blockn_refuses_asymmetric_same_padding():
     x = torch.randn(2, 3, 32)
     args = [torch.randn(5, 3, 4), torch.zeros(5), torch.ones(5), torch.zeros(5)]
     with pytest.raises(ValueError):
-        FusedBlocknTrain.apply(x, *args, 2, EPS, 1, torch.float32)
+        FusedBlocknTrain.apply(x, *args, 2, EPS, 1, torch.float32, "none", torch.float32, None,
+                               1.0)
     out, _, _ = FusedBlocknTrain.apply(x, torch.randn(5, 3, 3), *args[1:], 2, EPS, 2,
-                                       torch.float32)
+                                       torch.float32, "none", torch.float32, None, 1.0)
     assert out.shape == (2, 5, 16)
 
 
@@ -156,7 +200,8 @@ def test_fused_blockn_saves_the_raw_conv_output_channels_last():
     w = (torch.randn(cout, cin, k, generator=gen) * 0.4).requires_grad_()
     b = torch.randn(cout, generator=gen).mul(0.5).requires_grad_()
     gamma, beta = torch.ones(cout, requires_grad=True), torch.zeros(cout, requires_grad=True)
-    out, _, _ = FusedBlocknTrain.apply(x, w, b, gamma, beta, pool, EPS, 1, torch.float32)
+    out, _, _ = FusedBlocknTrain.apply(x, w, b, gamma, beta, pool, EPS, 1, torch.float32,
+                                       "none", torch.float32, None, 1.0)
     x4, w4, z, *_ = out.grad_fn.saved_tensors
     want_z = torch.nn.functional.conv1d(x.detach(), w.detach(), None, padding=1)
     torch.testing.assert_close(z, want_z, rtol=1e-6, atol=1e-6)
@@ -207,3 +252,156 @@ def test_fused_train_forward_hands_channels_last_tensors_without_copies():
     assert len(inputs) == 3 and all(is_channels_last(h) for h in inputs)
     assert inputs[0]._base is not None  # block 0's output, viewed, not copied
     assert FusedBlocknTrain.cotangent_copies == before
+
+
+# The ops with their epilogue against the chain that ran after them before:
+# block 0 at pool 4; blocks 1+ at pools 4, 2 and 1 (dilation 2 at pool 1),
+# in the int8 forward and in the pool-rate-residual op.
+EPILOGUE_CASES = [("block0", 4, 1), ("fused", 4, 1), ("fused", 2, 1), ("fused", 1, 2),
+                  ("fused_int8", 2, 1), ("fused_recompute", 2, 1)]
+RATE = 0.3  # many dropped channels at these widths
+
+
+def epilogue_op_inputs(kind, pool, dilation, dtype, seed=0):
+    """``(op, leading args, cotangent of y, (B, C), channel_dim)`` at a size
+    the CPU runs in a second; C = 24 so that 16 bytes of any dtype divide it.
+    The GEMM dtype is the train forward's: bf16 under an f16 compute dtype."""
+    gen = torch.Generator().manual_seed(seed)
+    B, c = 3, 24
+    gemm = fused_train._gemm_dtype(dtype)
+    if kind == "block0":
+        w, b, gamma, beta = (torch.from_numpy(p) for p in block0_params(seed, c))
+        x = torch.randn(B, 256, 1, generator=gen) * 0.5
+        args = [x, w, b, gamma, beta, pool, EPS, gemm, gemm]
+        gy = torch.randn(B, 256 // pool, c, generator=gen).to(dtype)
+        return FusedBlock0Train, args, gy, (B, c), 2
+    cin, T = 16, 96
+    x = torch.randn(B, T, cin, generator=gen).to(dtype).permute(0, 2, 1)  # as the forward hands it
+    w = torch.randn(c, cin, 3, generator=gen) * 0.3
+    b = torch.randn(c, generator=gen) * 0.3
+    gamma = torch.rand(c, generator=gen) + 0.5
+    gamma[::3] *= -1.0
+    beta = torch.randn(c, generator=gen) * 0.1
+    args = [x, w, b, gamma, beta, pool, EPS, dilation, gemm]
+    if kind != "fused_recompute":
+        args.append("int8" if kind == "fused_int8" else "none")
+    gy = torch.randn(B, T // pool, c, generator=gen).to(dtype).permute(0, 2, 1)
+    return FusedBlocknRecompute if kind == "fused_recompute" else FusedBlocknTrain, args, gy, \
+        (B, c), 1
+
+
+def run_op(op, args, gy, tail, spied, after=None):
+    """One forward and backward with the trailing ``(out_dtype, mask, keep)``
+    and ``after`` applied to ``y`` → ``(y, μ, σ², grads of the float
+    inputs, the f32 cotangent handed to B5 or B7)``."""
+    leaves = [a.detach().clone().requires_grad_() if torch.is_tensor(a) and a.is_floating_point()
+              else a for a in args]
+    y, mu, var = op.apply(*leaves, *tail)
+    if after is not None:
+        y = after(y)
+    loss = (y.float() * gy.float()).sum() + (mu * 2.0).sum() + (var * 0.5).sum()
+    spied.clear()
+    grads = torch.autograd.grad(loss, [a for a in leaves if torch.is_tensor(a)
+                                       and a.requires_grad], allow_unused=True)
+    return y, mu, var, grads, spied[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16],
+                         ids=["bf16", "f32", "f16"])
+@pytest.mark.parametrize("kind,pool,dilation", EPILOGUE_CASES)
+def test_the_epilogue_equals_the_chain_it_replaced(kind, pool, dilation, dtype):
+    """The op given the keep mask and the compute dtype against the op in
+    f32 with no mask followed by ``spatial_dropout(pooled.to(dtype))`` on a
+    generator of the same seed: ``y`` bit for bit (and its layout), the f32
+    cotangent that B5 or B7 reads bit for bit, every gradient and μ, σ²
+    equal."""
+    op, args, gy, (B, c), channel_dim = epilogue_op_inputs(kind, pool, dilation, dtype)
+    spied = []
+    with pytest.MonkeyPatch.context() as mp:
+        route, b5 = cuda_routing.route_bwd, cuda_conv_train.conv_block0_train_bwd
+        mp.setattr(cuda_routing, "route_bwd",
+                   lambda *a: (spied.append(a[3]), route(*a))[1])
+        mp.setattr(cuda_conv_train, "conv_block0_train_bwd",
+                   lambda *a: (spied.append(a[4]), b5(*a))[1])
+        mask = fused_train.keep_mask(torch.Generator().manual_seed(7), RATE, B, c,
+                                     channel_dim, "cpu")
+        assert mask.shape == (B, c) and 0 < int(mask.sum()) < B * c
+        new = run_op(op, args, gy, (dtype, mask, 1.0 - RATE), spied)
+
+        def old_chain(pooled):
+            assert pooled.dtype == torch.float32
+            return spatial_dropout(pooled.to(dtype), RATE, torch.Generator().manual_seed(7),
+                                   channel_dim=channel_dim)
+
+        old = run_op(op, args, gy, (torch.float32, None, 1.0), spied, old_chain)
+    y_new, y_old = new[0], old[0]
+    assert y_new.dtype == y_old.dtype == dtype and y_new.stride() == y_old.stride()
+    assert torch.equal(y_new, y_old)
+    assert (y_new == 0).any()  # dropped channels
+    assert new[4].dtype == torch.float32 and torch.equal(new[4], old[4])
+    for got, want in zip((new[1], new[2], *new[3]), (old[1], old[2], *old[3])):
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("blockn", fused_train.BLOCKN)
+def test_the_fused_forward_draws_the_masks_the_reference_replays(blockn):
+    """The fused ops' masks come from the generator as ``spatial_dropout``
+    drew them: after ``draw_step``'s ids and starts, the forward leaves the
+    generator where ``draw_step`` leaves it after its four mask draws, and
+    each fused block's mask is the reference's for that block."""
+    enc = dataclasses.replace(classifier_baseline().encoder, filters=8)
+    assert enc.dropout > 0
+    model = SpeakerClassifier(enc, 5, device="cpu")
+    B, T, n_utts = 4, 2048, 10
+    lengths = torch.full((n_utts,), T)
+    channels = [enc.filters * m for m in enc.filter_multipliers]
+    ref = torch.Generator().manual_seed(11)
+    _, _, masks = draw_step(ref, n_utts, lengths, B, T, channels, enc.dropout)
+    gen = torch.Generator().manual_seed(11)
+    draw_step(gen, n_utts, lengths, B, T, channels, 0.0)  # the ids and the starts alone
+    seen = []
+    real = fused_train.keep_mask
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fused_train, "keep_mask", lambda *a: seen.append(real(*a)) or seen[-1])
+        x = torch.randn(B, T, 1, generator=torch.Generator().manual_seed(0))
+        fused_train.classifier_train_forward(model, x, gen, blockn=blockn)
+    assert torch.equal(gen.get_state(), ref.get_state())
+    assert len(seen) == (1 if blockn == "jnp" else 4)  # jnp's blocks 1+ draw in spatial_dropout
+    for got, want in zip(seen, masks):
+        assert torch.equal(got, want)
+
+
+def test_the_epilogue_ops_refuse_what_their_kernels_cannot_read():
+    """Both ops take contiguous (B, T', C) memory, (C,) channel vectors and a
+    contiguous (B, C) f32 mask on one device; the CPU path counts no launch."""
+    sel, v = torch.randn(2, 5, 8), torch.zeros(8)
+    before = (cuda_routing.bn_apply.launches, cuda_routing.bn_grad.launches)
+    bad = [dict(sel=sel.permute(0, 2, 1)), dict(mu=torch.zeros(7)),
+           dict(mask=torch.ones(2, 7)), dict(mask=torch.ones(2, 8, dtype=torch.bool)),
+           dict(mask=torch.ones(8, 2).t())]
+    for change in bad:
+        a = dict(sel=sel, mu=v, mask=None)
+        a.update(change)
+        with pytest.raises(ValueError):
+            cuda_routing.bn_apply(a["sel"], a["mu"], v, v, a["mask"], 0.9, torch.float32)
+        with pytest.raises(ValueError):
+            cuda_routing.bn_grad(a["sel"].contiguous(), a["sel"], a["mask"], 0.9, a["mu"], v)
+    with pytest.raises(ValueError):
+        cuda_routing.bn_grad(sel[:, :4], sel, None, 1.0, v, v)
+    y = cuda_routing.bn_apply(sel, v, v + 1.0, v, torch.ones(2, 8), 0.5, torch.bfloat16)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, (sel / 0.5).to(torch.bfloat16))
+    g, s1, s2 = cuda_routing.bn_grad(y, sel, None, 1.0, v, v + 1.0)
+    assert g.dtype == torch.float32 and torch.equal(g, y.float())
+    torch.testing.assert_close(s1, g.sum((0, 1)))
+    torch.testing.assert_close(s2, (g * sel).sum((0, 1)))
+    assert (cuda_routing.bn_apply.launches, cuda_routing.bn_grad.launches) == before
+
+
+def test_the_kernels_take_the_reciprocal_cuda_divides_by():
+    """On the card PyTorch divides by a host scalar as a product with the f32
+    reciprocal of the f32 scalar; the kernels are handed that reciprocal."""
+    for keep in (0.95, 0.7, 0.5, 1.0 - 0.05, 1.0 - 1e-3):
+        want = np.float32(1.0) / np.float32(keep)
+        assert cuda_routing._inv_keep(keep) == float(want)

@@ -67,6 +67,12 @@ SIGNATURES = {
     # strips, span, a_bf16, out_bf16, by_idx, stream
     "vm_route_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _I, _P),
+    # sel, mu, scale, beta, mask (NULL: no dropout), inv_keep, y, B, C, T', vec,
+    # strips, span, sel_dt, out_dt (0 f32, 1 bf16, 2 f16), stream
+    "vm_bn_apply": (_P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # g, sel, mask (NULL: no dropout), inv_keep, mu, r, gout, part, sums, B, C,
+    # T', vec, strips, span, g_dt, sel_dt (as vm_bn_apply's), stream
+    "vm_bn_grad": (_P, _P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, frag, offs, weights, bands, out, B, T, n_frames, ksteps, hop, M, n_passes,
     # n_weights, log_eps, stream
     "vm_log_mel_tc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -1,5 +1,7 @@
 // B7: the max-pool and BatchNorm passes of the blocks-1+ train op, one pass
-// over the conv's raw output in each direction, channels last.
+// over the conv's raw output in each direction, channels last. After it, on
+// the same vectors, tiles and folds: the BatchNorm epilogue pair that every
+// fused train block runs at pool rate (bn_apply_kernel, bn_grad_kernel).
 //
 // Replaces voicemap_tpu/ops/pallas_routing.py :: _pool_fwd_kernel (wrapper
 // pallas_pool_fwd) and _route_bwd_kernel (wrapper pallas_route_bwd), with the
@@ -46,6 +48,7 @@
 // card once at B=32 as well as at 2048.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -71,9 +74,16 @@ struct BF16 {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
 };
+// float16: only the BatchNorm epilogue's y and its cotangent take it.
+struct F16 {
+  static constexpr int kSize = 2;
+  static __device__ __forceinline__ float round(float v) {
+    return __half2float(__float2half_rn(v));
+  }
+};
 
-// W elements of type E as raw 32-bit words (one 16-bit half for a lone bf16),
-// moved as 16-, 8-, 4- or 2-byte accesses.
+// W elements of type E as raw 32-bit words (one 16-bit half for a lone bf16
+// or f16), moved as 16-, 8-, 4- or 2-byte accesses.
 template <typename E, int W>
 struct Vec {
   static constexpr int kBytes = E::kSize * W;
@@ -119,6 +129,9 @@ struct Vec {
   __device__ __forceinline__ float get(int k) const {
     if constexpr (E::kSize == 4) {
       return __uint_as_float(w[k]);
+    } else if constexpr (std::is_same_v<E, F16>) {
+      return __half2float(
+          __ushort_as_half((unsigned short)((k & 1) ? w[k >> 1] >> 16 : w[k >> 1])));
     } else {
       return __uint_as_float((k & 1) ? (w[k >> 1] & 0xffff0000u) : (w[k >> 1] << 16));
     }
@@ -129,7 +142,8 @@ struct Vec {
     if constexpr (E::kSize == 4) {
       w[k] = __float_as_uint(v);
     } else {
-      const unsigned h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+      const unsigned h = std::is_same_v<E, F16> ? __half_as_ushort(__float2half_rn(v))
+                                                : __bfloat16_as_ushort(__float2bfloat16_rn(v));
       if (k & 1)
         w[k >> 1] |= h << 16;
       else
@@ -560,6 +574,200 @@ void launch_bwd_mode(bool by_idx, int vec, dim3 grid, cudaStream_t s, const void
                                 strips, span);
 }
 
+// ---------------------------------------------------------------------------
+// The BatchNorm epilogue of the fused train blocks (block 0's a_sel from B4,
+// blocks 1+'s from B7), at pool rate, one pass each way over (B, T', C)
+// memory: what eager PyTorch ran as seven elementwise kernels and two
+// reductions, bit for bit.
+//
+// bn_apply_kernel, with per-channel mu, scale = gamma * r and beta (f32),
+// each operation rounded on its own (no contraction) and round() to the
+// output dtype:
+//   y = round(((a_sel - mu) * scale) + beta)
+// and with a spatial-dropout mask m (B, C) and inv_keep = 1 / keep (f32,
+// formed as CUDA's division by a host scalar forms it):
+//   y = m[b, c] != 0 ? round(y * inv_keep) : 0
+// bn_grad_kernel, for the cotangent g of y (in y's dtype):
+//   g' = m[b, c] != 0 ? round(g * inv_keep) : 0       (g' = g without a mask)
+// written in f32 (what B7's route_bwd and B5 read), and per channel
+//   sum g',  sum g' * ((a_sel - mu) * r)
+// folded as B7 folds its sums: per CTA in a fixed order, then fold.cuh.
+// Each thread owns W channels of one batch row (so its mask values), as B7's
+// Tile lays a CTA out over a strip of positions.
+
+constexpr int kApplyCtasPerSm = 4;
+constexpr int kGradCtasPerSm = 3;
+
+template <typename SE, typename OE, int W, bool MASK>
+__global__ void __launch_bounds__(kThreads, kApplyCtasPerSm)
+bn_apply_kernel(const void* __restrict__ sel, const float* __restrict__ mu,
+                const float* __restrict__ scale, const float* __restrict__ beta,
+                const float* __restrict__ mask, float inv_keep, void* __restrict__ y, int C,
+                int tp, int strips, int span) {
+  const Tile t(C, W, tp, strips, span);
+  if (t.r >= t.rows) return;
+  float m[W], sc[W], be[W];
+  unsigned kept = 0;  // bit k: channel t.c + k of this batch row is kept
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    m[k] = mu[t.c + k];
+    sc[k] = scale[t.c + k];
+    be[k] = beta[t.c + k];
+    if constexpr (MASK) kept |= unsigned(mask[(long long)t.b * C + t.c + k] != 0.f) << k;
+  }
+  const long long row = (long long)t.b * tp;
+  for (int p = t.p_begin + t.r; p < t.p_end; p += kUnroll * t.rows) {
+    Vec<SE, W> v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = p + u * t.rows;
+      if (u == 0 || q < t.p_end) v[u].load(at<SE>(sel, (row + q) * C + t.c));
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = p + u * t.rows;
+      if (u == 0 || q < t.p_end) {
+        Vec<OE, W> o;
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          float a = OE::round(
+              __fadd_rn(__fmul_rn(__fsub_rn(v[u].get(k), m[k]), sc[k]), be[k]));
+          if constexpr (MASK) a = (kept >> k) & 1u ? OE::round(__fmul_rn(a, inv_keep)) : 0.f;
+          o.set(k, a);
+        }
+        o.store(at<OE>(y, (row + q) * C + t.c));
+      }
+    }
+  }
+}
+
+template <typename SE, typename GE, int W, bool MASK>
+__global__ void __launch_bounds__(kThreads, kGradCtasPerSm)
+bn_grad_kernel(const void* __restrict__ g, const void* __restrict__ sel,
+               const float* __restrict__ mask, float inv_keep, const float* __restrict__ mu,
+               const float* __restrict__ r, float* __restrict__ gout,
+               float* __restrict__ part, int C, int tp, int strips, int span) {
+  __shared__ float red[2 * kThreads * W];
+  const Tile t(C, W, tp, strips, span);
+  float sums[2][W];  // sum g', sum g' * a_hat
+#pragma unroll
+  for (int k = 0; k < W; ++k) sums[0][k] = sums[1][k] = 0.f;
+  if (t.r < t.rows) {
+    float m[W], rr[W];
+    unsigned kept = 0;  // as in bn_apply_kernel
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      m[k] = mu[t.c + k];
+      rr[k] = r[t.c + k];
+      if constexpr (MASK) kept |= unsigned(mask[(long long)t.b * C + t.c + k] != 0.f) << k;
+    }
+    const long long row = (long long)t.b * tp;
+    for (int p = t.p_begin + t.r; p < t.p_end; p += kUnroll * t.rows) {
+      Vec<GE, W> gv[kUnroll];
+      Vec<SE, W> sv[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int q = p + u * t.rows;
+        if (u == 0 || q < t.p_end) {
+          gv[u].load(at<GE>(g, (row + q) * C + t.c));
+          sv[u].load(at<SE>(sel, (row + q) * C + t.c));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int q = p + u * t.rows;
+        if (u == 0 || q < t.p_end) {
+          Vec<F32, W> o;
+#pragma unroll
+          for (int k = 0; k < W; ++k) {
+            float gp = gv[u].get(k);
+            if constexpr (MASK) gp = (kept >> k) & 1u ? GE::round(__fmul_rn(gp, inv_keep)) : 0.f;
+            const float ahat = __fmul_rn(__fsub_rn(sv[u].get(k), m[k]), rr[k]);
+            sums[0][k] = __fadd_rn(sums[0][k], gp);
+            sums[1][k] = __fadd_rn(sums[1][k], __fmul_rn(gp, ahat));
+            o.set(k, gp);
+          }
+          o.store(at<F32>(gout, (row + q) * C + t.c));
+        }
+      }
+    }
+  }
+  fold_cta<W, 2>(t, sums, red, part + (long long)blockIdx.x * 2 * C, C);
+}
+
+// The vector width of a pair of element types: 16 bytes of the narrower.
+template <typename A, typename B>
+constexpr int kPairW = 16 / (A::kSize < B::kSize ? A::kSize : B::kSize);
+
+template <typename SE, typename OE, int W>
+void launch_apply(bool masked, dim3 grid, cudaStream_t s, const void* sel, const float* mu,
+                  const float* scale, const float* beta, const float* mask, float inv_keep,
+                  void* y, int C, int tp, int strips, int span) {
+  if (masked)
+    bn_apply_kernel<SE, OE, W, true><<<grid, kThreads, 0, s>>>(
+        sel, mu, scale, beta, mask, inv_keep, y, C, tp, strips, span);
+  else
+    bn_apply_kernel<SE, OE, W, false><<<grid, kThreads, 0, s>>>(
+        sel, mu, scale, beta, mask, inv_keep, y, C, tp, strips, span);
+}
+
+template <typename SE, typename OE>
+void launch_apply_w(int vec, bool masked, dim3 grid, cudaStream_t s, const void* sel,
+                    const float* mu, const float* scale, const float* beta, const float* mask,
+                    float inv_keep, void* y, int C, int tp, int strips, int span) {
+  if (vec > 1)
+    launch_apply<SE, OE, kPairW<SE, OE>>(masked, grid, s, sel, mu, scale, beta, mask, inv_keep,
+                                         y, C, tp, strips, span);
+  else
+    launch_apply<SE, OE, 1>(masked, grid, s, sel, mu, scale, beta, mask, inv_keep, y, C, tp,
+                            strips, span);
+}
+
+template <typename SE, typename GE, int W>
+void launch_grad(bool masked, dim3 grid, cudaStream_t s, const void* g, const void* sel,
+                 const float* mask, float inv_keep, const float* mu, const float* r,
+                 float* gout, float* part, int C, int tp, int strips, int span) {
+  if (masked)
+    bn_grad_kernel<SE, GE, W, true><<<grid, kThreads, 0, s>>>(
+        g, sel, mask, inv_keep, mu, r, gout, part, C, tp, strips, span);
+  else
+    bn_grad_kernel<SE, GE, W, false><<<grid, kThreads, 0, s>>>(
+        g, sel, mask, inv_keep, mu, r, gout, part, C, tp, strips, span);
+}
+
+template <typename SE, typename GE>
+void launch_grad_w(int vec, bool masked, dim3 grid, cudaStream_t s, const void* g,
+                   const void* sel, const float* mask, float inv_keep, const float* mu,
+                   const float* r, float* gout, float* part, int C, int tp, int strips,
+                   int span) {
+  if (vec > 1)
+    launch_grad<SE, GE, kPairW<SE, GE>>(masked, grid, s, g, sel, mask, inv_keep, mu, r, gout,
+                                        part, C, tp, strips, span);
+  else
+    launch_grad<SE, GE, 1>(masked, grid, s, g, sel, mask, inv_keep, mu, r, gout, part, C, tp,
+                           strips, span);
+}
+
+// The epilogue's element types by the host's code: 0 f32, 1 bf16, 2 f16
+// (y and its cotangent); a_sel, the GEMM's dtype, is f32 or bf16.
+template <typename Fn>
+void with_elem(int code, Fn&& fn) {
+  if (code == 2)
+    fn(F16{});
+  else if (code == 1)
+    fn(BF16{});
+  else
+    fn(F32{});
+}
+
+template <typename Fn>
+void with_sel(int code, Fn&& fn) {
+  if (code == 1)
+    fn(BF16{});
+  else
+    fn(F32{});
+}
+
 }  // namespace
 
 // z (B, T, C) f32 or bf16; bias, sgn (C,) f32; sel (B, T/pool, C) f32 or
@@ -621,5 +829,64 @@ extern "C" int vm_route_bwd(const void* z, const void* bias, const void* asel, c
                               strips, span);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   vm_fold::fold_rows(pf, B * strips, C, (float*)db, s);
+  return (int)cudaGetLastError();
+}
+
+// sel (B, T', C) f32 or bf16; mu, scale, beta (C,) f32; mask (B, C) f32, or
+// NULL for no dropout; inv_keep f32; y (B, T', C) f32, bf16 or f16 out (the
+// dtype codes of with_elem; sel takes no f16). vec: 1, or 16 bytes of the
+// narrower of sel and y a thread (every pointer 16-byte aligned, C a
+// multiple of it); strips * span covers T' once.
+extern "C" int vm_bn_apply(const void* sel, const void* mu, const void* scale,
+                           const void* beta, const void* mask, float inv_keep, void* y, int B,
+                           int C, int tp, int vec, int strips, int span, int sel_dt,
+                           int out_dt, void* stream) {
+  if (sel_dt != 0 && sel_dt != 1) return (int)cudaErrorInvalidValue;
+  if (int err = check_plan(B, C, tp, 1, vec, (sel_dt || out_dt) ? 8 : 4, strips, span))
+    return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid = grid_of(B, C, vec, strips);
+  const float* m = (const float*)mu;
+  const float* sc = (const float*)scale;
+  const float* be = (const float*)beta;
+  const float* mk = (const float*)mask;
+  const bool masked = mask != nullptr;
+  with_sel(sel_dt, [&](auto se) {
+    with_elem(out_dt, [&](auto oe) {
+      launch_apply_w<decltype(se), decltype(oe)>(vec, masked, grid, s, sel, m, sc, be, mk,
+                                                 inv_keep, y, C, tp, strips, span);
+    });
+  });
+  return (int)cudaGetLastError();
+}
+
+// g (B, T', C) f32, bf16 or f16, the cotangent of y; sel (B, T', C) f32 or
+// bf16; mask (B, C) f32 or NULL; inv_keep f32; mu, r (C,) f32; gout (B, T',
+// C) f32 out; part (B*strips, 2, C) f32 scratch; sums (2, C) f32 out: sum g',
+// sum g' * a_hat. Dtype codes, vec, strips and span as for vm_bn_apply (of g
+// and sel).
+extern "C" int vm_bn_grad(const void* g, const void* sel, const void* mask, float inv_keep,
+                          const void* mu, const void* r, void* gout, void* part, void* sums,
+                          int B, int C, int tp, int vec, int strips, int span, int g_dt,
+                          int sel_dt, void* stream) {
+  if (sel_dt != 0 && sel_dt != 1) return (int)cudaErrorInvalidValue;
+  if (int err = check_plan(B, C, tp, 1, vec, (g_dt || sel_dt) ? 8 : 4, strips, span))
+    return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid = grid_of(B, C, vec, strips);
+  const float* mk = (const float*)mask;
+  const float* m = (const float*)mu;
+  const float* rr = (const float*)r;
+  float* go = (float*)gout;
+  float* pf = (float*)part;
+  const bool masked = mask != nullptr;
+  with_sel(sel_dt, [&](auto se) {
+    with_elem(g_dt, [&](auto ge) {
+      launch_grad_w<decltype(se), decltype(ge)>(vec, masked, grid, s, g, sel, mk, inv_keep, m,
+                                                rr, go, pf, C, tp, strips, span);
+    });
+  });
+  if (cudaError_t err = cudaGetLastError()) return (int)err;
+  vm_fold::fold_rows(pf, B * strips, 2 * C, (float*)sums, s);
   return (int)cudaGetLastError();
 }

@@ -22,10 +22,12 @@ These functions take the module and use its parameters, so gradients land in
 ``.grad`` as usual, and they **update the BatchNorm running buffers of the
 module in place** (``m·old + (1 − m)·batch``), where the JAX functions return
 a new ``batch_stats`` tree. Dropout masks come from ``generator``, one
-Bernoulli draw a (row, channel) a block, at pool rate after a fused block
-(SpatialDropout scales whole channels by a non-negative factor, so it
-commutes with the max-pool). A torch generator does not replay JAX's keys:
-masks differ from the JAX package's at equal seeds.
+Bernoulli draw a (row, channel) a block, in block order; a fused block takes
+its mask, drawn by the call ``spatial_dropout`` makes, and applies it at pool
+rate inside the op's epilogue (SpatialDropout scales whole channels by a
+non-negative factor, so it commutes with the max-pool), which returns the
+block's output in the compute dtype. A torch generator does not replay JAX's
+keys: masks differ from the JAX package's at equal seeds.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from ..ops.conv_train import (
 )
 from ..ops.cuda_conv_train import KERNEL_POOL, KERNEL_TAPS, MAX_CHANNELS
 from .classifier import SpeakerClassifier
-from .encoder import ConvEncoder, spatial_dropout
+from .encoder import ConvEncoder
 from .siamese import SiameseNet
 
 BLOCKN = ("jnp", "fused", "fused_recompute", "fused_int8")
@@ -46,6 +48,21 @@ BLOCKN = ("jnp", "fused", "fused_recompute", "fused_int8")
 
 def _gemm_dtype(cdt: torch.dtype) -> torch.dtype:
     return torch.float32 if cdt == torch.float32 else torch.bfloat16
+
+
+def keep_mask(generator: torch.Generator | None, rate: float, B: int, c: int,
+              channel_dim: int, device) -> torch.Tensor | None:
+    """A fused block's spatial-dropout keep mask, ``(B, C)`` f32 on
+    ``device``, or None at rate 0: ``spatial_dropout``'s own draw for a
+    ``(B, T, C)`` output (``channel_dim`` 2, shape ``[B, 1, C]``) or a
+    ``(B, C, T)`` one (1, ``[B, C, 1]``), so that the generator's stream is
+    the plain blocks'."""
+    if rate <= 0.0:
+        return None
+    shape = [B, 1, c] if channel_dim == 2 else [B, c, 1]
+    mask = torch.empty(shape, device=generator.device).bernoulli_(1.0 - rate,
+                                                                   generator=generator)
+    return mask.to(device).view(B, c)
 
 
 def fused_block0_train_eligible(encoder: ConvEncoder, x: torch.Tensor) -> bool:
@@ -76,14 +93,15 @@ def encoder_train_forward(encoder: ConvEncoder, x: torch.Tensor,
         raise ValueError("a generator is required when cfg.dropout > 0")
     cdt = encoder.compute_dtype
     gdt = _gemm_dtype(cdt)
+    rate = cfg.dropout
     h = x.to(cdt).transpose(1, 2)
     start = 0
     if fused_block0 and fused_block0_train_eligible(encoder, x):
         blk = encoder.blocks[0]
-        pooled, mu, var = FusedBlock0Train.apply(
+        mask = keep_mask(generator, rate, x.shape[0], blk.bn.num_features, 2, x.device)
+        y, mu, var = FusedBlock0Train.apply(
             x, blk.conv.weight.permute(2, 1, 0), blk.conv.bias, blk.bn.weight, blk.bn.bias,
-            blk.pool_size, blk.bn.eps, gdt, gdt)
-        y = spatial_dropout(pooled.to(cdt), cfg.dropout, generator, channel_dim=2)
+            blk.pool_size, blk.bn.eps, gdt, gdt, cdt, mask, 1.0 - rate)
         blk.update_running_stats(mu, var)
         h = y.transpose(1, 2)  # (B, C, T/4), channels last: what the fused blocks take
         if blockn == "jnp":
@@ -96,12 +114,13 @@ def encoder_train_forward(encoder: ConvEncoder, x: torch.Tensor,
         if blockn != "jnp" and i >= 1 and symmetric and (pool <= 1 or h.shape[2] % pool == 0):
             args = (h, blk.conv.weight, blk.conv.bias, blk.bn.weight, blk.bn.bias, max(pool, 1),
                     blk.bn.eps, blk.conv.dilation[0], gdt)
+            epilogue = (cdt, keep_mask(generator, rate, h.shape[0], blk.bn.num_features, 1,
+                                       h.device), 1.0 - rate)
             if blockn == "fused_recompute":
-                pooled, mu, var = FusedBlocknRecompute.apply(*args)
+                h, mu, var = FusedBlocknRecompute.apply(*args, *epilogue)
             else:
-                pooled, mu, var = FusedBlocknTrain.apply(
-                    *args, "int8" if blockn == "fused_int8" else "none")
-            h = spatial_dropout(pooled.to(cdt), cfg.dropout, generator)
+                h, mu, var = FusedBlocknTrain.apply(
+                    *args, "int8" if blockn == "fused_int8" else "none", *epilogue)
             blk.update_running_stats(mu, var)
         else:
             h = blk.forward_train_nct(h, generator)

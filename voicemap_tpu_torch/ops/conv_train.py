@@ -14,6 +14,13 @@ afterwards. The backward of BatchNorm with respect to ``a`` folds to
 computed at pool rate (the pool routes each pooled cotangent to one
 full-rate position, so the full-rate sums equal their pooled sums).
 
+The pool-rate epilogue, the affine, the cast to the output dtype and the
+spatial dropout (a keep mask ``(B, C)`` drawn by the caller, SpatialDropout
+commuting with the max-pool), runs as one kernel each way
+(``ops/cuda_routing.bn_apply`` and ``bn_grad``): the forward writes ``y`` in
+the output dtype; the backward writes the f32 cotangent that B5 and B7 read,
+with the pool-rate sums ``Σg`` and ``Σg·â`` beside it.
+
 - :class:`FusedBlock0Train` — block 0 (Cin = 1, k = 32, pool 4). Forward is
   B4 (``ops/cuda_conv_train.conv_block0_train``), backward B5
   (``conv_block0_train_bwd``): the full-rate activation never reaches device
@@ -46,8 +53,11 @@ full-rate position, so the full-rate sums equal their pooled sums).
   bf16 activation need not equal the forward's f32 one, so routing by
   value could miss.
 
-Both return ``(pooled f32, μ, σ²)``, the biased variance
-``max(E[a²] − E[a]², 0)`` as flax takes it, and both μ and σ² carry
+All three end their arguments with ``out_dtype`` (the compute dtype: f32,
+bf16 or f16), a keep ``mask`` (B, C) f32 or None at no dropout, and
+``keep``, and return ``(y, μ, σ²)``: ``y`` is
+``spatial_dropout(pooled.to(out_dtype))`` bit for bit, μ and the biased
+variance ``max(E[a²] − E[a]², 0)`` as flax takes it are f32 and carry
 gradients. T must divide by the pool; callers use the plain block otherwise.
 """
 
@@ -71,49 +81,45 @@ def _stats(sum_a, sumsq_a, n: int, eps: float):
     return mu, var, torch.rsqrt(var + eps)
 
 
-def _bn_backward_constants(g, a_sel, gamma, mu, var, g_mu, g_var, n, eps, channel_dim):
-    """Pool-rate sums S1 = Σg, S2 = Σg·â and the ``dz`` constants c0, c1, c2."""
+def _bn_backward(g, a_sel, mask, keep, gamma, mu, var, g_mu, g_var, n, eps):
+    """``g`` (the cotangent of ``y``) and ``a_sel``, both ``(B, T', C)``
+    memory → the f32 cotangent ``g'``, the pool-rate sums S1 = Σg',
+    S2 = Σg'·â (``bn_grad``) and the ``dz`` constants c0, c1, c2."""
     r = torch.rsqrt(var + eps)
     m = gamma * r
-    shape = [1, 1, 1]
-    shape[channel_dim] = -1
-    dims = tuple(d for d in range(3) if d != channel_dim)
-    ahat = (a_sel.float() - mu.view(shape)) * r.view(shape)
-    s1 = g.sum(dims)
-    s2 = (g * ahat).sum(dims)
+    g, s1, s2 = cuda_routing.bn_grad(g, a_sel, mask, keep, mu, r)
     c0 = m
     c1 = -m * s1 / n + m * r * mu * s2 / n + g_mu / n - 2.0 * mu * g_var / n
     c2 = -m * r * s2 / n + 2.0 * g_var / n
-    return s1, s2, c0, c1, c2
+    return g, s1, s2, c0, c1, c2
 
 
 class FusedBlock0Train(torch.autograd.Function):
-    """``(x (B, T, 1) f32, w (k, 1, C), b, γ, β)`` → ``(pooled (B, T/pool, C) f32, μ, σ²)``."""
+    """``(x (B, T, 1) f32, w (k, 1, C), b, γ, β)`` → ``(y (B, T/pool, C), μ, σ²)``."""
 
     @staticmethod
-    def forward(ctx, x, w, b, gamma, beta, pool: int, eps: float,
-                gemm_dtype: torch.dtype, sel_dtype: torch.dtype):
+    def forward(ctx, x, w, b, gamma, beta, pool: int, eps: float, gemm_dtype: torch.dtype,
+                sel_dtype: torch.dtype, out_dtype: torch.dtype, mask, keep: float):
         n = x.shape[0] * x.shape[1]
         sgn = _sign(gamma)
         a_sel, sum_a, sumsq_a, _ = cuda_conv_train.conv_block0_train(
             x, w, b, sgn, pool, gemm_dtype, sel_dtype)
         mu, var, r = _stats(sum_a, sumsq_a, n, eps)
-        pooled = (a_sel.float() - mu) * (gamma * r) + beta
-        ctx.save_for_backward(x, w, b, gamma, sgn, a_sel, mu, var)
-        ctx.cfg = (pool, eps, gemm_dtype)
-        return pooled, mu, var
+        y = cuda_routing.bn_apply(a_sel, mu, gamma * r, beta, mask, keep, out_dtype)
+        ctx.save_for_backward(x, w, b, gamma, sgn, a_sel, mu, var, mask)
+        ctx.cfg = (pool, eps, gemm_dtype, keep)
+        return y, mu, var
 
     @staticmethod
     def backward(ctx, g, g_mu, g_var):
-        x, w, b, gamma, sgn, a_sel, mu, var = ctx.saved_tensors
-        pool, eps, gemm_dtype = ctx.cfg
+        x, w, b, gamma, sgn, a_sel, mu, var, mask = ctx.saved_tensors
+        pool, eps, gemm_dtype, keep = ctx.cfg
         n = x.shape[0] * x.shape[1]
-        g = g.float()
-        s1, s2, c0, c1, c2 = _bn_backward_constants(g, a_sel, gamma, mu, var, g_mu, g_var,
-                                                     n, eps, 2)
+        g, s1, s2, c0, c1, c2 = _bn_backward(g.contiguous(), a_sel, mask, keep, gamma, mu, var,
+                                             g_mu, g_var, n, eps)
         dw, db = cuda_conv_train.conv_block0_train_bwd(x, w, b, sgn, g, c0, c1, c2, pool,
                                                        gemm_dtype)
-        return None, dw.to(w.dtype), db, s2, s1, None, None, None, None
+        return None, dw.to(w.dtype), db, s2, s1, None, None, None, None, None, None, None
 
 
 def symmetric_padding(kernel_size: int, dilation: int) -> int | None:
@@ -157,27 +163,35 @@ def quantize_int8(x: torch.Tensor, w: torch.Tensor) -> tuple:
     return qx, qw.permute(2, 1, 0), sx * sw
 
 
-def _blockn_backward(x4, w4, z, bias, a_sel, route, gamma, mu, var, g, g_mu, g_var,
+def _blockn_backward(x4, w4, z, bias, a_sel, route, gamma, mu, var, mask, g, g_mu, g_var,
                      cfg: tuple, need_dx: bool) -> tuple:
-    """The blocks-1+ ops' shared backward: the pool-rate sums from ``a_sel``,
-    B7's routing pass on ``z`` and ``bias`` (by value with ``route`` =
-    ``a_sel``, by phase with ``route`` = ``idx``), cuDNN's dW and dX → the
-    gradients of ``(x, w, b, γ, β)``."""
-    pool, eps, pad, dilation, gemm_dtype, x_dtype, w_dtype = cfg
+    """The blocks-1+ ops' shared backward: the epilogue's gradient and the
+    pool-rate sums from ``g`` and ``a_sel`` (``bn_grad``), B7's routing pass
+    on ``z`` and ``bias`` (by value with ``route`` = ``a_sel``, by phase with
+    ``route`` = ``idx``), cuDNN's dW and dX → the gradients of ``(x, w, b,
+    γ, β)``."""
+    pool, eps, pad, dilation, gemm_dtype, x_dtype, w_dtype, keep = cfg
     n = z.shape[0] * z.shape[2]
-    g = g.float()
     if not cuda_routing.is_channels_last(g):
         # Autograd hands the cotangent in its producer's layout: on the
         # train forward the next block's dX or the head's max, channels
-        # last both; a caller that reads ``pooled`` another way pays this copy.
+        # last both; a caller that reads ``y`` another way pays this copy.
         FusedBlocknTrain.cotangent_copies += 1
         g = g.permute(0, 2, 1).contiguous().permute(0, 2, 1)
-    s1, s2, c0, c1, c2 = _bn_backward_constants(g, a_sel, gamma, mu, var, g_mu, g_var, n,
-                                                 eps, 1)
-    dz, db = cuda_routing.route_bwd(z, bias, route, g, c0, c1, c2, pool, gemm_dtype)
+    g, s1, s2, c0, c1, c2 = _bn_backward(g.permute(0, 2, 1), a_sel.permute(0, 2, 1), mask, keep,
+                                         gamma, mu, var, g_mu, g_var, n, eps)
+    dz, db = cuda_routing.route_bwd(z, bias, route, g.permute(0, 2, 1), c0, c1, c2, pool,
+                                    gemm_dtype)
     dx, dw = _conv_backward(dz.unsqueeze(2), x4, w4, pad, dilation, need_dx)
     return (dx.squeeze(2).to(x_dtype) if need_dx else None,
             dw.squeeze(2).to(w_dtype, memory_format=torch.contiguous_format), db, s2, s1)
+
+
+def _apply(a_sel, mu, scale, beta, mask, keep, out_dtype):
+    """``bn_apply`` on a channels-last ``(B, C, T')`` ``a_sel`` → ``y`` in
+    the same layout."""
+    return cuda_routing.bn_apply(a_sel.permute(0, 2, 1), mu, scale, beta, mask, keep,
+                                 out_dtype).permute(0, 2, 1)
 
 
 def _padding(w: torch.Tensor, dilation: int) -> int:
@@ -189,11 +203,11 @@ def _padding(w: torch.Tensor, dilation: int) -> int:
 
 
 class FusedBlocknTrain(torch.autograd.Function):
-    """``(x (B, Cin, T), w (Cout, Cin, k), b, γ, β)`` → ``(pooled (B, Cout, T/pool) f32, μ, σ²)``.
+    """``(x (B, Cin, T), w (Cout, Cin, k), b, γ, β)`` → ``(y (B, Cout, T/pool), μ, σ²)``.
 
     Channels last: ``x`` may come in any layout, and one that is channels
     last (``cuda_routing.is_channels_last``, as the train forward hands it)
-    in the GEMM dtype is not copied; ``pooled`` and dX come back channels
+    in the GEMM dtype is not copied; ``y`` and dX come back channels
     last. The saved residual is the conv's raw output ``z``, in the GEMM
     dtype, which B7 reads in both passes (the activation itself is never
     written); with ``quant="int8"`` it is the dequantized activation ``a``
@@ -209,7 +223,8 @@ class FusedBlocknTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, b, gamma, beta, pool: int, eps: float, dilation: int,
-                gemm_dtype: torch.dtype, quant: str = "none"):
+                gemm_dtype: torch.dtype, quant: str, out_dtype: torch.dtype, mask,
+                keep: float):
         if quant not in QUANT:
             raise ValueError(f"FusedBlocknTrain: quant must be one of {QUANT}, got {quant!r}")
         pad = _padding(w, dilation)
@@ -225,17 +240,17 @@ class FusedBlocknTrain(torch.autograd.Function):
             bias = b
         a_sel, sum_a, sumsq_a = cuda_routing.pool_fwd(z, bias, sgn, pool, gemm_dtype)
         mu, var, r = _stats(sum_a, sumsq_a, z.shape[0] * z.shape[2], eps)
-        pooled = (a_sel.float() - mu[:, None]) * (gamma * r)[:, None] + beta[:, None]
-        ctx.save_for_backward(x4, w4, z, bias, a_sel, gamma, mu, var)
-        ctx.cfg = (pool, eps, pad, dilation, gemm_dtype, x.dtype, w.dtype)
-        return pooled, mu, var
+        y = _apply(a_sel, mu, gamma * r, beta, mask, keep, out_dtype)
+        ctx.save_for_backward(x4, w4, z, bias, a_sel, gamma, mu, var, mask)
+        ctx.cfg = (pool, eps, pad, dilation, gemm_dtype, x.dtype, w.dtype, keep)
+        return y, mu, var
 
     @staticmethod
     def backward(ctx, g, g_mu, g_var):
-        x4, w4, z, bias, a_sel, gamma, mu, var = ctx.saved_tensors
-        return (*_blockn_backward(x4, w4, z, bias, a_sel, a_sel, gamma, mu, var, g, g_mu,
+        x4, w4, z, bias, a_sel, gamma, mu, var, mask = ctx.saved_tensors
+        return (*_blockn_backward(x4, w4, z, bias, a_sel, a_sel, gamma, mu, var, mask, g, g_mu,
                                   g_var, ctx.cfg, ctx.needs_input_grad[0]),
-                None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 class FusedBlocknRecompute(torch.autograd.Function):
@@ -255,7 +270,7 @@ class FusedBlocknRecompute(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, b, gamma, beta, pool: int, eps: float, dilation: int,
-                gemm_dtype: torch.dtype):
+                gemm_dtype: torch.dtype, out_dtype: torch.dtype, mask, keep: float):
         pad = _padding(w, dilation)
         x4, w4 = _nhwc(x, gemm_dtype), _nhwc(w, gemm_dtype)
         sgn = _sign(gamma)
@@ -271,16 +286,16 @@ class FusedBlocknRecompute(torch.autograd.Function):
         a_sel, sum_a, sumsq_a, idx = cuda_routing.pool_fwd(a, bias, sgn, pool, gemm_dtype,
                                                            want_idx=True)
         mu, var, r = _stats(sum_a, sumsq_a, a.shape[0] * a.shape[2], eps)
-        pooled = (a_sel.float() - mu[:, None]) * (gamma * r)[:, None] + beta[:, None]
-        ctx.save_for_backward(x4, w4, b, a_sel, idx, gamma, mu, var)
-        ctx.cfg = (pool, eps, pad, dilation, gemm_dtype, x.dtype, w.dtype)
-        return pooled, mu, var
+        y = _apply(a_sel, mu, gamma * r, beta, mask, keep, out_dtype)
+        ctx.save_for_backward(x4, w4, b, a_sel, idx, gamma, mu, var, mask)
+        ctx.cfg = (pool, eps, pad, dilation, gemm_dtype, x.dtype, w.dtype, keep)
+        return y, mu, var
 
     @staticmethod
     def backward(ctx, g, g_mu, g_var):
-        x4, w4, b, a_sel, idx, gamma, mu, var = ctx.saved_tensors
+        x4, w4, b, a_sel, idx, gamma, mu, var, mask = ctx.saved_tensors
         pool, eps, pad, dilation = ctx.cfg[:4]
         z = F.conv2d(x4, w4, None, padding=(0, pad), dilation=(1, dilation)).squeeze(2)
-        return (*_blockn_backward(x4, w4, z, b, a_sel, idx, gamma, mu, var, g, g_mu, g_var,
+        return (*_blockn_backward(x4, w4, z, b, a_sel, idx, gamma, mu, var, mask, g, g_mu, g_var,
                                   ctx.cfg, ctx.needs_input_grad[0]),
-                None, None, None, None)
+                None, None, None, None, None, None, None)

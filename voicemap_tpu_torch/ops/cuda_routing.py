@@ -34,8 +34,27 @@ index, and the phase the value mode routes to), and ``route_bwd`` given
 its own instance of the same kernels; they count apart, the index mode on
 ``idx_launches``.
 
+The BatchNorm epilogue of the fused train blocks, at pool rate, over the
+``(B, T', C)`` memory of ``a_sel`` (block 0's ``(B, T/4, C)`` tensor, or a
+blocks-1+ ``a_sel`` viewed through ``permute(0, 2, 1)``), the same pair of
+kernels for both:
+
+- ``bn_apply``: ``y = round(((a_sel − μ)·scale) + β)`` in the output dtype
+  (the compute dtype: f32, bf16 or f16), each operation rounded in f32,
+  then with a spatial-dropout keep mask ``m (B, C)``
+  ``y = m ? round(y / keep) : 0``: the bits of
+  ``spatial_dropout(pooled.to(dtype))``;
+- ``bn_grad``: the cotangent ``g`` of ``y`` → ``g' = m ? round(g / keep) : 0``
+  in f32 (the f32 cotangent B7 and B5 read) and, per channel, ``Σg'`` and
+  ``Σg'·â`` with ``â = (a_sel − μ)·r``, folded in a fixed order.
+
+``bn_apply_reference`` and ``bn_grad_reference`` are the PyTorch ops they
+replace, in their order. A division by ``keep`` is the one PyTorch makes on
+the tensor's device: on the card a product with the f32 reciprocal of
+``keep`` (how CUDA divides by a host scalar), on the CPU a true division.
+
 Dispatch is by the input's device: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel, and a failed build or launch raises. Both
+CUDA tensor launches the kernel, and a failed build or launch raises. All
 raise on a tensor in another layout: they never copy one into theirs.
 """
 
@@ -53,6 +72,9 @@ MAX_POOL = 8  # csrc/routing.cu kMaxPool
 # holds at once (its registers are capped for it), which the strips fill once.
 FWD_CTAS_PER_SM = 3
 BWD_CTAS_PER_SM = 2
+# csrc/routing.cu kApplyCtasPerSm, kGradCtasPerSm: the same for bn_apply and bn_grad
+APPLY_CTAS_PER_SM = 4
+GRAD_CTAS_PER_SM = 3
 
 
 def channels_last(shape, dtype, device) -> torch.Tensor:
@@ -246,8 +268,123 @@ def route_bwd(z, b, a_sel, g, c0, c1, c2, pool: int, out_dtype=torch.bfloat16):
     return dz, db
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_keep(keep: float) -> float:
+    """``1 / keep`` as CUDA's division by a host scalar forms it: both in f32."""
+    return float(torch.tensor(1.0) / torch.tensor(keep, dtype=torch.float32))
+
+
+def bn_apply_reference(sel, mu, scale, beta, mask, keep: float, out_dtype):
+    """Plain PyTorch version → ``y (B, T', C) out_dtype``."""
+    y = ((sel.float() - mu) * scale + beta).to(out_dtype)
+    if mask is None:
+        return y
+    return torch.where(mask.bool()[:, None, :], y / keep, 0.0).to(out_dtype)
+
+
+def bn_grad_reference(g, sel, mask, keep: float, mu, r):
+    """Plain PyTorch version → ``(g' (B, T', C) f32, Σg' (C,), Σg'·â (C,))``."""
+    if mask is not None:
+        g = torch.where(mask.bool()[:, None, :], g, 0.0) / keep
+    gf = g.float()
+    ahat = (sel.float() - mu) * r
+    return gf, gf.sum((0, 1)), (gf * ahat).sum((0, 1))
+
+
+def _check_bn(name, t, mask, *vectors):
+    if t.dim() != 3 or not t.is_contiguous():
+        raise ValueError(f"{name}: tensors must be contiguous (B, T', C), got shape "
+                         f"{tuple(t.shape)}, strides {tuple(t.stride())}")
+    B, _, c = t.shape
+    if any(v.shape != (c,) for v in vectors):
+        raise ValueError(f"{name}: the channel vectors must be ({c},)")
+    if mask is not None and (mask.shape != (B, c) or mask.dtype != torch.float32
+                             or not mask.is_contiguous()):
+        raise ValueError(f"{name}: the mask must be a contiguous ({B}, {c}) float32 tensor")
+    if any(v.device != t.device for v in (*vectors, *(() if mask is None else (mask,)))):
+        raise ValueError(f"{name}: every tensor must lie on {t.device}")
+
+
+def _narrower(*dtypes) -> torch.dtype:
+    return min(dtypes, key=lambda d: d.itemsize)
+
+
+# The epilogue's dtype codes (csrc/routing.cu with_elem): y and its
+# cotangent take any of the three, a_sel (the GEMM's dtype) the first two.
+_EPILOGUE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def bn_apply(sel, mu, scale, beta, mask, keep: float, out_dtype):
+    """The epilogue's forward: ``y (B, T', C) out_dtype`` (f32, bf16 or f16)
+    from ``sel (B, T', C)`` (f32 or bf16), per-channel ``mu``, ``scale`` and
+    ``beta``, and a keep ``mask (B, C)`` f32 with its ``keep``, or None at
+    no dropout; one read of ``sel``."""
+    _check_bn("bn_apply", sel, mask, mu, scale, beta)
+    if sel.device.type == "cpu":
+        return bn_apply_reference(sel, mu, scale, beta, mask, keep, out_dtype)
+    if sel.device.type != "cuda":
+        raise ValueError(f"bn_apply: no kernel for device {sel.device}")
+    if sel.dtype not in _DTYPES or out_dtype not in _EPILOGUE_CODES:
+        raise ValueError("bn_apply: sel must be float32 or bfloat16, out_dtype float32, "
+                         "bfloat16 or float16")
+    B, tp, c = sel.shape
+    y = torch.empty((B, tp, c), dtype=out_dtype, device=sel.device)
+    vec = vector_width(c, _narrower(sel.dtype, out_dtype), sel, y)
+    strips, span = launch_plan(B, c, tp, 1, vec, _sms(sel.device.index) * APPLY_CTAS_PER_SM)
+    m, sc, be = (v.float().contiguous() for v in (mu, scale, beta))
+    from .._build import check, library
+
+    with torch.cuda.device(sel.device):
+        err = library().vm_bn_apply(
+            sel.data_ptr(), m.data_ptr(), sc.data_ptr(), be.data_ptr(),
+            None if mask is None else mask.data_ptr(), _inv_keep(keep), y.data_ptr(), B, c, tp,
+            vec, strips, span, _EPILOGUE_CODES[sel.dtype], _EPILOGUE_CODES[out_dtype],
+            torch.cuda.current_stream().cuda_stream)
+    check(err, "bn_apply")
+    bn_apply.launches += 1
+    return y
+
+
+def bn_grad(g, sel, mask, keep: float, mu, r):
+    """The epilogue's backward: ``(g' (B, T', C) f32, Σg' (C,), Σg'·â (C,))``
+    for the cotangent ``g`` of ``bn_apply``'s ``y``, in ``y``'s dtype; one
+    read of ``g`` and of ``sel``; ``mask`` and ``keep`` as ``bn_apply``
+    took them."""
+    _check_bn("bn_grad", sel, mask, mu, r)
+    if g.shape != sel.shape or not g.is_contiguous() or g.device != sel.device:
+        raise ValueError(f"bn_grad: g must be a contiguous {tuple(sel.shape)} tensor on "
+                         f"{sel.device}")
+    if sel.device.type == "cpu":
+        return bn_grad_reference(g, sel, mask, keep, mu, r)
+    if sel.device.type != "cuda":
+        raise ValueError(f"bn_grad: no kernel for device {sel.device}")
+    if sel.dtype not in _DTYPES or g.dtype not in _EPILOGUE_CODES:
+        raise ValueError("bn_grad: sel must be float32 or bfloat16, g float32, bfloat16 or "
+                         "float16")
+    B, tp, c = sel.shape
+    gout = torch.empty((B, tp, c), dtype=torch.float32, device=sel.device)
+    vec = vector_width(c, _narrower(sel.dtype, g.dtype), sel, g, gout)
+    strips, span = launch_plan(B, c, tp, 1, vec, _sms(sel.device.index) * GRAD_CTAS_PER_SM)
+    part = torch.empty((B * strips, 2, c), dtype=torch.float32, device=sel.device)
+    sums = torch.empty((2, c), dtype=torch.float32, device=sel.device)
+    m, rr = mu.float().contiguous(), r.float().contiguous()
+    from .._build import check, library
+
+    with torch.cuda.device(sel.device):
+        err = library().vm_bn_grad(
+            g.data_ptr(), sel.data_ptr(), None if mask is None else mask.data_ptr(),
+            _inv_keep(keep), m.data_ptr(), rr.data_ptr(), gout.data_ptr(), part.data_ptr(),
+            sums.data_ptr(), B, c, tp, vec, strips, span, _EPILOGUE_CODES[g.dtype],
+            _EPILOGUE_CODES[sel.dtype], torch.cuda.current_stream().cuda_stream)
+    check(err, "bn_grad")
+    bn_grad.launches += 1
+    return gout, sums[0], sums[1]
+
+
 # kernel launches; the CPU path does not count: the value mode, the index mode
 pool_fwd.launches = 0
 pool_fwd.idx_launches = 0
 route_bwd.launches = 0
 route_bwd.idx_launches = 0
+bn_apply.launches = 0
+bn_grad.launches = 0

@@ -3,10 +3,11 @@ through their wrappers; or, with ``--dilated``, B8 and B3 at config #3's
 seven dilated and pool-1 blocks; with ``--b7``, B7's two passes at the train
 step's blocks 1-3; with ``--b45``, B4 and B5 at the train step's block 0;
 with ``--b5f32``, their f32 route there; with ``--b6dft``, B6's DFT route;
-with ``--b9``, B9 at config #2's scoring shapes.
+with ``--b9``, B9 at config #2's scoring shapes; with ``--bn``, the
+BatchNorm epilogue pair at the train step's four pool-rate outputs.
 
     python3 -m voicemap_tpu_torch.utils.block_timing [--batch 2048]
-        [--dilated | --b7 | --b45 | --b5f32 | --b6dft | --b9]
+        [--dilated | --b7 | --b45 | --b5f32 | --b6dft | --b9 | --bn]
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line:
 the mean ms of back-to-back launches (CUDA events) of ``conv_block0``
@@ -33,7 +34,13 @@ n_fft 400, win 400, hop 160, 64 mels (the DFT route) on (2048, 48000),
 queued and back to back. ``--b9``: ``weighted_l1`` at (T, nq, ns, D) = (1,
 4096, 4096, 64) (the tiled form) and (500, 1, 5, 64) (the n-shot form of 500
 1-shot 5-way tasks): queued and back-to-back ms and the host microseconds
-of a call (the wall time to enqueue 200), beside ``torch.cdist``'s. A
+of a call (the wall time to enqueue 200), beside ``torch.cdist``'s.
+``--bn``: the queued ms of ``bn_apply`` and ``bn_grad`` (bf16 ``a_sel``, ``y``
+and cotangent, dropout 0.05) at config #1's pool-rate outputs (T', C) =
+(3000, 128), (1500, 256), (750, 384), (375, 512), beside their plain
+versions on the card (the eager chain the pair replaced) and the bytes
+bound (each element's bf16 ``a_sel`` read and ``y`` written; the bf16
+cotangent and ``a_sel`` read and the f32 cotangent written), and the sums. A
 checkout whose B7
 takes the relu activation channel first (before the bias and relu were
 folded into it) gets that activation, and the bias-and-relu pass its train
@@ -67,6 +74,7 @@ from voicemap_tpu_torch.ops.cuda_conv_train import (  # noqa: E402
 from voicemap_tpu_torch.ops.cuda_distance import weighted_l1  # noqa: E402
 from voicemap_tpu_torch.ops.cuda_melspec import log_mel  # noqa: E402
 from voicemap_tpu_torch.ops.cuda_quant_block import quant_block  # noqa: E402
+from voicemap_tpu_torch.ops import cuda_routing  # noqa: E402
 from voicemap_tpu_torch.ops.cuda_routing import pool_fwd, route_bwd  # noqa: E402
 from voicemap_tpu_torch.utils.profiling import time_fn  # noqa: E402
 
@@ -84,6 +92,8 @@ TRAIN_BLOCKS = ((256, 3000), (384, 1500), (512, 750))  # B7: blocks 1-3's (C, T)
 B45_BATCHES = (32, 2048)  # B4/B5: the train step's batch and the large one
 MEL_DFT = dict(n_fft=400, win_length=400, hop_length=160)  # B6's DFT route: librosa's
 B9_SHAPES = {"tile": (1, 4096, 4096, 64), "nshot": (500, 1, 5, 64)}  # (T, nq, ns, D)
+EPILOGUE_BLOCKS = ((3000, 128), (1500, 256), (750, 384), (375, 512))  # (T', C) of blocks 0-3
+HBM_BYTES_PER_S = 3.35e12
 
 
 def blockn_args(g: torch.Generator, B: int, T: int, cin: int, cout: int) -> tuple:
@@ -217,6 +227,35 @@ def time_dilated(g: torch.Generator, batch: int) -> dict:
             "b3_ms": sum(r["b3_ms"] for r in rows)}
 
 
+def time_bn(g: torch.Generator, batch: int, rate: float = 0.05) -> dict:
+    """The BatchNorm epilogue pair and the eager chain it replaced, queued,
+    at EPILOGUE_BLOCKS, beside the bytes bound."""
+    rows = []
+    for tp, c in EPILOGUE_BLOCKS:
+        bf = torch.bfloat16
+        sel = torch.randn(batch, tp, c, generator=g, device="cuda").relu().to(bf)
+        gy = torch.randn(batch, tp, c, generator=g, device="cuda").to(bf)
+        mu, r, scale, beta = (torch.rand(c, generator=g, device="cuda") for _ in range(4))
+        mask = torch.empty(batch, c, device="cuda").bernoulli_(1.0 - rate, generator=g)
+        fwd = (sel, mu, scale, beta, mask, 1.0 - rate, bf)
+        bwd = (gy, sel, mask, 1.0 - rate, mu, r)
+        n = batch * tp * c
+        row = {"T'": tp, "C": c, "bn_apply_bound_ms": n * 4 / HBM_BYTES_PER_S * 1e3,
+               "bn_grad_bound_ms": n * 8 / HBM_BYTES_PER_S * 1e3}
+        for name, args in (("bn_apply", fwd), ("bn_grad", bwd)):
+            row[f"{name}_ms"] = queued_ms(getattr(cuda_routing, name), *args)
+            row[f"{name}_plain_ms"] = queued_ms(getattr(cuda_routing, f"{name}_reference"),
+                                                *args, iters=5)
+        rows.append(row)
+        del sel, gy, fwd, bwd
+        torch.cuda.empty_cache()
+    out = {"batch": batch, "bn_blocks": rows}
+    for key in rows[0]:
+        if key.endswith("_ms"):
+            out[key] = sum(r[key] for r in rows)
+    return out
+
+
 def host_us(fn, *args, iters: int = 200) -> float:
     """Host microseconds a call: the wall time to enqueue ``iters`` calls."""
     fn(*args)
@@ -260,6 +299,7 @@ def main(argv=None) -> int:
     parser.add_argument("--b5f32", action="store_true", help="time B4 and B5's f32 route")
     parser.add_argument("--b6dft", action="store_true", help="time B6's DFT route")
     parser.add_argument("--b9", action="store_true", help="time B9")
+    parser.add_argument("--bn", action="store_true", help="time the BatchNorm epilogue pair")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("block_timing: no CUDA device", file=sys.stderr)
@@ -287,6 +327,9 @@ def main(argv=None) -> int:
         return 0
     if args.b9:
         print(json.dumps({"package": package, **time_b9(g)}), flush=True)
+        return 0
+    if args.bn:
+        print(json.dumps({"package": package, **time_bn(g, args.batch)}), flush=True)
         return 0
     T, c = BLOCK0
     x = torch.randn(args.batch, T, 1, generator=g, device="cuda") * 0.3

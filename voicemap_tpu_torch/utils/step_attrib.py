@@ -49,7 +49,8 @@ import chip_smoke as cs  # noqa: E402
 
 B4, B5 = "conv_block0_train", "conv_block0_train_bwd"
 ALL = {B4: "kernel", B5: "kernel", "pool_fwd": "kernel", "route_bwd": "kernel",
-       "quant_block_train": "kernel", "conv_blockn_rows": "kernel"}
+       "quant_block_train": "kernel", "conv_blockn_rows": "kernel", "bn_apply": "kernel",
+       "bn_grad": "kernel"}
 # Variant → {wrapper: what it returns}; wrappers not named are plain.
 # B4: "kernel", "a_sel" (the kernel's a_sel, the plain statistics), "stats"
 # (the plain a_sel, the kernel's statistics), "flips" (see the docstring);
@@ -65,6 +66,7 @@ VARIANTS = {
     "b5_dw": {B5: "dw"},
     "b5_db": {B5: "db"},
     "b7": {"pool_fwd": "kernel", "route_bwd": "kernel"},
+    "bn_epilogue": {"bn_apply": "kernel", "bn_grad": "kernel"},
     "b3_train": {"quant_block_train": "kernel"},
 }
 BIAS0 = "encoder.blocks.0.conv.bias"
