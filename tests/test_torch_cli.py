@@ -1,7 +1,8 @@
 """The port's experiment CLIs (``voicemap_tpu_torch/experiments``) on the CPU.
 
 Each parser holds every option of its JAX script (``experiments/*.py``) with
-the same default, choices and type, and ``--device`` besides. Each ``main``
+the same default, choices and type, and ``--device`` besides (embed's
+``--mode`` also takes the port's own ``PORT_MODES`` after the JAX script's). Each ``main``
 runs end to end with ``--device cpu`` on a tiny synthetic corpus: train,
 then resume; the protocol, its int8 gate, the k sweep with verification;
 embed in int8 with its calibration saved, then served from it (equal
@@ -75,6 +76,10 @@ def test_every_jax_option_with_its_default(name, monkeypatch, tmp_path):
     want, got = _options(jax_parser), _options(parser)
     assert set(got) - set(want) == {"device"}
     assert got.pop("device")[1:3] == ("cuda", ["cuda", "cpu"])
+    if name == "embed":  # the port's own modes follow the JAX script's choices
+        mode = got["mode"]
+        assert tuple(mode[2][len(want["mode"][2]):]) == embed.PORT_MODES
+        got["mode"] = mode[:2] + (mode[2][:len(want["mode"][2])],) + mode[3:]
     assert got == want
     assert {k: v for k, v in vars(ns).items() if k != "device"} == vars(jax_ns)
 

@@ -5,6 +5,10 @@ package: the same dataclasses with the same fields, defaults and frozenness,
 the same constants and the same four presets. ``tests/test_torch_config.py``
 holds every preset equal, field by field, to the JAX package's, so a change
 on either side that is not made on the other fails there.
+
+The port's own configurations, which the JAX package does not have, sit
+apart from that copy: ``EcapaConfig``, ``EcapaExperimentConfig`` and the
+``ecapa_tdnn`` preset, in ``PORT_PRESETS`` beside ``PRESETS``.
 """
 
 from __future__ import annotations
@@ -220,3 +224,53 @@ PRESETS = {
     "dilated_4khz": dilated_4khz,
     "melspec_2d": melspec_2d,
 }
+
+
+# ---------------------------------------------------------------------------
+# The port's own configurations (no JAX counterpart)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class EcapaConfig:
+    """ECAPA-TDNN (Desplanques, Thienpondt and Demuynck, Interspeech 2020) at
+    the widths of SpeechBrain's ``spkrec-ecapa-voxceleb``: a TDNN layer,
+    SE-Res2Net blocks, multi-layer feature aggregation (MFA), attentive
+    statistics pooling with global context, BatchNorm and a linear layer.
+    ``channels``, ``kernel_sizes`` and ``dilations`` list layer 1, each
+    SE-Res2Net block and the MFA TDNN, in that order."""
+
+    channels: Tuple[int, ...] = (1024, 1024, 1024, 1024, 3072)
+    kernel_sizes: Tuple[int, ...] = (5, 3, 3, 3, 1)
+    dilations: Tuple[int, ...] = (1, 2, 3, 4, 1)
+    res2net_scale: int = 8
+    se_channels: int = 128
+    attention_channels: int = 128
+    embedding_dim: int = 192
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    bn_epsilon: float = 1e-5  # torch's BatchNorm1d default, as SpeechBrain's
+
+
+@dataclass(frozen=True)
+class EcapaExperimentConfig(ExperimentConfig):
+    """An experiment whose model is ECAPA-TDNN (``mode="ecapa_tdnn"``)."""
+
+    ecapa: EcapaConfig = field(default_factory=EcapaConfig)
+
+
+def ecapa_tdnn(**overrides) -> EcapaExperimentConfig:
+    """ECAPA-TDNN (C = 1024) on 3 s at 16 kHz, undecimated and unwhitened
+    (÷ 32768 only), through an 80-band log-mel front end (n_fft 400, window
+    400, hop 160, 0–8 kHz), embedding 192."""
+    cfg = EcapaExperimentConfig(
+        name="ecapa_tdnn",
+        mode="ecapa_tdnn",
+        data=DataConfig(subsets=("train-clean-100",), seconds=3.0, downsampling=1,
+                        val_subsets=("dev-clean",), whiten_rms=None),
+        mel=MelConfig(n_fft=400, hop_length=160, win_length=400, n_mels=80, fmin=0.0,
+                      fmax=8000.0),
+    )
+    return cfg.replace(**overrides)
+
+
+PORT_PRESETS = {**PRESETS, "ecapa_tdnn": ecapa_tdnn}

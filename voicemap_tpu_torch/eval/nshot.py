@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..config import ExperimentConfig
+from ..models import ecapa
 from ..models.classifier import SpeakerClassifier
 from ..models.fast_infer import fast_embed
 from ..models.quant_infer import check_qvars_mode, quant_embed
@@ -60,7 +61,7 @@ from ..train.steps import DeviceStore, fetch_batch
 from ..utils.profiling import span
 
 
-Model = Union[SpeakerClassifier, SiameseNet, MelSpecClassifier]
+Model = Union[SpeakerClassifier, SiameseNet, MelSpecClassifier, ecapa.EcapaClassifier]
 
 
 def embed_all(model: Model, store: DeviceStore, cfg: ExperimentConfig,
@@ -93,6 +94,8 @@ def _embed(model: Model, cfg: ExperimentConfig, x: torch.Tensor, fast: bool,
     """Preprocessed fragments ``(B, T, 1)`` → embeddings by the chosen route."""
     if qvars is not None:
         return quant_embed(model.encoder, qvars, x)
+    if fast and cfg.mode == "ecapa_tdnn":
+        return ecapa.fast_embed(model.encoder, x)
     if fast and cfg.mode != "melspec2d":
         return fast_embed(model.encoder, x)
     return model.embed(x)
@@ -195,7 +198,7 @@ def score_table(table: torch.Tensor, store: DeviceStore, cfg: ExperimentConfig,
     the siamese head (``model``'s) where :func:`uses_head`, else the nearest
     class by embedding distance. ``generator``: a torch generator, or a
     ``jax_random`` key for the JAX package's tasks."""
-    if cfg.mode not in ("classifier", "siamese", "melspec2d"):
+    if cfg.mode not in ("classifier", "siamese", "melspec2d", "ecapa_tdnn"):
         raise ValueError(f"score_table: unknown mode {cfg.mode!r}")
     with torch.inference_mode():
         if uses_head(cfg):

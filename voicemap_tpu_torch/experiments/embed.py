@@ -7,7 +7,10 @@ read from the index and embedded from one store on the card
 (``--pipeline device``) or streamed from disk (``streaming``: no B1; auto
 picks by the store's size). ``--int8`` serves through the int8 path
 (calibrated on the first batch); ``--save-qvars`` writes that calibration,
-``--qvars`` serves from a saved one.
+``--qvars`` serves from a saved one. ``--mode ecapa_tdnn``, the port's own,
+embeds through ECAPA-TDNN at its preset's widths and front end (16 kHz,
+undecimated): ``--filters``, ``--embedding-dim`` and ``--downsampling``
+do not apply to it, nor does the int8 path.
 
     python -m voicemap_tpu_torch.experiments.embed --data-root /tmp/syn \\
         --subsets dev-clean --checkpoint-dir /tmp/ckpt --int8 --out emb.npz
@@ -16,11 +19,14 @@ picks by the store's size). ``--int8`` serves through the int8 path
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
 from .. import config as C
 from . import add_device_option, restore_model
+
+PORT_MODES = ("ecapa_tdnn",)  # modes of the port's own, which the JAX script lacks
 
 
 def parse_args(argv=None):
@@ -30,7 +36,7 @@ def parse_args(argv=None):
     p.add_argument("--subsets", nargs="+", default=None,
                    help="embed every utterance of these indexed subsets instead of files")
     p.add_argument("--mode", default="classifier",
-                   choices=["classifier", "siamese", "melspec2d"])
+                   choices=["classifier", "siamese", "melspec2d", *PORT_MODES])
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--which", default="best", choices=["best", "latest"])
     p.add_argument("--seconds", type=float, default=3.0)
@@ -91,16 +97,24 @@ def main(argv=None):
     from ..models import quant_infer
     from ..train import steps as steps_mod
 
-    cfg = C.ExperimentConfig(
-        mode=args.mode,
-        data=C.DataConfig(data_root=args.data_root,
-                          subsets=tuple(args.subsets or ("dev-clean",)),
-                          seconds=args.seconds,
-                          downsampling=1 if args.mode == "melspec2d" else args.downsampling,
-                          stochastic=False),
-        encoder=C.EncoderConfig(filters=args.filters, embedding_dim=args.embedding_dim,
-                                compute_dtype=args.compute_dtype),
-    )
+    data = C.DataConfig(data_root=args.data_root, subsets=tuple(args.subsets or ("dev-clean",)),
+                        seconds=args.seconds,
+                        downsampling=1 if args.mode == "melspec2d" else args.downsampling,
+                        stochastic=False)
+    if args.mode == "ecapa_tdnn":
+        if args.int8 or args.qvars or args.save_qvars:
+            raise SystemExit("--mode ecapa_tdnn has no int8 path")
+        preset = C.ecapa_tdnn()
+        cfg = preset.replace(
+            data=dataclasses.replace(preset.data, data_root=data.data_root,
+                                     subsets=data.subsets, seconds=args.seconds,
+                                     stochastic=False),
+            ecapa=dataclasses.replace(preset.ecapa, compute_dtype=args.compute_dtype))
+    else:
+        cfg = C.ExperimentConfig(
+            mode=args.mode, data=data,
+            encoder=C.EncoderConfig(filters=args.filters, embedding_dim=args.embedding_dim,
+                                    compute_dtype=args.compute_dtype))
     ds = None
     if args.subsets:
         from ..data.dataset import (dataset_from_config, estimate_store_bytes,

@@ -33,6 +33,7 @@ from ..data import dataset as dataset_mod
 from ..data.store import AudioStore
 from ..eval import nshot
 from ..models.classifier import SpeakerClassifier
+from ..models.ecapa import EcapaClassifier
 from ..models.siamese import SiameseNet
 from ..models.spectrogram import MelSpecClassifier
 from ..parallel import distributed, mesh as mesh_mod
@@ -45,10 +46,11 @@ _LECUN_TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
 def init_model(cfg: ExperimentConfig, num_classes: int, device,
-               seed: int) -> SpeakerClassifier | SiameseNet | MelSpecClassifier:
+               seed: int) -> SpeakerClassifier | SiameseNet | MelSpecClassifier | EcapaClassifier:
     """The model of ``cfg.mode`` (a classifier of ``num_classes``; for
     ``"siamese"`` the siamese net, whose Dense(1) head ignores
-    ``num_classes``; for ``"melspec2d"`` the log-mel classifier) initialised
+    ``num_classes``; for ``"melspec2d"`` the log-mel classifier; for
+    ``"ecapa_tdnn"`` ECAPA-TDNN with its cosine head) initialised
     as flax initialises it, from ``seed``: conv (1D and 2D) and Dense kernels
     lecun-normal (truncated at two standard deviations, fan-in k·Cin, 9·Cin
     for a 3×3 conv), biases zero, BatchNorm scale 1, bias 0, running mean 0,
@@ -58,6 +60,9 @@ def init_model(cfg: ExperimentConfig, num_classes: int, device,
     elif cfg.mode == "melspec2d":
         model = MelSpecClassifier(cfg.encoder, cfg.mel, num_classes, cfg.data.sample_rate,
                                   device=device)
+    elif cfg.mode == "ecapa_tdnn":
+        model = EcapaClassifier(cfg.ecapa, cfg.mel, num_classes, cfg.data.sample_rate,
+                                device=device)
     else:
         model = SpeakerClassifier(cfg.encoder, num_classes, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -66,7 +71,8 @@ def init_model(cfg: ExperimentConfig, num_classes: int, device,
             if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Linear)):
                 std = mod.weight[0].numel() ** -0.5 / _LECUN_TRUNC
                 nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std, generator=gen)
-                mod.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
     return model
 
 
