@@ -164,6 +164,15 @@ Each phase prints one JSON line; nothing here imports JAX.
     only); config
     #4 embed utt/s
     at B=2048, batch-1 latency and peak memory, in bf16 and in int8;
+13b. asp kernels — ECAPA-TDNN's attentive statistics pooling (ASP,
+    ``ops/cuda_asp``), both modes at the ECAPA cell's shape (2,048 × 298 ×
+    3,072, bf16, logits over ±60 rising in T) within their f32 summation
+    bound of float64 (the plain versions' readings beside), the difference
+    from the plain versions reported, a second launch equal bit for bit,
+    the launch counters read around it; ``ecapa.fast_embed`` on 16 windows
+    at the preset's widths (B6 1, B8 30, ASP 1 + 1) against the same
+    forward with ASP's plain versions (row cosine); both modes beside their
+    bytes bound and the plain versions;
 14. siamese kernels — B9 against its plain version, bit for bit, at
     (T, nq, ns, D) = (1, 4096, 4096, 64), the n-shot form (500, 1, 5, 64) and
     edges ((1, 33, 41, 64), (1, 1, 1, 64), (3, 7, 130, 17), D at its
@@ -309,8 +318,8 @@ import torch.distributed as dist
 
 from voicemap_tpu_torch import _build
 from voicemap_tpu_torch.config import (
-    EncoderConfig, MelConfig, SiameseConfig, classifier_baseline, dilated_4khz, melspec_2d,
-    siamese_verification,
+    EncoderConfig, MelConfig, SiameseConfig, classifier_baseline, dilated_4khz, ecapa_tdnn,
+    melspec_2d, siamese_verification,
 )
 from voicemap_tpu_torch.data import flac_ext
 from voicemap_tpu_torch.data.dataset import dataset_from_config
@@ -327,7 +336,7 @@ from voicemap_tpu_torch.experiments import (
 from voicemap_tpu_torch.models.classifier import SpeakerClassifier
 from voicemap_tpu_torch.models.convert import from_flax
 from voicemap_tpu_torch.models.encoder import ConvEncoder
-from voicemap_tpu_torch.models import fused_train
+from voicemap_tpu_torch.models import ecapa, fused_train
 from voicemap_tpu_torch.models.fast_infer import fast_embed, fast_trunk, takes_blockn
 from voicemap_tpu_torch.models.quant_infer import (
     quant_embed, quant_embed_mel, quantize_encoder, quantize_from_frags, quantize_from_store,
@@ -349,6 +358,9 @@ from voicemap_tpu_torch.parallel.mesh import data_mesh, make_mesh
 from voicemap_tpu_torch.ops.cuda_conv import (
     bn_affine, conv_block0, conv_block0_reference, conv_blockn, conv_blockn_reference,
     conv_blockn_rows, conv_blockn_rows_reference,
+)
+from voicemap_tpu_torch.ops.cuda_asp import (
+    STAT_EPS, asp_stats, asp_stats_bytes, attentive_stats_reference, global_stats_reference,
 )
 from voicemap_tpu_torch.ops.cuda_distance import (
     MAX_D, weighted_l1, weighted_l1_reference, weighted_l1_work,
@@ -508,6 +520,12 @@ B9_NSHOT = (500, 1, 5, 64)
 B9_EDGES = ((1, 33, 41, 64), (1, 1, 1, 64), (3, 7, 130, 17), (1, 5, 7, MAX_D),
             (4, 1, 3, MAX_D))
 SIAMESE_PAIRS = 1000
+# ASP (ops/cuda_asp) at the ECAPA cell's shape: a 2,048 batch of 3 s windows
+# (298 frames) of MFA's 3,072 channels; and the rows of ECAPA's embed path.
+ASP_SHAPE = (2048, 298, 3072)
+ASP_EMBED_ROWS = 16
+ASP_EXTRA_DEPTH = 24  # the exponential's ulps, the products' and the merges' roundings
+ASP_EMBED_MIN_COSINE = 0.9999
 SIAMESE_BATCH = 64
 # Config #4's train slice: batch 64 (its TrainConfig's), and the batches
 # its step is timed at.
@@ -721,6 +739,11 @@ KERNELS = {
                  "voicemap_tpu/ops/conv_train.py:295 (XLA's pool-rate chain)"),
     "bn_grad": (bn_grad, "launches", "voicemap_tpu_torch/csrc/routing.cu",
                 "voicemap_tpu/ops/conv_train.py:323 (XLA's pool-rate chain)"),
+    # ECAPA-TDNN's attentive statistics pooling: weighted, and the global context
+    "asp_stats": (asp_stats, "launches", "voicemap_tpu_torch/csrc/asp_stats.cu",
+                  "none: the port's own configuration"),
+    "asp_global": (asp_stats, "global_launches", "voicemap_tpu_torch/csrc/asp_stats.cu",
+                   "none: the port's own configuration"),
 }
 # The train kernels' plain versions, by the module attribute each wrapper
 # is reached through on the train path (B7's serve both of its modes; B3's
@@ -3515,6 +3538,179 @@ def run_mel_timing(raw, idx, offsets, model, qvars, seed: int, card: str) -> dic
             "library_ms": {k: r["library_ms"] for k, r in rows.items()}}
 
 
+def asp_inputs(seed: int, B: int, T: int, C: int, dtype=torch.bfloat16,
+               logits: str = "late") -> tuple:
+    """ASP's ``h`` (of both signs, off zero) and logits: ``"unit"`` (a normal
+    spread) or ``"late"`` (±60, rising over T, so that the online softmax's
+    max keeps moving to later rows and its sums are rescaled again and
+    again)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    h = (torch.randn(B, T, C, generator=g, device=DEVICE) * 2.0 + 0.5).to(dtype)
+    x = torch.randn(B, T, C, generator=g, device=DEVICE)
+    if logits == "late":
+        ramp = torch.linspace(-60.0, 60.0, T, device=DEVICE)[None, :, None]
+        x = (ramp + 60.0 * torch.rand(B, T, C, generator=g, device=DEVICE) - 30.0).clamp(
+            -60.0, 60.0)
+    return h, x.to(dtype)
+
+
+def asp_err_over_bound(h: torch.Tensor, w: torch.Tensor, mean: torch.Tensor,
+                       std: torch.Tensor) -> tuple:
+    """The largest error of ``mean`` and of ``std²`` over their bounds against
+    the float64 statistics of ``h (B, T, C)`` under weights ``w`` (float64,
+    summing to 1 over T: the softmax, or 1/T): the mean within (2γ_n +
+    u)·Σw|h| and std² within 8γ_n·(Σw·h² + eps), γ_n = n·u / (1 − n·u), u =
+    2^-24, n = T + ASP_EXTRA_DEPTH. Each of the kernel's sums holds a term
+    through at most T additions, rescales and merges besides the
+    exponential's 2 ulps and its product's rounding; the mean is a ratio of
+    two such sums, the variance a difference of squares."""
+    T = h.shape[1]
+    n = T + ASP_EXTRA_DEPTH
+    u = F32_UNIT_ROUNDOFF
+    gamma = n * u / (1.0 - n * u)
+    hd = h.double()
+    m64 = (w * hd).sum(1)
+    square = (w * hd * hd).sum(1)
+    var = (w * (hd - m64[:, None]).square()).sum(1).clamp(min=STAT_EPS)
+    r_mean = (mean.double() - m64).abs() / ((2 * gamma + u) * (w * hd.abs()).sum(1))
+    r_var = (std.double().square() - var).abs() / (8 * gamma * (square + STAT_EPS))
+    return float(r_mean.max()), float(r_var.max())
+
+
+def check_asp() -> tuple[list, dict]:
+    """ASP's two modes at ASP_SHAPE (bf16, logits over ±60 rising in T)
+    against the plain versions and float64, in CHECK_ROWS chunks: the kernel
+    within ``asp_err_over_bound`` of the float64 statistics (the plain
+    versions' own readings beside it), the largest difference from the
+    plain version reported, and a second launch equal to the first bit for
+    bit."""
+    B, T, C = ASP_SHAPE
+    h, x = asp_inputs(80, B, T, C)
+    pooled, (mean, std) = asp_stats(h, x), asp_stats(h)
+    again, (mean2, std2) = asp_stats(h, x), asp_stats(h)
+    torch.cuda.synchronize()
+    repeats = {"asp_stats": same_bits(pooled, again),
+               "asp_global": same_bits(mean, mean2) and same_bits(std, std2)}
+    err = {"asp_stats": 0.0, "asp_global": 0.0}
+    ratio = {k: (0.0, 0.0) for k in ("asp_stats", "asp_global", "asp_stats_plain",
+                                     "asp_global_plain")}
+    for lo in range(0, B, CHECK_ROWS):
+        rows = slice(lo, lo + CHECK_ROWS)
+        hr = h[rows]
+        want = attentive_stats_reference(hr, x[rows])
+        want_m, want_s = global_stats_reference(hr)
+        err["asp_stats"] = max(err["asp_stats"], float((pooled[rows] - want).abs().max()))
+        err["asp_global"] = max(err["asp_global"], float((mean[rows] - want_m).abs().max()),
+                                float((std[rows] - want_s).abs().max()))
+        soft = torch.softmax(x[rows].double(), dim=1)
+        flat = torch.full_like(soft, 1.0 / T)
+        for name, w, got in (("asp_stats", soft, (pooled[rows, :C], pooled[rows, C:])),
+                             ("asp_stats_plain", soft, (want[:, :C], want[:, C:])),
+                             ("asp_global", flat, (mean[rows], std[rows])),
+                             ("asp_global_plain", flat, (want_m, want_s))):
+            ratio[name] = tuple(map(max, ratio[name], asp_err_over_bound(hr, w, *got)))
+        del want, want_m, want_s, soft, flat
+    checks = []
+    for name in ("asp_stats", "asp_global"):
+        if not (max(ratio[name]) <= 1.0 and repeats[name]):
+            raise AssertionError(f"{name} {ASP_SHAPE}: mean and std² at {ratio[name]} of "
+                                 f"their bounds, repeats bit for bit: {repeats[name]}")
+        checks.append({"kernel": name, "dtype": "bfloat16", "shape": [B, T, C],
+                       "logits": "over ±60, rising in T" if name == "asp_stats" else None,
+                       "max_abs_err": err[name], "mean_err_over_bound": ratio[name][0],
+                       "var_err_over_bound": ratio[name][1],
+                       "plain_err_over_bound": list(ratio[f"{name}_plain"]),
+                       "repeats_bit_for_bit": repeats[name],
+                       "tolerance": "mean within (2g+u)*sum w|h|, std^2 within "
+                                    "8g*(sum w*h^2 + eps) of float64, g = n*u/(1-n*u), "
+                                    f"n = T + {ASP_EXTRA_DEPTH}"})
+    del h, x
+    torch.cuda.empty_cache()
+    return checks, err
+
+
+@contextlib.contextmanager
+def plain_asp():
+    """ECAPA's forward with ASP's statistics from the plain versions."""
+    real = ecapa.asp_stats
+    ecapa.asp_stats = lambda h, logits=None: (
+        global_stats_reference(h) if logits is None else attentive_stats_reference(h, logits))
+    try:
+        yield
+    finally:
+        ecapa.asp_stats = real
+
+
+def ecapa_embed_path(seed: int) -> dict:
+    """``ecapa.fast_embed`` on ASP_EMBED_ROWS seeded 3 s windows at the
+    preset's widths (random weights), the launch counters read around it:
+    B6 once, B8 once a TDNN, ASP once in each mode; its embeddings against
+    the same forward with ASP's plain versions (row cosine)."""
+    cfg = ecapa_tdnn()
+    model = ecapa.EcapaTDNN(cfg.ecapa, cfg.mel, cfg.data.sample_rate, device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n = int(cfg.data.seconds * cfg.data.sample_rate)
+    x = torch.randn(ASP_EMBED_ROWS, n, 1, generator=g, device=DEVICE) * 0.1
+    ecapa.fast_embed(model, x)  # built and warm
+    reset_counts()
+    emb = ecapa.fast_embed(model, x)
+    launches = read_counts()
+    tdnns = 3 + (cfg.ecapa.res2net_scale + 1) * (len(cfg.ecapa.channels) - 2)
+    expect_launches("ecapa_embed", launches, log_mel=1, log_mel_dft=1, conv_blockn=tdnns,
+                    asp_stats=1, asp_global=1)
+    with plain_asp():
+        want = ecapa.fast_embed(model, x)
+    cosine = min_cosine(emb, want)
+    if not cosine >= ASP_EMBED_MIN_COSINE:
+        raise AssertionError(f"ecapa_embed: min row cosine {cosine} against the plain "
+                             f"statistics, want >= {ASP_EMBED_MIN_COSINE}")
+    return {"rows": ASP_EMBED_ROWS, "channels": list(cfg.ecapa.channels),
+            "launches": launches, "min_cosine_vs_plain_stats": cosine}
+
+
+def time_asp() -> dict:
+    """Both modes at ASP_SHAPE, queued, beside the bound (h, and the logits,
+    read once; the statistics written once; f32 operations: 8 an element
+    weighted — the subtract, the exponential, the add, two FMAs, the square
+    — and 3 unweighted) and the plain versions. No single PyTorch call
+    computes either: no library time."""
+    B, T, C = ASP_SHAPE
+    h, x = asp_inputs(81, B, T, C)
+    rows = {}
+    for name, args, ref, ops in (("asp_stats", (h, x), attentive_stats_reference, 8.0),
+                                 ("asp_global", (h,), global_stats_reference, 3.0)):
+        row = {"shape": [B, T, C],
+               **bound(asp_stats_bytes(B, T, C, h.element_size(), name == "asp_stats"),
+                       ops * B * T * C, F32_OPS_PER_S),
+               "ms": time_fn(asp_stats, *args, iters=20, queued=True)["mean_s"] * 1e3,
+               "plain_ms": time_fn(ref, *args, iters=3, warmup=1)["mean_s"] * 1e3,
+               "library_ms": None, "library": "none: no single PyTorch call computes it"}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows[name] = row
+    del h, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_asp_slice(seed: int, card: str) -> dict:
+    """Phase asp_kernels: ``check_asp`` (its launches counted), the ECAPA
+    embed path (``ecapa_embed_path``) and ``time_asp``."""
+    t0 = time.perf_counter()
+    reset_counts()
+    checks, errors = check_asp()
+    checked = read_counts()
+    embed = ecapa_embed_path(seed)
+    rows = time_asp()
+    emit({"phase": "asp_kernels", "card": card, "checks": checks, "launches": checked,
+          "ecapa_embed": embed, "timing": rows, "seconds": time.perf_counter() - t0})
+    return {"errors": errors, "launches": {"asp_kernels": checked,
+                                           "ecapa_embed": embed["launches"]},
+            "ms": {k: r["ms"] for k, r in rows.items()},
+            "plain_ms": {k: r["plain_ms"] for k, r in rows.items()},
+            "bounds": {k: {b: r[b] for b in ("bound_ms", "bound_by")} for k, r in rows.items()},
+            "library_ms": {k: None for k in rows}}
+
+
 def b9_inputs(seed: int, T: int, nq: int, ns: int, D: int) -> tuple:
     """q (T, nq, D), s (T, ns, D), w (D,) of both signs and b != 0, on the card."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -5210,6 +5406,7 @@ def main(argv=None) -> int:
                                args.seed, card)
     del raw
     torch.cuda.empty_cache()
+    asp = run_asp_slice(args.seed, card)
     checked_siamese = check_siamese_kernels()
     siamese = run_siamese_slices(sliced["host"], args.seed)
     siamese_trained = run_siamese_train_slice(sliced["host"], args.seed)
@@ -5232,7 +5429,9 @@ def main(argv=None) -> int:
         times[key].update(train_times[key])
         times[key].update(mel_times[key])
         times[key].update(siamese_times[key])
+        times[key].update(asp[key])
     checked["errors"].update(checked_train["errors"])
+    checked["errors"].update(asp["errors"])
     checked["errors"].update(checked_mel["errors"])
     checked["errors"].update(checked_siamese["errors"])
 
@@ -5263,7 +5462,7 @@ def main(argv=None) -> int:
              "score_support": siamese["score_support"],
              "siamese_train": siamese_trained["launches"],
              "mel_train": mel_train_launches, **corpus, **streamed, **cli, **pod,
-             **dp_paths, **mesh_paths}
+             **dp_paths, **mesh_paths, **asp["launches"]}
     train_paths = ("train", "int8_train", "raw_train", "dilated_train", "siamese_train",
                    "corpus_device", "corpus_streaming", "corpus_siamese", "cli_train",
                    "cli_siamese_train", "dp_train", "dp_fit")
@@ -5305,7 +5504,9 @@ def main(argv=None) -> int:
                ("pool_fwd_idx", "pool_fwd_idx", ("recompute_train",)),
                ("route_bwd_idx", "route_bwd_idx", ("recompute_train",)),
                ("bn_apply", "bn_apply", (*train_paths, "recompute_train")),
-               ("bn_grad", "bn_grad", (*train_paths, "recompute_train")))
+               ("bn_grad", "bn_grad", (*train_paths, "recompute_train")),
+               ("asp_stats", "asp_stats", ("asp_kernels", "ecapa_embed")),
+               ("asp_global", "asp_global", ("asp_kernels", "ecapa_embed")))
     emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
     print(card, flush=True)
     emit({"kernels": [

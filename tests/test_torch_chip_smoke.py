@@ -30,12 +30,12 @@ import torch
 
 import chip_smoke as cs
 from voicemap_tpu_torch.config import (
-    DataConfig, EncoderConfig, ExperimentConfig, MelConfig, SiameseConfig, TrainConfig,
-    dilated_4khz,
+    DataConfig, EcapaConfig, EncoderConfig, ExperimentConfig, MelConfig, SiameseConfig,
+    TrainConfig, dilated_4khz, ecapa_tdnn,
 )
 from voicemap_tpu_torch.ops import (
-    block0_train_tc, cuda_conv, cuda_conv_train, cuda_distance, cuda_melspec, cuda_preprocess,
-    cuda_quant_block, cuda_routing,
+    block0_train_tc, cuda_asp, cuda_conv, cuda_conv_train, cuda_distance, cuda_melspec,
+    cuda_preprocess, cuda_quant_block, cuda_routing,
 )
 from voicemap_tpu_torch.parallel import dryrun
 from voicemap_tpu_torch.train import steps
@@ -109,6 +109,12 @@ def count_plain_versions(monkeypatch):
 
     monkeypatch.setattr(cuda_routing, "pool_fwd_reference", pool_counted)
     monkeypatch.setattr(cuda_routing, "route_bwd_reference", route_counted)
+    for ref, counter in (("attentive_stats_reference", "launches"),
+                         ("global_stats_reference", "global_launches")):  # ASP's two modes
+        def asp_counted(*a, _ref=getattr(cuda_asp, ref), _counter=counter, **k):
+            setattr(cuda_asp.asp_stats, _counter, getattr(cuda_asp.asp_stats, _counter) + 1)
+            return _ref(*a, **k)
+        monkeypatch.setattr(cuda_asp, ref, asp_counted)
     for mod, ref, wrapper in ((cuda_conv, "conv_blockn_reference", cuda_conv.conv_blockn),
                               (cuda_conv, "conv_blockn_rows_reference", cuda_conv.conv_blockn),
                               (cuda_quant_block, "quant_block_train_reference",
@@ -155,6 +161,12 @@ def on_the_cpu(monkeypatch):
                                                            dropout=0.0),
                                      siamese=SiameseConfig(distance_metric="weighted_l1"),
                                      train=TrainConfig(batch_size=64, loss="bce"))
+    small_ecapa = ecapa_tdnn().replace(
+        data=DataConfig(seconds=0.5, downsampling=1, whiten_rms=None),
+        mel=MelConfig(n_fft=400, hop_length=160, win_length=400, n_mels=40, fmin=0.0,
+                      fmax=8000.0),
+        ecapa=EcapaConfig(channels=(256, 256, 256, 256, 768), se_channels=32,
+                          attention_channels=32, embedding_dim=48))
     for name, value in (("DEVICE", "cpu"), ("BATCH", 512), ("STORE_T", 2600), ("FRAG", 400),
                         ("CHECK_ROWS", 64), ("SWEEP", (1, 8, 512)),
                         ("QBLOCKS", ((100, 32, 64, False), (50, 64, 96, False),
@@ -191,6 +203,8 @@ def on_the_cpu(monkeypatch):
                                           (3, 53, 32, 75, 4, torch.bfloat16),
                                           (2, 20, 64, 72, 16, torch.float32))),
                         ("RAW_STEPS", 4),
+                        ("ecapa_tdnn", lambda: small_ecapa), ("ASP_SHAPE", (150, 37, 24)),
+                        ("ASP_EMBED_ROWS", 2),
                         ("siamese_config", lambda: small_siamese),
                         ("B9_TIMING", (1, 40, 36, 16)), ("B9_NSHOT", (50, 1, 5, 16)),
                         ("SIAMESE_PAIRS", 40), ("SIAMESE_BATCH", 8),
@@ -300,7 +314,7 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                       "dilated_slice", "dilated_int8_slice", "dilated_int8_fidelity",
                       "dilated_train_slice", "dilated_timing",
                       "mel_kernels", "mel_bf16_slice", "mel_int8_slice", "mel_int8_fidelity",
-                      "mel_timing", "siamese_kernels", "siamese_bf16_slice",
+                      "mel_timing", "asp_kernels", "siamese_kernels", "siamese_bf16_slice",
                       "siamese_int8_slice", "verification", "score_support",
                       "siamese_train_slice", "siamese_timing", "mel_train_slice",
                       "mel_train_timing", "corpus_slice", "streaming_embed", "protocol_slice",
@@ -543,7 +557,8 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                                             "log_mel", "log_mel_dft", "weighted_l1",
                                             "conv_blockn", "quant_block_stage",
                                             "quant_block_train", "pool_fwd_idx",
-                                            "route_bwd_idx", "bn_apply", "bn_grad"]
+                                            "route_bwd_idx", "bn_apply", "bn_grad",
+                                            "asp_stats", "asp_global"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k) and k["launches"] > 0 and k["bound_by"] in (
             "bytes", "operations")
@@ -694,6 +709,41 @@ def test_the_config_3_phases_run_on_the_cpu(rehearsal):
     assert all({"nhwc_fwd_ms", "nhwc_bwd_ms", "nct_fwd_ms", "nct_bwd_ms",
                 "nhwc_fwd_autotuned_ms", "nhwc_bwd_autotuned_ms"} <= set(r)
                for r in timing["cudnn_convs"])
+
+
+def test_the_asp_phase_runs_on_the_cpu(rehearsal):
+    """ASP's two modes checked at ASP_SHAPE in CHECK_ROWS chunks (here the
+    plain versions, so the difference is 0 and both read the plain
+    versions' bound), twice, bit for bit; ECAPA's embed path at the cut
+    widths launching B6 once, B8 30 times and ASP once in each mode; the
+    timing rows; the two entries of the kernels line."""
+    _, _, records = rehearsal
+    phase = next(r for r in records if r.get("phase") == "asp_kernels")
+    assert [(c["kernel"], c["shape"]) for c in phase["checks"]] == [
+        ("asp_stats", [150, 37, 24]), ("asp_global", [150, 37, 24])]
+    for c in phase["checks"]:
+        assert c["max_abs_err"] == 0.0 and c["repeats_bit_for_bit"]
+        assert max(c["mean_err_over_bound"], c["var_err_over_bound"]) <= 1.0
+        assert [c["mean_err_over_bound"], c["var_err_over_bound"]] == c["plain_err_over_bound"]
+    nothing = {name: 0 for name in cs.KERNELS}
+    assert phase["launches"] == {**nothing, "asp_stats": 2, "asp_global": 2}
+    embed = phase["ecapa_embed"]
+    assert embed["launches"] == {**nothing, "log_mel": 1, "log_mel_dft": 1, "conv_blockn": 30,
+                                 "asp_stats": 1, "asp_global": 1}
+    assert embed["min_cosine_vs_plain_stats"] >= cs.ASP_EMBED_MIN_COSINE
+    assert embed["channels"] == [256, 256, 256, 256, 768]
+    for name in ("asp_stats", "asp_global"):
+        row = phase["timing"][name]
+        assert row["bound_by"] == "bytes" and row["library_ms"] is None
+        assert {"ms", "plain_ms", "bound_ms", "bound_share"} <= set(row)
+    by_name = {k["name"]: k for k in records[-2]["kernels"]}
+    for name, counter in (("asp_stats", "launches"), ("asp_global", "global_launches")):
+        k = by_name[name]
+        assert k["launches_by_path"] == {"asp_kernels": 2, "ecapa_embed": 1}
+        assert k["source"] == "voicemap_tpu_torch/csrc/asp_stats.cu"
+        assert k["replaces"] == "none: the port's own configuration"
+        assert k["max_abs_err"] == 0.0 and k["library_ms"] is None
+        assert cs.KERNELS[name][1] == counter
 
 
 def test_the_config_4_training_and_corpus_phases_run_on_the_cpu(rehearsal):

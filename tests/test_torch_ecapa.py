@@ -10,6 +10,8 @@ weights at a small size: 256 channels, scale 8, 40 mels, 1 s.
 - each mechanism dropped from the port in turn (Res2Net's hierarchical add,
   the SE gate, the global context, the pooled std) puts it far outside
   ``TOL``: the comparison sees each one;
+- ASP's statistics on CPU tensors are ``ops/cuda_asp``'s plain versions
+  bit for bit, with no launch counted, and the wrapper's refusals;
 - in bf16 the fast path keeps to the reference within ``BF16_TOL``;
 - the preset's published widths and parameter count;
 - ``eval.nshot.embed_rows`` on a 16 kHz store, fast or not, and the embed
@@ -35,6 +37,7 @@ from portbench.reference import ecapa_tdnn as ref
 from voicemap_tpu_torch import config as C
 from voicemap_tpu_torch.eval import nshot
 from voicemap_tpu_torch.models import ecapa, fast_infer
+from voicemap_tpu_torch.ops import cuda_asp
 from voicemap_tpu_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parent.parent
@@ -141,6 +144,55 @@ def test_a_dropped_mechanism_fails_the_comparison(f32, monkeypatch, mechanism, f
     monkeypatch.setattr(ecapa, name, dropped)
     got = ecapa.fast_embed(model.encoder, x[..., None]) if fast else model.embed(x[..., None])
     assert rel_err(got, want) > 100 * TOL
+
+
+def stats_inputs(dtype, B=3, T=37, C=24):
+    g = torch.Generator().manual_seed(B * T + C)
+    h = (torch.randn(B, T, C, generator=g) * 2.0 + 0.5).to(dtype)
+    logits = (torch.rand(B, T, C, generator=g) * 120.0 - 60.0).to(dtype)
+    return h, logits
+
+
+@pytest.mark.parametrize("mode", ["global", "weighted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_the_stats_on_the_cpu_are_the_plain_versions_bit_for_bit(mode, dtype):
+    """On a CPU tensor ``ecapa.global_stats`` and ``ecapa.attentive_stats``
+    run ``ops/cuda_asp``'s plain versions (the eager PyTorch the kernel
+    replaced), and neither of the kernel's launch counters moves."""
+    h, logits = stats_inputs(dtype)
+    counts = (cuda_asp.asp_stats.launches, cuda_asp.asp_stats.global_launches)
+    if mode == "global":
+        got, want = ecapa.global_stats(h), cuda_asp.global_stats_reference(h)
+    else:
+        got = (ecapa.attentive_stats(h, logits),)
+        want = (cuda_asp.attentive_stats_reference(h, logits),)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
+    assert all(a.dtype == torch.float32 for a in got)
+    assert (cuda_asp.asp_stats.launches, cuda_asp.asp_stats.global_launches) == counts
+
+
+REFUSED = {
+    "c_not_multiple_of_8": lambda h, x: (h[..., :12].contiguous(), x[..., :12].contiguous()),
+    "h_not_contiguous": lambda h, x: (h.transpose(1, 2).contiguous().transpose(1, 2), x),
+    "logits_not_contiguous": lambda h, x: (h, x.transpose(1, 2).contiguous().transpose(1, 2)),
+    "float16": lambda h, x: (h.half(), x.half()),
+    "float64": lambda h, x: (h.double(), x.double()),
+    "dtypes_differ": lambda h, x: (h, x.bfloat16()),
+    "shapes_differ": lambda h, x: (h, x[:, :-1].contiguous()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_the_stats_wrapper_refuses_what_the_kernel_does_not_take(case):
+    """The wrapper's refusals hold on every device: C a multiple of 8,
+    contiguous inputs, bf16 or f32, logits like h."""
+    h, logits = REFUSED[case](*stats_inputs(torch.float32, C=24 if case != "c_not_multiple_of_8"
+                                            else 16))
+    with pytest.raises(ValueError, match="asp_stats"):
+        cuda_asp.asp_stats(h, logits)
+    if not case.startswith(("logits", "dtypes", "shapes")):
+        with pytest.raises(ValueError, match="asp_stats"):
+            cuda_asp.asp_stats(h)
 
 
 def test_bf16_fast_path_keeps_to_the_reference(f32):

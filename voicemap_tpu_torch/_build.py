@@ -81,6 +81,8 @@ SIGNATURES = {
     "vm_log_mel_fft": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, s, w, b, out, T, nq, ns, D, stream
     "vm_weighted_l1": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # h, logits (NULL: unweighted), mean, std, B, T, C, ld, bf16, eps, stream
+    "vm_asp_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

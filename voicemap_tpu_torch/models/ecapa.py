@@ -33,6 +33,13 @@ One forward, channels last ``(B, T, C)``, takes its TDNNs from a route:
   utterance), carried as two bf16 parts through identity weights.
   On a CPU tensor B6 and B8 run their plain versions.
 
+Both routes take ASP's reductions over time (:func:`global_stats`,
+:func:`attentive_stats`) from ``ops/cuda_asp.asp_stats``: on the card one
+pass of the kernel in each mode, the plain forward's included; on the CPU
+its plain versions, the eager PyTorch it replaced. No test holds the card's
+plain forward as a yardstick: the benchmark's reference
+(``portbench/reference/ecapa_tdnn.py``) is independent of this module.
+
 The dtype policy is the other configs': parameters f32, TDNNs and the
 linear layers in the compute dtype, BatchNorm, the SE gate, the softmax and
 the statistics in f32. Spans (``utils/profiling.span``): ``ecapa.frontend``,
@@ -48,12 +55,11 @@ import torch.nn.functional as F
 
 from ..config import EcapaConfig, MelConfig
 from ..ops import melspec
+from ..ops.cuda_asp import asp_stats
 from ..ops.cuda_melspec import log_mel
 from ..utils.profiling import span
 from .encoder import DTYPES, block_eval_nct
 from .fast_infer import blockn_apply
-
-STAT_EPS = 1e-12  # SpeechBrain's floor under a variance before its square root
 
 
 class TDNNBlock(nn.Module):
@@ -181,10 +187,10 @@ def se_residual(se: SEBlock, y: torch.Tensor, residual: torch.Tensor) -> torch.T
 
 
 def global_stats(h: torch.Tensor) -> tuple:
-    """Mean and std over time of ``(B, T, C)``, each ``(B, C)`` f32."""
-    mean = h.mean(dim=1, dtype=torch.float32)
-    square = torch.linalg.vector_norm(h, dim=1, dtype=torch.float32).square_() / h.shape[1]
-    return mean, (square - mean * mean).clamp_(min=STAT_EPS).sqrt_()
+    """Mean and std over time of ``(B, T, C)``, each ``(B, C)`` f32
+    (``asp_stats``'s unweighted mode; the plain route's ``h`` is a
+    transposed view, which the kernel does not take)."""
+    return asp_stats(h.contiguous())
 
 
 def context_plain(tdnn_blk: TDNNBlock, h, mean, std, cdt) -> torch.Tensor:
@@ -215,12 +221,8 @@ def context_fast(tdnn_blk: TDNNBlock, h, mean, std, cdt) -> torch.Tensor:
 
 def attentive_stats(h: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """Softmax over time per channel, then the weighted mean and std of
-    ``h`` → ``(B, 2C)`` f32."""
-    w = torch.softmax(logits, dim=1, dtype=torch.float32)
-    wh = w.mul_(h)
-    mean = wh.sum(dim=1)
-    square = wh.mul_(h).sum(dim=1)
-    return torch.cat([mean, (square - mean * mean).clamp_(min=STAT_EPS).sqrt_()], dim=1)
+    ``h`` → ``(B, 2C)`` f32 (``asp_stats``'s weighted mode)."""
+    return asp_stats(h.contiguous(), logits.contiguous())
 
 
 class Route:
