@@ -316,6 +316,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+# Published H100 SXM peaks (NVIDIA's data sheet, dense rates): one yardstick
+# for these timers and the benchmark.
+from portbench.counts import (
+    BF16_OPS_PER_S, F32_OPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S, TF32_OPS_PER_S,
+)
 from voicemap_tpu_torch import _build
 from voicemap_tpu_torch.config import (
     EncoderConfig, MelConfig, SiameseConfig, classifier_baseline, dilated_4khz, ecapa_tdnn,
@@ -459,7 +464,7 @@ B45_F32_EDGE = (2, 4100, 72)
 B45_F32_WIDE = (48, 12000, 128)
 B45_F32_ROWS = ((3, 1000, 128, "scaled"), (2, 1000, 72, "ties"))
 # The train step whose inputs B5's dW is held at on its own routes: the
-# step of utils/step_attrib.py (compare_plain_step) at this seed.
+# step of step_attrib.py (compare_plain_step) at this seed.
 B5_STEP_SEED = 0
 # B7's edges (B, C, T, pool, dtype, rows): C = 67 (no multiple of 8: one
 # channel a thread) with odd T/pool, pool 4 in f32 on both widths, B = 1,
@@ -676,13 +681,6 @@ B8_TERM_ULPS = 4
 B8_EPILOGUE_ULPS = 4
 B8_BF16_MIN_COSINE = 0.9999
 
-# Published H100 SXM peaks (NVIDIA's data sheet): device memory, dense bf16
-# and int8 tensor-core rates.
-HBM_BYTES_PER_S = 3.35e12
-BF16_OPS_PER_S = 989e12
-INT8_OPS_PER_S = 1979e12
-TF32_OPS_PER_S = 495e12
-F32_OPS_PER_S = 67e12  # CUDA cores, outside the tensor cores
 # The f32 peak counts an FMA as 2 operations: the lanes issue half as many
 # instructions (132 SMs x 128 lanes at ~1.98 GHz).
 F32_INSTR_PER_S = F32_OPS_PER_S / 2
@@ -1950,7 +1948,7 @@ def check_block0_train(x: torch.Tensor, params: tuple, rows: str = "plain") -> t
 
 def b5_step_inputs(seed: int) -> dict:
     """B5's arguments in one classifier train step, the step of
-    ``compare_plain_step`` (and ``utils/step_attrib.py``) at ``seed``: the
+    ``compare_plain_step`` (and ``step_attrib.py``) at ``seed``: the
     seed's 40-speaker store, weights and batch. Two captures: with every
     other train kernel plain (step_attrib's ``b5`` variants) and with the
     kernels (its ``all``, the step check's), whose B4 and B7 hand B5 other

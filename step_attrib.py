@@ -2,8 +2,7 @@
 and through their plain versions to each kernel, and to each of B4's and
 B5's outputs.
 
-    python3 -m voicemap_tpu_torch.utils.step_attrib [--seeds 0 1 2] \
-        [--quant-forward int8] [--dtype float32]
+    python3 step_attrib.py [--seeds 0 1 2] [--quant-forward int8] [--dtype float32]
 
 For each seed, one classifier step as ``chip_smoke.py``'s
 ``compare_plain_step`` takes it (config #1 at full width, batch 32, random
@@ -26,10 +25,11 @@ rounding change of the kernel's size with no kernel at all.
 (``fused_int8``; variant ``b3_train`` puts back B3's train epilogue alone),
 ``--dtype float32`` in f32 compute.
 
-It reaches the train path through the checkout's own ``chip_smoke`` and the
-wrappers' public signatures, so the same file runs against another checkout:
-run it by path from that checkout's root (``python3
-/path/to/step_attrib.py``), where the checkout comes first on ``sys.path``.
+It reaches the train path through the ``chip_smoke`` beside it and the
+wrappers' public signatures: run from the root of a checkout, it measures
+that checkout, and ``python3 build/parent/step_attrib.py`` measures a parent
+unpacked there (``git archive``), whose own directory comes first on
+``sys.path``.
 """
 
 from __future__ import annotations
@@ -43,9 +43,7 @@ import sys
 
 import torch
 
-sys.path.insert(0, os.getcwd())
-
-import chip_smoke as cs  # noqa: E402
+import chip_smoke as cs
 
 B4, B5 = "conv_block0_train", "conv_block0_train_bwd"
 ALL = {B4: "kernel", B5: "kernel", "pool_fwd": "kernel", "route_bwd": "kernel",

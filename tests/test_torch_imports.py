@@ -1,6 +1,8 @@
 """The port stands without JAX, flax, pandas, matplotlib and the JAX package
-(``voicemap_tpu``), and chip_smoke.py refuses to run where there is no GPU."""
+(``voicemap_tpu``), imports nothing from outside itself, and chip_smoke.py
+refuses to run where there is no GPU."""
 
+import ast
 import os
 import re
 import shutil
@@ -13,7 +15,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "voicemap_tpu_torch"
-SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "step_attrib.py"]
 
 
 def _modules():
@@ -24,10 +26,10 @@ def _modules():
 
 
 def test_every_module_imports_with_jax_flax_pandas_blocked():
-    """Every module of the port (the experiment CLIs among them) and
-    chip_smoke.py import with JAX, flax, pandas, the JAX package and
-    matplotlib (which the card's machine lacks) blocked."""
-    modules = list(_modules()) + ["chip_smoke"]
+    """Every module of the port (the experiment CLIs among them),
+    chip_smoke.py and step_attrib.py import with JAX, flax, pandas, the JAX
+    package and matplotlib (which the card's machine lacks) blocked."""
+    modules = list(_modules()) + ["chip_smoke", "step_attrib"]
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'pandas', 'voicemap_tpu', 'matplotlib'):\n"
@@ -41,6 +43,55 @@ def test_every_module_imports_with_jax_flax_pandas_blocked():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "imported" in proc.stdout
+
+
+# Scripts and harnesses at the repository root: they import the port, never
+# the other way round.
+OUTSIDE = {"chip_smoke", "step_attrib", "portbench", "benchmarks", "bench"}
+
+
+def _is_sys_path(node: ast.expr) -> bool:
+    """``sys.path``, or a slice or an element of it."""
+    if isinstance(node, ast.Subscript):
+        node = node.value
+    return ast.unparse(node) == "sys.path"
+
+
+def _reaches_outside(tree: ast.Module):
+    """``(line, what)`` for each import of a name in OUTSIDE and each edit of
+    ``sys.path`` in ``tree``."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            names = []
+        for name in names:
+            if name.split(".")[0] in OUTSIDE:
+                yield node.lineno, f"imports {name}"
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr in ("insert", "append", "extend")
+                and _is_sys_path(node.func.value)):
+            yield node.lineno, f"calls sys.path.{node.func.attr}"
+        if isinstance(node, ast.Assign):
+            targets = node.targets
+        elif isinstance(node, (ast.AugAssign, ast.AnnAssign)):
+            targets = [node.target]
+        else:
+            targets = []
+        if any(_is_sys_path(t) for t in targets):
+            yield node.lineno, "assigns to sys.path"
+
+
+def test_the_port_imports_nothing_outside_itself():
+    """No module of the port imports a root script or the benchmark, or edits
+    ``sys.path``: what it imports does not depend on the caller's working
+    directory."""
+    offenders = [f"{path.relative_to(REPO)}:{line} {what}"
+                 for path in sorted(PACKAGE.rglob("*.py"))
+                 for line, what in _reaches_outside(ast.parse(path.read_text()))]
+    assert not offenders, offenders
 
 
 def test_the_train_modules_are_covered():
@@ -165,11 +216,10 @@ def test_timing_refuses_to_time_the_cpu():
 
 
 def test_profilers_refuse_to_run_without_a_gpu():
-    from voicemap_tpu_torch.utils import qblock_attrib, stage_profile, train_profile
+    from voicemap_tpu_torch.utils import qblock_attrib, stage_profile
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    assert train_profile.main([]) == 1
     assert stage_profile.main([]) == 1
     assert qblock_attrib.main([]) == 1
 

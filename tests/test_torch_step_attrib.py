@@ -1,4 +1,4 @@
-"""utils/step_attrib.py rehearsed on the CPU at a tiny size.
+"""step_attrib.py rehearsed on the CPU at a tiny size.
 
 On the CPU every train wrapper is its plain version, so each variant must
 reproduce the reference step exactly and its probes must find nothing; what
@@ -9,9 +9,9 @@ directly.
 import pytest
 import torch
 
+import step_attrib
 from voicemap_tpu_torch.config import DataConfig, EncoderConfig, ExperimentConfig
 from voicemap_tpu_torch.train import steps
-from voicemap_tpu_torch.utils import step_attrib
 
 
 @pytest.fixture
