@@ -172,7 +172,22 @@ Each phase prints one JSON line; nothing here imports JAX.
     the launch counters read around it; ``ecapa.fast_embed`` on 16 windows
     at the preset's widths (B6 1, B8 30, ASP 1 + 1) against the same
     forward with ASP's plain versions (row cosine); both modes beside their
-    bytes bound and the plain versions;
+    bytes bound and the plain versions; the backward (both modes, the
+    autograd functions' one kernel pass each) at the ECAPA training cell's
+    batch (512 × 298 × 3,072, bf16): each utterance's dh and dlogits within
+    2^-8 of float64 autograd through the plain versions' formula (relative
+    to the row's norm), a second backward equal bit for bit, the weighted
+    mode's training instantiation's output equal bit for bit to the
+    inference launch's and its saved softmax max and sum against the
+    logits' (the max equal, the sum within 6γ_n of float64), its launches
+    counted, then timed beside its bytes bound and the eager autograd;
+13c. ecapa train — one ``make_ecapa_train_step`` at ECAPA-TDNN's preset
+    widths and the training cell's batch (512 windows of 3 s at random
+    offsets from a seeded store at downsampling 1), the launch counters set
+    to 0 just before and read just after: B1 1, B6 1 (its DFT route), ASP's
+    training forward 1 in each mode and its backward 2 (one a mode), and
+    nothing else of ``csrc/`` (each training TDNN is cuBLAS's or cuDNN's);
+    the loss finite;
 14. siamese kernels — B9 against its plain version, bit for bit, at
     (T, nq, ns, D) = (1, 4096, 4096, 64), the n-shot form (500, 1, 5, 64) and
     edges ((1, 33, 41, 64), (1, 1, 1, 64), (3, 7, 130, 17), D at its
@@ -528,6 +543,11 @@ SIAMESE_PAIRS = 1000
 # ASP (ops/cuda_asp) at the ECAPA cell's shape: a 2,048 batch of 3 s windows
 # (298 frames) of MFA's 3,072 channels; and the rows of ECAPA's embed path.
 ASP_SHAPE = (2048, 298, 3072)
+ASP_TRAIN_ROWS = 512  # the ECAPA training cell's batch: ASP's backward is checked and timed there
+ASP_BWD_RTOL = 2.0 ** -8  # a gradient row against float64: bf16 rounds each element to 2^-9
+ASP_BWD_CHUNK = 32  # rows a float64 autograd chunk
+ASP_SUM_GAMMAS = 6  # the softmax sum: each term's expf and up to n rescales, each expf and product
+ECAPA_TRAIN_BATCH = 512  # the ECAPA training cell's batch
 ASP_EMBED_ROWS = 16
 ASP_EXTRA_DEPTH = 24  # the exponential's ulps, the products' and the merges' roundings
 ASP_EMBED_MIN_COSINE = 0.9999
@@ -742,6 +762,9 @@ KERNELS = {
                   "none: the port's own configuration"),
     "asp_global": (asp_stats, "global_launches", "voicemap_tpu_torch/csrc/asp_stats.cu",
                    "none: the port's own configuration"),
+    # ASP's backward, both modes on one counter (ECAPA-TDNN's training)
+    "asp_bwd": (asp_stats, "backward_launches", "voicemap_tpu_torch/csrc/asp_stats.cu",
+                "none: the port's own configuration"),
 }
 # The train kernels' plain versions, by the module attribute each wrapper
 # is reached through on the train path (B7's serve both of its modes; B3's
@@ -3690,23 +3713,207 @@ def time_asp() -> dict:
     return rows
 
 
+def plain_stats64(h: torch.Tensor, x) -> tuple:
+    """The plain versions' formula out of place in float64 (so autograd runs
+    through it): ``(mean, std)`` of ``h`` under the softmax of ``x`` over T,
+    or 1/T."""
+    w = torch.softmax(x, dim=1) if x is not None else 1.0 / h.shape[1]
+    mean = (w * h).sum(dim=1)
+    square = (w * h * h).sum(dim=1)
+    return mean, (square - mean * mean).clamp(min=STAT_EPS).sqrt()
+
+
+def check_asp_backward() -> tuple[list, float]:
+    """ASP's backward in both modes at the ECAPA training cell's shape
+    (ASP_TRAIN_ROWS × ASP_SHAPE's T and C, bf16, logits over ±60 rising in
+    T) through the autograd functions, against float64 autograd through
+    the plain versions' formula in ASP_BWD_CHUNK-row chunks: each
+    utterance's dh and dlogits within ASP_BWD_RTOL of it (relative to the
+    row's norm), the largest absolute difference reported; a second
+    backward equal to the first bit for bit. The weighted mode's training
+    instantiation: its output equal bit for bit to the inference launch's,
+    and the softmax's max and sum it saved for the backward (the autograd
+    node's ``softmax``; none on the CPU, whose backward recomputes the
+    softmax) against the logits': the max equal, the sum within
+    ASP_SUM_GAMMAS·γ_n of float64's (n = T + ASP_EXTRA_DEPTH)."""
+    B, T, C = min(ASP_TRAIN_ROWS, ASP_SHAPE[0]), ASP_SHAPE[1], ASP_SHAPE[2]
+    h, x = asp_inputs(82, B, T, C)
+    g = torch.Generator(device=DEVICE).manual_seed(85)
+    gm, gs = (torch.randn(B, C, generator=g, device=DEVICE) for _ in range(2))
+    inference = asp_stats(h, x)
+    h.requires_grad_()
+    x.requires_grad_()
+    pooled = asp_stats(h, x)
+    saved = pooled.grad_fn.softmax
+    grads = {"asp_bwd": torch.autograd.grad(pooled, [h, x], torch.cat([gm, gs], dim=1)),
+             "asp_bwd_global": torch.autograd.grad(asp_stats(h), [h], (gm, gs))}
+    again = {"asp_bwd": torch.autograd.grad(asp_stats(h, x), [h, x], torch.cat([gm, gs], dim=1)),
+             "asp_bwd_global": torch.autograd.grad(asp_stats(h), [h], (gm, gs))}
+    torch.cuda.synchronize()
+    forward_equal = same_bits(pooled.detach(), inference)
+    n = T + ASP_EXTRA_DEPTH
+    gamma = n * F32_UNIT_ROUNDOFF / (1.0 - n * F32_UNIT_ROUNDOFF)
+    softmax = None
+    if saved is not None:
+        x32 = x.detach().float()
+        mx, total = saved
+        sum64 = torch.exp(x32.double() - x32.max(dim=1).values.double()[:, None]).sum(dim=1)
+        softmax = {"max_equal": bool(torch.equal(mx, x32.max(dim=1).values)),
+                   "sum_err_over_bound": float(((total.double() - sum64).abs()
+                                                / (ASP_SUM_GAMMAS * gamma * sum64)).max())}
+        del x32, sum64
+    rel = {k: 0.0 for k in grads}
+    err = 0.0
+    for lo in range(0, B, ASP_BWD_CHUNK):
+        rows = slice(lo, lo + ASP_BWD_CHUNK)
+        h64 = h[rows].detach().double().requires_grad_()
+        x64 = x[rows].detach().double().requires_grad_()
+        for name, wrt in (("asp_bwd", [h64, x64]), ("asp_bwd_global", [h64])):
+            stats = plain_stats64(h64, x64 if name == "asp_bwd" else None)
+            want = torch.autograd.grad(stats, wrt, (gm[rows].double(), gs[rows].double()))
+            for got, w in zip(grads[name], want):
+                d = got[rows].double() - w
+                rel[name] = max(rel[name], float((d.flatten(1).norm(dim=1)
+                                                  / w.flatten(1).norm(dim=1)).max()))
+                err = max(err, float(d.abs().max()))
+            del stats, want
+        del h64, x64
+    checks = []
+    for name in grads:
+        repeats = all(same_bits(a, b) for a, b in zip(grads[name], again[name]))
+        ok = rel[name] <= ASP_BWD_RTOL and repeats
+        if name == "asp_bwd":
+            ok = ok and forward_equal and (softmax is None or (
+                softmax["max_equal"] and softmax["sum_err_over_bound"] <= 1.0))
+        if not ok:
+            raise AssertionError(f"{name} {[B, T, C]}: row error {rel[name]} (want <= "
+                                 f"{ASP_BWD_RTOL}), repeats {repeats}, training forward equal "
+                                 f"{forward_equal}, softmax {softmax}")
+        checks.append({"kernel": name, "dtype": "bfloat16", "shape": [B, T, C],
+                       "max_row_rel_err": rel[name], "repeats_bit_for_bit": repeats,
+                       **({"training_forward_bit_for_bit": forward_equal,
+                           "saved_softmax": softmax} if name == "asp_bwd" else {}),
+                       "tolerance": f"each row within {ASP_BWD_RTOL} of float64 autograd "
+                                    "(relative to its norm)"})
+    del h, x, pooled, inference, grads, again, saved
+    torch.cuda.empty_cache()
+    return checks, err
+
+
+def time_asp_backward() -> dict:
+    """ASP's backward in both modes (the autograd functions' backward: one
+    kernel pass each) at the ECAPA training cell's shape (ASP_TRAIN_ROWS ×
+    ASP_SHAPE's T and C, bf16), queued, beside the bound (h, and the logits,
+    read once; dh, and dlogits, written once; the f32 statistics and their
+    gradients read once; f32 operations: 12 an element weighted, 4
+    unweighted) and the eager autograd it replaced (the backward of the
+    plain versions' formula written out of place, its graph kept)."""
+    B, T, C = min(ASP_TRAIN_ROWS, ASP_SHAPE[0]), ASP_SHAPE[1], ASP_SHAPE[2]
+    h, x = asp_inputs(83, B, T, C)
+    g = torch.Generator(device=DEVICE).manual_seed(84)
+    gm, gs = (torch.randn(B, C, generator=g, device=DEVICE) for _ in range(2))
+    h.requires_grad_()
+    x.requires_grad_()
+
+    def plain(weighted):
+        w = torch.softmax(x, dim=1, dtype=torch.float32) if weighted else 1.0 / T
+        mean = (w * h).sum(dim=1, dtype=torch.float32)
+        square = (w * h * h).sum(dim=1, dtype=torch.float32)
+        return mean, (square - mean * mean).clamp(min=STAT_EPS).sqrt()
+
+    rows = {}
+    for name, weighted, ops in (("asp_bwd", True, 12.0), ("asp_bwd_global", False, 4.0)):
+        wrt = [h, x] if weighted else [h]
+        out = asp_stats(h, x) if weighted else asp_stats(h)
+        grads = torch.cat([gm, gs], dim=1) if weighted else (gm, gs)
+        eager = plain(weighted)
+        moved = ((4 if weighted else 2) * B * T * C * h.element_size()
+                 + (6 if weighted else 4) * B * C * 4)
+        row = {"shape": [B, T, C], **bound(moved, ops * B * T * C, F32_OPS_PER_S),
+               "ms": time_fn(torch.autograd.grad, out, wrt, grads, retain_graph=True,
+                             iters=20, queued=True)["mean_s"] * 1e3,
+               "plain_ms": time_fn(torch.autograd.grad, eager, wrt, (gm, gs),
+                                   retain_graph=True, iters=3, warmup=1)["mean_s"] * 1e3,
+               "library_ms": None, "library": "none: no single PyTorch call computes it"}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows[name] = row
+        del out, eager
+    del h, x
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_asp_slice(seed: int, card: str) -> dict:
-    """Phase asp_kernels: ``check_asp`` (its launches counted), the ECAPA
-    embed path (``ecapa_embed_path``) and ``time_asp``."""
+    """Phase asp_kernels: ``check_asp`` and ``check_asp_backward`` (their
+    launches counted), the ECAPA embed path (``ecapa_embed_path``),
+    ``time_asp`` and ``time_asp_backward``. The kernels line's ``asp_bwd``
+    entry is a training step's pair: one backward in each mode, their ms,
+    plain ms and bounds summed."""
     t0 = time.perf_counter()
     reset_counts()
     checks, errors = check_asp()
+    bwd_checks, errors["asp_bwd"] = check_asp_backward()
     checked = read_counts()
     embed = ecapa_embed_path(seed)
     rows = time_asp()
-    emit({"phase": "asp_kernels", "card": card, "checks": checks, "launches": checked,
-          "ecapa_embed": embed, "timing": rows, "seconds": time.perf_counter() - t0})
+    bwd_rows = time_asp_backward()
+    emit({"phase": "asp_kernels", "card": card, "checks": checks + bwd_checks,
+          "launches": checked, "ecapa_embed": embed, "timing": rows,
+          "backward_timing": bwd_rows, "seconds": time.perf_counter() - t0})
+    rows["asp_bwd"] = {k: sum(r[k] for r in bwd_rows.values())
+                       for k in ("ms", "plain_ms", "bound_ms")}
+    rows["asp_bwd"]["bound_by"] = "bytes"
     return {"errors": errors, "launches": {"asp_kernels": checked,
                                            "ecapa_embed": embed["launches"]},
             "ms": {k: r["ms"] for k, r in rows.items()},
             "plain_ms": {k: r["plain_ms"] for k, r in rows.items()},
             "bounds": {k: {b: r[b] for b in ("bound_ms", "bound_by")} for k, r in rows.items()},
             "library_ms": {k: None for k in rows}}
+
+
+def ecapa_train_store(rows: int, samples: int, seed: int) -> DeviceStore:
+    """``rows`` seeded int16 rows of ``samples`` at downsampling 1, each its
+    own speaker, as a DeviceStore."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    audio = torch.randint(-20000, 20000, (rows, samples), generator=g, device=DEVICE,
+                          dtype=torch.int16)
+    lengths = torch.full((rows,), samples, dtype=torch.int32, device=DEVICE)
+    ids = torch.arange(rows, dtype=torch.int32, device=DEVICE)
+    return DeviceStore(audio=audio, lengths=lengths, labels=ids, speaker_utts=ids[:, None],
+                       speaker_counts=torch.ones_like(ids), downsampling=1)
+
+
+def run_ecapa_train_slice(seed: int, card: str) -> dict:
+    """Phase ecapa_train: ECAPA-TDNN at the preset's widths, its classifier
+    over ECAPA_TRAIN_BATCH one-row speakers, ``steps.make_ecapa_train_step``
+    at ECAPA_TRAIN_BATCH on a seeded store of 4.5 s rows (3 s windows at
+    random offsets): one step built and warm, then one with the launch
+    counters set to 0 just before and read just after; the losses finite."""
+    t0 = time.perf_counter()
+    cfg = ecapa_tdnn()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=ECAPA_TRAIN_BATCH,
+                                                seed=seed))
+    n = cfg.data.fragment_length
+    store = ecapa_train_store(ECAPA_TRAIN_BATCH, n + n // 2, seed)
+    model = init_model(cfg, ECAPA_TRAIN_BATCH, DEVICE, seed)
+    state = init_state(model, cfg.train.clipnorm, cfg.train.learning_rate, cfg.weight_decay)
+    step, _ = steps.make_ecapa_train_step(model, cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    state, first = step(state, store, gen)  # built and warm
+    reset_counts()
+    state, metrics = step(state, store, gen)
+    launches = read_counts()
+    expect_launches("ecapa_train", launches, gather_whiten=1, log_mel=1, log_mel_dft=1,
+                    asp_stats=1, asp_global=1, asp_bwd=2)
+    losses = [float(first["loss"]), float(metrics["loss"])]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ecapa_train: losses {losses}")
+    emit({"phase": "ecapa_train", "card": card, "batch": ECAPA_TRAIN_BATCH,
+          "channels": list(cfg.ecapa.channels), "losses": losses, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    del state, step, model, store
+    torch.cuda.empty_cache()
+    return {"ecapa_train": launches}
 
 
 def b9_inputs(seed: int, T: int, nq: int, ns: int, D: int) -> tuple:
@@ -5405,6 +5612,7 @@ def main(argv=None) -> int:
     del raw
     torch.cuda.empty_cache()
     asp = run_asp_slice(args.seed, card)
+    ecapa_trained = run_ecapa_train_slice(args.seed, card)
     checked_siamese = check_siamese_kernels()
     siamese = run_siamese_slices(sliced["host"], args.seed)
     siamese_trained = run_siamese_train_slice(sliced["host"], args.seed)
@@ -5440,12 +5648,13 @@ def main(argv=None) -> int:
     # siamese_int8_slice, verification, score_support, siamese_train_slice,
     # mel_train_slice, corpus_slice's three fits, streaming_embed's three
     # tables, protocol_slice's CLI commands, pod_slice's three pod_evaluate
-    # paths, dp_slice's DP steps and fit(dp="on") and mesh_slice's programs, summed
-    # over its ranks), set to 0 just before each
-    # run and read just after;
-    # for the kernels no path runs (B2's, B4's and B5's f32 GEMM, B6's DFT
-    # route), the count of the check phase that ran them. On the mel paths the DFT route
-    # launched nothing, so B6's count there is the FFT kernel's.
+    # paths, dp_slice's DP steps and fit(dp="on"), mesh_slice's programs, summed
+    # over its ranks, ecapa_embed and ecapa_train), set to 0 just before each
+    # run and read just after; ASP's, also the asp_kernels phase's checks;
+    # for the kernels no other path runs (B2's, B4's and B5's f32 GEMM), the
+    # count of the check phase that ran them. On the mel paths the DFT route
+    # launched nothing, so B6's count there is the FFT kernel's; ECAPA's
+    # training step launches the DFT route.
     paths = {"kernels": checked["launches"], "train_kernels": checked_train["launches"],
              "mel_kernels": checked_mel["launches"],
              "bf16": sliced["launches"], "int8": sliced_int8["launches"],
@@ -5460,7 +5669,7 @@ def main(argv=None) -> int:
              "score_support": siamese["score_support"],
              "siamese_train": siamese_trained["launches"],
              "mel_train": mel_train_launches, **corpus, **streamed, **cli, **pod,
-             **dp_paths, **mesh_paths, **asp["launches"]}
+             **dp_paths, **mesh_paths, **asp["launches"], **ecapa_trained}
     train_paths = ("train", "int8_train", "raw_train", "dilated_train", "siamese_train",
                    "corpus_device", "corpus_streaming", "corpus_siamese", "cli_train",
                    "cli_siamese_train", "dp_train", "dp_fit")
@@ -5471,7 +5680,8 @@ def main(argv=None) -> int:
                  "mel_bf16", "mel_int8", "siamese_bf16", "siamese_int8", "siamese_train",
                  "mel_train", "corpus_device", "cli_train", "cli_protocol_bf16", *cli_int8,
                  "cli_sweep", "cli_siamese_train", "cli_siamese_protocol", "cli_visualize",
-                 "pod_bf16", "pod_int8", "pod_siamese", "dp_train", "dp_fit", "dp_sp_train")),
+                 "pod_bf16", "pod_int8", "pod_siamese", "dp_train", "dp_fit", "dp_sp_train",
+                 "ecapa_train")),
                ("conv_block0", "conv_block0", ("bf16", "dilated_bf16", "siamese_bf16",
                                                "streaming_bf16", "cli_sweep", "tp_embed",
                                                "pp_real_eval", "sp_embed", "pp_real_train")),
@@ -5488,8 +5698,8 @@ def main(argv=None) -> int:
                ("pool_fwd", "pool_fwd", train_paths),
                ("route_bwd", "route_bwd", train_paths),
                ("log_mel", "log_mel", ("mel_bf16", "mel_int8", "mel_train",
-                                       "streaming_mel")),
-               ("log_mel_dft", "log_mel_dft", ("mel_kernels",)),
+                                       "streaming_mel", "ecapa_train")),
+               ("log_mel_dft", "log_mel_dft", ("mel_kernels", "ecapa_train")),
                ("weighted_l1", "weighted_l1",
                 ("siamese_bf16", "siamese_int8", "verification", "score_support",
                  "cli_siamese_train", "cli_siamese_protocol", "pod_siamese")),
@@ -5503,8 +5713,9 @@ def main(argv=None) -> int:
                ("route_bwd_idx", "route_bwd_idx", ("recompute_train",)),
                ("bn_apply", "bn_apply", (*train_paths, "recompute_train")),
                ("bn_grad", "bn_grad", (*train_paths, "recompute_train")),
-               ("asp_stats", "asp_stats", ("asp_kernels", "ecapa_embed")),
-               ("asp_global", "asp_global", ("asp_kernels", "ecapa_embed")))
+               ("asp_stats", "asp_stats", ("asp_kernels", "ecapa_embed", "ecapa_train")),
+               ("asp_global", "asp_global", ("asp_kernels", "ecapa_embed", "ecapa_train")),
+               ("asp_bwd", "asp_bwd", ("asp_kernels", "ecapa_train")))
     emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
     print(card, flush=True)
     emit({"kernels": [

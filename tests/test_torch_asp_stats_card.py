@@ -17,8 +17,17 @@ do not need.) Without a card every test skips.
   float64 softmax or 1/T, γ_n = n·u / (1 − n·u), n = T + 24); the plain
   versions read within the same bounds.
 - Two launches agree bit for bit (the warps merge in a fixed order).
-- The wrapper's refusals on the card (a misaligned input, and one that
-  needs a gradient, besides the CPU tests' cases).
+- The wrapper's refusals on the card (a misaligned input, besides the CPU
+  tests' cases).
+- The backward (both modes' autograd functions, the weighted mode's
+  training instantiation and the backward kernel) at the training cell's
+  shape (512 × 298 × 3,072) in bf16 and f32 and at ragged ones, against
+  float64 autograd through the plain versions' formula: each utterance's
+  dh and dlogits within ``BWD_TOL`` of the float64 gradients (relative to
+  their norm: bf16 holds the gradients to 2^-9 an element, f32 to its
+  ~2^-24 summed over T); an input that needs a gradient goes through the
+  backward (the case the refusals held before training); two backward
+  launches agree bit for bit; the launch counters.
 - A ``fast_embed`` batch at the published widths: one launch in each mode,
   no softmax kernel and no f32 product over MFA's (B, T, 3C) output, and
   ASP's rise of ``torch.cuda.max_memory_allocated`` under B·T·3C·4 bytes.
@@ -108,7 +117,7 @@ def test_two_launches_agree_bit_for_bit(card, dtype):
 
 @pytest.mark.card
 @pytest.mark.parametrize("case", ["c_12", "h_transposed", "logits_transposed", "float16",
-                                  "dtypes_differ", "misaligned", "needs_grad"])
+                                  "dtypes_differ", "misaligned"])
 def test_the_wrapper_refuses_on_the_card(card, case):
     h, x = cs.asp_inputs(1, 4, 10, 24, torch.float32, "unit")
     if case == "c_12":
@@ -121,12 +130,94 @@ def test_the_wrapper_refuses_on_the_card(card, case):
         h, x = h.half(), x.half()
     elif case == "dtypes_differ":
         x = x.bfloat16()
-    elif case == "misaligned":  # contiguous, but one element off the 16-byte boundary
+    else:  # contiguous, but one element off the 16-byte boundary
         h = torch.empty(h.numel() + 1, device="cuda")[1:].view(h.shape).copy_(h)
-    else:
-        h.requires_grad_()
     with pytest.raises(ValueError, match="asp_stats"):
         asp_stats(h, x)
+
+
+# Relative error of a gradient row against float64: bf16 out rounds each
+# element to 2^-9; f32 carries the sums' ~T·2^-24.
+BWD_TOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-4}
+BWD_SHAPES = [(512, 298, 3072, torch.bfloat16), (512, 298, 3072, torch.float32),
+              (3, 1, 24, torch.bfloat16), (5, 1001, 8, torch.float32)]
+
+
+def plain_stats(h: torch.Tensor, x) -> tuple:
+    """The plain versions' formula, out of place (so autograd runs through
+    it): ``(mean, std)`` under the softmax of ``x`` over T, or 1/T."""
+    w = torch.softmax(x, dim=1) if x is not None else 1.0 / h.shape[1]
+    mean = (w * h).sum(dim=1)
+    square = (w * h * h).sum(dim=1)
+    return mean, (square - mean * mean).clamp(min=1e-12).sqrt()
+
+
+def row_errors(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    flat = lambda t: t.double().reshape(t.shape[0], -1)  # noqa: E731
+    return (flat(got) - flat(want)).norm(dim=1) / flat(want).norm(dim=1)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("mode", ["weighted", "global"])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s[:3])) + (
+    "_bf16" if s[3] == torch.bfloat16 else "_f32"))
+def test_the_backward_against_float64_autograd(card, shape, mode):
+    B, T, C, dtype = shape
+    h, x = cs.asp_inputs(B * 7 + T + C, B, T, C, dtype, "unit")
+    g = torch.Generator(device="cuda").manual_seed(B + T)
+    gm, gs = (torch.randn(B, C, generator=g, device="cuda") for _ in range(2))
+    h.requires_grad_()
+    counts = (asp_stats.launches, asp_stats.global_launches, asp_stats.backward_launches)
+    if mode == "weighted":
+        x.requires_grad_()
+        pooled = asp_stats(h, x)
+        got = torch.autograd.grad(pooled, [h, x], torch.cat([gm, gs], dim=1))
+        want_counts = (counts[0] + 1, counts[1], counts[2] + 1)
+    else:
+        mean, std = asp_stats(h)
+        got = torch.autograd.grad((mean, std), [h], (gm, gs))
+        want_counts = (counts[0], counts[1] + 1, counts[2] + 1)
+    torch.cuda.synchronize()
+    assert (asp_stats.launches, asp_stats.global_launches,
+            asp_stats.backward_launches) == want_counts
+    assert all(t.dtype == dtype and t.shape == h.shape for t in got)
+    worst = 0.0
+    for lo in range(0, B, CHUNK):
+        rows = slice(lo, lo + CHUNK)
+        h64 = h[rows].detach().double().requires_grad_()
+        x64 = x[rows].detach().double().requires_grad_() if mode == "weighted" else None
+        stats = plain_stats(h64, x64)
+        wrt = [h64] + ([x64] if x64 is not None else [])
+        want = torch.autograd.grad(stats, wrt, (gm[rows].double(), gs[rows].double()))
+        for a, b in zip(got, want):
+            worst = max(worst, float(row_errors(a[rows], b).max()))
+        del h64, x64, stats, want
+    assert worst <= BWD_TOL[dtype], worst
+
+
+@pytest.mark.card
+def test_a_backward_launch_repeats_bit_for_bit(card):
+    h, x = cs.asp_inputs(11, 512, 298, 3072, torch.bfloat16, "late")
+    h.requires_grad_()
+    x.requires_grad_()
+    g = torch.randn(512, 2 * 3072, device="cuda")
+    a = torch.autograd.grad(asp_stats(h, x), [h, x], g)
+    b = torch.autograd.grad(asp_stats(h, x), [h, x], g)
+    assert all(torch.equal(p.view(torch.int16), q.view(torch.int16)) for p, q in zip(a, b))
+
+
+@pytest.mark.card
+def test_an_input_that_needs_a_gradient_goes_through_the_backward(card):
+    """The case the wrapper refused before the backward existed: under
+    autograd the weighted mode's training instantiation runs, and its
+    forward equals the inference launch bit for bit."""
+    h, x = cs.asp_inputs(1, 4, 10, 24, torch.float32, "unit")
+    want = asp_stats(h, x)
+    h.requires_grad_()
+    got = asp_stats(h, x)
+    assert got.requires_grad and torch.equal(got.detach(), want)
+    (dh,) = torch.autograd.grad(got.sum(), [h])
+    assert dh.shape == h.shape and torch.isfinite(dh).all()
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 from pathlib import Path
 
 import numpy as np
@@ -115,6 +116,13 @@ def count_plain_versions(monkeypatch):
             setattr(cuda_asp.asp_stats, _counter, getattr(cuda_asp.asp_stats, _counter) + 1)
             return _ref(*a, **k)
         monkeypatch.setattr(cuda_asp, ref, asp_counted)
+    asp_bwd_ref = cuda_asp.stats_backward_reference
+
+    def asp_bwd_counted(*a, **k):  # ASP's backward, either mode
+        cuda_asp.asp_stats.backward_launches += 1
+        return asp_bwd_ref(*a, **k)
+
+    monkeypatch.setattr(cuda_asp, "stats_backward_reference", asp_bwd_counted)
     for mod, ref, wrapper in ((cuda_conv, "conv_blockn_reference", cuda_conv.conv_blockn),
                               (cuda_conv, "conv_blockn_rows_reference", cuda_conv.conv_blockn),
                               (cuda_quant_block, "quant_block_train_reference",
@@ -204,7 +212,7 @@ def on_the_cpu(monkeypatch):
                                           (2, 20, 64, 72, 16, torch.float32))),
                         ("RAW_STEPS", 4),
                         ("ecapa_tdnn", lambda: small_ecapa), ("ASP_SHAPE", (150, 37, 24)),
-                        ("ASP_EMBED_ROWS", 2),
+                        ("ASP_EMBED_ROWS", 2), ("ECAPA_TRAIN_BATCH", 6),
                         ("siamese_config", lambda: small_siamese),
                         ("B9_TIMING", (1, 40, 36, 16)), ("B9_NSHOT", (50, 1, 5, 16)),
                         ("SIAMESE_PAIRS", 40), ("SIAMESE_BATCH", 8),
@@ -314,7 +322,8 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                       "dilated_slice", "dilated_int8_slice", "dilated_int8_fidelity",
                       "dilated_train_slice", "dilated_timing",
                       "mel_kernels", "mel_bf16_slice", "mel_int8_slice", "mel_int8_fidelity",
-                      "mel_timing", "asp_kernels", "siamese_kernels", "siamese_bf16_slice",
+                      "mel_timing", "asp_kernels", "ecapa_train", "siamese_kernels",
+                      "siamese_bf16_slice",
                       "siamese_int8_slice", "verification", "score_support",
                       "siamese_train_slice", "siamese_timing", "mel_train_slice",
                       "mel_train_timing", "corpus_slice", "streaming_embed", "protocol_slice",
@@ -558,7 +567,7 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                                             "conv_blockn", "quant_block_stage",
                                             "quant_block_train", "pool_fwd_idx",
                                             "route_bwd_idx", "bn_apply", "bn_grad",
-                                            "asp_stats", "asp_global"]
+                                            "asp_stats", "asp_global", "asp_bwd"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k) and k["launches"] > 0 and k["bound_by"] in (
             "bytes", "operations")
@@ -625,8 +634,8 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                                                                 "dp_fit": 3}
     assert by_name["log_mel"]["launches_by_path"] == {"mel_bf16": 2, "mel_int8": 2,
                                                       "mel_train": steps_run,
-                                                      "streaming_mel": 1}
-    assert by_name["log_mel_dft"]["launches_by_path"] == {"mel_kernels": 6}
+                                                      "streaming_mel": 1, "ecapa_train": 1}
+    assert by_name["log_mel_dft"]["launches_by_path"] == {"mel_kernels": 6, "ecapa_train": 1}
     assert by_name["conv_block0_f32"]["launches_by_path"] == {"kernels": 3}
     assert by_name["conv_block0"]["library_ms"] is not None
     assert by_name["log_mel"]["library_ms"] is not None
@@ -714,19 +723,29 @@ def test_the_config_3_phases_run_on_the_cpu(rehearsal):
 def test_the_asp_phase_runs_on_the_cpu(rehearsal):
     """ASP's two modes checked at ASP_SHAPE in CHECK_ROWS chunks (here the
     plain versions, so the difference is 0 and both read the plain
-    versions' bound), twice, bit for bit; ECAPA's embed path at the cut
-    widths launching B6 once, B8 30 times and ASP once in each mode; the
-    timing rows; the two entries of the kernels line."""
+    versions' bound), twice, bit for bit; the backward of both modes (here
+    the closed form) against float64 autograd, twice, bit for bit, the
+    training forward equal to the inference one (no saved softmax on the
+    CPU); ECAPA's embed path at the cut widths launching B6 once, B8 30
+    times and ASP once in each mode; the timing rows, the backward's among
+    them; the three entries of the kernels line."""
     _, _, records = rehearsal
     phase = next(r for r in records if r.get("phase") == "asp_kernels")
     assert [(c["kernel"], c["shape"]) for c in phase["checks"]] == [
-        ("asp_stats", [150, 37, 24]), ("asp_global", [150, 37, 24])]
-    for c in phase["checks"]:
+        ("asp_stats", [150, 37, 24]), ("asp_global", [150, 37, 24]),
+        ("asp_bwd", [150, 37, 24]), ("asp_bwd_global", [150, 37, 24])]
+    for c in phase["checks"][:2]:
         assert c["max_abs_err"] == 0.0 and c["repeats_bit_for_bit"]
         assert max(c["mean_err_over_bound"], c["var_err_over_bound"]) <= 1.0
         assert [c["mean_err_over_bound"], c["var_err_over_bound"]] == c["plain_err_over_bound"]
+    for c in phase["checks"][2:]:
+        assert 0.0 < c["max_row_rel_err"] <= cs.ASP_BWD_RTOL and c["repeats_bit_for_bit"]
+    assert phase["checks"][2]["training_forward_bit_for_bit"]
+    assert phase["checks"][2]["saved_softmax"] is None
     nothing = {name: 0 for name in cs.KERNELS}
-    assert phase["launches"] == {**nothing, "asp_stats": 2, "asp_global": 2}
+    # the forwards: check_asp's two a mode; the backward check's inference
+    # launch and two training forwards (weighted), two unweighted; four backwards
+    assert phase["launches"] == {**nothing, "asp_stats": 5, "asp_global": 4, "asp_bwd": 4}
     embed = phase["ecapa_embed"]
     assert embed["launches"] == {**nothing, "log_mel": 1, "log_mel_dft": 1, "conv_blockn": 30,
                                  "asp_stats": 1, "asp_global": 1}
@@ -736,14 +755,42 @@ def test_the_asp_phase_runs_on_the_cpu(rehearsal):
         row = phase["timing"][name]
         assert row["bound_by"] == "bytes" and row["library_ms"] is None
         assert {"ms", "plain_ms", "bound_ms", "bound_share"} <= set(row)
+    assert set(phase["backward_timing"]) == {"asp_bwd", "asp_bwd_global"}
+    for row in phase["backward_timing"].values():
+        assert row["shape"] == [150, 37, 24] and row["bound_by"] == "bytes"
+        assert {"ms", "plain_ms", "bound_ms", "bound_share"} <= set(row)
     by_name = {k["name"]: k for k in records[-2]["kernels"]}
-    for name, counter in (("asp_stats", "launches"), ("asp_global", "global_launches")):
+    for name, counter, checked in (("asp_stats", "launches", 5),
+                                   ("asp_global", "global_launches", 4)):
         k = by_name[name]
-        assert k["launches_by_path"] == {"asp_kernels": 2, "ecapa_embed": 1}
+        assert k["launches_by_path"] == {"asp_kernels": checked, "ecapa_embed": 1,
+                                         "ecapa_train": 1}
         assert k["source"] == "voicemap_tpu_torch/csrc/asp_stats.cu"
         assert k["replaces"] == "none: the port's own configuration"
         assert k["max_abs_err"] == 0.0 and k["library_ms"] is None
         assert cs.KERNELS[name][1] == counter
+    k = by_name["asp_bwd"]
+    assert k["launches_by_path"] == {"asp_kernels": 4, "ecapa_train": 2}
+    assert cs.KERNELS["asp_bwd"][1] == "backward_launches"
+    assert k["source"] == "voicemap_tpu_torch/csrc/asp_stats.cu"
+    assert 0.0 < k["max_abs_err"] and k["library_ms"] is None and k["bound_by"] == "bytes"
+    both = phase["backward_timing"]
+    assert k["ms"] == pytest.approx(both["asp_bwd"]["ms"] + both["asp_bwd_global"]["ms"])
+    assert k["bound_ms"] == pytest.approx(both["asp_bwd"]["bound_ms"]
+                                          + both["asp_bwd_global"]["bound_ms"])
+
+
+def test_the_ecapa_train_phase_runs_on_the_cpu(rehearsal):
+    """One ``make_ecapa_train_step`` at the cut widths and ECAPA_TRAIN_BATCH:
+    B1 once, B6 once (its DFT route), ASP's forward once in each mode and
+    its backward twice, nothing else of the kernels; the losses finite."""
+    _, _, records = rehearsal
+    phase = next(r for r in records if r.get("phase") == "ecapa_train")
+    nothing = {name: 0 for name in cs.KERNELS}
+    assert phase["launches"] == {**nothing, "gather_whiten": 1, "log_mel": 1, "log_mel_dft": 1,
+                                 "asp_stats": 1, "asp_global": 1, "asp_bwd": 2}
+    assert phase["batch"] == 6 and phase["channels"] == [256, 256, 256, 256, 768]
+    assert all(math.isfinite(v) for v in phase["losses"])
 
 
 def test_the_config_4_training_and_corpus_phases_run_on_the_cpu(rehearsal):

@@ -83,6 +83,11 @@ SIGNATURES = {
     "vm_weighted_l1": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # h, logits (NULL: unweighted), mean, std, B, T, C, ld, bf16, eps, stream
     "vm_asp_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # h, logits, mean, std, max, sum, B, T, C, ld, bf16, eps, stream
+    "vm_asp_stats_train": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # h, logits (NULL: unweighted), mean, std, max, sum, g_mean, g_std, dh,
+    # dlogits, B, T, C, ld, ld_g, bf16, eps, stream
+    "vm_asp_stats_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -40,11 +40,25 @@ its plain versions, the eager PyTorch it replaced. No test holds the card's
 plain forward as a yardstick: the benchmark's reference
 (``portbench/reference/ecapa_tdnn.py``) is independent of this module.
 
+Training has a forward of its own (:func:`train_forward`, under autograd),
+not a branch of the inference one: the front end by B6 with no gradient;
+each TDNN (:func:`tdnn_train`) a GEMM over the B·T rows (1×1) or cuDNN's
+conv on the channels-last view, then relu and BatchNorm on the batch's
+statistics over B·T, updating the running ones (momentum ``bn.momentum``,
+the unbiased variance, as ``nn.BatchNorm1d``); SE, the Res2Net chain and
+the residual as in inference; ASP's TDNN on ``h`` plus the global
+context's term per utterance in f32 (:func:`context_train`; gradient flows
+through the global mean and std, as in SpeechBrain); ASP's statistics
+through ``asp_stats``'s autograd functions (its backward kernel on the
+card); ``asp_bn`` on the batch's statistics over utterances; ``fc``. B8
+folds the running statistics into its epilogue, so no training TDNN takes
+it.
+
 The dtype policy is the other configs': parameters f32, TDNNs and the
 linear layers in the compute dtype, BatchNorm, the SE gate, the softmax and
 the statistics in f32. Spans (``utils/profiling.span``): ``ecapa.frontend``,
 ``ecapa.layer1``, ``ecapa.block.<i>`` (i = 1–3), ``ecapa.mfa``, ``ecapa.asp``,
-``ecapa.head``, each at the batch's rows.
+``ecapa.head``, each at the batch's rows, in both forwards.
 """
 
 from __future__ import annotations
@@ -280,6 +294,102 @@ def fast_embed(model: EcapaTDNN, x: torch.Tensor) -> torch.Tensor:
     """``(B, samples, 1)`` float32 → ``(B, D)`` float32 through B6 and B8."""
     with torch.inference_mode():
         return embed(model, x, FAST)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: a
+    ``(N, C)`` BatchNorm's backward takes PyTorch's channels-last kernels
+    only for a dense gradient, and a cat's backward hands each piece a
+    strided slice."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def batch_norm_train(bn: nn.BatchNorm1d, a: torch.Tensor) -> torch.Tensor:
+    """BatchNorm on the batch's statistics over every dim but the last of
+    ``(B, T, C)`` or ``(B, C)``, f32 statistics, the running ones updated →
+    ``a``'s dtype."""
+    flat = a.reshape(-1, a.shape[-1])
+    out = F.batch_norm(flat, bn.running_mean, bn.running_var, bn.weight, bn.bias, True,
+                       bn.momentum, bn.eps).view(a.shape)
+    return _DenseGrad.apply(out)
+
+
+def tdnn_train(blk: TDNNBlock, h: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """One TDNN under autograd, ``(B, T, Cin)`` → ``(B, T, Cout)`` in
+    ``cdt``: a 1×1 conv as one GEMM over the B·T rows, a wider one by
+    cuDNN on the ``(B, Cin, 1, T)`` channels-last view (SAME zero padding,
+    the odd one of an odd reach on the right), then relu and
+    :func:`batch_norm_train`. The relu is out of place: in place on the
+    GEMM's or the conv's output, a view, autograd copies the whole base
+    twice in the backward, and the relu keeps its output either way."""
+    w, b = blk.conv.weight.to(cdt), blk.conv.bias.to(cdt)
+    k, dilation = w.shape[2], blk.conv.dilation[0]
+    if k == 1:
+        a = F.linear(h, w[:, :, 0], b)
+    else:
+        reach = dilation * (k - 1)
+        if reach % 2:
+            h = F.pad(h, (0, 0, reach // 2, reach - reach // 2))
+        x4 = h.transpose(1, 2).unsqueeze(2)
+        w4 = w.unsqueeze(2).contiguous(memory_format=torch.channels_last)
+        a = F.conv2d(x4, w4, b, padding=(0, 0 if reach % 2 else reach // 2),
+                     dilation=(1, dilation)).squeeze(2).transpose(1, 2)
+    return batch_norm_train(blk.bn, torch.relu(a))
+
+
+def context_train(tdnn_blk: TDNNBlock, h, mean, std, cdt) -> torch.Tensor:
+    """ASP's TDNN under autograd → ``(B, T, A)`` f32: the GEMM of ``h``
+    with the weights' first C columns in ``cdt``, plus the mean and std
+    columns' term ``W_mean·mean + W_std·std + b`` per utterance in f32 (the
+    published 3C-channel input without its (B, T, 3C) copy), then relu and
+    :func:`batch_norm_train`."""
+    C = h.shape[2]
+    w = tdnn_blk.conv.weight[:, :, 0]  # (A, 3C)
+    u = F.linear(mean, w[:, C:2 * C]) + F.linear(std, w[:, 2 * C:]) + tdnn_blk.conv.bias
+    z = F.linear(h, w[:, :C].to(cdt)).float() + u[:, None, :]
+    return batch_norm_train(tdnn_blk.bn, torch.relu(z))
+
+
+def train_forward(model: EcapaTDNN, x: torch.Tensor) -> torch.Tensor:
+    """The training forward, ``(B, samples, 1)`` f32 → ``(B, D)`` f32
+    under autograd, BatchNorm on the batch's statistics."""
+    cdt, rows = model.compute_dtype, x.shape[0]
+    tdnn = lambda blk, h: tdnn_train(blk, h, cdt)  # noqa: E731
+    with span("ecapa.frontend", rows):
+        with torch.no_grad():
+            h = frontend(model, x, FAST)
+    with span("ecapa.layer1", rows):
+        h = tdnn(model.layer1, h)
+    outs = []
+    for i, blk in enumerate(model.blocks, start=1):
+        with span(f"ecapa.block.{i}", rows):
+            y = tdnn(blk.tdnn1, h)
+            y = tdnn(blk.tdnn2, res2net(blk.res2net, y, tdnn))
+            h = se_residual(blk.se, y, h)
+        outs.append(h)
+    with span("ecapa.mfa", rows):
+        h = tdnn(model.mfa, torch.cat(outs, dim=2))
+        del outs
+    with span("ecapa.asp", rows):
+        mean, std = global_stats(h)
+        z = context_train(model.asp.tdnn, h, mean, std, cdt)
+        conv = model.asp.conv
+        logits = F.linear(torch.tanh(z).to(cdt), conv.weight.to(cdt), conv.bias.to(cdt))
+        pooled = attentive_stats(h, logits)
+    with span("ecapa.head", rows):
+        pooled = batch_norm_train(model.asp_bn, pooled)
+        return F.linear(pooled.to(cdt), model.fc.weight.to(cdt), model.fc.bias.to(cdt)).float()
 
 
 class EcapaClassifier(nn.Module):

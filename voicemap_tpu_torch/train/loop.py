@@ -2,8 +2,9 @@
 → JSONL metrics.
 
 Port of ``voicemap_tpu/train/loop.py :: fit``, in classifier mode (configs
-#1 and #3), siamese mode (config #2, BCE or contrastive) and log-mel mode
-(config #4). ``fit`` trains either on an ``AudioStore`` that the caller
+#1 and #3), siamese mode (config #2, BCE or contrastive), log-mel mode
+(config #4) and ECAPA-TDNN (the port's own, ``train/steps.make_ecapa_train_step``:
+on a store, through the device pipeline, on one device). ``fit`` trains either on an ``AudioStore`` that the caller
 builds (``data/store.py``, for example ``synthetic_store``), or, with no
 store given, on the corpus on disk that ``cfg.data`` names, as the JAX
 ``fit`` does: through the device pipeline (the corpus decoded into one
@@ -140,7 +141,12 @@ def use_data_parallel(dp: str, world: int, batch_size: int, device) -> bool:
 def _make_step(model, cfg: ExperimentConfig, streaming: bool, dp: bool):
     """``(step, loss_fn)``: the builder of the JAX ``fit``'s four-way choice
     (siamese or not, streaming or device store), data-parallel over every
-    rank of the default group with ``dp``."""
+    rank of the default group with ``dp``; ECAPA-TDNN's step on a device
+    store, without ``dp``."""
+    if cfg.mode == "ecapa_tdnn":
+        if streaming or dp:
+            raise NotImplementedError("fit: ECAPA-TDNN trains on a device store, on one device")
+        return steps_mod.make_ecapa_train_step(model, cfg)
     make = {(True, True): steps_mod.make_streaming_siamese_step,
             (True, False): steps_mod.make_streaming_classifier_step,
             (False, True): steps_mod.make_siamese_train_step,
@@ -195,9 +201,10 @@ def fit(cfg: ExperimentConfig, train_store: Optional[AudioStore] = None,
     tensors on the device, not waited for).
     """
     t = cfg.train
-    if cfg.mode not in ("classifier", "siamese", "melspec2d"):
+    if cfg.mode not in ("classifier", "siamese", "melspec2d", "ecapa_tdnn"):
         raise NotImplementedError(
-            f"fit: classifier, siamese and melspec2d modes are ported, not {cfg.mode!r}")
+            f"fit: classifier, siamese, melspec2d and ecapa_tdnn modes are ported, not "
+            f"{cfg.mode!r}")
     world = distributed.world_size()
     use_dp = use_data_parallel(dp, world, t.batch_size, device)
     if dp == "on" and world == 1:
@@ -223,7 +230,9 @@ def fit(cfg: ExperimentConfig, train_store: Optional[AudioStore] = None,
             cfg, device, max_store_seconds, pipeline, streaming_threshold_bytes, verbose)
         num_classes = train_ds.num_classes()
     model = init_model(cfg, num_classes, device, t.seed)
-    state = init_state(model, t.clipnorm, t.learning_rate)
+    # Adam's weight decay: a field of the configs whose recipe has one
+    # (ECAPA-TDNN's); TrainConfig stays field for field the JAX package's.
+    state = init_state(model, t.clipnorm, t.learning_rate, getattr(cfg, "weight_decay", 0.0))
     streaming = pipeline == "streaming"
     step, loss_fn = _make_step(model, cfg, streaming, use_dp)
     if verbose:

@@ -10,7 +10,10 @@ learning rate a runtime value that the plateau schedule anneals. Here:
   (``torch.nn.utils.clip_grad_norm_`` differs: it always scales, by
   ``clipnorm / (n + 1e-6)``);
 - Adam is ``torch.optim.Adam`` with optax's defaults, b1 0.9, b2 0.999,
-  eps 1e-8 (added to √v̂, eps_root 0), which is optax's update;
+  eps 1e-8 (added to √v̂, eps_root 0), which is optax's update; its
+  ``weight_decay`` (default 0, the JAX package's configs) adds the L2 term
+  ``wd·θ`` to the clipped gradient, as ``torch.optim.Adam`` does (ECAPA-TDNN's
+  recipe);
 - :func:`apply_updates` sets the param group's ``lr`` from ``state.lr``
   before each update.
 
@@ -37,19 +40,26 @@ class TrainState:
 class ClippedAdam:
     """Clip by global norm (optax's form), then Adam."""
 
-    def __init__(self, params: Iterable[torch.nn.Parameter], clipnorm: float = 1.0):
+    def __init__(self, params: Iterable[torch.nn.Parameter], clipnorm: float = 1.0,
+                 weight_decay: float = 0.0):
         self.params = [p for p in params if p.requires_grad]
         self.clipnorm = float(clipnorm)
-        self.adam = torch.optim.Adam(self.params, lr=1.0, betas=(0.9, 0.999), eps=1e-8)
+        self.adam = torch.optim.Adam(self.params, lr=1.0, betas=(0.9, 0.999), eps=1e-8,
+                                     weight_decay=float(weight_decay))
 
     @torch.no_grad()
     def clip(self) -> torch.Tensor:
-        """Clip the gradients in place; returns their global norm before."""
+        """Clip the gradients in place; returns their global norm before.
+        Each gradient becomes ``(g / d) · c``: ``d`` the norm and ``c`` the
+        clip norm where the norm reaches it, else 1 and 1 (``g`` exactly).
+        Foreach kernels, a few launches for any number of leaves: a loop of
+        three launches a leaf set the pace of a step whose leaves are many
+        (ECAPA-TDNN's 139) and left the card idle while the host launched them."""
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)).float())
         keep = norm < self.clipnorm
-        for g in grads:
-            g.copy_(torch.where(keep, g, (g / norm) * self.clipnorm))
+        torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
+        torch._foreach_mul_(grads, torch.where(keep, 1.0, self.clipnorm))
         return norm
 
     def step(self, lr: float) -> None:
@@ -68,12 +78,15 @@ class ClippedAdam:
         self.adam.load_state_dict(sd)
 
 
-def make_optimizer(params: Iterable[torch.nn.Parameter], clipnorm: float = 1.0) -> ClippedAdam:
-    return ClippedAdam(params, clipnorm)
+def make_optimizer(params: Iterable[torch.nn.Parameter], clipnorm: float = 1.0,
+                   weight_decay: float = 0.0) -> ClippedAdam:
+    return ClippedAdam(params, clipnorm, weight_decay)
 
 
-def init_state(model: torch.nn.Module, clipnorm: float, learning_rate: float) -> TrainState:
-    return TrainState(step=0, model=model, optimizer=make_optimizer(model.parameters(), clipnorm),
+def init_state(model: torch.nn.Module, clipnorm: float, learning_rate: float,
+               weight_decay: float = 0.0) -> TrainState:
+    return TrainState(step=0, model=model,
+                      optimizer=make_optimizer(model.parameters(), clipnorm, weight_decay),
                       lr=float(learning_rate))
 
 

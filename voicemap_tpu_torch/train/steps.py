@@ -16,7 +16,11 @@ the contrastive loss of the embeddings' distance. ``train_on_batch`` and
 ``train_on_pairs`` are the steps after sampling, for a batch the caller
 gives. The log-mel classifier (config #4) trains through its own forward
 under autograd (B1 for the batch, then B6 with no gradient, cuDNN's 2D convs),
-as the JAX package trains it through flax apply.
+as the JAX package trains it through flax apply. ECAPA-TDNN (the port's own
+configuration, ``make_ecapa_train_step``) samples and fetches as a
+classifier step does (B1 at downsampling 1, random offsets) and trains
+through ``models/ecapa.train_forward`` on the additive angular margin loss
+of its cosine head (span ``ecapa.aam``).
 
 The streaming steps (``make_streaming_classifier_step``,
 ``make_streaming_siamese_step``) take host-cut int16 fragments from
@@ -59,7 +63,7 @@ import torch.nn.functional as F
 
 from ..config import ExperimentConfig
 from ..data.store import AudioStore
-from ..models import fused_train
+from ..models import ecapa, fused_train
 from ..models.classifier import SpeakerClassifier
 from ..models.siamese import SiameseNet
 from ..models.spectrogram import MelSpecClassifier
@@ -368,6 +372,42 @@ def make_classifier_train_step(model: SpeakerClassifier, cfg: ExperimentConfig, 
                                                    store.audio.device)
             x = fetch_batch(store, idx, cfg, gen, stochastic=cfg.data.stochastic)
             return train_on_batch(state, x, store.labels[idx], gen, loss_fn, group)
+
+    return step, loss_fn
+
+
+def ecapa_loss_fn(model: ecapa.EcapaClassifier, cfg) -> Callable:
+    """``loss_fn(x, y, generator) → (loss, accuracy)``: ECAPA-TDNN's training
+    forward, then the additive angular margin softmax of the cosine head at
+    ``cfg.aam_margin`` and ``cfg.aam_scale`` (``generator`` unused: no
+    dropout)."""
+
+    def loss_fn(x: torch.Tensor, y: torch.Tensor, generator: Optional[torch.Generator]):
+        model.train()
+        emb = ecapa.train_forward(model.encoder, x)
+        with span("ecapa.aam", x.shape[0]):
+            cosine = model.logits(emb)
+            return (losses.aam_softmax(cosine, y, cfg.aam_margin, cfg.aam_scale),
+                    losses.categorical_accuracy(cosine, y))
+
+    loss_fn.fused_block0, loss_fn.blockn = False, "ecapa_tdnn"
+    return loss_fn
+
+
+def make_ecapa_train_step(model: ecapa.EcapaClassifier, cfg):
+    """``(step, loss_fn)``; ``step(state, store, generator) → (state, metrics)``
+    samples ``batch_size`` utterance ids, fetches their windows at random
+    offsets (B1 on a store decimated by 1) and trains on them, as a
+    classifier step (the same spans and the same ``train_on_batch``)."""
+    loss_fn = ecapa_loss_fn(model, cfg)
+    B = cfg.train.batch_size
+
+    def step(state: TrainState, store: DeviceStore, generator: Optional[torch.Generator]):
+        with span("train_step", B):
+            idx = sampling.sample_classifier_batch(generator, store.labels.shape[0], B,
+                                                   store.audio.device)
+            x = fetch_batch(store, idx, cfg, generator, stochastic=cfg.data.stochastic)
+            return train_on_batch(state, x, store.labels[idx], generator, loss_fn)
 
     return step, loss_fn
 
