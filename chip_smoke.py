@@ -138,7 +138,17 @@ Each phase prints one JSON line; nothing here imports JAX.
    matrix), both embeds' utt/s, batch-1 latency, peak memory and stages,
    the train step at B=32 and 2048 under both blocks-1+ policies, and
    cuDNN's dilated convs per block (NHWC as the train step runs them, also
-   autotuned, beside NCT);
+   autotuned, beside NCT); the train slice's launches also hold
+   ``conv_wgrad`` once a dilated block a step (4 on config #3, 0 on #1);
+9c. wgrad kernels — ``conv_wgrad``, the dilated convs' weight gradient in
+   training, at config #3's four dilated blocks (d 2, 4, 8, 16) at
+   TRAIN_BATCH, CHECK_ROWS and BATCH rows against float64 sums (each dW
+   within TRAIN_REL_TOL of its largest element) and repeated bit for bit, the launch counters read
+   around it; then per block at B=BATCH beside its bound (x and dz read
+   once in bf16, dW written once in f32, the conv's FLOPs at the bf16
+   rate), its plain version and cuDNN's wgrad alone
+   (``aten.convolution_backward`` with output mask [False, True, False] on
+   the NHWC views);
 10. mel kernels — config #4's: B1 at downsampling 1, frag 48000, over the
     bench store undecimated; B6's FFT kernel against its plain version (and
     against the rfft route) on 256 whitened 48000-sample fragments at
@@ -366,7 +376,7 @@ from voicemap_tpu_torch.models.siamese import SiameseNet
 from voicemap_tpu_torch.models.spectrogram import MelSpecClassifier
 from voicemap_tpu_torch.ops import (
     block0_tc, block0_train_tc, cuda_conv, cuda_conv_train, cuda_distance, cuda_melspec,
-    cuda_quant_block, cuda_routing, melspec, preprocess, sampling,
+    cuda_quant_block, cuda_routing, cuda_wgrad, melspec, preprocess, sampling,
 )
 from voicemap_tpu_torch.ops import distance as dist_ops
 from voicemap_tpu_torch.ops import jax_random
@@ -398,7 +408,8 @@ from voicemap_tpu_torch.ops.cuda_quant_block import (
     STAGES, quant_block, quant_block_reference, quant_block_stage, quant_block_stage_reference,
     quant_block_train, quant_block_train_reference,
 )
-from voicemap_tpu_torch.ops.conv_train import FusedBlocknTrain, quantize_int8
+from voicemap_tpu_torch.ops.conv_train import FusedBlocknTrain, quantize_int8, wgrad_routed
+from voicemap_tpu_torch.ops.cuda_wgrad import conv_wgrad, conv_wgrad_reference
 from voicemap_tpu_torch.ops.cuda_routing import (
     bn_apply, bn_apply_reference, bn_grad, bn_grad_reference, is_channels_last, pool_fwd,
     pool_fwd_reference, route_bwd, route_bwd_reference,
@@ -765,12 +776,16 @@ KERNELS = {
     # ASP's backward, both modes on one counter (ECAPA-TDNN's training)
     "asp_bwd": (asp_stats, "backward_launches", "voicemap_tpu_torch/csrc/asp_stats.cu",
                 "none: the port's own configuration"),
+    # The dilated convs' weight gradient in training (config #3's blocks 1,
+    # 3, 5, 7), which the JAX package leaves to XLA
+    "conv_wgrad": (conv_wgrad, "launches", "voicemap_tpu_torch/csrc/conv_wgrad.cu",
+                   "none: XLA's conv transpose (voicemap_tpu/ops/conv_train.py:367)"),
 }
 # The train kernels' plain versions, by the module attribute each wrapper
 # is reached through on the train path (B7's serve both of its modes; B3's
 # train epilogue and B8 with its rows are the int8 and the
 # pool-rate-residual forwards' convs; the BatchNorm epilogue pair runs after
-# every fused block).
+# every fused block; conv_wgrad is the dilated blocks' weight gradient).
 PLAIN = ((cuda_conv_train, "conv_block0_train", conv_block0_train_reference),
          (cuda_conv_train, "conv_block0_train_bwd", conv_block0_train_bwd_reference),
          (cuda_routing, "pool_fwd", pool_fwd_reference),
@@ -778,7 +793,8 @@ PLAIN = ((cuda_conv_train, "conv_block0_train", conv_block0_train_reference),
          (cuda_quant_block, "quant_block_train", quant_block_train_reference),
          (cuda_conv, "conv_blockn_rows", conv_blockn_rows_reference),
          (cuda_routing, "bn_apply", bn_apply_reference),
-         (cuda_routing, "bn_grad", bn_grad_reference))
+         (cuda_routing, "bn_grad", bn_grad_reference),
+         (cuda_wgrad, "conv_wgrad", conv_wgrad_reference))
 # The eager chain the BatchNorm epilogue pair replaced, by its ops on a
 # block's pool-rate output: the affine and the gradient's â (with a
 # per-channel vector), the cast, the dropout's divide and where, and their
@@ -2389,8 +2405,9 @@ def evaluation_launches():
 @contextlib.contextmanager
 def plain_kernels(keep: tuple = ()):
     """The train path with every train kernel (B4, B5, B7, B3's train
-    epilogue, B8 with its rows) and B6, which config #4's forward runs,
-    replaced by its plain version; the wrappers named in ``keep`` stay."""
+    epilogue, B8 with its rows, the BN pair, ``conv_wgrad``) and B6, which
+    config #4's forward runs, replaced by its plain version; the wrappers
+    named in ``keep`` stay."""
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in PLAIN]
     for mod, name, plain in PLAIN:
         if name not in keep:
@@ -2589,14 +2606,15 @@ def run_train_slice(sliced: dict, seed: int, base=None, phase: str = "train_slic
     train = {k: total[k] - eval_counts[k] for k in total}
     check_channels_last_path(FusedBlocknTrain.cotangent_copies - copies)
     S = TRAIN_STEPS
+    n_wgrad = len(wgrad_blocks(cfg))
     want = {name: 0 for name in KERNELS}
     want.update(gather_whiten=S, conv_block0_train=S, conv_block0_train_bwd=S,
-                pool_fwd=n_mid * S, route_bwd=n_mid * S)
+                pool_fwd=n_mid * S, route_bwd=n_mid * S, conv_wgrad=n_wgrad * S)
     want = with_epilogue(want)
     if train != want:
         raise AssertionError(f"train launches {train}, want {want} (per step: B1 1, B4 1, "
                              f"B5 1, B7 {n_mid} + {n_mid}, bn_apply and bn_grad "
-                             f"{n_mid + 1} each)")
+                             f"{n_mid + 1} each, conv_wgrad {n_wgrad})")
     # As the reference's fit, the evaluation embeds through the model's own
     # forward: B1 for the fragments, then cuDNN; neither B2 nor B8.
     want_eval = {name: 0 for name in KERNELS}
@@ -3293,6 +3311,109 @@ def run_dilated_timing(store, sliced: dict, gate: dict, trained: dict, seed: int
           "train_step_turns": step_rows, "train_step": train_step_summary(step_rows),
           "cudnn_convs": convs})
     return {"conv_blockn": b8, "quant_block": b3}
+
+
+def wgrad_blocks(cfg=None) -> list:
+    """``(block, T, Cin, Cout, dilation)`` of each block 1+ of ``cfg``
+    (config #3 by default) whose weight gradient the fused train path takes
+    from ``conv_wgrad`` (``conv_train.wgrad_routed``); T at FRAG samples."""
+    cfg = cfg or dilated_4khz()
+    e = cfg.encoder
+    gemm = fused_train._gemm_dtype(getattr(torch, e.compute_dtype))
+    out, t = [], FRAG // e.pool_sizes[0]
+    for i in range(1, len(e.filter_multipliers)):
+        cin, cout = e.filters * e.filter_multipliers[i - 1], e.filters * e.filter_multipliers[i]
+        if wgrad_routed(gemm, e.kernel_sizes[i], e.dilations[i], cin, cout):
+            out.append((i, t, cin, cout, e.dilations[i]))
+        t //= max(e.pool_sizes[i], 1)
+    return out
+
+
+def wgrad_inputs(seed: int, B: int, T: int, cin: int, cout: int) -> tuple:
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return (torch.randn(B, T, cin, generator=gen, device=DEVICE).to(torch.bfloat16),
+            torch.randn(B, T, cout, generator=gen, device=DEVICE).to(torch.bfloat16))
+
+
+def check_wgrad() -> tuple[list, float]:
+    """``conv_wgrad`` at config #3's dilated blocks at TRAIN_BATCH,
+    CHECK_ROWS and BATCH rows (the train slice's, the other checks' and the
+    cell's: a split's stages grow with B·T) against float64 sums of the
+    same bf16 inputs, added over CHECK_ROWS-row chunks (dW is linear in the
+    rows): each dW within TRAIN_REL_TOL of its largest |element| (f32 sums
+    in the tensor cores' and the splits' order), a second call equal bit
+    for bit → (records, the largest absolute difference)."""
+    checks, worst = [], 0.0
+    for i, T, cin, cout, d in wgrad_blocks():
+        for rows in (TRAIN_BATCH, CHECK_ROWS, BATCH):
+            x, dz = wgrad_inputs(90 + i + rows, rows, T, cin, cout)
+            got, again = conv_wgrad(x, dz, 3, d), conv_wgrad(x, dz, 3, d)
+            want = sum(conv_wgrad_reference(x[lo:lo + CHECK_ROWS].double(),
+                                            dz[lo:lo + CHECK_ROWS].double(), 3, d)
+                       for lo in range(0, rows, CHECK_ROWS))
+            diff = float((got.double() - want).abs().max())
+            scale = float(want.abs().max())
+            if not (diff <= TRAIN_REL_TOL * scale and torch.equal(got, again)):
+                raise AssertionError(f"conv_wgrad at block {i} (d={d}, B={rows}): max |diff| "
+                                     f"{diff} of {scale}, repeat equal "
+                                     f"{torch.equal(got, again)}")
+            checks.append({"kernel": "conv_wgrad", "block": i, "shape": [rows, T, cin, cout],
+                           "dilation": d, "max_abs_err": diff, "rel_err_of_max": diff / scale,
+                           "tolerance": TRAIN_REL_TOL, "repeat_equal": True})
+            worst = max(worst, diff)
+            del x, dz, got, again, want
+        torch.cuda.empty_cache()
+    return checks, worst
+
+
+def time_wgrad() -> list:
+    """``conv_wgrad`` per dilated block at B=BATCH (queued) beside its bound
+    (``portbench/counts_wgrad``'s formula), its plain version and cuDNN's
+    wgrad alone on the NHWC views the train step hands it."""
+    rows = []
+    for i, T, cin, cout, d in wgrad_blocks():
+        x, dz = wgrad_inputs(95 + i, BATCH, T, cin, cout)
+        x4, dz4 = (t.permute(0, 2, 1).unsqueeze(2).contiguous(memory_format=torch.channels_last)
+                   for t in (x, dz))
+        w4 = torch.zeros(cout, cin, 1, 3, dtype=torch.bfloat16, device=DEVICE).contiguous(
+            memory_format=torch.channels_last)
+        moved = BATCH * T * (cin + cout) * 2 + 3 * cin * cout * 4
+        row = {"block": i, "shape": [BATCH, T, cin, cout], "dilation": d,
+               **bound(moved, 2.0 * BATCH * T * 3 * cin * cout, BF16_OPS_PER_S),
+               "ms": time_fn(conv_wgrad, x, dz, 3, d, iters=10, queued=True)["mean_s"] * 1e3,
+               "plain_ms": time_fn(conv_wgrad_reference, x, dz, 3, d, iters=2,
+                                   warmup=1)["mean_s"] * 1e3,
+               "library_ms": time_fn(torch.ops.aten.convolution_backward, dz4, x4, w4, None,
+                                     [1, 1], [0, d], [1, d], False, [0, 0], 1,
+                                     [False, True, False], iters=3, warmup=1)["mean_s"] * 1e3,
+               "library": "aten.convolution_backward, output mask [False, True, False], NHWC"}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        del x, dz, x4, dz4
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_wgrad_slice(card: str) -> dict:
+    """Phase wgrad_kernels: ``check_wgrad`` (its launches counted) and
+    ``time_wgrad``. The kernels line's ``conv_wgrad`` entry is a config #3
+    train step's four launches: their ms, plain ms, bounds and cuDNN's ms
+    summed."""
+    t0 = time.perf_counter()
+    reset_counts()
+    checks, worst = check_wgrad()
+    checked = read_counts()
+    rows = time_wgrad()
+    emit({"phase": "wgrad_kernels", "card": card, "checks": checks, "launches": checked,
+          "timing": rows, "seconds": time.perf_counter() - t0})
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    return {"errors": {"conv_wgrad": worst}, "launches": {"wgrad_kernels": checked},
+            "ms": {"conv_wgrad": total["ms"]}, "plain_ms": {"conv_wgrad": total["plain_ms"]},
+            "bounds": {"conv_wgrad": {  # what bounds most of the summed bound
+                "bound_ms": total["bound_ms"],
+                "bound_by": "operations" if 2 * ops >= total["bound_ms"] else "bytes"}},
+            "library_ms": {"conv_wgrad": total["library_ms"]}}
 
 
 def mel_bench_store(seed: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -5603,6 +5724,7 @@ def main(argv=None) -> int:
                         "train": trained3["launches"]}
     del store, sliced3, sliced3_int8, trained3
     torch.cuda.empty_cache()
+    wgrad = run_wgrad_slice(card)
     raw, mel_idx, mel_offsets = mel_bench_store(args.seed)
     checked_mel = check_mel_kernels(raw, mel_idx, mel_offsets)
     mel = run_mel_slices(sliced["host"], args.seed)
@@ -5636,7 +5758,9 @@ def main(argv=None) -> int:
         times[key].update(mel_times[key])
         times[key].update(siamese_times[key])
         times[key].update(asp[key])
+        times[key].update(wgrad[key])
     checked["errors"].update(checked_train["errors"])
+    checked["errors"].update(wgrad["errors"])
     checked["errors"].update(asp["errors"])
     checked["errors"].update(checked_mel["errors"])
     checked["errors"].update(checked_siamese["errors"])
@@ -5651,6 +5775,7 @@ def main(argv=None) -> int:
     # paths, dp_slice's DP steps and fit(dp="on"), mesh_slice's programs, summed
     # over its ranks, ecapa_embed and ecapa_train), set to 0 just before each
     # run and read just after; ASP's, also the asp_kernels phase's checks;
+    # conv_wgrad's, also the wgrad_kernels phase's;
     # for the kernels no other path runs (B2's, B4's and B5's f32 GEMM), the
     # count of the check phase that ran them. On the mel paths the DFT route
     # launched nothing, so B6's count there is the FFT kernel's; ECAPA's
@@ -5669,7 +5794,8 @@ def main(argv=None) -> int:
              "score_support": siamese["score_support"],
              "siamese_train": siamese_trained["launches"],
              "mel_train": mel_train_launches, **corpus, **streamed, **cli, **pod,
-             **dp_paths, **mesh_paths, **asp["launches"], **ecapa_trained}
+             **dp_paths, **mesh_paths, **asp["launches"], **ecapa_trained,
+             **wgrad["launches"]}
     train_paths = ("train", "int8_train", "raw_train", "dilated_train", "siamese_train",
                    "corpus_device", "corpus_streaming", "corpus_siamese", "cli_train",
                    "cli_siamese_train", "dp_train", "dp_fit")
@@ -5715,7 +5841,8 @@ def main(argv=None) -> int:
                ("bn_grad", "bn_grad", (*train_paths, "recompute_train")),
                ("asp_stats", "asp_stats", ("asp_kernels", "ecapa_embed", "ecapa_train")),
                ("asp_global", "asp_global", ("asp_kernels", "ecapa_embed", "ecapa_train")),
-               ("asp_bwd", "asp_bwd", ("asp_kernels", "ecapa_train")))
+               ("asp_bwd", "asp_bwd", ("asp_kernels", "ecapa_train")),
+               ("conv_wgrad", "conv_wgrad", ("wgrad_kernels", "dilated_train", "train")))
     emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
     print(card, flush=True)
     emit({"kernels": [

@@ -48,7 +48,7 @@ import chip_smoke as cs
 B4, B5 = "conv_block0_train", "conv_block0_train_bwd"
 ALL = {B4: "kernel", B5: "kernel", "pool_fwd": "kernel", "route_bwd": "kernel",
        "quant_block_train": "kernel", "conv_blockn_rows": "kernel", "bn_apply": "kernel",
-       "bn_grad": "kernel"}
+       "bn_grad": "kernel", "conv_wgrad": "kernel"}
 # Variant → {wrapper: what it returns}; wrappers not named are plain.
 # B4: "kernel", "a_sel" (the kernel's a_sel, the plain statistics), "stats"
 # (the plain a_sel, the kernel's statistics), "flips" (see the docstring);

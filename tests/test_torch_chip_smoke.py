@@ -36,7 +36,7 @@ from voicemap_tpu_torch.config import (
 )
 from voicemap_tpu_torch.ops import (
     block0_train_tc, cuda_asp, cuda_conv, cuda_conv_train, cuda_distance, cuda_melspec,
-    cuda_preprocess, cuda_quant_block, cuda_routing,
+    cuda_preprocess, cuda_quant_block, cuda_routing, cuda_wgrad,
 )
 from voicemap_tpu_torch.parallel import dryrun
 from voicemap_tpu_torch.train import steps
@@ -136,7 +136,8 @@ def count_plain_versions(monkeypatch):
                               (cuda_distance, "weighted_l1_reference",
                                cuda_distance.weighted_l1),
                               (cuda_routing, "bn_apply_reference", cuda_routing.bn_apply),
-                              (cuda_routing, "bn_grad_reference", cuda_routing.bn_grad)):
+                              (cuda_routing, "bn_grad_reference", cuda_routing.bn_grad),
+                              (cuda_wgrad, "conv_wgrad_reference", cuda_wgrad.conv_wgrad)):
         def counted(*a, _ref=getattr(mod, ref), _w=wrapper, **k):
             _w.launches += 1
             return _ref(*a, **k)
@@ -320,7 +321,7 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                       "recompute_train_slice", "raw_store_slice", "timing", "attribution",
                       "train_layout", "train_timing",
                       "dilated_slice", "dilated_int8_slice", "dilated_int8_fidelity",
-                      "dilated_train_slice", "dilated_timing",
+                      "dilated_train_slice", "dilated_timing", "wgrad_kernels",
                       "mel_kernels", "mel_bf16_slice", "mel_int8_slice", "mel_int8_fidelity",
                       "mel_timing", "asp_kernels", "ecapa_train", "siamese_kernels",
                       "siamese_bf16_slice",
@@ -567,7 +568,8 @@ def test_every_phase_runs_on_the_cpu_at_a_tiny_size(rehearsal):
                                             "conv_blockn", "quant_block_stage",
                                             "quant_block_train", "pool_fwd_idx",
                                             "route_bwd_idx", "bn_apply", "bn_grad",
-                                            "asp_stats", "asp_global", "asp_bwd"]
+                                            "asp_stats", "asp_global", "asp_bwd",
+                                            "conv_wgrad"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k) and k["launches"] > 0 and k["bound_by"] in (
             "bytes", "operations")
@@ -649,7 +651,8 @@ def test_the_config_3_phases_run_on_the_cpu(rehearsal):
     """Config #3 (``dilated_4khz``): B3 and B8 at its block shapes and
     DILATED_EDGES in the kernels phase, B7 at pool 1; the bf16 slice (B1, B2,
     B8 × 7), the int8 slice (B1, B2, B3 × 7), the fidelity line, the train
-    slice (B7 7 + 7 a step) with its held f32 step, and the timing."""
+    slice (B7 7 + 7 and ``conv_wgrad`` 4 a step) with its held f32 step, and
+    the timing."""
     code, _, records = rehearsal
     assert code == 0
     by_phase = {r["phase"]: r for r in records if "phase" in r}
@@ -672,7 +675,8 @@ def test_the_config_3_phases_run_on_the_cpu(rehearsal):
                                  "conv_block0_train": steps_run,
                                  "conv_block0_train_bwd": steps_run,
                                  "pool_fwd": 7 * steps_run, "route_bwd": 7 * steps_run,
-                                 "bn_apply": 8 * steps_run, "bn_grad": 8 * steps_run}
+                                 "bn_apply": 8 * steps_run, "bn_grad": 8 * steps_run,
+                                 "conv_wgrad": 4 * steps_run}
     assert train["eval_launches"] == {**nothing, "gather_whiten": 2}
     assert train["loss_last5_mean"] < train["loss_first5_mean"]
     assert train["plain_steps"]["float32"]["held"]
@@ -718,6 +722,34 @@ def test_the_config_3_phases_run_on_the_cpu(rehearsal):
     assert all({"nhwc_fwd_ms", "nhwc_bwd_ms", "nct_fwd_ms", "nct_bwd_ms",
                 "nhwc_fwd_autotuned_ms", "nhwc_bwd_autotuned_ms"} <= set(r)
                for r in timing["cudnn_convs"])
+
+
+def test_the_wgrad_phase_runs_on_the_cpu(rehearsal):
+    """``conv_wgrad`` at config #3's four dilated blocks at the train
+    slice's batch, CHECK_ROWS and BATCH rows (here the plain version against
+    float64, launches counted), timed per block beside its bound and cuDNN's
+    wgrad; its kernels-line entry: the check's launches, config #3's 4 a
+    train step and none on config #1's."""
+    code, _, records = rehearsal
+    assert code == 0
+    phase = {r["phase"]: r for r in records if "phase" in r}["wgrad_kernels"]
+    nothing = {name: 0 for name in cs.KERNELS}
+    assert [(c["block"], c["dilation"], c["shape"][0]) for c in phase["checks"]] == [
+        (i, d, rows) for i, d in ((1, 2), (3, 4), (5, 8), (7, 16))
+        for rows in (cs.TRAIN_BATCH, cs.CHECK_ROWS, cs.BATCH)]
+    assert all(c["rel_err_of_max"] <= cs.TRAIN_REL_TOL and c["repeat_equal"]
+               for c in phase["checks"])
+    assert phase["launches"] == {**nothing, "conv_wgrad": 24}
+    assert [r["shape"] for r in phase["timing"]] == [
+        [cs.BATCH, 100, 32, 32], [cs.BATCH, 50, 64, 64], [cs.BATCH, 25, 96, 96],
+        [cs.BATCH, 12, 128, 128]]
+    assert all({"ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share"}
+               <= set(r) for r in phase["timing"])
+    entry = {k["name"]: k for k in records[-2]["kernels"]}["conv_wgrad"]
+    assert entry["launches_by_path"] == {"wgrad_kernels": 24, "dilated_train": 4 * 12,
+                                         "train": 0}
+    assert entry["source"] == "voicemap_tpu_torch/csrc/conv_wgrad.cu"
+    assert entry["ms"] == pytest.approx(sum(r["ms"] for r in phase["timing"]))
 
 
 def test_the_asp_phase_runs_on_the_cpu(rehearsal):

@@ -8,7 +8,8 @@ interpret mode, at f32: the same numpy inputs and parameters, values and
 pooled output, μ and σ², within 1e-4, with no dropout mask, with an
 all-keeping one, and with a mask that drops channels at keep 0.7 (the JAX
 side applies ``where(mask, y / keep, 0)`` after its op). Negative BatchNorm scales and dead relu regions in every
-case. The port's blocks-1+ op takes and gives ``(B, C, T)`` tensors; the
+case. At d > 1 in a bf16 GEMM both blocks-1+ ops take dW from
+``ops/cuda_wgrad``: each against its JAX op in bf16 at pool 1. The port's blocks-1+ op takes and gives ``(B, C, T)`` tensors; the
 test transposes at its edge (the op lays its tensors out channels last
 itself). Then the fused path's layout: the residual is the raw conv output,
 channels last from block 0's output to the head, with no copy between
@@ -32,7 +33,7 @@ from voicemap_tpu_torch.config import classifier_baseline
 from voicemap_tpu_torch.models import fused_train
 from voicemap_tpu_torch.models.classifier import SpeakerClassifier
 from voicemap_tpu_torch.models.encoder import spatial_dropout
-from voicemap_tpu_torch.ops import cuda_conv_train, cuda_routing
+from voicemap_tpu_torch.ops import cuda_conv_train, cuda_routing, cuda_wgrad
 from voicemap_tpu_torch.ops.conv_train import (
     FusedBlock0Train, FusedBlocknRecompute, FusedBlocknTrain,
 )
@@ -175,6 +176,65 @@ def test_fused_blockn_matches_jax_custom_vjp(pool, dilation, mask):
     for name, got, want in zip(("b", "gamma", "beta"), gp[1:], jgp[1:]):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL,
                                    err_msg=name)
+
+
+# A bf16 GEMM at d > 1 takes dW from ops/cuda_wgrad (its plain version on
+# the CPU), in f32; the JAX custom VJP's dW is the bf16 conv transpose's,
+# rounded to bf16 (2^-9 of each element) after sums in XLA's order: each
+# element within 2^-7 of it, and 2^-12 of the largest. The pool-rate-residual
+# op is held to its JAX op in norm, to 1e-2: that op computes dz from the
+# BatchNorm constants rounded to bf16 (routing="xla"), 0.4% of the norm of
+# dz, dX and dW alike at these inputs, where the port keeps them in f32.
+WGRAD_ELEMENT_RTOL, WGRAD_MAX_ATOL, WGRAD_NORM_TOL = 2.0 ** -7, 2.0 ** -12, 1e-2
+
+
+@pytest.mark.parametrize("dilation", [2, 16])
+@pytest.mark.parametrize("kind", ["fused", "fused_recompute"])
+def test_fused_blockn_bf16_dilated_weight_gradient_matches_jax_custom_vjp(kind, dilation):
+    """Pool 1, as config #3's dilated blocks, in a bf16 GEMM: one call of
+    ``conv_wgrad`` a backward, dW and dX against the JAX custom VJP."""
+    B, T, cin, cout, pool = 3, 150, 24, 16, 1
+    rng = np.random.default_rng(100 + dilation)
+    x = rng.standard_normal((B, T, cin)).astype(np.float32)
+    w = (rng.standard_normal((3, cin, cout)) * 0.3).astype(np.float32)
+    b = (rng.standard_normal(cout) * 0.3).astype(np.float32)
+    gamma = rng.uniform(0.5, 1.5, cout).astype(np.float32)
+    gamma[::3] = -1.3
+    beta = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    gw = rng.standard_normal((B, T, cout)).astype(np.float32)
+    save_act = kind == "fused"
+    fn = make_fused_blockn_train(pool, EPS, dilation=dilation, gemm_dtype="bfloat16",
+                                 sel_dtype="bfloat16", save_act=save_act,
+                                 routing="pallas" if save_act else "xla", interpret=True)
+
+    def jloss(xx, p):
+        out, mu, var = fn(xx, *p)
+        return scalar(out, mu, var, jnp.asarray(gw))
+
+    jgx, jgp = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x),
+                                                tuple(map(jnp.asarray, (w, b, gamma, beta))))
+    tx = torch.tensor(x.transpose(0, 2, 1).copy(), requires_grad=True)
+    tp = [torch.tensor(w.transpose(2, 1, 0).copy(), requires_grad=True)] + [
+        torch.tensor(p, requires_grad=True) for p in (b, gamma, beta)]
+    op, extra = (FusedBlocknTrain, ("none",)) if save_act else (FusedBlocknRecompute, ())
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        real = cuda_wgrad.conv_wgrad
+        mp.setattr(cuda_wgrad, "conv_wgrad", lambda *a: (calls.append(a[3]), real(*a))[1])
+        out, mu, var = op.apply(tx, *tp, pool, EPS, dilation, torch.bfloat16, *extra,
+                                torch.float32, None, 1.0, 1)
+        loss = scalar(out, mu, var, torch.from_numpy(gw.transpose(0, 2, 1).copy()))
+        gx, *gp = torch.autograd.grad(loss, [tx, *tp])
+    assert calls == [dilation]
+    dw, jdw = gp[0].numpy().transpose(2, 1, 0), np.asarray(jgp[0])
+    dx, jdx = gx.numpy().transpose(0, 2, 1), np.asarray(jgx)
+    if save_act:
+        np.testing.assert_allclose(dw, jdw, rtol=WGRAD_ELEMENT_RTOL,
+                                   atol=WGRAD_MAX_ATOL * np.abs(jdw).max(), err_msg="dw")
+        np.testing.assert_allclose(dx, jdx, rtol=TOL, atol=TOL, err_msg="dx")
+    else:
+        for name, got, want in (("dw", dw, jdw), ("dx", dx, jdx)):
+            assert np.linalg.norm(got - want) <= WGRAD_NORM_TOL * np.linalg.norm(want), name
 
 
 def test_fused_blockn_refuses_asymmetric_same_padding():

@@ -88,6 +88,8 @@ SIGNATURES = {
     # h, logits (NULL: unweighted), mean, std, max, sum, g_mean, g_std, dh,
     # dlogits, B, T, C, ld, ld_g, bf16, eps, stream
     "vm_asp_stats_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # x, dz, part, dw, B, T, Cin, Cout, k, dilation, splits, stream
+    "vm_conv_wgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

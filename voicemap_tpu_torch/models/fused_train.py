@@ -117,10 +117,10 @@ def encoder_train_forward(encoder: ConvEncoder, x: torch.Tensor,
             epilogue = (cdt, keep_mask(generator, rate, h.shape[0], blk.bn.num_features, 1,
                                        h.device), 1.0 - rate)
             if blockn == "fused_recompute":
-                h, mu, var = FusedBlocknRecompute.apply(*args, *epilogue)
+                h, mu, var = FusedBlocknRecompute.apply(*args, *epilogue, i)
             else:
                 h, mu, var = FusedBlocknTrain.apply(
-                    *args, "int8" if blockn == "fused_int8" else "none", *epilogue)
+                    *args, "int8" if blockn == "fused_int8" else "none", *epilogue, i)
             blk.update_running_stats(mu, var)
         else:
             h = blk.forward_train_nct(h, generator)

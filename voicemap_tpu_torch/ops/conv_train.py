@@ -32,7 +32,12 @@ with the pool-rate sums ``Σg`` and ``Σg·â`` beside it.
   applies the relu as it reads the conv's output; the backward takes the
   pool-rate sums, B7's routing pass (``route_bwd``), which recomputes the
   activation from the same saved conv output, for ``dz``, then cuDNN's dW and
-  dX (``aten.convolution_backward``, as the JAX package left them to XLA).
+  dX (``aten.convolution_backward``, as the JAX package left them to XLA);
+  for a dilated conv (d > 1) in the kernel's domain (``wgrad_routed``: three
+  taps, a bf16 GEMM, d ≤ 64, channels in eights), config #3's blocks 1, 3, 5
+  and 7, dW comes from ``ops/cuda_wgrad.conv_wgrad`` instead
+  (cuDNN's wgrad took 45 ms at d = 16 and B = 2048), inside a span
+  ``conv.wgrad.<block>`` at the batch's rows, and cuDNN computes dX alone.
   Channels last, as the JAX package lays it out: ``(B, C, T)`` tensors with
   the memory of ``(B, T, C)``, so cuDNN runs its NHWC convs with no layout
   conversion around them. With ``quant="int8"`` (the int8 training forward)
@@ -59,14 +64,19 @@ bf16 or f16), a keep ``mask`` (B, C) f32 or None at no dropout, and
 ``spatial_dropout(pooled.to(out_dtype))`` bit for bit, μ and the biased
 variance ``max(E[a²] − E[a]², 0)`` as flax takes it are f32 and carry
 gradients. T must divide by the pool; callers use the plain block otherwise.
+The blocks-1+ ops take a last, optional ``block``: the block's index in the
+encoder, which names the weight gradient's span (no span without it).
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import torch
 import torch.nn.functional as F
 
-from . import cuda_conv, cuda_conv_train, cuda_quant_block, cuda_routing
+from ..utils.profiling import span
+from . import cuda_conv, cuda_conv_train, cuda_quant_block, cuda_routing, cuda_wgrad
 
 QUANT = ("none", "int8")  # FusedBlocknTrain's forward convs
 
@@ -130,12 +140,31 @@ def symmetric_padding(kernel_size: int, dilation: int) -> int | None:
     return None if reach % 2 else reach // 2
 
 
-def _conv_backward(dz4, x4, w4, pad, dilation, need_dx: bool):
-    """cuDNN's dX and dW of ``F.conv2d(x4, w4, padding=(0, pad), dilation=(1,
-    dilation))`` on the (B, C, 1, T) channels-last views."""
-    dx, dw, _ = torch.ops.aten.convolution_backward(
-        dz4, x4, w4, None, [1, 1], [0, pad], [1, dilation], False, [0, 0], 1,
-        [need_dx, True, False])
+def wgrad_routed(dtype: torch.dtype, k: int, dilation: int, cin: int, cout: int) -> bool:
+    """Whether :func:`_conv_backward` takes dW from ``conv_wgrad``: a
+    dilated conv (d > 1) in the kernel's domain (``cuda_wgrad.takes``);
+    cuDNN computes every other dW."""
+    return dilation > 1 and cuda_wgrad.takes(dtype, k, dilation, cin, cout)
+
+
+def _conv_backward(dz4, x4, w4, pad, dilation, need_dx: bool, block):
+    """dX and dW ``(Cout, Cin, k)`` of ``F.conv2d(x4, w4, padding=(0, pad),
+    dilation=(1, dilation))`` on the (B, C, 1, T) channels-last views: both
+    from cuDNN, but where :func:`wgrad_routed`, dW from ``conv_wgrad`` (f32)
+    on the same memory read as (B, T, C) rows, inside a span
+    ``conv.wgrad.<block>`` where the block is given."""
+    cout, cin, _, k = w4.shape
+    wgrad = wgrad_routed(x4.dtype, k, dilation, cin, cout)
+    dx = dw = None
+    if need_dx or not wgrad:
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            dz4, x4, w4, None, [1, 1], [0, pad], [1, dilation], False, [0, 0], 1,
+            [need_dx, not wgrad, False])
+    if not wgrad:
+        return dx, dw.squeeze(2)
+    with span(f"conv.wgrad.{block}", x4.shape[0]) if block is not None else nullcontext():
+        dw = cuda_wgrad.conv_wgrad(x4.squeeze(2).permute(0, 2, 1).contiguous(),
+                                   dz4.squeeze(2).permute(0, 2, 1).contiguous(), k, dilation)
     return dx, dw
 
 
@@ -168,9 +197,9 @@ def _blockn_backward(x4, w4, z, bias, a_sel, route, gamma, mu, var, mask, g, g_m
     """The blocks-1+ ops' shared backward: the epilogue's gradient and the
     pool-rate sums from ``g`` and ``a_sel`` (``bn_grad``), B7's routing pass
     on ``z`` and ``bias`` (by value with ``route`` = ``a_sel``, by phase with
-    ``route`` = ``idx``), cuDNN's dW and dX → the gradients of ``(x, w, b,
-    γ, β)``."""
-    pool, eps, pad, dilation, gemm_dtype, x_dtype, w_dtype, keep = cfg
+    ``route`` = ``idx``), dW and dX (:func:`_conv_backward`) → the gradients
+    of ``(x, w, b, γ, β)``."""
+    pool, eps, pad, dilation, gemm_dtype, x_dtype, w_dtype, keep, block = cfg
     n = z.shape[0] * z.shape[2]
     if not cuda_routing.is_channels_last(g):
         # Autograd hands the cotangent in its producer's layout: on the
@@ -182,9 +211,9 @@ def _blockn_backward(x4, w4, z, bias, a_sel, route, gamma, mu, var, mask, g, g_m
                                          gamma, mu, var, g_mu, g_var, n, eps)
     dz, db = cuda_routing.route_bwd(z, bias, route, g.permute(0, 2, 1), c0, c1, c2, pool,
                                     gemm_dtype)
-    dx, dw = _conv_backward(dz.unsqueeze(2), x4, w4, pad, dilation, need_dx)
+    dx, dw = _conv_backward(dz.unsqueeze(2), x4, w4, pad, dilation, need_dx, block)
     return (dx.squeeze(2).to(x_dtype) if need_dx else None,
-            dw.squeeze(2).to(w_dtype, memory_format=torch.contiguous_format), db, s2, s1)
+            dw.to(w_dtype, memory_format=torch.contiguous_format), db, s2, s1)
 
 
 def _apply(a_sel, mu, scale, beta, mask, keep, out_dtype):
@@ -224,7 +253,7 @@ class FusedBlocknTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, gamma, beta, pool: int, eps: float, dilation: int,
                 gemm_dtype: torch.dtype, quant: str, out_dtype: torch.dtype, mask,
-                keep: float):
+                keep: float, block: int | None = None):
         if quant not in QUANT:
             raise ValueError(f"FusedBlocknTrain: quant must be one of {QUANT}, got {quant!r}")
         pad = _padding(w, dilation)
@@ -242,7 +271,7 @@ class FusedBlocknTrain(torch.autograd.Function):
         mu, var, r = _stats(sum_a, sumsq_a, z.shape[0] * z.shape[2], eps)
         y = _apply(a_sel, mu, gamma * r, beta, mask, keep, out_dtype)
         ctx.save_for_backward(x4, w4, z, bias, a_sel, gamma, mu, var, mask)
-        ctx.cfg = (pool, eps, pad, dilation, gemm_dtype, x.dtype, w.dtype, keep)
+        ctx.cfg = (pool, eps, pad, dilation, gemm_dtype, x.dtype, w.dtype, keep, block)
         return y, mu, var
 
     @staticmethod
@@ -250,7 +279,7 @@ class FusedBlocknTrain(torch.autograd.Function):
         x4, w4, z, bias, a_sel, gamma, mu, var, mask = ctx.saved_tensors
         return (*_blockn_backward(x4, w4, z, bias, a_sel, a_sel, gamma, mu, var, mask, g, g_mu,
                                   g_var, ctx.cfg, ctx.needs_input_grad[0]),
-                None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None)
 
 
 class FusedBlocknRecompute(torch.autograd.Function):
@@ -270,7 +299,8 @@ class FusedBlocknRecompute(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, b, gamma, beta, pool: int, eps: float, dilation: int,
-                gemm_dtype: torch.dtype, out_dtype: torch.dtype, mask, keep: float):
+                gemm_dtype: torch.dtype, out_dtype: torch.dtype, mask, keep: float,
+                block: int | None = None):
         pad = _padding(w, dilation)
         x4, w4 = _nhwc(x, gemm_dtype), _nhwc(w, gemm_dtype)
         sgn = _sign(gamma)
@@ -288,7 +318,7 @@ class FusedBlocknRecompute(torch.autograd.Function):
         mu, var, r = _stats(sum_a, sumsq_a, a.shape[0] * a.shape[2], eps)
         y = _apply(a_sel, mu, gamma * r, beta, mask, keep, out_dtype)
         ctx.save_for_backward(x4, w4, b, a_sel, idx, gamma, mu, var, mask)
-        ctx.cfg = (pool, eps, pad, dilation, gemm_dtype, x.dtype, w.dtype, keep)
+        ctx.cfg = (pool, eps, pad, dilation, gemm_dtype, x.dtype, w.dtype, keep, block)
         return y, mu, var
 
     @staticmethod
@@ -298,4 +328,4 @@ class FusedBlocknRecompute(torch.autograd.Function):
         z = F.conv2d(x4, w4, None, padding=(0, pad), dilation=(1, dilation)).squeeze(2)
         return (*_blockn_backward(x4, w4, z, b, a_sel, idx, gamma, mu, var, mask, g, g_mu, g_var,
                                   ctx.cfg, ctx.needs_input_grad[0]),
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
